@@ -6,7 +6,8 @@
 Phases:
  1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
     full-f32 matmuls (TF32 off);
- 2. build every kernel of ``mvae_torch/kernels/csrc`` with nvcc (parallel);
+ 2. build every kernel of ``mvae_torch/kernels/csrc`` with nvcc (parallel:
+    B1 tail_fwd, B2 decode_bce, B3 tail_bwd, B6 train_decode);
  3. the tail kernel (tail_fwd.cu) against ``tail_forward_ref`` at the
     flagship product h2,s2,e2, B = 512 and B = 1000 (ragged), random heads
     with large-|mu| rows and curvatures that put rows on both sides of the
@@ -20,7 +21,33 @@ Phases:
     then both recomputed on the same noise with the plain versions (pass
     means, and per example on one batch), and a profile of where each
     pass spends the device's time;
- 6. one JSON line of kernel numbers, then the result line.
+ 6. the tail backward kernel (tail_bwd.cu) against ``tail_backward_ref``
+    (autograd through the plain forward) at B = 128, 1024 and 1000, the
+    curvature sets and large-|mu| rows of phase 3, random cotangents;
+ 7. the training decode kernel (train_decode.cu) against
+    ``train_decode_ref`` at (B = 128, 1024, 1000; Z = 8, H = 400, D = 784);
+ 8. training end to end: ``Trainer.fit`` of the flagship for 2 epochs of
+    468 steps at batch 128 (burn-in 1), a test ELBO per epoch and IWAE-500
+    at the end, launch counts read right after; then the step rate in
+    turns with the training decode kernel off and on, and a profile of one
+    epoch each way;
+ 9. the same training with ``MVAE_FUSED_TRAIN_DECODER=1`` (one epoch);
+10. a plain replay of training: one step's gradients, and 50 steps'
+    losses each from the same state, through the kernels against the plain
+    versions, on the same weights and generator seed (and the gap of two
+    runs left to run apart, printed beside its rounding-level floor);
+11. a checkpoint saved on the card and restored into a fresh Trainer;
+12. one JSON line of kernel numbers, then the result line.
+
+B3 is held to the float32 backward contract of the reference (rtol 1e-3,
+atol 5e-4 on the raw gradient; rtol 2e-3 on the batch-summed curvature
+gradient) on every row where the float32 plain backward resolves the
+gradient, i.e. lies within a tenth of that contract of its own float64
+evaluation. On the other rows (large hyperbolic radius, where the
+cancellation-free Lorentz forms amplify float32 rounding in the reverse
+sweep by 1e4 and more) no float32 backward can be held to that contract
+against another; there the kernel must be finite and no farther from the
+float64 backward than ten times the float32 plain version is.
 
 A kernel's ``ms`` is its device time per launch from the CUPTI trace of
 ``torch.profiler`` (CUDA events around a loop of launches when the trace
@@ -32,10 +59,14 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -45,6 +76,7 @@ from mvae_torch import TrainConfig, Trainer, VAEConfig, parse_components
 from mvae_torch.data import load_mnist
 from mvae_torch.kernels import _build, decoder_kernels, tail_kernels
 from mvae_torch.models import vae
+from mvae_torch.train.trainer import _leaves
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM rate and FP32 FMA peak
 HBM_BYTES_PER_S = 3.35e12
@@ -77,9 +109,10 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int, kernel: str):
-    """(device ms per launch of ``kernel`` from the profiler trace or None,
-    ms per call by CUDA events)."""
+def kernel_ms(fn, iters: int, *kernels: str):
+    """(device ms per call of ``fn`` spent in the named kernels, from the
+    profiler trace, or None when the trace has none; ms per call by CUDA
+    events)."""
     per_call = time_ms(fn, iters)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -87,15 +120,29 @@ def kernel_ms(fn, iters: int, kernel: str):
         torch.cuda.synchronize()
     total = count = 0
     for ev in prof.key_averages():
-        if kernel in ev.key:
+        if any(k in ev.key for k in kernels):
             total += ev.device_time_total
             count += ev.count
-    return (total / count / 1e3 if count else None), per_call
+    return (total / iters / 1e3 if count else None), per_call
 
 
-def profile_pass(what: str, fn) -> None:
+# Training-step layers by device kernel name (first match wins); the GEMMs
+# of the encoder, the fused head and the decoder, forward and backward, all
+# go to cuBLAS and are one row.
+_LAYERS = (("B1 tail_fwd", ("tail_fwd_kernel",)),
+           ("B3 tail_bwd", ("tail_bwd_kernel",)),
+           ("B6 train_decode", ("train_decode_kernel", "ll_reduce_kernel")),
+           ("GEMMs (cuBLAS, fwd + bwd)", ("gemm", "gemv", "xmma", "cutlass")),
+           ("Adam (foreach)", ("multi_tensor_apply",)),
+           ("random draws (binarize, noise, perm)", ("distribution", "philox",
+                                                     "randperm", "random")),
+           ("reductions (BCE sums, means, bias grads)", ("reduce_kernel",)))
+
+
+def profile_pass(what: str, fn, layers: bool = False) -> float:
     """Device busy share and the kernels that take the device's time over
-    one call of ``fn`` (CUPTI trace; host-side profiling off)."""
+    one call of ``fn`` (CUPTI trace; host-side profiling off); with
+    ``layers``, that time grouped by the training step's layers."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -111,20 +158,55 @@ def profile_pass(what: str, fn) -> None:
           f"ops")
     for us, count, key in rows[:8]:
         print(f"[profile]   {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+    if layers:
+        groups = {}
+        for us, count, key in rows:
+            name = next((n for n, pats in _LAYERS
+                         if any(p in key.lower() for p in pats)),
+                        "other elementwise (ReLU, softplus, BCE terms, ...)")
+            t, c = groups.get(name, (0.0, 0))
+            groups[name] = (t + us, c + count)
+        for name, (us, count) in sorted(groups.items(),
+                                        key=lambda kv: -kv[1][0]):
+            print(f"[layers]   {us / 1e3:9.3f} ms {count:6d} launches "
+                  f"({100.0 * us / 1e6 / busy:5.1f}% of busy)  {name}")
+    return busy / wall
+
+
+_PLAIN = ((tail_kernels, "tail_forward", tail_kernels.tail_forward_ref),
+          (tail_kernels, "tail_backward", tail_kernels.tail_backward_ref),
+          (decoder_kernels, "fused_decode_bce_t",
+           decoder_kernels.decode_bce_ref),
+          (decoder_kernels, "train_decode_fwd",
+           decoder_kernels.train_decode_ref))
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the two kernel wrappers to their plain versions (the
-    reference recomputation of phase 5)."""
-    saved = (tail_kernels.tail_forward, decoder_kernels.fused_decode_bce_t)
-    tail_kernels.tail_forward = tail_kernels.tail_forward_ref
-    decoder_kernels.fused_decode_bce_t = decoder_kernels.decode_bce_ref
+    """Route every kernel wrapper to its plain version (the reference
+    recomputations of phases 5 and 10)."""
+    saved = [getattr(mod, name) for mod, name, _ in _PLAIN]
+    for mod, name, plain in _PLAIN:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (tail_kernels.tail_forward,
-         decoder_kernels.fused_decode_bce_t) = saved
+        for (mod, name, _), fn in zip(_PLAIN, saved):
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def train_decoder(on: bool):
+    """MVAE_FUSED_TRAIN_DECODER set for the block (read at every forward)."""
+    old = os.environ.get("MVAE_FUSED_TRAIN_DECODER")
+    os.environ["MVAE_FUSED_TRAIN_DECODER"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MVAE_FUSED_TRAIN_DECODER")
+        else:
+            os.environ["MVAE_FUSED_TRAIN_DECODER"] = old
 
 
 def phase_card() -> str:
@@ -336,6 +418,362 @@ def phase_end_to_end() -> dict:
     return launches
 
 
+def _bwd_inputs(comps, B, kset, gen):
+    W = sum(c.head_width for c in comps)
+    Z = sum(c.ambient_dim for c in comps)
+    nc = len(comps)
+    mu_cols, off = [], 0
+    for c in comps:
+        mu_cols += range(off, off + c.dim)
+        off += c.head_width
+    raw = torch.randn(B, W, generator=gen, device="cuda")
+    raw[::13, mu_cols] *= 3.0                     # large |mu| rows
+    eps = tail_kernels.draw_noise(comps, (B,), raw, gen)
+    k = torch.tensor(kset, device="cuda")
+    dz = torch.randn(B, Z, generator=gen, device="cuda")
+    daux = torch.randn(B, nc + 2, generator=gen, device="cuda")
+    return raw, eps, k, dz, daux
+
+
+def phase_tail_bwd(comps, gen) -> dict:
+    """B3 against autograd through the plain forward (see the module
+    docstring for the rule on rows the float32 backward cannot resolve)."""
+    comps = tuple(comps)
+    worst = worst_ratio = 0.0
+    for B in (128, 1024, 1000):
+        for kset in ((-1.0, 1.0, 0.0), (-1e-2, 1e-2, 0.0), (-0.25, 4.0, 0.0)):
+            args = _bwd_inputs(comps, B, kset, gen)
+            draw, dk = tail_kernels.tail_backward(comps, *args)
+            pr, pk = tail_kernels.tail_backward_ref(comps, *args)
+            p64, pk64 = tail_kernels.tail_backward_ref(
+                comps, *[t.double() for t in args])
+            torch.cuda.synchronize()
+            what = f"B={B}, k={kset}"
+            check(bool(torch.isfinite(draw).all() and torch.isfinite(dk).all()),
+                  f"tail backward finite at {what}")
+            tol = 1e-3 * pr.abs() + 5e-4
+            ratio = ((draw - pr).abs() / tol).amax(1)
+            plain_err = (pr.double() - p64).abs()
+            res = (plain_err / tol).amax(1) <= 0.1   # float32-resolvable
+            rr = ratio[res].max().item()
+            check(rr <= 1.0, f"B3 raw gradient within rtol 1e-3 / atol 5e-4 "
+                             f"on resolvable rows at {what}: {rr:.3g}")
+            far = ((draw.double() - p64).abs().amax(1)
+                   / (plain_err.amax(1) + tol.amax(1)))
+            rest = far[~res].max().item() if bool((~res).any()) else 0.0
+            check(rest <= 10.0, f"B3 on unresolvable rows no farther from "
+                                f"float64 than 10x the plain version at "
+                                f"{what}: {rest:.3g}")
+            dks, pks = dk[res].sum(0), pk[res].sum(0)
+            kr = ((dks - pks).abs() / (2e-3 * pks.abs() + 5e-4)).max().item()
+            check(kr <= 1.0, f"B3 curvature gradient within rtol 2e-3 at "
+                             f"{what}: {kr:.3g}")
+            kfar = ((dk.sum(0).double() - pk64.sum(0)).abs()
+                    / ((pk.sum(0).double() - pk64.sum(0)).abs()
+                       + 2e-3 * pk.sum(0).abs() + 5e-4)).max().item()
+            check(kfar <= 10.0, f"B3 curvature sum no farther from float64 "
+                                f"than 10x the plain version at {what}")
+            err = (draw - pr)[res].abs().max().item()
+            worst = max(worst, err)
+            worst_ratio = max(worst_ratio, rr, kr)
+            print(f"[tail_bwd] {what}: {int(res.sum())}/{B} rows resolvable;"
+                  f" max |err| {err:.3g} ({rr:.3g} of tol), curvature "
+                  f"{kr:.3g} of tol; other rows {rest:.3g}, all rows max "
+                  f"|err| {(draw - pr).abs().max().item():.3g}")
+    B = 128
+    args = _bwd_inputs(comps, B, (-1.0, 1.0, 0.0), gen)
+    dev_ms, call_ms = kernel_ms(
+        lambda: tail_kernels.tail_backward(comps, *args), 500,
+        "tail_bwd_kernel")
+    ms = call_ms if dev_ms is None else dev_ms
+    plain_ms = time_ms(lambda: tail_kernels.tail_backward_ref(comps, *args),
+                       50)
+    W, E, Z = tail_kernels._dims(comps)
+    nc = len(comps)
+    nbytes = 4 * (B * (W + E + Z + nc + 2) + nc + B * (W + nc))
+    ops = 3 * B * sum(_TAIL_OPS[c.posterior](c.dim) for c in comps)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    print(f"[tail_bwd] max err {worst:.3g} ({worst_ratio:.3g} of tol); "
+          f"B=128: kernel device "
+          f"{'not measured' if dev_ms is None else f'{dev_ms * 1e3:.2f} us'}, "
+          f"per call (events) {call_ms * 1e3:.2f} us, plain "
+          f"{plain_ms * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.4f} us "
+          f"({nbytes} B), ops bound {ops_ms * 1e3:.4f} us")
+    return {"name": "tail_bwd", "route": "cuda",
+            "source": "mvae_torch/kernels/csrc/tail_bwd.cu",
+            "replaces": "mvae_tpu/kernels/tail_kernels.py:735",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
+def phase_train_decode(gen) -> dict:
+    Z, H, D = 8, 400, 784
+    dev = "cuda"
+    w1 = math.sqrt(2.0 / Z) * torch.randn(Z, H, generator=gen, device=dev)
+    b1 = 0.1 * torch.randn(H, generator=gen, device=dev)
+    w2 = math.sqrt(2.0 / H) * torch.randn(H, D, generator=gen, device=dev)
+    b2 = 0.1 * torch.randn(D, generator=gen, device=dev)
+    worst = 0.0
+    for B in (128, 1024, 1000):
+        z = torch.randn(B, Z, generator=gen, device=dev)
+        x = (torch.rand(B, D, generator=gen, device=dev) < 0.3).float()
+        ll, h, gl = decoder_kernels.train_decode_fwd(z, x, w1, b1, w2, b2)
+        llr, hr, glr = decoder_kernels.train_decode_ref(z, x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(ll).all() and torch.isfinite(gl).all()),
+              f"train decode finite at B={B}")
+        e_ll = (ll - llr).abs().max().item()
+        e_h = ((h - hr).abs() / (1 + hr.abs())).max().item()
+        e_gl = ((gl - glr).abs() / (1 + glr.abs())).max().item()
+        check(e_ll <= 1e-3, f"B6 ll within 1e-3 nats per row at B={B}: "
+                            f"{e_ll:.3g}")
+        check(e_h <= 1e-5 and e_gl <= 1e-5,
+              f"B6 h and gl within 1e-5 (1+|ref|) at B={B}: {e_h:.3g}, "
+              f"{e_gl:.3g}")
+        worst = max(worst, e_ll)
+        print(f"[train_decode] B={B}: max |dll| {e_ll:.3g} nats, h "
+              f"{e_h:.3g}, gl {e_gl:.3g} (relative to 1+|ref|)")
+    B = 128
+    z = torch.randn(B, Z, generator=gen, device=dev)
+    x = (torch.rand(B, D, generator=gen, device=dev) < 0.3).float()
+    dev_ms, call_ms = kernel_ms(
+        lambda: decoder_kernels.train_decode_fwd(z, x, w1, b1, w2, b2), 200,
+        "train_decode_kernel", "ll_reduce_kernel")
+    ms = call_ms if dev_ms is None else dev_ms
+    plain_ms = time_ms(
+        lambda: decoder_kernels.train_decode_ref(z, x, w1, b1, w2, b2), 100)
+    h = torch.relu(z @ w1 + b1)
+    lib_ms = time_ms(lambda: (torch.mm(z, w1), torch.mm(h, w2)), 100)
+    flops = 2.0 * B * (Z * H + H * D)
+    nbytes = 4 * (B * Z + B * D + Z * H + H + H * D + D + B + B * H + B * D)
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[train_decode] B=128: kernel {ms * 1e3:.2f} us (events "
+          f"{call_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, two "
+          f"cuBLAS SGEMMs {lib_ms * 1e3:.2f} us, FP32 bound "
+          f"{ops_ms * 1e3:.3f} us ({flops / 1e6:.1f} MFLOP), bytes bound "
+          f"{bytes_ms * 1e3:.3f} us ({nbytes} B)")
+    return {"name": "train_decode", "route": "cuda",
+            "source": "mvae_torch/kernels/csrc/train_decode.cu",
+            "replaces": "mvae_tpu/kernels/decoder_kernels.py:254",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms}
+
+
+def _flagship(ds, run_dir, **tc) -> Trainer:
+    cfg = VAEConfig(parse_components(SPEC, fixed_curvature=False),
+                    ds.data_shape, "mlp", h_dim=400)
+    return Trainer(cfg, ds, TrainConfig(**tc), run_dir)
+
+
+def _epoch_rate(trainer, epoch: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.train_one_epoch(epoch)
+    torch.cuda.synchronize()
+    return trainer.steps_per_epoch / (time.time() - t0)
+
+
+def phase_train(ds, tmp) -> tuple[dict, Trainer]:
+    """Flagship training end to end (B1 + B3 every step), then the step
+    rate with B6 off and on in turns, and a profile of one epoch each."""
+    trainer = _flagship(ds, f"{tmp}/train", seed=0, epochs=2,
+                        burnin_epochs=1)
+    with torch.no_grad():
+        c0 = [float(cp["c_param"]) for cp in trainer.params["components"]
+              if "c_param" in cp]
+        k0 = {n: float(c.curvature(cp)) for n, c, cp in zip(
+            trainer.component_names, trainer.model_cfg.components,
+            trainer.params["components"])}
+    check(trainer.fused_paths["train_tail"]["active"]
+          and not trainer.fused_paths["train_decoder"]["active"],
+          f"training routed through B1/B3, B6 off: {trainer.fused_paths}")
+    for fn in (tail_kernels.tail_forward, tail_kernels.tail_backward,
+               decoder_kernels.train_decode_bce):
+        fn.launches = 0
+    result = trainer.fit(verbose=True, ll_max_examples=2048)
+    launches = {"tail_fwd": tail_kernels.tail_forward.launches,
+                "tail_bwd": tail_kernels.tail_backward.launches,
+                "train_decode": decoder_kernels.train_decode_bce.launches}
+    steps = trainer.step
+    print(f"[train] {SPEC} h_dim 400, batch 128, {steps} steps "
+          f"({'synthetic' if ds.synthetic else 'real'} MNIST): "
+          f"{result['train_steps_per_sec']:.1f} train steps/s over the "
+          f"epochs' wall, IWAE-500 on 2048 test examples "
+          f"{result['test/log_likelihood_iwae']:.4f}; launches {launches}")
+    hist = result["history"]
+    for rec in hist:
+        check(all(math.isfinite(v) for v in rec.values()),
+              f"finite statistics in epoch {rec['epoch']}")
+    check(math.isfinite(result["test/log_likelihood_iwae"]), "finite IWAE")
+    check(hist[1]["train/elbo"] > hist[0]["train/elbo"],
+          f"train ELBO rises: {hist[0]['train/elbo']:.3f} -> "
+          f"{hist[1]['train/elbo']:.3f}")
+    for n in ("h2#0", "s2#1"):
+        check(hist[0][f"train/curvature/{n}"] == k0[n],
+              f"curvature {n} frozen through burn-in")
+        check(hist[1][f"train/curvature/{n}"] != k0[n],
+              f"curvature {n} moves after burn-in")
+    c1 = [float(cp["c_param"].detach()) for cp in
+          trainer.params["components"] if "c_param" in cp]
+    print(f"[train] curvature K {k0} -> "
+          f"{ {n: hist[1][f'train/curvature/{n}'] for n in k0} }; "
+          f"c_param {c0} -> {c1}")
+    check(launches["tail_bwd"] == steps, "B3 launched once per step")
+    check(launches["tail_fwd"] >= steps, "B1 launched at least once a step")
+    check(launches["train_decode"] == 0, "B6 off by default")
+
+    other = _flagship(ds, f"{tmp}/rate", seed=0, burnin_epochs=0)
+    rates = []
+    for turn, (tr, on) in enumerate(((trainer, False), (other, True),
+                                     (other, True), (trainer, False))):
+        with train_decoder(on):
+            rates.append((on, _epoch_rate(tr, 10 + turn)))
+    print("[train] steps/s by epoch, B6 off/on in turns: "
+          + ", ".join(f"{'on' if on else 'off'} {r:.1f}" for on, r in rates))
+    for on, tr in ((False, trainer), (True, other)):
+        with train_decoder(on):
+            profile_pass(
+                f"train epoch ({trainer.steps_per_epoch} steps), B6 "
+                f"{'on' if on else 'off'}",
+                lambda: tr.train_one_epoch(20), layers=True)
+    return launches, trainer
+
+
+def phase_train_b6(ds, tmp) -> dict:
+    """One epoch of flagship training with MVAE_FUSED_TRAIN_DECODER=1 set
+    before the Trainer is built: B6 launched every step."""
+    with train_decoder(True):
+        trainer = _flagship(ds, f"{tmp}/b6", seed=0, epochs=1,
+                            burnin_epochs=1)
+        check(trainer.fused_paths["train_decoder"]["active"],
+              f"B6 routed: {trainer.fused_paths['train_decoder']}")
+        for fn in (tail_kernels.tail_backward,
+                   decoder_kernels.train_decode_bce):
+            fn.launches = 0
+        result = trainer.fit(verbose=True, ll_max_examples=512)
+        launches = {"tail_bwd": tail_kernels.tail_backward.launches,
+                    "train_decode": decoder_kernels.train_decode_bce.launches}
+    steps = trainer.step
+    print(f"[train+B6] {steps} steps: {result['train_steps_per_sec']:.1f} "
+          f"train steps/s (first epoch, warm-up included); launches "
+          f"{launches}; train ELBO {result['history'][0]['train/elbo']:.4f}")
+    check(launches["train_decode"] >= steps, "B6 launched every step")
+    check(launches["tail_bwd"] == steps, "B3 launched once per step")
+    check(all(math.isfinite(v) for v in result["history"][0].values()),
+          "finite statistics with B6")
+    return launches
+
+
+def _grads(trainer, x, noise):
+    trainer.opt.zero_grad(set_to_none=True)
+    loss, _ = vae.loss_fn(trainer.model_cfg, trainer.params, x, 1.0, noise)
+    loss.backward()
+    return [t.grad.detach().clone() for t in _leaves(trainer.params)]
+
+
+def _free_run(ds, tmp, name, kern_b6, kern_kernels, perm, steps=50):
+    """Max per-step |d loss| of two trainers from one seed run side by side
+    for ``steps`` steps: one as given, the other all plain with B6 off."""
+    a = _flagship(ds, f"{tmp}/{name}a", seed=5, burnin_epochs=0)
+    b = _flagship(ds, f"{tmp}/{name}b", seed=5, burnin_epochs=0)
+    bs = a.tc.batch_size
+    worst = 0.0
+    for s in range(steps):
+        i = s % a.steps_per_epoch
+        xb = a._train_data[perm[i * bs:(i + 1) * bs]]
+        with train_decoder(kern_b6), (contextlib.nullcontext() if kern_kernels
+                                      else plain_kernels()):
+            sa = a._train_step(xb)
+        with train_decoder(False), plain_kernels():
+            sb = b._train_step(xb)
+        worst = max(worst, (sa["elbo"] - sb["elbo"]).abs().item())
+    return worst
+
+
+def phase_replay(ds, tmp) -> None:
+    """Training through the kernels (B1, B3, B6 on) against the plain
+    versions (B6 off, autograd decode), from the same weights and seed.
+
+    The per-step check is teacher-forced: before each of the 50 steps the
+    plain trainer takes the kernel trainer's parameters, Adam state and
+    generator state, so each step compares the two paths on one training
+    state. Two trainers left to run apart separate by whatever differs
+    between them at the rounding level (Adam's normalized step amplifies
+    it): that gap is printed with the same gap between two plain runs that
+    differ only in the summation order of the decoder's backward."""
+    kern = _flagship(ds, f"{tmp}/rk", seed=5, burnin_epochs=0)
+    plain = _flagship(ds, f"{tmp}/rp", seed=5, burnin_epochs=0)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = (kern._train_data[:128] > 0.5).float()
+    noise = tail_kernels.draw_noise(kern.model_cfg.components, (128,), x, gen)
+    with train_decoder(True):
+        gk = _grads(kern, x, noise)
+    with train_decoder(False), plain_kernels():
+        gp = _grads(plain, x, noise)
+    worst = 0.0
+    for a, b in zip(gk, gp):
+        worst = max(worst, ((a - b).abs() / (1e-3 * b.abs() + 5e-4)).max()
+                    .item())
+    print(f"[replay] one step, every parameter's gradient: max "
+          f"{worst:.3g} of (rtol 1e-3, atol 5e-4)")
+    check(worst <= 1.0, "one-step gradients match the plain versions")
+    bs = kern.tc.batch_size
+    perm = torch.randperm(len(kern._train_data), device="cuda",
+                          generator=gen)
+    dl, dp = [], 0.0
+    for s in range(50):
+        i = s % kern.steps_per_epoch
+        xb = kern._train_data[perm[i * bs:(i + 1) * bs]]
+        plain._load_state(_leaves(kern.params),
+                          copy.deepcopy(kern.opt.state_dict()), kern.step,
+                          kern.generator.get_state())
+        with train_decoder(True):
+            sk = kern._train_step(xb)
+        with train_decoder(False), plain_kernels():
+            sp = plain._train_step(xb)
+        dl.append((sk["elbo"] - sp["elbo"]).abs())
+        dp = max(dp, max(((a - b).abs().max() / (b.abs().max() + 1e-12))
+                         .item() for a, b in zip(_leaves(kern.params),
+                                                 _leaves(plain.params))))
+    dmax = torch.stack(dl).max().item()
+    print(f"[replay] 50 steps, each from the same state: max |d loss| "
+          f"{dmax:.3g} nats, max parameter change apart {dp:.3g} (relative "
+          f"to each tensor's largest entry)")
+    check(dmax <= 0.05, "50 steps' losses within 0.05 nats of the plain run")
+    free = _free_run(ds, tmp, "fk", True, True, perm)
+    floor = _free_run(ds, tmp, "fp", True, False, perm)
+    print(f"[replay] 50 steps left to run apart: max |d loss| kernels vs "
+          f"plain {free:.3g} nats; plain with the decoder's backward "
+          f"summed otherwise vs plain {floor:.3g} nats")
+    check(math.isfinite(free) and math.isfinite(floor),
+          "free-running replay finite")
+
+
+def phase_checkpoint(trainer, ds, tmp) -> None:
+    trainer.save_checkpoint()
+    fresh = _flagship(ds, trainer.run_dir, seed=123)
+    fresh.restore_checkpoint()
+    check(fresh.step == trainer.step, "checkpoint step")
+    check(all(torch.equal(a, b) for a, b in zip(_leaves(trainer.params),
+                                                _leaves(fresh.params))),
+          "checkpoint params")
+    sa, sb = trainer.opt.state_dict(), fresh.opt.state_dict()
+    check(sa["param_groups"] == sb["param_groups"]
+          and all(torch.equal(sa["state"][i][k], sb["state"][i][k])
+                  for i in sa["state"] for k in sa["state"][i]),
+          "checkpoint optimizer state")
+    check(torch.equal(trainer.generator.get_state(),
+                      fresh.generator.get_state()), "checkpoint generator")
+    print(f"[checkpoint] step {fresh.step}: params, Adam state and generator "
+          f"restored equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -346,6 +784,18 @@ def main() -> int:
     comps = parse_components(SPEC, fixed_curvature=False)
     kernels = [phase_tail(comps, gen), phase_decode(gen)]
     launches = phase_end_to_end()
+    kernels += [phase_tail_bwd(comps, gen), phase_train_decode(gen)]
+    ds = load_mnist()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        train_launches, trainer = phase_train(ds, tmp)
+        b6_launches = phase_train_b6(ds, tmp)
+        phase_replay(ds, tmp)
+        phase_checkpoint(trainer, ds, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches["tail_bwd"] = train_launches["tail_bwd"]
+    launches["train_decode"] = b6_launches["train_decode"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(card)

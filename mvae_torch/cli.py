@@ -1,18 +1,22 @@
 """CLI entry point (L7), with the reference's flags.
 
     python -m mvae_torch.cli --dataset mnist --model h2,s2,e2 \
-        --fixed_curvature false --eval_only
+        --fixed_curvature false --epochs 100 --likelihood_n 500
 
-In this slice of the port ``--eval_only`` evaluates the seed-initialised
-model (checkpoint restore comes with the checkpoint slice) and prints one
-JSON line with the test ELBO, the IWAE-n log-likelihood and the kernels
-the run was routed through. Training is the next slice. Runs on CUDA
-unless ``--device cpu`` is given.
+Trains (``Trainer.fit``: a test ELBO per epoch, the IWAE-n estimate at
+the end), writes ``<run_dir>/result.json`` and prints it as one JSON line,
+with the kernels the run was routed through (``fused_paths``).
+``--resume`` continues from the latest checkpoint of ``run_dir``;
+``--eval_only`` restores it and evaluates the test ELBO and IWAE-n LL.
+Runs on CUDA unless ``--device cpu`` is given. The reference's
+``--train_rng``, ``--debug_nans`` and ``--profile_epochs`` have no
+counterpart: the port's training randomness is one torch generator.
 """
 from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
 
 
 def _str2bool(v: str) -> bool:
@@ -26,7 +30,7 @@ def _str2bool(v: str) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mvae-torch",
-        description="Mixed-curvature VAEs on PyTorch/CUDA (evaluation)")
+        description="Mixed-curvature VAE training on PyTorch/CUDA")
     p.add_argument("--dataset", default="mnist",
                    choices=["mnist", "omniglot", "cifar", "bdp"])
     p.add_argument("--model", default="e6",
@@ -53,9 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--run_dir", default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--eval_only", action="store_true",
-                   help="evaluate the test ELBO and IWAE marginal LL of the "
-                        "seed-initialised model (no training)")
-    p.add_argument("--generate", type=int, default=0, metavar="N")
+                   help="restore the latest checkpoint and only evaluate "
+                        "the test ELBO and IWAE marginal LL (no training)")
+    p.add_argument("--generate", type=int, default=0, metavar="N",
+                   help="prior samples and reconstructions (a later slice)")
     p.add_argument("--checkpoint_every", type=int, default=0)
     p.add_argument("--ll_max_examples", type=int, default=None,
                    help="cap IWAE eval set size (speed)")
@@ -72,8 +77,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if not args.eval_only or args.resume:
-        raise NotImplementedError("slice 2: training, checkpoints and resume")
     if args.generate:
         raise NotImplementedError("later slice: --generate")
 
@@ -109,15 +112,32 @@ def main(argv=None):
 
     print(f"model {canonical_name(components)} on {dataset.name} "
           f"({'synthetic stand-in' if dataset.synthetic else 'real data'}), "
-          f"arch={arch}, dtype={args.dtype}")
+          f"arch={arch}, dtype={args.dtype}, run_dir={run_dir}")
     trainer = Trainer(model_cfg, dataset, tc, run_dir, device=args.device)
-    elbo = trainer.evaluate_elbo("test")
-    ll = trainer.evaluate_log_likelihood(max_examples=args.ll_max_examples,
-                                         repeats=args.ll_repeats)
-    result = {"test/elbo": elbo["elbo"], "test/log_likelihood_iwae": ll,
-              "eval_only": True, "device": str(trainer.device),
-              "fused_paths": trainer.fused_paths}
-    print(json.dumps(result))
+
+    if args.eval_only:
+        trainer.restore_checkpoint()
+        elbo = trainer.evaluate_elbo("test")
+        ll = trainer.evaluate_log_likelihood(
+            max_examples=args.ll_max_examples, repeats=args.ll_repeats)
+        result = {"test/elbo": elbo["elbo"], "test/log_likelihood_iwae": ll,
+                  "step": trainer.step, "eval_only": True,
+                  "device": str(trainer.device),
+                  "fused_paths": trainer.fused_paths}
+        print(json.dumps(result))
+        return result
+    if args.resume:
+        trainer.restore_checkpoint()
+        print(f"resumed at step {trainer.step}")
+    result = trainer.fit(ll_max_examples=args.ll_max_examples,
+                         ll_repeats=args.ll_repeats)
+    result["fused_paths"] = trainer.fused_paths
+    result["device"] = str(trainer.device)
+
+    summary = {k: v for k, v in result.items() if k != "history"}
+    Path(run_dir).mkdir(parents=True, exist_ok=True)
+    (Path(run_dir) / "result.json").write_text(json.dumps(summary, indent=2))
+    print(json.dumps(summary))
     return result
 
 

@@ -55,12 +55,15 @@ class ArrayDataset:
             yield data[b:b + batch_size]
 
 
-def binarize_batch(batch, enabled: bool, generator=None):
-    """Dynamic binarization: x ~ Bernoulli(intensity), fresh every call."""
+def binarize_batch(batch, enabled: bool, generator=None, u=None):
+    """Dynamic binarization: x ~ Bernoulli(intensity), fresh every call.
+    ``u`` gives the uniforms (batch's shape); drawn from ``generator``
+    when not given."""
     if not enabled:
         return batch
-    u = torch.rand(batch.shape, generator=generator, dtype=batch.dtype,
-                   device=batch.device)
+    if u is None:
+        u = torch.rand(batch.shape, generator=generator, dtype=batch.dtype,
+                       device=batch.device)
     return (u < batch).to(batch.dtype)
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers. It
 is compiled at first use by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``mvae_torch/_build/`` (git-ignored), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. The library is loaded through ``ctypes``; wrappers pass
+source, of every ``csrc/`` header it includes, and of the flags, so an
+edited source or shared header is rebuilt and an unchanged one is loaded
+as it is. The library is loaded through ``ctypes``; wrappers pass
 ``data_ptr()`` pointers and ``torch.cuda.current_stream().cuda_stream``.
 
 Nothing here runs at import: the CPU-only test box has no ``nvcc``.
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,15 +29,20 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 
-# Per-source flags. The tail kernel is compiled with --fmad=false: its
+# Per-source flags. The tail kernels are compiled with --fmad=false: their
 # plain version rounds after every multiply and add (one PyTorch op each),
 # and a fused multiply-add would change the rounding of the cancellation-free
 # Lorentz difference forms by more than the comparison tolerance at large
-# hyperbolic radius.
+# hyperbolic radius. The backward recomputes the forward's intermediates,
+# so it takes the same flag to recompute them bit for bit.
 EXTRA_FLAGS = {
     "tail_fwd": ["--fmad=false"],
+    "tail_bwd": ["--fmad=false"],
     "decode_bce": [],
+    "train_decode": [],
 }
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc_path() -> str:
@@ -53,11 +60,27 @@ def _flags(name: str) -> list[str]:
     return _ARCH + _COMMON + EXTRA_FLAGS[name]
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (CSRC / inc).exists():
+                todo.append(CSRC / inc)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

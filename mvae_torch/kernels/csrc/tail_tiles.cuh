@@ -1,0 +1,327 @@
+// The fused tail's forward tiles, shared by the forward kernel (tail_fwd.cu)
+// and the backward kernel (tail_bwd.cu), which recomputes each row's
+// forward with these same expressions before its reverse sweep.
+//
+// Port of the tiles of mvae_tpu/kernels/tail_kernels.py (_tile_normal,
+// _tile_wrapped_lorentz, _tile_vmf) in the order of the plain version
+// mvae_torch/kernels/tail_kernels.py::tail_forward_ref: the exp-based
+// cosh/sinh clipped at 85, the series window at |u| < 1e-2, the vMF cosine
+// clip, the Householder degeneracy guard, and reductions over a row's
+// coordinates summed in index order. Both kernels are compiled without fast
+// math and with --fmad=false, so they round like the plain version's
+// separate PyTorch ops and the backward's recomputed intermediates equal the
+// forward kernel's bit for bit.
+//
+// The wrapped and vMF tiles record their intermediates in a struct (HSaved,
+// VmfSaved) for the backward; the forward kernel discards them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define MAX_COMPS 16
+#define MAX_DIM 32
+
+enum { KIND_NORMAL = 0, KIND_WRAPPED_H = 1, KIND_VMF_S2 = 2 };
+
+struct TailTable {
+  int nc;
+  int kind[MAX_COMPS];
+  int dim[MAX_COMPS];
+  int nscale[MAX_COMPS];
+  int raw_off[MAX_COMPS];
+  int eps_off[MAX_COMPS];
+  int z_off[MAX_COMPS];
+};
+
+// Fill a TailTable from the host array of nc rows (kind, dim, n_scale,
+// raw_off, eps_off, z_off); false when a row is out of range.
+static inline bool tail_table_from(const int* table, int nc, TailTable* t) {
+  if (nc < 1 || nc > MAX_COMPS) return false;
+  t->nc = nc;
+  for (int i = 0; i < nc; ++i) {
+    t->kind[i] = table[6 * i + 0];
+    t->dim[i] = table[6 * i + 1];
+    t->nscale[i] = table[6 * i + 2];
+    t->raw_off[i] = table[6 * i + 3];
+    t->eps_off[i] = table[6 * i + 4];
+    t->z_off[i] = table[6 * i + 5];
+    if (t->dim[i] < 1 || t->dim[i] > MAX_DIM) return false;
+  }
+  return true;
+}
+
+// f32 constants rounded from their double values, as PyTorch rounds a
+// Python float scalar against a float32 tensor
+#define F(x) ((float)(x))
+#define LOG_2PI 1.8378770664093453
+#define LOG_4PI 2.5310242469692907
+#define PI 3.141592653589793
+#define TINY 1e-15f
+#define EPS 1e-6f
+#define CUTOFF 1e-2f
+
+__device__ __forceinline__ float softplus_f(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// Horner form of 1 + c1 u + c2 u^2 + c3 u^3 + c4 u^4 (stable._poly)
+__device__ __forceinline__ float poly4(float u, float c1, float c2, float c3,
+                                       float c4) {
+  float acc = 0.f;
+  acc = u * (acc + c4);
+  acc = u * (acc + c3);
+  acc = u * (acc + c2);
+  acc = u * (acc + c1);
+  return 1.f + acc;
+}
+
+// stable._sindiv_u_kernel
+__device__ float sindiv_u(float u) {
+  if (fabsf(u) < CUTOFF)
+    return poly4(u, F(-1.0 / 6), F(1.0 / 120), F(-1.0 / 5040), F(1.0 / 362880));
+  float su = sqrtf(fabsf(u));
+  if (u > 0.f) return sinf(su) / su;
+  float sc = fminf(fmaxf(su, -85.f), 85.f);
+  float sh = 0.5f * (expf(sc) - expf(-sc));
+  return sh / su;
+}
+
+// stable._cos_u_sgn with sign < 0 (cosh through exp) or sign > 0 (cos)
+__device__ float cos_u_sgn(float u, int sign) {
+  if (fabsf(u) < CUTOFF)
+    return poly4(u, F(-1.0 / 2), F(1.0 / 24), F(-1.0 / 720), F(1.0 / 40320));
+  float x = sqrtf(fabsf(u));
+  if (sign > 0) return cosf(x);
+  float xc = fminf(fmaxf(x, 0.f), 85.f);
+  return 0.5f * (expf(xc) + expf(-xc));
+}
+
+// sindiv_u - 1 inside the series window (stable._log_sindiv_series)
+__device__ __forceinline__ float sindiv_m1_series(float us) {
+  return us * (F(-1.0 / 6) + us * (F(1.0 / 120) + us * (F(-1.0 / 5040)
+                                                 + us * F(1.0 / 362880))));
+}
+
+// stable._log_sindiv_u_sgn with sign < 0
+__device__ float log_sindiv_u_neg(float u) {
+  if (fabsf(u) < CUTOFF) return log1pf(sindiv_m1_series(u));
+  float su = sqrtf(fabsf(u));
+  return su + log1pf(-expf(-2.f * su)) - logf(2.f * su);
+}
+
+// stable._acosh_1p
+__device__ __forceinline__ float acosh_1p(float u) {
+  return log1pf(u + sqrtf(fmaxf(u, 0.f) * (u + 2.f)));
+}
+
+// tail_kernels._tile_normal
+__device__ void tile_normal(const float* raw, const float* eps, int n, int ns,
+                            float* z, float* kl, float* lq, float* lp) {
+  float q = 0.f, p = 0.f, k2 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    float mu = raw[j];
+    float sig = softplus_f(raw[n + (ns == 1 ? 0 : j)]);
+    float e = eps[j];
+    float zj = mu + sig * e;
+    z[j] = zj;
+    float ls = logf(sig);
+    float tq = -0.5f * (e * e + F(LOG_2PI)) - ls;
+    float tp = -0.5f * (zj * zj + F(LOG_2PI));
+    float tk = sig * sig + mu * mu - 1.f - 2.f * ls;
+    q = (j == 0) ? tq : q + tq;
+    p = (j == 0) ? tp : p + tp;
+    k2 = (j == 0) ? tk : k2 + tk;
+  }
+  *lq = q;
+  *lp = p;
+  *kl = 0.5f * k2;
+}
+
+// Intermediates of one row of the hyperboloid tile (names as in the plain
+// version; *_in is a clamp's input)
+struct HSaved {
+  float c, inv_sqrt_c, inv_c, r2m, sdm, sp2, mu_t, sv, rv2, d_t, ea_in, e_a,
+      coef, u_t, usp2, usq_in, usq, tt, cu, sd, zsp2, z_t, dz_t, e0_in, e0,
+      r0a, r0, r02;
+  float mu_sp[MAX_DIM], sig[MAX_DIM], v[MAX_DIM], u_sp[MAX_DIM],
+      z_sp[MAX_DIM];
+};
+
+// tail_kernels._tile_wrapped_lorentz: wrapped normal on the hyperboloid
+// (K < 0 pinned); log q at the drawn tangent, log p at the acosh_1p radius
+__device__ void tile_wrapped_h(const float* raw, const float* eps, int n,
+                               int ns, float k, float* z, float* kl, float* lq,
+                               float* lp, HSaved& s) {
+  s.c = fmaxf(-k, TINY);
+  s.inv_sqrt_c = rsqrtf(s.c);
+
+  float r2m = 0.f;
+  for (int j = 0; j < n; ++j) {
+    float t = raw[j] * raw[j];
+    r2m = (j == 0) ? t : r2m + t;
+  }
+  s.r2m = r2m;
+  s.sdm = sindiv_u(k * r2m);
+  float sp2 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    s.mu_sp[j] = s.sdm * raw[j];
+    float t = s.mu_sp[j] * s.mu_sp[j];
+    sp2 = (j == 0) ? t : sp2 + t;
+  }
+  s.sp2 = sp2;
+  s.inv_c = 1.f / s.c;
+  s.mu_t = sqrtf(s.inv_c + sp2);
+
+  float sv = 0.f, rv2 = 0.f, lqs = 0.f;
+  for (int j = 0; j < n; ++j) {
+    float sig = softplus_f(raw[n + (ns == 1 ? 0 : j)]);
+    float e = eps[j];
+    s.sig[j] = sig;
+    s.v[j] = sig * e;
+    float t = s.mu_sp[j] * s.v[j];
+    sv = (j == 0) ? t : sv + t;
+    float t2 = s.v[j] * s.v[j];
+    rv2 = (j == 0) ? t2 : rv2 + t2;
+    float tq = -0.5f * (e * e + F(LOG_2PI)) - logf(sig);
+    lqs = (j == 0) ? tq : lqs + tq;
+  }
+  s.sv = sv;
+  s.rv2 = rv2;
+  // PT_{mu0->mu}((0, v)) with e = alpha - 1 in the difference form
+  s.d_t = s.mu_t - s.inv_sqrt_c;
+  s.ea_in = s.c * (sp2 - s.d_t * s.d_t);
+  s.e_a = fmaxf(s.ea_in, 0.f) / 2.f;
+  s.coef = s.c * sv / (2.f + s.e_a);
+  s.u_t = s.coef * (s.inv_sqrt_c + s.mu_t);
+  float usp2 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    s.u_sp[j] = s.v[j] + s.coef * s.mu_sp[j];
+    float t = s.u_sp[j] * s.u_sp[j];
+    usp2 = (j == 0) ? t : usp2 + t;
+  }
+  s.usp2 = usp2;
+  // z = exp_map(mu, u), then project() recomputes the time coordinate
+  s.usq_in = usp2 - s.u_t * s.u_t;
+  s.usq = fmaxf(s.usq_in, 0.f);
+  s.tt = -s.c * s.usq;
+  s.cu = cos_u_sgn(s.tt, -1);
+  s.sd = sindiv_u(s.tt);
+  float zsp2 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    float zj = s.cu * s.mu_sp[j] + s.sd * s.u_sp[j];
+    s.z_sp[j] = zj;
+    z[1 + j] = zj;
+    float t = zj * zj;
+    zsp2 = (j == 0) ? t : zsp2 + t;
+  }
+  s.zsp2 = zsp2;
+  s.z_t = sqrtf(1.f / s.c + zsp2);
+  z[0] = s.z_t;
+
+  const float q = lqs - F(n - 1.0) * log_sindiv_u_neg(k * rv2);
+  s.dz_t = s.z_t - s.inv_sqrt_c;
+  s.e0_in = s.c * (zsp2 - s.dz_t * s.dz_t);
+  s.e0 = fmaxf(s.e0_in, 0.f) / 2.f + TINY;
+  s.r0a = acosh_1p(s.e0);
+  s.r0 = s.r0a * s.inv_sqrt_c;
+  s.r02 = s.r0 * s.r0;
+  const float p = -0.5f * s.r02 - F(0.5 * n * LOG_2PI)
+                  - F(n - 1.0) * log_sindiv_u_neg(k * s.r02);
+  *lq = q;
+  *lp = p;
+  *kl = q - p;
+}
+
+// Intermediates of one row of the vMF tile
+struct VmfSaved {
+  float kk, sqrt_k, r, kap, r2m, t_m, cm, m_t, sdm, ms0, ms1, mnorm, scale,
+      a_t, a0, a1, mu_t, mu0s, mu1s, kap_s, ex, arg, lg, w_in, w, gd0, gd1,
+      omw, sin_w, zp0, zp1, uh_t, uh0, uh1, un, inv_un, uht, uhs0, uhs1,
+      dotu, zu_t, zu0, zu1, th, a_m, cosv;
+};
+
+// tail_kernels._tile_vmf: vMF on S^2 (m = 3): inverse-CDF cosine,
+// Householder reflection to mu, closed-form log C_3 and A_3
+__device__ void tile_vmf_s2(const float* raw, const float* eps, float k,
+                            float* z, float* kl, float* lq, float* lp,
+                            VmfSaved& s) {
+  const float m = 3.f;
+  s.kk = fmaxf(k, TINY);
+  s.sqrt_k = sqrtf(s.kk);
+  s.r = 1.f / s.sqrt_k;
+  const float mt0 = raw[0], mt1 = raw[1];
+  s.kap = softplus_f(raw[2]) + 1.f;
+
+  // mu = exp_map_mu0 on the sphere; project() renormalizes to radius R
+  s.r2m = mt0 * mt0 + mt1 * mt1;
+  s.t_m = s.kk * s.r2m;
+  s.cm = cos_u_sgn(s.t_m, 1);
+  s.m_t = s.cm * s.r;
+  s.sdm = sindiv_u(s.t_m);
+  s.ms0 = s.sdm * mt0;
+  s.ms1 = s.sdm * mt1;
+  s.mnorm = sqrtf(s.m_t * s.m_t + (s.ms0 * s.ms0 + s.ms1 * s.ms1) + TINY);
+  s.scale = s.r / s.mnorm;
+  s.a_t = s.m_t * s.scale;
+  s.a0 = s.ms0 * s.scale;
+  s.a1 = s.ms1 * s.scale;
+  s.mu_t = s.a_t * s.sqrt_k;
+  s.mu0s = s.a0 * s.sqrt_k;
+  s.mu1s = s.a1 * s.sqrt_k;
+
+  // cosine via the exact inverse CDF
+  const float u_eps = eps[0];
+  s.kap_s = fmaxf(s.kap, F(1e-6));
+  s.ex = expf(-2.f * s.kap_s);
+  s.arg = (1.f - u_eps) * (s.ex - 1.f);
+  s.lg = log1pf(s.arg);
+  s.w_in = 1.f + s.lg / s.kap_s;
+  s.w = fminf(fmaxf(s.w_in, F(-1.0 + 1e-7)), F(1.0 - 1e-7));
+  const float g0 = eps[1], g1 = eps[2];
+  const float gn = sqrtf((g0 * g0 + g1 * g1) + TINY);
+  s.gd0 = g0 / gn;
+  s.gd1 = g1 / gn;
+  s.omw = 1.f - s.w * s.w;
+  s.sin_w = sqrtf(fmaxf(s.omw, TINY));
+  s.zp0 = s.sin_w * s.gd0;
+  s.zp1 = s.sin_w * s.gd1;
+
+  // Householder e1 -> mu_unit (degenerate at mu ~ e1 -> identity)
+  s.uh_t = 1.f - s.mu_t;
+  s.uh0 = -s.mu0s;
+  s.uh1 = -s.mu1s;
+  s.un = sqrtf(s.uh_t * s.uh_t + (s.uh0 * s.uh0 + s.uh1 * s.uh1) + TINY);
+  s.inv_un = 1.f / fmaxf(s.un, EPS);
+  s.uht = s.uh_t * s.inv_un;
+  s.uhs0 = s.uh0 * s.inv_un;
+  s.uhs1 = s.uh1 * s.inv_un;
+  s.dotu = s.uht * s.w + (s.uhs0 * s.zp0 + s.uhs1 * s.zp1);
+  s.zu_t = s.w - 2.f * s.dotu * s.uht;
+  s.zu0 = s.zp0 - 2.f * s.dotu * s.uhs0;
+  s.zu1 = s.zp1 - 2.f * s.dotu * s.uhs1;
+  if (s.un < EPS) {
+    s.zu_t = s.w;
+    s.zu0 = s.zp0;
+    s.zu1 = s.zp1;
+  }
+  z[0] = s.zu_t * s.r;
+  z[1] = s.zu0 * s.r;
+  z[2] = s.zu1 * s.r;
+
+  // log C_3(kappa) with log I_{1/2}(x) e^{-x}
+  //   = 0.5 log(2/(pi x)) + log1p(-e^{-2x}) - log 2
+  const float kap = s.kap;
+  const float log_ive_nu = 0.5f * logf(2.f / (F(PI) * kap))
+                           + log1pf(-expf(-2.f * kap)) - F(0.6931471805599453);
+  s.th = tanhf(kap);
+  s.a_m = 1.f / s.th - 1.f / kap;
+  const float log_cm = F(m / 2.0 - 1.0) * logf(kap) - F(1.5 * LOG_2PI)
+                       - (log_ive_nu + kap);
+  s.cosv = s.mu_t * s.zu_t + (s.mu0s * s.zu0 + s.mu1s * s.zu1);
+  const float area = 1.f * logf(s.kk);
+  *lq = log_cm + kap * s.cosv + area;
+  *lp = F(-LOG_4PI) + area;
+  *kl = kap * s.a_m + log_cm + F(LOG_4PI);
+}

@@ -1,23 +1,27 @@
-"""Fused forward tail of the product latent: one kernel for every component.
+"""Fused tail of the product latent: one forward and one backward kernel.
 
-Counterpart of the forward half of ``mvae_tpu/kernels/tail_kernels.py``.
-The ELBO forward spends its tail in dozens of tiny per-component ops on
-(B, n <= 12) tensors: head activations (``exp_map_mu0`` of the mu head,
-softplus scales), reparameterized draws, exact log q / log p and the
-single-sample KL. ``tail_forward`` runs that whole tail for the product
-latent in one launch of the CUDA kernel ``csrc/tail_fwd.cu``, which
-replaces the TPU kernel ``tail_kernels._fwd_pallas``.
+Counterpart of ``mvae_tpu/kernels/tail_kernels.py``. The ELBO forward
+spends its tail in dozens of tiny per-component ops on (B, n <= 12)
+tensors: head activations (``exp_map_mu0`` of the mu head, softplus
+scales), reparameterized draws, exact log q / log p and the single-sample
+KL. ``tail_forward`` runs that whole tail for the product latent in one
+launch of the CUDA kernel ``csrc/tail_fwd.cu`` (replaces the TPU kernel
+``tail_kernels._fwd_pallas``); ``tail_backward`` runs its vector-Jacobian
+product with respect to the raw heads and the curvatures in one launch of
+``csrc/tail_bwd.cu`` (replaces ``tail_kernels._bwd_pallas``). ``_TailFn``
+wires the two into autograd; the noise gets no gradient.
 
-Families in the kernel (the whole product must be in it, see
+Families in the kernels (the whole product must be in them, see
 ``component_supported``): 'normal' on e, 'wrapped' on h, 'vmf' on s with
 m = 3. The wrapped-sphere and stereographic tiles are a later slice.
 
-``tail_forward_ref`` is the plain PyTorch version: the CPU path, the
+``tail_forward_ref`` is the plain PyTorch forward: the CPU path, the
 tests' subject against the JAX tile, and the card check's reference.
 Both evaluate the tile's own expressions in the natural (B, .) layout.
-
-The kernel is forward only: on CUDA, ``tail_forward`` refuses inputs that
-require grad (the hand-derived backward kernel is the training slice).
+``tail_backward_ref`` is the plain backward: ``torch.autograd.grad``
+through ``tail_forward_ref``, whose conventions the hand-derived CUDA
+backward follows (a clamp passes the whole gradient at a tie, each branch
+of a series window is differentiated as written).
 """
 from __future__ import annotations
 
@@ -217,8 +221,8 @@ def _tile_vmf(comp, raw, eps, k):
 
 def tail_forward_ref(comps, raw, eps, k):
     """Plain PyTorch tail: raw (B, W) head pre-activations, eps (B, E)
-    standard noise, k (nc,) curvatures -> (z (B, Z), aux (B, nc + 2) =
-    [KL per component, sum log q, sum log p])."""
+    standard noise, k (nc,) curvatures, or (B, nc) per row -> (z (B, Z),
+    aux (B, nc + 2) = [KL per component, sum log q, sum log p])."""
     zs, kls = [], []
     lq = lp = 0.0
     ro = eo = 0
@@ -227,12 +231,13 @@ def tail_forward_ref(comps, raw, eps, k):
         ro += comp.head_width
         e = eps[:, eo:eo + comp.noise_width]
         eo += comp.noise_width
+        ki = k[i] if k.dim() == 1 else k[:, i:i + 1]
         if comp.posterior == "normal":
             z, kl, q, p = _tile_normal(comp, r, e)
         elif comp.posterior == "vmf":
-            z, kl, q, p = _tile_vmf(comp, r, e, k[i])
+            z, kl, q, p = _tile_vmf(comp, r, e, ki)
         else:
-            z, kl, q, p = _tile_wrapped_lorentz(comp, r, e, k[i])
+            z, kl, q, p = _tile_wrapped_lorentz(comp, r, e, ki)
         zs.append(z)
         kls.append(kl)
         lq = lq + q
@@ -284,9 +289,6 @@ def tail_forward(comps, raw, eps, k):
         return tail_forward_ref(comps, raw, eps, k)
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
-    if any(t.requires_grad for t in (raw, eps, k)):
-        raise RuntimeError("tail_forward is forward only on CUDA; its "
-                           "backward kernel is not ported yet")
     for name, t in (("raw", raw), ("eps", eps), ("k", k)):
         if t.dtype != torch.float32 or t.device != raw.device:
             raise ValueError(f"{name} must be float32 on {raw.device}")
@@ -306,6 +308,98 @@ def tail_forward(comps, raw, eps, k):
 tail_forward.launches = 0
 
 
+# --- the backward ---------------------------------------------------------------
+
+
+def tail_backward_ref(comps, raw, eps, k, dz, daux):
+    """Plain PyTorch backward of the tail: the vector-Jacobian product of
+    ``tail_forward_ref`` at (raw, eps, k) with cotangents dz (B, Z) and
+    daux (B, nc + 2), by ``torch.autograd.grad`` with eps held constant.
+    Returns (draw (B, W), dk_rows (B, nc)): the curvature gradient of each
+    row before the sum over the batch."""
+    comps = tuple(comps)
+    B = raw.shape[0]
+    with torch.enable_grad():
+        raw_ = raw.detach().requires_grad_(True)
+        kx = k.detach().reshape(1, -1).expand(B, len(comps)).clone()
+        kx.requires_grad_(True)
+        z, aux = tail_forward_ref(comps, raw_, eps.detach(), kx)
+        draw, dk_rows = torch.autograd.grad((z, aux), (raw_, kx),
+                                            (dz, daux), allow_unused=True)
+    if dk_rows is None:
+        dk_rows = torch.zeros_like(kx)
+    return draw, dk_rows
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd():
+    fn = _build.load("tail_bwd").tail_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_void_p])
+    return fn
+
+
+def tail_backward(comps, raw, eps, k, dz, daux):
+    """The tail's backward: on a CUDA tensor one launch of
+    ``csrc/tail_bwd.cu``; on a CPU tensor its plain version
+    ``tail_backward_ref``. Same arguments and results as
+    ``tail_backward_ref``."""
+    comps = tuple(comps)
+    W, E, Z = _dims(comps)
+    nc = len(comps)
+    B = raw.shape[0]
+    shapes = {"raw": (raw, (B, W)), "eps": (eps, (B, E)), "k": (k, (nc,)),
+              "dz": (dz, (B, Z)), "daux": (daux, (B, nc + 2))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if not all(component_supported(c) for c in comps):
+        raise ValueError("product has a component outside the kernel family")
+    if raw.device.type == "cpu":
+        return tail_backward_ref(comps, raw, eps, k, dz, daux)
+    if raw.device.type != "cuda":
+        raise ValueError(f"unsupported device {raw.device}")
+    for name, (t, _) in shapes.items():
+        if t.dtype != torch.float32 or t.device != raw.device:
+            raise ValueError(f"{name} must be float32 on {raw.device}")
+    if nc > MAX_COMPS:
+        raise ValueError(f"at most {MAX_COMPS} components")
+    args = [t.detach().contiguous() for t in (raw, eps, k, dz, daux)]
+    draw = torch.empty((B, W), dtype=torch.float32, device=raw.device)
+    dk_rows = torch.empty((B, nc), dtype=torch.float32, device=raw.device)
+    stream = torch.cuda.current_stream(raw.device).cuda_stream
+    _build.check(_lib_bwd()(*[t.data_ptr() for t in args], draw.data_ptr(),
+                            dk_rows.data_ptr(), B, W, E, Z, nc,
+                            _table(comps), stream), "tail_bwd_launch")
+    tail_backward.launches += 1
+    return draw, dk_rows
+
+
+tail_backward.launches = 0
+
+
+class _TailFn(torch.autograd.Function):
+    """The fused tail under autograd: forward ``tail_forward``, backward
+    ``tail_backward`` with the per-row curvature gradients summed over the
+    batch (the transpose of the curvature's broadcast to the rows). The
+    noise is a constant."""
+
+    @staticmethod
+    def forward(ctx, comps, raw, eps, k):
+        ctx.comps = comps
+        ctx.save_for_backward(raw, eps, k)
+        return tail_forward(comps, raw, eps, k)
+
+    @staticmethod
+    def backward(ctx, dz, daux):
+        raw, eps, k = ctx.saved_tensors
+        draw, dk_rows = tail_backward(ctx.comps, raw, eps, k,
+                                      dz.contiguous(), daux.contiguous())
+        dk = torch.sum(dk_rows, dim=0) if ctx.needs_input_grad[3] else None
+        return None, draw, None, dk
+
+
 def reparam_all(comps, comp_params, raw_all, noise=None, generator=None):
     """Full product-latent reparameterization from the fused head GEMM
     output (B, W) through ``tail_forward``. ``noise`` (B, E) in the
@@ -317,6 +411,6 @@ def reparam_all(comps, comp_params, raw_all, noise=None, generator=None):
                         for c, cp in zip(comps, comp_params)]).to(raw_all.dtype)
     if noise is None:
         noise = draw_noise(comps, (B,), raw_all, generator)
-    z, aux = tail_forward(comps, raw_all, noise, kvec)
+    z, aux = _TailFn.apply(comps, raw_all, noise, kvec)
     nc = len(comps)
     return z, aux[:, nc], aux[:, nc + 1], aux[:, :nc], kvec

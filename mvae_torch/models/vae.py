@@ -1,11 +1,13 @@
 """Mixed-curvature VAE: encode / reparametrize / decode / ELBO / IWAE.
 
-Counterpart of ``mvae_tpu/models/vae.py`` (MLP VAE, evaluation path):
+Counterpart of ``mvae_tpu/models/vae.py`` (MLP VAE):
 
   forward:  encoder(x) -> features; one fused head GEMM for every
-            component -> the product-latent tail (the CUDA tail kernel when
-            the product is in its family) -> z; decoder(z) -> Bernoulli
-            logits; ELBO = log p(x|z) - sum_c KL_c.
+            component -> the product-latent tail (the CUDA tail kernels,
+            forward and backward, when the product is in their family) ->
+            z; decoder(z) -> Bernoulli log-likelihood (the CUDA training
+            decode kernel when ``MVAE_FUSED_TRAIN_DECODER=1``);
+            ELBO = log p(x|z) - sum_c KL_c; ``loss_fn`` = -mean ELBO.
   log_likelihood: IWAE-n estimate logsumexp_n[log p(x|z_i) + log p(z_i)
             - log q(z_i|x)] - log n, encoding once and drawing the
             importance samples in chunks decoded by the CUDA decode+BCE
@@ -143,8 +145,8 @@ def _fused_tail_gate(cfg: VAEConfig, params) -> tuple[bool, str]:
     if unsup:
         return False, ("unsupported component(s): " + ",".join(unsup)
                        + " -> plain per-component tail")
-    return True, ("kernel csrc/tail_fwd.cu (plain tail_forward_ref on CPU "
-                  "tensors)")
+    return True, ("kernels csrc/tail_fwd.cu + csrc/tail_bwd.cu (plain "
+                  "tail_forward_ref / tail_backward_ref on CPU tensors)")
 
 
 def _split_noise(comps, noise):
@@ -179,11 +181,46 @@ def _reparam_components(cfg: VAEConfig, params, feats, noise=None,
             torch.stack(curvs))
 
 
+def _fused_train_decoder_gate(cfg: VAEConfig, params) -> tuple[bool, str]:
+    """The gate for the training decode kernel (decoder_kernels.
+    train_decode_bce): the reference's env switch on, a depth-1 f32 MLP
+    decoder, and a hidden tile within the kernel's shared memory. Returns
+    (eligible, reason); the router and ``fused_path_report`` both call
+    it."""
+    if not decoder_kernels.use_fused_train_decoder():
+        return False, ("MVAE_FUSED_TRAIN_DECODER off (default) -> plain "
+                       "PyTorch decode")
+    if not (cfg.arch == "mlp" and cfg.decoder_depth == 1):
+        return False, "decoder not a depth-1 MLP -> plain PyTorch decode"
+    if params["decoder"]["out"]["w"].dtype != torch.float32:
+        return False, "non-f32 decoder -> plain PyTorch decode"
+    if not decoder_kernels.shape_supported(cfg.z_dim, cfg.h_dim):
+        return False, ("hidden tile beyond the kernel's shared memory -> "
+                       "plain PyTorch decode")
+    return True, ("kernel csrc/train_decode.cu (plain train_decode_ref on "
+                  "CPU tensors)")
+
+
+def _fused_train_decoder_eligible(cfg: VAEConfig, params) -> bool:
+    return _fused_train_decoder_gate(cfg, params)[0]
+
+
 def forward_from_features(cfg: VAEConfig, params, x, feats, noise=None,
                           generator=None) -> Forward:
-    """Reparameterize + decode from precomputed encoder features."""
+    """Reparameterize + decode from precomputed encoder features. The
+    training/eval-ELBO decode and its Bernoulli log-likelihood run in one
+    kernel when ``_fused_train_decoder_eligible`` (logits never stored,
+    backward = the four weight/input products)."""
     z, log_q, log_p, kls, curvs = _reparam_components(cfg, params, feats,
                                                       noise, generator)
+    if _fused_train_decoder_eligible(cfg, params):
+        dec = params["decoder"]
+        xf = x.reshape(x.shape[:x.dim() - len(cfg.data_shape)]
+                       + (cfg.flat_dim,))
+        log_px_z = decoder_kernels.train_decode_bce(
+            z, xf.to(torch.float32), dec["layers"][0]["w"],
+            dec["layers"][0]["b"], dec["out"]["w"], dec["out"]["b"])
+        return Forward(z, log_px_z, log_q, log_p, kls, curvs)
     logits = decode(cfg, params, z)
     log_px_z = _sum_data_axes(bernoulli_log_prob(logits, x),
                               len(cfg.data_shape))
@@ -210,6 +247,13 @@ def elbo(cfg: VAEConfig, params, x, beta: float = 1.0, noise=None,
         "curvature": fwd.curvatures,
     }
     return value, stats
+
+
+def loss_fn(cfg: VAEConfig, params, x, beta: float = 1.0, noise=None,
+            generator=None):
+    """The training loss -mean(ELBO) and the ELBO's stats dict."""
+    value, stats = elbo(cfg, params, x, beta, noise, generator)
+    return -torch.mean(value), stats
 
 
 def _fused_decoder_eligible(cfg: VAEConfig, params) -> bool:
@@ -306,7 +350,6 @@ def fused_path_report(cfg: VAEConfig, params) -> dict:
                      f"'{c.manifold.kind}' draws in plain PyTorch")
                for i, c in enumerate(cfg.components)]
     return {"train_tail": entry(*_fused_tail_gate(cfg, params)),
-            "train_decoder": entry(False, "training decode kernel: later "
-                                   "slice"),
+            "train_decoder": entry(*_fused_train_decoder_gate(cfg, params)),
             "iwae_decoder": idec, "iwae_reparam": reparam,
             "routing_policy": "capability-only (no TPU-measured routing)"}

@@ -1,5 +1,7 @@
-"""Evaluation loop (L5) and statistics."""
+"""Training / evaluation loop (L5), metrics and statistics."""
 from .stats import EpochStats
-from .trainer import TrainConfig, Trainer
+from .metrics import MetricsLogger
+from .trainer import NonFiniteError, TrainConfig, Trainer
 
-__all__ = ["EpochStats", "TrainConfig", "Trainer"]
+__all__ = ["EpochStats", "MetricsLogger", "NonFiniteError", "TrainConfig",
+           "Trainer"]

@@ -1,22 +1,34 @@
-"""Evaluation half of the trainer (L5).
+"""Training / evaluation loop (L5).
 
-Counterpart of ``mvae_tpu/train/trainer.py`` for the serving path: a
-``Trainer`` holds a model's parameters on one device and answers "what is
-the test ELBO / IWAE marginal log-likelihood of this split", over the
-whole split with the padded tail masked out of every statistic.
+Counterpart of ``mvae_tpu/train/trainer.py``: a ``Trainer`` holds a
+model's parameters on one device and trains it with Adam (a separate
+learning rate for the curvature leaves ``c_param``, curvature frozen for
+``burnin_epochs`` and always when fixed), evaluates the test ELBO after
+every epoch and the IWAE-n marginal log-likelihood at the end, guards
+against non-finite epochs, logs to ``<run_dir>/metrics.jsonl`` and
+checkpoints the full state (params, optimizer, step, generator).
 
 Differences from the reference:
 
-* evaluation is a Python loop over batches of eager PyTorch (no scan);
-  the host reads the statistics once, after the last batch;
-* randomness comes from one ``torch.Generator`` on the device, seeded
-  from ``TrainConfig.seed``; the pinned binarization mode
-  (``eval_binarize="fixed"``) is a counter hash of (seed, example index);
-* training (``train_one_epoch`` / ``fit``) is the next slice of the port.
+* training and evaluation are Python loops over batches of eager
+  PyTorch (no scan); the host reads the statistics once per epoch or
+  pass, and a training step never waits on the device;
+* randomness (batch order, binarization, reparameterization noise, eval
+  draws) comes from one ``torch.Generator`` on the device (Philox on
+  CUDA), seeded from ``TrainConfig.seed``; it replaces the reference's
+  ``train_rng`` ("rbg"/"threefry") and ``TrainConfig`` has no field for
+  it. The pinned binarization mode (``eval_binarize="fixed"``) is a
+  counter hash of (seed, example index);
+* the optimizer is ``torch.optim.Adam`` with optax's defaults (betas
+  (0.9, 0.999), eps 1e-8). Masked curvature gradients are zeroed, never
+  dropped, so Adam counts every step as optax does and the bias
+  correction after burn-in uses the global step.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -25,10 +37,30 @@ from ..data.base import (ArrayDataset, binarize_batch, binarize_rows,
                          to_device_dataset)
 from ..models import vae
 from ..utils.device import resolve_device
+from .metrics import MetricsLogger
 from .stats import EpochStats
 
 # seed offset of the pinned eval binarization (the reference's 0xB1A)
 _FIXED_BINARIZE_SALT = 0xB1A
+
+
+class NonFiniteError(RuntimeError):
+    """Raised when an epoch's training stats go non-finite (NaN/inf).
+
+    The guard halts at the first non-finite epoch boundary, restores and
+    checkpoints the last finite state, and surfaces the offending epoch's
+    stats for postmortem."""
+
+    def __init__(self, epoch: int, stats: dict, last_finite_step: int):
+        self.epoch = epoch
+        self.stats = stats
+        self.last_finite_step = last_finite_step
+        bad = {k: v for k, v in stats.items()
+               if np.ndim(v) == 0 and not np.isfinite(v)}
+        super().__init__(
+            f"non-finite training stats at epoch {epoch} "
+            f"({', '.join(sorted(bad)) or 'n/a'}); last finite state at "
+            f"step {last_finite_step} checkpointed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +85,49 @@ class TrainConfig:
     mesh_shape: tuple[int, int] | None = None
 
 
+def _leaves(tree):
+    """The tensors of a params tree, dict keys in sorted order (the
+    reference's pytree order)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _curvature_leaves(params):
+    return [cp["c_param"] for cp in params["components"] if "c_param" in cp]
+
+
+def make_optimizer(params, tc: TrainConfig) -> torch.optim.Adam:
+    """One Adam over two parameter groups: the ``c_param`` leaves at
+    ``curvature_lr``, everything else at ``lr`` (optax's defaults)."""
+    curv = _curvature_leaves(params)
+    ids = {id(t) for t in curv}
+    groups = [{"params": [t for t in _leaves(params) if id(t) not in ids],
+               "lr": tc.lr}]
+    if curv:
+        groups.append({"params": curv, "lr": tc.curvature_lr})
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _mask_curvature_grads(params, components, step: int, burnin_steps: int):
+    """Zero the curvature gradients when fixed or during burn-in, in place.
+    Zeroed, not dropped: Adam then advances its step as optax does."""
+    frozen = step < burnin_steps
+    for comp, cp in zip(components, params["components"]):
+        if "c_param" not in cp:
+            continue
+        if comp.fixed_curvature or frozen:
+            c = cp["c_param"]
+            if c.grad is None:
+                c.grad = torch.zeros_like(c)
+            else:
+                c.grad.zero_()
+
+
 class Trainer:
-    """Holds one model on one device and evaluates it on a dataset."""
+    """Orchestrates training and evaluation on a device-resident dataset."""
 
     def __init__(self, model_cfg: vae.VAEConfig, dataset: ArrayDataset,
                  tc: TrainConfig, run_dir: str = "runs/default",
@@ -75,24 +148,168 @@ class Trainer:
         init_gen = torch.Generator().manual_seed(tc.seed)
         self.params = vae.init_params(model_cfg, tc.init_k, self.dtype,
                                       init_gen, self.device)
+        for t in _leaves(self.params):
+            t.requires_grad_(True)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(tc.seed)
+        self.opt = make_optimizer(self.params, tc)
+        self.step = 0
+        self.steps_per_epoch = len(dataset.train) // tc.batch_size
+        self.burnin_steps = tc.burnin_epochs * self.steps_per_epoch
 
         self._train_data, self._test_data = to_device_dataset(
             dataset, self.device, self.dtype)
         self.component_names = [
             f"{c.name}#{i}" for i, c in enumerate(model_cfg.components)]
+        self.history: list[dict] = []
+        self._logger = None
         self.fused_paths = vae.fused_path_report(model_cfg, self.params)
 
-    # --- training: the next slice ---------------------------------------------
+    @property
+    def logger(self) -> MetricsLogger:
+        """``<run_dir>/metrics.jsonl``, opened at the first record."""
+        if self._logger is None:
+            self._logger = MetricsLogger(self.run_dir)
+        return self._logger
+
+    # --- training ---------------------------------------------------------------
+
+    def _train_step(self, x, u_bin=None, noise=None) -> dict:
+        """One Adam step on the batch ``x`` of intensities. ``u_bin`` (x's
+        shape) are the binarization uniforms and ``noise`` (B, E) the
+        reparameterization noise (``tail_kernels.draw_noise`` layout); each
+        is drawn from the trainer's generator when not given. Returns the
+        step's stats as device tensors (no host sync)."""
+        x = binarize_batch(x, self.dataset.binarize, self.generator, u_bin)
+        self.opt.zero_grad(set_to_none=True)
+        loss, stats = vae.loss_fn(self.model_cfg, self.params, x,
+                                  self.tc.beta, noise, self.generator)
+        loss.backward()
+        _mask_curvature_grads(self.params, self.model_cfg.components,
+                              self.step, self.burnin_steps)
+        self.opt.step()
+        self.step += 1
+        return {k: v.detach() for k, v in stats.items()}
 
     def train_one_epoch(self, epoch: int) -> dict:
-        raise NotImplementedError("slice 2: training (tail backward kernel, "
-                                  "Adam, curvature burn-in)")
+        """``steps_per_epoch`` steps over a permutation of the train split
+        drawn from the generator; stats averaged over the steps, the
+        curvature the last step's snapshot."""
+        bs = self.tc.batch_size
+        n = self.steps_per_epoch * bs
+        perm = torch.randperm(len(self._train_data), generator=self.generator,
+                              device=self.device)[:n]
+        seq = [self._train_step(self._train_data[perm[s * bs:(s + 1) * bs]])
+               for s in range(self.steps_per_epoch)]
+        stacked = {k: torch.stack([st[k] for st in seq]) for k in seq[0]}
+        means = {k: torch.mean(v, dim=0) for k, v in stacked.items()}
+        means["curvature"] = stacked["curvature"][-1]
+        es = EpochStats(self.component_names)
+        es.update({k: v.cpu().numpy() for k, v in means.items()})
+        return es.means()
 
-    def fit(self, *args, **kwargs) -> dict:
-        raise NotImplementedError("slice 2: training (tail backward kernel, "
-                                  "Adam, curvature burn-in)")
+    def _guard_state(self) -> dict:
+        """Device copy of the resumable state: the non-finite guard's
+        last-finite snapshot (read back only if the guard trips)."""
+        state = self.state()
+        return {"params": [t.detach().clone() for t in _leaves(self.params)],
+                "opt_state": copy.deepcopy(state["opt_state"]),
+                "step": state["step"], "rng": state["rng"]}
+
+    def _load_state(self, params_leaves, opt_state, step, rng) -> None:
+        with torch.no_grad():
+            for t, v in zip(_leaves(self.params), params_leaves):
+                t.copy_(v)
+        self.opt.load_state_dict(opt_state)
+        self.step = int(step)
+        self.generator.set_state(rng)
+
+    def _check_finite(self, epoch: int, train_stats: dict,
+                      prev_state: dict | None):
+        """Halt on the first non-finite epoch: rewind to the last finite
+        state, checkpoint it, log FAILED_NONFINITE and raise."""
+        scalars = {k: v for k, v in train_stats.items() if np.ndim(v) == 0}
+        if all(np.isfinite(v) for v in scalars.values()):
+            return
+        last_step = int(prev_state["step"]) if prev_state else -1
+        if prev_state is not None:
+            self._load_state(prev_state["params"], prev_state["opt_state"],
+                             prev_state["step"], prev_state["rng"])
+            self.save_checkpoint()
+        self.logger.log(last_step, {
+            "status": "FAILED_NONFINITE", "nonfinite_epoch": epoch,
+            **{f"train/{k}": v for k, v in scalars.items()}})
+        raise NonFiniteError(epoch, train_stats, last_step)
+
+    def fit(self, verbose: bool = True, ll_max_examples: int | None = None,
+            ll_repeats: int = 1) -> dict:
+        """``tc.epochs`` epochs, each followed by the test ELBO; then the
+        IWAE-n test log-likelihood and a final checkpoint. Records go to
+        ``metrics.jsonl``; ``train_steps_per_sec`` counts the training
+        epochs' wall time only (ended by a device sync). Both rates count
+        the steps this call takes, not those of a run it resumed (the
+        reference divides the global step count)."""
+        t0 = time.time()
+        train_wall = 0.0
+        step0 = self.step
+        for epoch in range(self.tc.epochs):
+            state_before = self._guard_state()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            te0 = time.time()
+            train_stats = self.train_one_epoch(epoch)
+            train_wall += time.time() - te0
+            self._check_finite(epoch, train_stats, state_before)
+            rec = {f"train/{k}": v for k, v in train_stats.items()}
+            test_stats = self.evaluate_elbo("test")
+            rec.update({f"test/{k}": v for k, v in test_stats.items()})
+            rec["epoch"] = epoch
+            self.logger.log(self.step, rec)
+            self.history.append(rec)
+            if verbose:
+                print(f"epoch {epoch + 1}/{self.tc.epochs} "
+                      f"train[{_fmt(train_stats)}] test[{_fmt(test_stats)}]")
+            if (self.tc.checkpoint_every
+                    and (epoch + 1) % self.tc.checkpoint_every == 0):
+                self.save_checkpoint()
+        ll = self.evaluate_log_likelihood("test", max_examples=ll_max_examples,
+                                          repeats=ll_repeats)
+        wall = time.time() - t0
+        # steps_per_sec is whole-run wall (train + per-epoch evals + final
+        # IWAE); train_steps_per_sec excludes eval wall
+        steps = self.step - step0
+        final = {"test/log_likelihood_iwae": ll, "wall_seconds": wall,
+                 "steps_per_sec": steps / max(wall, 1e-9),
+                 "train_wall_seconds": train_wall,
+                 "train_steps_per_sec": steps / max(train_wall, 1e-9)}
+        self.logger.log(self.step, final)
+        self.save_checkpoint()
+        if verbose:
+            print(f"final IWAE-{self.tc.likelihood_n} test LL: {ll:.3f} "
+                  f"({wall:.1f}s, {final['steps_per_sec']:.1f} steps/s)")
+        return {**final, "history": self.history}
+
+    # --- checkpointing ----------------------------------------------------------
+
+    def state(self) -> dict:
+        return {"params": self.params, "opt_state": self.opt.state_dict(),
+                "step": self.step, "rng": self.generator.get_state()}
+
+    def save_checkpoint(self) -> str:
+        from .. import checkpoint
+        return checkpoint.save(f"{self.run_dir}/ckpt", self.step,
+                               self.state())
+
+    def restore_checkpoint(self, step: int | None = None) -> None:
+        """Load a checkpoint of ``run_dir`` (the latest by default). It is
+        read onto the CPU: the parameters are copied into the trainer's
+        tensors, Adam moves its moments to the parameters' device and keeps
+        its step counters on the CPU, and the generator takes a CPU state."""
+        from .. import checkpoint
+        st = checkpoint.restore(f"{self.run_dir}/ckpt", step,
+                                map_location="cpu")
+        self._load_state(_leaves(st["params"]), st["opt_state"], st["step"],
+                         st["rng"])
 
     # --- evaluation -------------------------------------------------------------
 
@@ -170,6 +387,9 @@ class Trainer:
         if repeats > 1:
             vals = [self.evaluate_log_likelihood(split, max_examples)
                     for _ in range(repeats)]
+            self.logger.log(self.step, {
+                f"{split}/log_likelihood_iwae_repeats": vals,
+                f"{split}/log_likelihood_iwae_std": float(np.std(vals))})
             return float(np.mean(vals))
         data = self._test_data if split == "test" else self._train_data
         if max_examples:
@@ -185,3 +405,15 @@ class Trainer:
                 self.model_cfg, self.params, x, self.tc.likelihood_n,
                 self.tc.likelihood_chunk, generator=self.generator))
         return float(torch.cat(lls)[:n].mean().cpu())
+
+
+def _fmt(stats: dict) -> str:
+    parts = []
+    for k in ("elbo", "bce", "kl"):
+        if k in stats:
+            parts.append(f"{k}={stats[k]:.2f}")
+    curvs = [f"{v:+.2f}" for k, v in sorted(stats.items())
+             if k.startswith("curvature/")]
+    if curvs:
+        parts.append("K=" + ",".join(curvs))
+    return " ".join(parts)

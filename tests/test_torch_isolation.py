@@ -20,6 +20,8 @@ names = [m.name for m in pkgutil.walk_packages(mvae_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import mvae_torch.cli
+import mvae_torch.checkpoint
+import mvae_torch.train.metrics
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mvae_tpu"))

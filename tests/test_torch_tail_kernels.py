@@ -1,14 +1,25 @@
-"""The fused tail's plain version (``tail_forward_ref``) against the JAX
-tile math ``tail_kernels._tail_tile`` (through ``reparam_all_jnp``), with
-the noise of ``draw_noise_t``; the wrapper's CPU dispatch and checks; and
-the CUDA kernel against its plain version on the card.
+"""The fused tail's plain versions against the JAX package: the forward
+(``tail_forward_ref``) against the JAX tile math ``tail_kernels._tail_tile``
+(through ``reparam_all_jnp``), with the noise of ``draw_noise_t``; the
+backward (``tail_backward_ref``, and ``_TailFn`` through
+``loss.backward()``) against ``jax.grad`` of ``reparam_all_jnp`` and of the
+Pallas ``reparam_all`` in interpret mode (which runs ``_bwd_pallas``); the
+wrappers' CPU dispatch and checks; and both CUDA kernels against their
+plain versions on the card.
 
-Tolerances: 1e-10 in float64 (the same expressions; library last-digit
-differences only) and 1e-5 in float32 relative with a 1e-4 absolute floor
-on log-densities of magnitude ~10-100 (a few ulps through the chains).
-On the card the kernel and its plain version evaluate the same float32
-operations in the same order (the kernel is built with --fmad=false), so
-they are held to 1e-5 (1 + |z|) on z and 1e-4 on the log-densities.
+Tolerances: forward, 1e-10 in float64 (the same expressions; library
+last-digit differences only) and 1e-5 in float32 relative with a 1e-4
+absolute floor on log-densities of magnitude ~10-100 (a few ulps through
+the chains). Backward, 1e-9 in float64 (autograd against JAX's AD of the
+same expressions, summed in another order); in float32 the reference's
+own contract for its in-kernel VJP against plain AD of the same tile
+(tests/kernels/test_tail_kernels.py): rtol 1e-3 / atol 5e-4 on the raw
+gradient, rtol 2e-3 on the curvature gradient (a cancelling batch sum).
+On the card the forward kernel and its plain version evaluate the same
+float32 operations in the same order (built with --fmad=false), so they
+are held to 1e-5 (1 + |z|) on z and 1e-4 on the log-densities; the
+backward kernel, whose reverse sweep is derived by hand, to the float32
+backward contract above.
 
 The JAX package is imported inside the CPU tests only, so the card tests
 also run where JAX is not installed:
@@ -107,6 +118,169 @@ def test_wrapper_rejects_bad_input():
                          torch.zeros(4, 2), torch.ones(1))
 
 
+def _loss_cotangents(B, Z, nc, dtype):
+    """(dz, daux) of loss = mean_b |z_b|^2 + mean(kl) + 0.1 mean(lq - lp)
+    at z: the loss of the reference's kernel-gradient test."""
+    daux = np.zeros((B, nc + 2), dtype)
+    daux[:, :nc] = 1.0 / (B * nc)
+    daux[:, nc] = 0.1 / B
+    daux[:, nc + 1] = -0.1 / B
+    return daux
+
+
+def _jax_grads(jc, params, raw, k_rep, fused):
+    """jax.grad of the loss w.r.t. (raw heads, c_param per component),
+    through reparam_all_jnp or (fused) the Pallas reparam_all."""
+    import jax
+    import jax.numpy as jnp
+    from mvae_tpu.kernels import tail_kernels as jtk
+
+    def loss(raw_all, cps):
+        fn = jtk.reparam_all if fused else jtk.reparam_all_jnp
+        z, lq, lp, kl, _ = fn(k_rep, jc, cps, raw_all)
+        return (jnp.mean(jnp.sum(z * z, -1)) + jnp.mean(kl)
+                + 0.1 * jnp.mean(lq - lp))
+
+    g_raw, g_cps = jax.grad(loss, argnums=(0, 1))(jnp.asarray(raw), params)
+    g_c = [np.asarray(g["c_param"]) for g in g_cps if "c_param" in g]
+    return np.asarray(g_raw), g_c
+
+
+BWD_DTYPES = [pytest.param(np.float64, 1e-9, 1e-9, 1e-9, id="f64"),
+              pytest.param(np.float32, 1e-3, 5e-4, 2e-3, id="f32")]
+
+
+@pytest.mark.parametrize("dtype,rtol,atol,ktol", BWD_DTYPES)
+@pytest.mark.parametrize("spec,scalar_sigma",
+                         [(s, False) for s in ("h2,s2,e2", "2h2", "3s2",
+                                               "e2")] + [("h2,s2,e2", True)])
+def test_tail_backward_matches_jax_grad(spec, scalar_sigma, dtype, rtol,
+                                        atol, ktol):
+    import jax
+    from mvae_tpu.kernels import tail_kernels as jtk
+    jc, tc, params, raw, k_rep = _setup(spec, dtype, scalar_sigma)
+    g_raw_j, g_c_j = _jax_grads(jc, params, raw, k_rep, fused=False)
+    eps = torch.from_numpy(np.asarray(
+        jtk.draw_noise_t(k_rep, jc, B, dtype)).T.copy())
+    tparams = params_from_jax(jax.tree.map(np.asarray, params))
+    curv = [cp["c_param"].requires_grad_() for cp in tparams
+            if "c_param" in cp]
+    raw_t = torch.from_numpy(raw).requires_grad_()
+
+    # _TailFn under loss.backward()
+    z, lq, lp, kl, kvec = ttk.reparam_all(tc, tparams, raw_t, noise=eps)
+    loss = (torch.mean(torch.sum(z * z, -1)) + torch.mean(kl)
+            + 0.1 * torch.mean(lq - lp))
+    loss.backward()
+    np.testing.assert_allclose(raw_t.grad.numpy(), g_raw_j, rtol=rtol,
+                               atol=atol)
+    assert len(curv) == len(g_c_j)
+    for ours, theirs in zip(curv, g_c_j):
+        np.testing.assert_allclose(ours.grad.numpy(), theirs, rtol=ktol,
+                                   atol=atol)
+
+    # tail_backward_ref at the loss's cotangents; dK/dc = K (K = +-e^c)
+    nc = len(tc)
+    daux = torch.from_numpy(_loss_cotangents(B, z.shape[1], nc, dtype))
+    draw, dk_rows = ttk.tail_backward_ref(tc, torch.from_numpy(raw), eps,
+                                          kvec.detach(),
+                                          2.0 * z.detach() / B, daux)
+    np.testing.assert_allclose(draw.numpy(), g_raw_j, rtol=rtol, atol=atol)
+    dc = (dk_rows.sum(0) * kvec.detach()).numpy()
+    idx = [i for i, c in enumerate(tc) if c.manifold.has_curvature_param]
+    for i, theirs in zip(idx, g_c_j):
+        np.testing.assert_allclose(dc[i], theirs, rtol=ktol, atol=atol)
+
+
+@pytest.mark.parametrize("spec", ["h2,s2,e2", "2h2"])
+def test_tail_backward_matches_pallas_bwd_interpret(monkeypatch, spec):
+    """Against the JAX kernel's own backward (_bwd_pallas, interpret mode,
+    MVAE_FUSED_TAIL=1 as in the reference's kernel tests), float32."""
+    import jax
+    from mvae_tpu.kernels import tail_kernels as jtk
+    monkeypatch.setenv("MVAE_FUSED_TAIL", "1")
+    jc, tc, params, raw, k_rep = _setup(spec, np.float32)
+    g_raw_j, g_c_j = _jax_grads(jc, params, raw, k_rep, fused=True)
+    eps = torch.from_numpy(np.asarray(
+        jtk.draw_noise_t(k_rep, jc, B, np.float32)).T.copy())
+    tparams = params_from_jax(jax.tree.map(np.asarray, params))
+    curv = [cp["c_param"].requires_grad_() for cp in tparams
+            if "c_param" in cp]
+    raw_t = torch.from_numpy(raw).requires_grad_()
+    z, lq, lp, kl, _ = ttk.reparam_all(tc, tparams, raw_t, noise=eps)
+    (torch.mean(torch.sum(z * z, -1)) + torch.mean(kl)
+     + 0.1 * torch.mean(lq - lp)).backward()
+    np.testing.assert_allclose(raw_t.grad.numpy(), g_raw_j, rtol=1e-3,
+                               atol=5e-4)
+    assert len(curv) == len(g_c_j)
+    for ours, theirs in zip(curv, g_c_j):
+        np.testing.assert_allclose(ours.grad.numpy(), theirs, rtol=2e-3,
+                                   atol=5e-4)
+
+
+@pytest.mark.parametrize("spec,scalar_sigma", [("h2,s2,e2", False),
+                                               ("h3,e2", True)])
+def test_tail_fn_gradcheck_f64(spec, scalar_sigma):
+    """torch.autograd.gradcheck of _TailFn (float64, CPU): the backward's
+    wiring (raw and curvature; no gradient for the noise) against finite
+    differences."""
+    tc = tuple(t_parse(spec, fixed_curvature=False,
+                       scalar_sigma=scalar_sigma))
+    W, E, _ = ttk._dims(tc)
+    g = torch.Generator().manual_seed(3)
+    raw = torch.randn(6, W, generator=g, dtype=torch.float64)
+    eps = ttk.draw_noise(tc, (6,), raw, g)
+    k = torch.tensor([-0.7, 1.3, 0.0][:len(tc)], dtype=torch.float64)
+    if spec == "h3,e2":
+        k = torch.tensor([-0.7, 0.0], dtype=torch.float64)
+    assert torch.autograd.gradcheck(
+        lambda r, kk: ttk._TailFn.apply(tc, r, eps, kk),
+        (raw.requires_grad_(), k.requires_grad_()))
+
+
+def test_mu_tan_zero_row_has_finite_gradients():
+    """A row whose hyperbolic mean head is exactly 0 puts the clamp of the
+    transport's e = max(c (|mu_sp|^2 - (mu_t - R)^2), 0) exactly at its
+    bound. The port follows torch.clamp there (the whole gradient passes),
+    where jnp.maximum would pass half; the backward kernel follows the
+    port's plain version. The gradients stay finite and the float32 plain
+    backward agrees with its float64 evaluation at that row."""
+    tc = tuple(t_parse("h2,s2,e2", fixed_curvature=False))
+    g = torch.Generator().manual_seed(5)
+    raw = torch.randn(4, 11, generator=g)
+    raw[1, :2] = 0.0
+    eps = ttk.draw_noise(tc, (4,), raw, g)
+    k = torch.tensor([-1.0, 1.0, 0.0])
+    dz = torch.randn(4, 8, generator=g)
+    daux = torch.randn(4, 5, generator=g)
+    draw, dk = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
+    assert bool(torch.isfinite(draw).all() and torch.isfinite(dk).all())
+    d64, k64 = ttk.tail_backward_ref(tc, raw.double(), eps.double(),
+                                     k.double(), dz.double(), daux.double())
+    np.testing.assert_allclose(draw[1].numpy(), d64[1].numpy(), rtol=1e-3,
+                               atol=5e-4)
+    np.testing.assert_allclose(dk[1].numpy(), k64[1].numpy(), rtol=1e-3,
+                               atol=5e-4)
+
+
+def test_tail_backward_on_cpu_is_the_plain_version():
+    tc = tuple(t_parse("h2,s2,e2", fixed_curvature=False))
+    g = torch.Generator().manual_seed(1)
+    raw = torch.randn(5, 11, generator=g)
+    eps = ttk.draw_noise(tc, (5,), raw, g)
+    k = torch.tensor([-1.0, 1.0, 0.0])
+    dz, daux = torch.randn(5, 8, generator=g), torch.randn(5, 5, generator=g)
+    before = ttk.tail_backward.launches
+    got = ttk.tail_backward(tc, raw, eps, k, dz, daux)
+    want = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ttk.tail_backward.launches == before
+    with pytest.raises(ValueError):
+        ttk.tail_backward(tc, raw, eps, k, dz[:, :7], daux)
+    with pytest.raises(ValueError):
+        ttk.tail_backward(tc, raw, eps, k[:2], dz, daux)
+
+
 def test_capability_predicate():
     sup = [ttk.component_supported(c) for c in t_parse(
         "h2,s2,e2,s3,s2:wrapped,d2,u2,h33")]
@@ -126,8 +300,34 @@ def test_kernel_matches_plain_version_on_card(cuda_device, batch):
     torch.cuda.synchronize()
     assert bool(((z - z_r).abs() <= 1e-5 * (1 + z_r.abs())).all())
     assert float((aux - aux_r).abs().max()) <= 1e-4
-    with pytest.raises(RuntimeError):  # forward only
-        ttk.tail_forward(comps, raw.requires_grad_(), eps, k)
+    # an input that needs a gradient goes through the same kernel
+    z_g, _ = ttk.tail_forward(comps, raw.requires_grad_(), eps, k)
+    assert torch.equal(z_g, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [128, 1000])
+def test_backward_kernel_matches_plain_version_on_card(cuda_device, batch):
+    """B3 against autograd through the plain forward, at heads of the
+    magnitude training produces (|raw| ~ N(0, 1)), where the float32 plain
+    backward resolves every row; the float32 backward contract."""
+    comps = tuple(t_parse("h2,s2,e2", fixed_curvature=False))
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    for kset in ((-1.0, 1.0, 0.0), (-1e-2, 1e-2, 0.0)):
+        raw = torch.randn(batch, 11, generator=gen, device=cuda_device)
+        eps = ttk.draw_noise(comps, (batch,), raw, gen)
+        k = torch.tensor(kset, device=cuda_device)
+        dz = torch.randn(batch, 8, generator=gen, device=cuda_device)
+        daux = torch.randn(batch, 5, generator=gen, device=cuda_device)
+        before = ttk.tail_backward.launches
+        draw, dk = ttk.tail_backward(comps, raw, eps, k, dz, daux)
+        draw_r, dk_r = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
+        torch.cuda.synchronize()
+        assert ttk.tail_backward.launches == before + 1
+        assert bool(((draw - draw_r).abs()
+                     <= 1e-3 * draw_r.abs() + 5e-4).all())
+        dks, dks_r = dk.sum(0), dk_r.sum(0)
+        assert bool(((dks - dks_r).abs() <= 2e-3 * dks_r.abs() + 5e-4).all())
 
 
 @pytest.fixture

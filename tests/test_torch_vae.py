@@ -133,29 +133,30 @@ def _dataset(n_test=40):
                         True)
 
 
-def _trainer(**tc):
+def _trainer(run_dir, **tc):
     cfg = tvae.VAEConfig(parse_components(SPEC), (8, 8), h_dim=16)
     return Trainer(cfg, _dataset(), TrainConfig(eval_batch_size=16,
                                                 likelihood_n=6, **tc),
-                   device="cpu")
+                   run_dir=str(run_dir), device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["dynamic", "fixed"])
-def test_trainer_eval_on_cpu(mode):
-    tr = _trainer(eval_binarize=mode)
+def test_trainer_eval_on_cpu(mode, tmp_path):
+    tr = _trainer(tmp_path, eval_binarize=mode)
     stats = tr.evaluate_elbo("test")
     ll = tr.evaluate_log_likelihood("test")
     assert np.isfinite(stats["elbo"]) and np.isfinite(ll)
     assert set(stats) >= {"elbo", "bce", "kl", "kl/h2#0", "curvature/s2#1"}
     assert ll > stats["elbo"] - 50.0
     # a new trainer from the same seed repeats the pass draw for draw
-    tr2 = _trainer(eval_binarize=mode)
+    tr2 = _trainer(tmp_path, eval_binarize=mode)
     assert tr2.evaluate_elbo("test") == stats
     assert tr2.evaluate_log_likelihood("test") == ll
     assert tr.evaluate_log_likelihood("test", max_examples=10,
                                       repeats=2) < 0.0
-    with pytest.raises(NotImplementedError):
-        tr.fit()
+    # evaluation takes no optimizer step and leaves no gradients
+    assert tr.step == 0 and not tr.opt.state
+    assert all(cp["w_mu"].grad is None for cp in tr.params["components"])
 
 
 def test_fixed_binarization_is_independent_of_batching():
@@ -169,17 +170,23 @@ def test_fixed_binarization_is_independent_of_batching():
     assert not torch.equal(whole, binarize_rows(8, rows, x, True))
 
 
-def test_cli_eval_only_on_cpu(capsys):
-    result = cli.main(["--dataset", "bdp", "--model", SPEC, "--h_dim", "16",
-                       "--likelihood_n", "4", "--ll_max_examples", "16",
-                       "--eval_only", "--device", "cpu"])
+def test_cli_eval_only_on_cpu(capsys, tmp_path):
+    """--eval_only restores the run's latest checkpoint (and refuses a run
+    directory that has none), then prints the test ELBO and IWAE LL."""
+    args = ["--dataset", "bdp", "--model", SPEC, "--h_dim", "16",
+            "--likelihood_n", "4", "--ll_max_examples", "16", "--device",
+            "cpu", "--run_dir", str(tmp_path)]
+    with pytest.raises(FileNotFoundError):
+        cli.main(args + ["--eval_only"])
+    cli.main(args + ["--epochs", "1"])
+    result = cli.main(args + ["--eval_only"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["test/log_likelihood_iwae"] == result[
         "test/log_likelihood_iwae"]
     assert np.isfinite(line["test/elbo"])
     assert line["fused_paths"]["train_tail"]["active"]
     with pytest.raises(NotImplementedError):
-        cli.main(["--dataset", "bdp", "--device", "cpu"])
+        cli.main(args + ["--generate", "4"])
 
 
 # --- the spec DSL, on the strings of tests/components TestSpecParser --------
