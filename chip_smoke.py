@@ -7,7 +7,8 @@ Phases:
  1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
     full-f32 matmuls (TF32 off);
  2. build every kernel of ``mvae_torch/kernels/csrc`` with nvcc (parallel:
-    B1 tail_fwd, B2 decode_bce, B3 tail_bwd, B6 train_decode);
+    B1 tail_fwd, B2 decode_bce, B3 tail_bwd, B6 train_decode,
+    B5 reparam_stereo; B4a lives in the header B1 and B3 share);
  3. the tail kernel (tail_fwd.cu) against ``tail_forward_ref`` at the
     flagship product h2,s2,e2, B = 512 and B = 1000 (ragged), random heads
     with large-|mu| rows and curvatures that put rows on both sides of the
@@ -37,7 +38,31 @@ Phases:
     versions, on the same weights and generator seed (and the gap of two
     runs left to run apart, printed beside its rounding-level floor);
 11. a checkpoint saved on the card and restored into a fresh Trainer;
-12. one JSON line of kernel numbers, then the result line.
+12. the stereographic tile (B4a) inside B1 and B3 against the plain
+    versions for the tables of d2,p2,e2, u6 and p6 at B = 512 and B = 128:
+    curvatures +-1 and +-1e-3 (for u also 0), rows with a saturated sigma
+    cap, with mu_tan = 0 and eps = 0, and a point at the ball's rim;
+13. the IWAE chunk reparam kernel (reparam_stereo.cu, B5) against
+    ``wrapped_reparam_stereo_ref`` at (S, B, n) = (125, 512, 2) and
+    (125, 512, 6), signs -1, 0, +1, wraps 0 and 1;
+14. the stereographic family end to end, d2,p2,e2 at h_dim 400 with
+    learnable curvature: test ELBO and IWAE-500 over the 10,000-example
+    test split through B1 (+B4a), B5 and B2 with launch counts (20, 160,
+    80), recomputed on the same noise with the plain versions (pass means
+    and per example); one training epoch of 468 steps at batch 128 with
+    burn-in off so that both curvatures move (B1 and B3 once per step);
+    the plain replay of phase 10 (one step's gradients, 50 same-state
+    steps); profiles of the IWAE pass and of a training epoch;
+15. u6 at h_dim 400: two runs of 150 steps from K = +1e-3 and K = -1e-3
+    (finite losses on both sides of K = 0) and IWAE-500 on 1,024 examples
+    through the sign-0 instance of B4a and B5;
+16. one JSON line of kernel numbers, then the result line.
+
+Where float32 does not resolve a value (a point at the K < 0 ball's rim,
+a radius within an ulp of the K > 0 injectivity shell), the stereographic
+checks apply the rule stated for B3 below: such entries must be finite and
+no farther from the float64 plain version than ten times the float32 plain
+version is.
 
 B3 is held to the float32 backward contract of the reference (rtol 1e-3,
 atol 5e-4 on the raw gradient; rtol 2e-3 on the batch-summed curvature
@@ -74,7 +99,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from mvae_torch import TrainConfig, Trainer, VAEConfig, parse_components
 from mvae_torch.data import load_mnist
-from mvae_torch.kernels import _build, decoder_kernels, tail_kernels
+from mvae_torch.kernels import (_build, decoder_kernels, manifold_kernels,
+                                tail_kernels)
 from mvae_torch.models import vae
 from mvae_torch.train.trainer import _leaves
 
@@ -83,9 +109,17 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 SPEC = "h2,s2,e2"
+STEREO_SPEC = "d2,p2,e2"
 # rough per-row arithmetic of the tail tiles (transcendentals count one op)
 _TAIL_OPS = {"normal": lambda n: 12 * n, "wrapped": lambda n: 30 * n + 80,
-             "vmf": lambda n: 120}
+             "vmf": lambda n: 120, "stereo": lambda n: 40 * n + 500}
+
+
+def _tail_ops(comps) -> int:
+    """Rough arithmetic of one row of the product's tail."""
+    return sum(_TAIL_OPS["stereo" if (c.posterior == "wrapped"
+                                      and c.manifold.kind in "dpu")
+                         else c.posterior](c.dim) for c in comps)
 
 
 def check(cond: bool, what: str) -> None:
@@ -173,7 +207,20 @@ def profile_pass(what: str, fn, layers: bool = False) -> float:
     return busy / wall
 
 
+def _plain_reparam(eps, mu, sigma, k, wraps=1, sign=0, out=None, z_off=0):
+    """``wrapped_reparam_stereo_ref`` behind the kernel wrapper's interface
+    (z written into the caller's buffer)."""
+    z, lq, lp = manifold_kernels.wrapped_reparam_stereo_ref(
+        eps, mu, sigma, k, wraps=wraps, sign=sign)
+    if out is None:
+        return z, lq, lp
+    zt = out[:, z_off:z_off + z.shape[1]]
+    zt.copy_(z)
+    return zt, lq, lp
+
+
 _PLAIN = ((tail_kernels, "tail_forward", tail_kernels.tail_forward_ref),
+          (manifold_kernels, "wrapped_reparam_stereo_t", _plain_reparam),
           (tail_kernels, "tail_backward", tail_kernels.tail_backward_ref),
           (decoder_kernels, "fused_decode_bce_t",
            decoder_kernels.decode_bce_ref),
@@ -277,7 +324,7 @@ def phase_tail(comps, gen) -> dict:
         lambda: tail_kernels.tail_forward_ref(comps, raw, eps, k), 50)
     Z = z.shape[1]
     nbytes = 4 * (raw.numel() + eps.numel() + nc + B * Z + B * (nc + 2))
-    ops = B * sum(_TAIL_OPS[c.posterior](c.dim) for c in comps)
+    ops = B * _tail_ops(comps)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     print(f"[tail_fwd] max err {worst:.3g}; B=512: kernel device "
@@ -376,24 +423,32 @@ def per_example_check(cfg, trainer, n_samples: int) -> None:
           "per-example ELBO and IWAE LL match the plain versions")
 
 
-def phase_end_to_end() -> dict:
+def phase_end_to_end(spec: str = SPEC) -> dict:
+    """Test ELBO and IWAE-500 of ``spec`` at full width over the test
+    split through the kernels, with launch counts, against the plain
+    versions on the same noise."""
     ds = load_mnist()
-    cfg = VAEConfig(parse_components(SPEC, fixed_curvature=False),
+    cfg = VAEConfig(parse_components(spec, fixed_curvature=False),
                     ds.data_shape, "mlp", h_dim=400)
     tc = TrainConfig(seed=0)
     trainer = Trainer(cfg, ds, tc)
+    n_reparam = sum(c.posterior == "wrapped" and c.manifold.kind in "dpu"
+                    for c in cfg.components)
     check(trainer.fused_paths["train_tail"]["active"]
-          and trainer.fused_paths["iwae_decoder"]["active"],
-          f"both kernels routed: {trainer.fused_paths}")
+          and trainer.fused_paths["iwae_decoder"]["active"]
+          and sum(r["active"] for r in trainer.fused_paths["iwae_reparam"])
+          == n_reparam, f"the kernels are routed: {trainer.fused_paths}")
     n = len(ds.test)
     _evaluate(trainer, 1)  # warm-up pass (cuBLAS handles, allocator)
 
-    tail_kernels.tail_forward.launches = 0
-    decoder_kernels.fused_decode_bce_t.launches = 0
+    counted = {"tail_fwd": tail_kernels.tail_forward,
+               "decode_bce": decoder_kernels.fused_decode_bce_t,
+               "reparam_stereo": manifold_kernels.wrapped_reparam_stereo_t}
+    for fn in counted.values():
+        fn.launches = 0
     elbo, ll, t_elbo, t_ll = _evaluate(trainer, tc.seed)
-    launches = {"tail_fwd": tail_kernels.tail_forward.launches,
-                "decode_bce": decoder_kernels.fused_decode_bce_t.launches}
-    print(f"[e2e] {SPEC} h_dim 400 on {n} test examples "
+    launches = {name: fn.launches for name, fn in counted.items()}
+    print(f"[e2e] {spec} h_dim 400 on {n} test examples "
           f"({'synthetic' if ds.synthetic else 'real'} MNIST): ELBO {elbo:.4f} "
           f"in {t_elbo:.3f} s ({n / t_elbo:.0f} ex/s); IWAE-"
           f"{tc.likelihood_n} LL {ll:.4f} in {t_ll:.3f} s "
@@ -401,6 +456,9 @@ def phase_end_to_end() -> dict:
     check(math.isfinite(elbo) and math.isfinite(ll), "finite ELBO and LL")
     check(launches["tail_fwd"] >= 20, "tail kernel launched >= 20 times")
     check(launches["decode_bce"] >= 80, "decode kernel launched >= 80 times")
+    check(launches["reparam_stereo"] == 80 * n_reparam,
+          f"chunk reparam kernel launched {80 * n_reparam} times "
+          "(20 batches x 4 chunks x its components)")
 
     with plain_kernels():
         elbo_p, ll_p, t_elbo_p, t_ll_p = _evaluate(trainer, tc.seed)
@@ -411,10 +469,12 @@ def phase_end_to_end() -> dict:
     check(abs(ll - ll_p) <= 1e-3, "IWAE LL matches the plain versions")
     per_example_check(cfg, trainer, tc.likelihood_n)
 
-    profile_pass("ELBO pass, 10000 examples",
+    profile_pass(f"{spec} ELBO pass, 10000 examples",
                  lambda: trainer.evaluate_elbo("test"))
-    profile_pass("IWAE-500 pass, 1024 examples",
+    profile_pass(f"{spec} IWAE-500 pass, 1024 examples",
                  lambda: trainer.evaluate_log_likelihood("test", 1024))
+    profile_pass(f"{spec} IWAE-500 pass, 10000 examples",
+                 lambda: trainer.evaluate_log_likelihood("test"))
     return launches
 
 
@@ -491,7 +551,7 @@ def phase_tail_bwd(comps, gen) -> dict:
     W, E, Z = tail_kernels._dims(comps)
     nc = len(comps)
     nbytes = 4 * (B * (W + E + Z + nc + 2) + nc + B * (W + nc))
-    ops = 3 * B * sum(_TAIL_OPS[c.posterior](c.dim) for c in comps)
+    ops = 3 * B * _tail_ops(comps)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     print(f"[tail_bwd] max err {worst:.3g} ({worst_ratio:.3g} of tol); "
@@ -565,8 +625,9 @@ def phase_train_decode(gen) -> dict:
             "library_ms": lib_ms}
 
 
-def _flagship(ds, run_dir, **tc) -> Trainer:
-    cfg = VAEConfig(parse_components(SPEC, fixed_curvature=False),
+def _flagship(ds, run_dir, spec=SPEC, **tc) -> Trainer:
+    """A full-width (h_dim 400) trainer with learnable curvature."""
+    cfg = VAEConfig(parse_components(spec, fixed_curvature=False),
                     ds.data_shape, "mlp", h_dim=400)
     return Trainer(cfg, ds, TrainConfig(**tc), run_dir)
 
@@ -696,9 +757,11 @@ def _free_run(ds, tmp, name, kern_b6, kern_kernels, perm, steps=50):
     return worst
 
 
-def phase_replay(ds, tmp) -> None:
-    """Training through the kernels (B1, B3, B6 on) against the plain
-    versions (B6 off, autograd decode), from the same weights and seed.
+def phase_replay(ds, tmp, spec: str = SPEC, b6: bool = True,
+                 free_run: bool = True) -> None:
+    """Training of ``spec`` through the kernels (B1, B3, and B6 when
+    ``b6``) against the plain versions (B6 off, autograd decode), from the
+    same weights and seed.
 
     The per-step check is teacher-forced: before each of the 50 steps the
     plain trainer takes the kernel trainer's parameters, Adam state and
@@ -707,12 +770,12 @@ def phase_replay(ds, tmp) -> None:
     between them at the rounding level (Adam's normalized step amplifies
     it): that gap is printed with the same gap between two plain runs that
     differ only in the summation order of the decoder's backward."""
-    kern = _flagship(ds, f"{tmp}/rk", seed=5, burnin_epochs=0)
-    plain = _flagship(ds, f"{tmp}/rp", seed=5, burnin_epochs=0)
+    kern = _flagship(ds, f"{tmp}/rk{spec}", spec, seed=5, burnin_epochs=0)
+    plain = _flagship(ds, f"{tmp}/rp{spec}", spec, seed=5, burnin_epochs=0)
     gen = torch.Generator(device="cuda").manual_seed(9)
     x = (kern._train_data[:128] > 0.5).float()
     noise = tail_kernels.draw_noise(kern.model_cfg.components, (128,), x, gen)
-    with train_decoder(True):
+    with train_decoder(b6):
         gk = _grads(kern, x, noise)
     with train_decoder(False), plain_kernels():
         gp = _grads(plain, x, noise)
@@ -720,7 +783,7 @@ def phase_replay(ds, tmp) -> None:
     for a, b in zip(gk, gp):
         worst = max(worst, ((a - b).abs() / (1e-3 * b.abs() + 5e-4)).max()
                     .item())
-    print(f"[replay] one step, every parameter's gradient: max "
+    print(f"[replay] {spec}: one step, every parameter's gradient: max "
           f"{worst:.3g} of (rtol 1e-3, atol 5e-4)")
     check(worst <= 1.0, "one-step gradients match the plain versions")
     bs = kern.tc.batch_size
@@ -733,7 +796,7 @@ def phase_replay(ds, tmp) -> None:
         plain._load_state(_leaves(kern.params),
                           copy.deepcopy(kern.opt.state_dict()), kern.step,
                           kern.generator.get_state())
-        with train_decoder(True):
+        with train_decoder(b6):
             sk = kern._train_step(xb)
         with train_decoder(False), plain_kernels():
             sp = plain._train_step(xb)
@@ -742,10 +805,12 @@ def phase_replay(ds, tmp) -> None:
                          .item() for a, b in zip(_leaves(kern.params),
                                                  _leaves(plain.params))))
     dmax = torch.stack(dl).max().item()
-    print(f"[replay] 50 steps, each from the same state: max |d loss| "
+    print(f"[replay] {spec}: 50 steps, each from the same state: max |d loss| "
           f"{dmax:.3g} nats, max parameter change apart {dp:.3g} (relative "
           f"to each tensor's largest entry)")
     check(dmax <= 0.05, "50 steps' losses within 0.05 nats of the plain run")
+    if not free_run:
+        return
     free = _free_run(ds, tmp, "fk", True, True, perm)
     floor = _free_run(ds, tmp, "fp", True, False, perm)
     print(f"[replay] 50 steps left to run apart: max |d loss| kernels vs "
@@ -774,6 +839,346 @@ def phase_checkpoint(trainer, ds, tmp) -> None:
           f"restored equal")
 
 
+# --- the stereographic family: B4a inside B1 / B3, B5, d2,p2,e2 and u6 ---------
+
+
+def held(ours, ref, ref64, tol, what: str) -> tuple[float, float]:
+    """``ours`` within ``tol`` of the float32 plain version ``ref`` on every
+    entry float32 resolves (``ref`` within a tenth of ``tol`` of its float64
+    evaluation ``ref64``); elsewhere finite and no farther from float64 than
+    ten times the plain version. Returns the worst share of ``tol`` used
+    and the largest absolute error, both on the resolved entries."""
+    check(bool(torch.isfinite(ours).all()), f"{what}: finite")
+    plain_err = (ref.double() - ref64).abs()
+    res = plain_err <= 0.1 * tol
+    frac = res.double().mean().item()
+    check(frac >= 0.5, f"{what}: float32 resolves most entries ({frac:.3f})")
+    ratio = ((ours - ref).abs() / tol)[res].max().item()
+    check(ratio <= 1.0, f"{what}: within tolerance on resolved entries "
+                        f"({ratio:.3g} of it, {frac:.4f} resolved)")
+    far = ((ours.double() - ref64).abs() / (plain_err + tol)).max().item()
+    check(far <= 10.0, f"{what}: unresolved entries no farther from float64 "
+                       f"than 10x the plain version ({far:.3g})")
+    return ratio, (ours - ref).abs()[res].max().item()
+
+
+def _stereo_inputs(comps, B, kset, gen):
+    """Heads of the size training produces, with the rows the tile's guards
+    exist for: every 13th |mu| large, row 1 mu_tan = 0 and eps = 0, every
+    17th row (from row 2) a sigma beyond the cap where K > 0, row 3 pushed
+    to the ball's rim."""
+    W, _, Z = tail_kernels._dims(comps)
+    nc = len(comps)
+    raw = 0.5 * torch.randn(B, W, generator=gen, device="cuda")
+    eps = tail_kernels.draw_noise(comps, (B,), raw, gen)
+    off = 0
+    for c, kc in zip(comps, kset):
+        mu_cols = slice(off, off + c.dim)
+        sig_cols = slice(off + c.dim, off + c.head_width)
+        raw[::13, mu_cols] *= 4.0
+        raw[2::17, sig_cols] += 7.0 if kc > 0 else 1.0
+        raw[3, mu_cols] = 40.0
+        off += c.head_width
+    raw[1] = 0.0
+    eps[1] = 0.0
+    k = torch.tensor(kset, device="cuda")
+    dz = torch.randn(B, Z, generator=gen, device="cuda")
+    daux = torch.randn(B, nc + 2, generator=gen, device="cuda")
+    return raw, eps, k, dz, daux
+
+
+_STEREO_CASES = (
+    (STEREO_SPEC, ((-1.0, 1.0, 0.0), (-1e-3, 1e-3, 0.0), (-0.3, 2.5, 0.0))),
+    ("u6", ((1.0,), (-1.0,), (1e-3,), (-1e-3,), (0.0,))),
+    ("p6", ((1.0,), (1e-3,))))
+
+
+def phase_stereo_tail(gen) -> list[dict]:
+    """B4a: the stereographic tile inside B1 and B3 against the plain
+    versions, then the two kernels' times at the d2,p2,e2 product."""
+    worst_f = worst_b = err_f = err_b = 0.0
+    for spec, ksets in _STEREO_CASES:
+        comps = tuple(parse_components(spec, fixed_curvature=False))
+        for B in (512, 128):
+            for kset in ksets:
+                args = _stereo_inputs(comps, B, kset, gen)
+                a64 = [t.double() for t in args]
+                what = f"{spec} B={B} k={kset}"
+                z, aux = tail_kernels.tail_forward(comps, *args[:3])
+                z_r, aux_r = tail_kernels.tail_forward_ref(comps, *args[:3])
+                z64, aux64 = tail_kernels.tail_forward_ref(comps, *a64[:3])
+                draw, dk = tail_kernels.tail_backward(comps, *args)
+                pr, pk = tail_kernels.tail_backward_ref(comps, *args)
+                p64, pk64 = tail_kernels.tail_backward_ref(comps, *a64)
+                torch.cuda.synchronize()
+                rz, ez = held(z, z_r, z64, 1e-5 * (1 + z_r.abs()),
+                              f"B4a z at {what}")
+                ra, ea = held(aux, aux_r, aux64,
+                              1e-4 * (1 + 1e-2 * aux_r.abs()),
+                              f"B4a log-densities at {what}")
+                rf = max(rz, ra)
+                tol = 1e-3 * pr.abs() + 5e-4
+                rb, eb = held(draw, pr, p64, tol,
+                              f"B4a raw gradient at {what}")
+                err_f, err_b = max(err_f, ez, ea), max(err_b, eb)
+                # the curvature gradient is held as the reference holds it,
+                # summed over the batch (a row's own value cancels terms of
+                # size 1 / K): over the rows float32 resolves in both; by
+                # row it must be as near float64 as the plain version
+                ktol = 2e-3 * pk.abs() + 5e-4
+                check(bool(torch.isfinite(dk).all()),
+                      f"B4a curvature gradient finite at {what}")
+                kfar = ((dk.double() - pk64).abs()
+                        / ((pk.double() - pk64).abs() + ktol)).max().item()
+                check(kfar <= 10.0, f"B4a curvature gradient by row no "
+                                    f"farther from float64 than 10x the "
+                                    f"plain version at {what}: {kfar:.3g}")
+                res = (((pr.double() - p64).abs() <= 0.1 * tol).all(1)
+                       & ((pk.double() - pk64).abs() <= 0.1 * ktol).all(1))
+                dks, pks = dk[res].sum(0), pk[res].sum(0)
+                kr = ((dks - pks).abs() / (2e-3 * pks.abs() + 5e-4)).max() \
+                    .item()
+                check(kr <= 1.0, f"B4a curvature gradient within rtol 2e-3 "
+                                 f"at {what}: {kr:.3g} (kernel {dks.tolist()}, "
+                                 f"plain {pks.tolist()}, float64 "
+                                 f"{pk64[res].sum(0).tolist()})")
+                worst_f, worst_b = max(worst_f, rf), max(worst_b, rb, kr)
+                print(f"[stereo_tile] {what}: forward {rf:.3g} of tol, "
+                      f"backward {rb:.3g}, curvature {kr:.3g} "
+                      f"({int(res.sum())}/{B} rows resolved)")
+    out = []
+    for spec in (STEREO_SPEC, "u6"):
+        comps = tuple(parse_components(spec, fixed_curvature=False))
+        kset = (-1.0, 1.0, 0.0) if spec == STEREO_SPEC else (0.5,)
+        W, E, Z = tail_kernels._dims(comps)
+        nc = len(comps)
+        f = _stereo_inputs(comps, 512, kset, gen)
+        b = _stereo_inputs(comps, 128, kset, gen)
+        fwd_dev, fwd_call = kernel_ms(
+            lambda: tail_kernels.tail_forward(comps, *f[:3]), 500,
+            "tail_fwd_kernel")
+        bwd_dev, bwd_call = kernel_ms(
+            lambda: tail_kernels.tail_backward(comps, *b), 500,
+            "tail_bwd_kernel")
+        fwd_plain = time_ms(
+            lambda: tail_kernels.tail_forward_ref(comps, *f[:3]), 20)
+        bwd_plain = time_ms(
+            lambda: tail_kernels.tail_backward_ref(comps, *b), 10)
+        rows = []
+        for name, B, dev, call, plain, nbytes, ops, err in (
+                ("stereo_tile_fwd", 512, fwd_dev, fwd_call, fwd_plain,
+                 4 * (512 * (W + E + Z + nc + 2) + nc), 512 * _tail_ops(comps),
+                 err_f),
+                ("stereo_tile_bwd", 128, bwd_dev, bwd_call, bwd_plain,
+                 4 * (128 * (W + E + Z + nc + 2) + nc + 128 * (W + nc)),
+                 3 * 128 * _tail_ops(comps), err_b)):
+            ms = call if dev is None else dev
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+            print(f"[stereo_tile] {spec} {name} at B={B}: kernel device "
+                  f"{ms * 1e3:.2f} us (events {call * 1e3:.2f} us), plain "
+                  f"{plain * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.4f} us "
+                  f"({nbytes} B), ops bound {ops_ms * 1e3:.4f} us")
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "mvae_torch/kernels/csrc/tail_tiles.cuh"
+                if name.endswith("fwd")
+                else "mvae_torch/kernels/csrc/tail_bwd.cu",
+                "replaces": "mvae_tpu/kernels/tail_kernels.py:462",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None})
+        if spec == STEREO_SPEC:
+            out = rows
+    print(f"[stereo_tile] worst share of the tolerance: forward "
+          f"{worst_f:.3g}, backward {worst_b:.3g}; largest error on resolved "
+          f"entries: forward {err_f:.3g}, backward {err_b:.3g}")
+    return out
+
+
+def phase_reparam(gen) -> dict:
+    """B5 against its plain version, then its time at the IWAE chunk of
+    d2,p2,e2 (one component: S = 125, B = 512, n = 2)."""
+    S, B = 125, 512
+    worst = err = 0.0
+    keep = None
+    for n in (2, 6):
+        for sign, kval in ((-1, -1.0), (-1, -1e-3), (0, -0.5), (0, 0.0),
+                           (0, 1e-3), (0, 0.9), (1, 1.0), (1, 1e-3)):
+            for wraps in (0, 1):
+                noise = torch.randn(S, B, n + 2, generator=gen, device="cuda")
+                eps = noise[..., 1:1 + n]        # a view of a wider block
+                k = torch.tensor(kval, device="cuda")
+                mu = _stereo_mu(B, n, k, kval, gen)
+                sig = 0.2 + torch.rand(B, n, generator=gen, device="cuda")
+                out = torch.zeros(S, n + 2, B, device="cuda")
+                zt, lq, lp = manifold_kernels.wrapped_reparam_stereo_t(
+                    eps, mu, sig, k, wraps=wraps, sign=sign, out=out, z_off=1)
+                z_r, lq_r, lp_r = manifold_kernels.wrapped_reparam_stereo_ref(
+                    eps, mu, sig, k, wraps=wraps, sign=sign)
+                z64, lq64, lp64 = manifold_kernels.wrapped_reparam_stereo_ref(
+                    eps.double(), mu.double(), sig.double(), k.double(),
+                    wraps=wraps, sign=sign)
+                torch.cuda.synchronize()
+                what = f"B5 n={n} sign={sign} k={kval} wraps={wraps}"
+                check(bool((out[:, 0] == 0).all()
+                           and (out[:, 1 + n:] == 0).all()),
+                      f"{what}: writes only its rows of the buffer")
+                for ours, ref, ref64, tol, name in (
+                        (zt, z_r, z64, 1e-5 * (1 + z_r.abs()), "z"),
+                        (lq, lq_r, lq64, 1e-4 * (1 + 1e-2 * lq_r.abs()),
+                         "log q"),
+                        (lp, lp_r, lp64, 1e-4 * (1 + 1e-2 * lp_r.abs()),
+                         "log p")):
+                    r, e = held(ours, ref, ref64, tol, f"{what} {name}")
+                    worst, err = max(worst, r), max(err, e)
+                if (n, sign, wraps) == (2, 1, 1) and kval == 1.0:
+                    keep = (eps, mu, sig, k, out)
+    print(f"[reparam_stereo] 32 cases at (S, B) = (125, 512): worst share of "
+          f"the tolerance {worst:.3g}, largest error on resolved entries "
+          f"{err:.3g}")
+    eps, mu, sig, k, out = keep
+    n = 2
+    dev_ms, call_ms = kernel_ms(
+        lambda: manifold_kernels.wrapped_reparam_stereo_t(
+            eps, mu, sig, k, wraps=1, sign=1, out=out, z_off=1), 500,
+        "reparam_stereo_kernel")
+    ms = call_ms if dev_ms is None else dev_ms
+    plain_ms = time_ms(lambda: manifold_kernels.wrapped_reparam_stereo_ref(
+        eps, mu, sig, k, wraps=1, sign=1), 20)
+    for sign, kval, nn in ((-1, -1.0, 2), (0, 0.5, 6)):
+        kk = torch.tensor(kval, device="cuda")
+        e2 = torch.randn(S, B, nn, generator=gen, device="cuda")
+        m2 = _stereo_mu(B, nn, kk, kval, gen)
+        s2 = 0.2 + torch.rand(B, nn, generator=gen, device="cuda")
+        d2, c2 = kernel_ms(
+            lambda: manifold_kernels.wrapped_reparam_stereo_t(
+                e2, m2, s2, kk, wraps=1, sign=sign), 200,
+            "reparam_stereo_kernel")
+        print(f"[reparam_stereo] n={nn} sign={sign}: kernel device "
+              f"{(c2 if d2 is None else d2) * 1e3:.2f} us (events "
+              f"{c2 * 1e3:.2f} us)")
+    nbytes = 4 * (2 * S * B * n + 2 * B * n + 1 + 2 * S * B)
+    ops = S * B * _TAIL_OPS["stereo"](n)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    print(f"[reparam_stereo] (S, B, n) = (125, 512, 2), sign +1, wraps 1: "
+          f"kernel device {ms * 1e3:.2f} us (events {call_ms * 1e3:.2f} us), "
+          f"plain {plain_ms * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.3f} "
+          f"us ({nbytes} B), ops bound {ops_ms * 1e3:.3f} us")
+    return {"name": "reparam_stereo", "route": "cuda",
+            "source": "mvae_torch/kernels/csrc/reparam_stereo.cu",
+            "replaces": "mvae_tpu/kernels/manifold_kernels.py:563",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
+def _stereo_mu(B, n, k, kval, gen):
+    """Posterior means on the manifold, inside the K < 0 ball."""
+    from mvae_torch.ops import stereographic
+    v = 0.3 * torch.randn(B, n, generator=gen, device="cuda")
+    return stereographic.exp_map_mu0(v / max(abs(kval), 1.0) ** 0.5, k)
+
+
+def phase_stereo_train(ds, tmp) -> dict:
+    """One epoch of d2,p2,e2 at full width with burn-in off: B1 and B3 (with
+    the stereographic tile) once per step, both curvatures move."""
+    trainer = _flagship(ds, f"{tmp}/stereo", STEREO_SPEC, seed=0, epochs=1,
+                        burnin_epochs=0)
+    with torch.no_grad():
+        k0 = {n: float(c.curvature(cp)) for n, c, cp in zip(
+            trainer.component_names, trainer.model_cfg.components,
+            trainer.params["components"])}
+    check(trainer.fused_paths["train_tail"]["active"],
+          f"training routed through B1/B3: {trainer.fused_paths}")
+    counted = {"tail_fwd": tail_kernels.tail_forward,
+               "tail_bwd": tail_kernels.tail_backward,
+               "reparam_stereo": manifold_kernels.wrapped_reparam_stereo_t}
+    for fn in counted.values():
+        fn.launches = 0
+    result = trainer.fit(verbose=True, ll_max_examples=1024)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    steps = trainer.step
+    rec = result["history"][0]
+    print(f"[train] {STEREO_SPEC} h_dim 400, batch 128, {steps} steps: "
+          f"{result['train_steps_per_sec']:.1f} train steps/s (first epoch, "
+          f"warm-up included), train ELBO {rec['train/elbo']:.4f}, IWAE-500 "
+          f"on 1024 test examples {result['test/log_likelihood_iwae']:.4f}; "
+          f"launches {launches}")
+    check(all(math.isfinite(v) for v in rec.values()),
+          "finite statistics of the d2,p2,e2 epoch")
+    check(math.isfinite(result["test/log_likelihood_iwae"]), "finite IWAE")
+    check(launches["tail_bwd"] == steps, "B3 launched once per step")
+    check(launches["tail_fwd"] >= steps, "B1 launched at least once a step")
+    check(launches["reparam_stereo"] == 2 * 4 * 2,
+          "B5 launched 2 batches x 4 chunks x 2 components in the final IWAE")
+    for n in ("d2#0", "p2#1"):
+        check(rec[f"train/curvature/{n}"] != k0[n],
+              f"curvature {n} moves with burn-in off")
+    print(f"[train] curvature K {k0} -> "
+          f"{ {n: rec[f'train/curvature/{n}'] for n in k0} }")
+    rates = [_epoch_rate(trainer, 10 + i) for i in range(2)]
+    print(f"[train] {STEREO_SPEC} steps/s by epoch: "
+          + ", ".join(f"{r:.1f}" for r in rates))
+    profile_pass(f"{STEREO_SPEC} train epoch ({trainer.steps_per_epoch} "
+                 f"steps)", lambda: trainer.train_one_epoch(20), layers=True)
+    return launches
+
+
+def phase_u6(ds, tmp) -> None:
+    """u6 at full width: 150 steps from K = +1e-3 and from K = -1e-3 with
+    burn-in off, so the universal tile runs on both sides of K = 0 (and
+    through it in the run whose gradient points there), then IWAE-500 on
+    1,024 test examples through the sign-0 instance of B5."""
+    crossed = 0
+    for name, k_init in (("pos", 1e-3), ("neg", -1e-3)):
+        trainer = _flagship(ds, f"{tmp}/u6{name}", "u6", seed=0,
+                            burnin_epochs=0, init_k=k_init)
+        check(trainer.fused_paths["train_tail"]["active"]
+              and trainer.fused_paths["iwae_reparam"][0]["active"],
+              f"u6 routed through the kernels: {trainer.fused_paths}")
+        c = trainer.params["components"][0]["c_param"]
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        perm = torch.randperm(len(trainer._train_data), device="cuda",
+                              generator=gen)
+        bs = trainer.tc.batch_size
+        counted = (tail_kernels.tail_forward, tail_kernels.tail_backward,
+                   manifold_kernels.wrapped_reparam_stereo_t)
+        for fn in counted:
+            fn.launches = 0
+        elbos, ks = [], []
+        for s in range(150):
+            stats = trainer._train_step(
+                trainer._train_data[perm[s * bs:(s + 1) * bs]])
+            elbos.append(stats["elbo"])
+            ks.append(c.detach().clone())
+        elbos, ks = torch.stack(elbos), torch.stack(ks)
+        check(bool(torch.isfinite(elbos).all() and torch.isfinite(ks).all()),
+              f"u6 from K={k_init}: finite loss and curvature at every step")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in _leaves(trainer.params)),
+              f"u6 from K={k_init}: finite parameters")
+        check(tail_kernels.tail_forward.launches == 150
+              and tail_kernels.tail_backward.launches == 150,
+              "u6: B1 and B3 launched once per step")
+        ll = trainer.evaluate_log_likelihood("test", 1024)
+        check(math.isfinite(ll), f"u6 from K={k_init}: finite IWAE-500")
+        check(manifold_kernels.wrapped_reparam_stereo_t.launches == 2 * 4,
+              "u6: B5 launched 2 batches x 4 chunks")
+        k_end = ks[-1].item()
+        crossed += (k_end > 0) != (k_init > 0)
+        print(f"[u6] from K={k_init:+.0e}: 150 steps, ELBO "
+              f"{elbos[0].item():.3f} -> {elbos[-1].item():.3f}, K min "
+              f"{ks.min().item():+.3e} max {ks.max().item():+.3e} end "
+              f"{k_end:+.3e}; IWAE-500 on 1024 test examples {ll:.4f}")
+    print(f"[u6] runs that crossed K = 0: {crossed} of 2")
+    profile_pass("u6 IWAE-500 pass, 1024 examples",
+                 lambda: trainer.evaluate_log_likelihood("test", 1024))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -792,10 +1197,21 @@ def main() -> int:
         b6_launches = phase_train_b6(ds, tmp)
         phase_replay(ds, tmp)
         phase_checkpoint(trainer, ds, tmp)
+        kernels += phase_stereo_tail(gen)
+        kernels.append(phase_reparam(gen))
+        stereo_eval = phase_end_to_end(STEREO_SPEC)
+        stereo_train = phase_stereo_train(ds, tmp)
+        phase_replay(ds, tmp, STEREO_SPEC, b6=False, free_run=False)
+        phase_u6(ds, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]
     launches["train_decode"] = b6_launches["train_decode"]
+    # the stereographic tile runs inside B1 and B3: its counts are theirs
+    # on the d2,p2,e2 path (evaluation, then the training epoch)
+    launches["stereo_tile_fwd"] = stereo_eval["tail_fwd"]
+    launches["stereo_tile_bwd"] = stereo_train["tail_bwd"]
+    launches["reparam_stereo"] = stereo_eval["reparam_stereo"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(card)

@@ -9,9 +9,10 @@ vMF, the single-sample estimate ``log q - log p`` otherwise).
 A Component is a static dataclass; its learnable state is a plain dict of
 tensors {w_mu, b_mu, w_sig, b_sig, c_param} inside the model params.
 
-Posterior families ported in this slice: 'normal' on e, 'wrapped' on e/h,
+Posterior families ported so far: 'normal' on e, 'wrapped' on every kind,
 'vmf' on s with dim 2. The spec DSL accepts every family the reference
-has; the others raise ``NotImplementedError`` when sampled.
+has; the others ('vmf' on p or with dim != 2, 'riemannian') raise
+``NotImplementedError`` when sampled.
 """
 from __future__ import annotations
 

@@ -34,10 +34,12 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # and a fused multiply-add would change the rounding of the cancellation-free
 # Lorentz difference forms by more than the comparison tolerance at large
 # hyperbolic radius. The backward recomputes the forward's intermediates,
-# so it takes the same flag to recompute them bit for bit.
+# so it takes the same flag to recompute them bit for bit. The IWAE chunk
+# reparam runs the stereographic tile's draw and is built like it.
 EXTRA_FLAGS = {
     "tail_fwd": ["--fmad=false"],
     "tail_bwd": ["--fmad=false"],
+    "reparam_stereo": ["--fmad=false"],
     "decode_bce": [],
     "train_decode": [],
 }

@@ -6,9 +6,9 @@
 // Replaces the TPU kernel mvae_tpu/kernels/tail_kernels.py::_bwd_pallas,
 // which recomputes the tile under jax.vjp inside the kernel. CUDA has no
 // autodiff, so the reverse sweep of each tile (_tile_normal,
-// _tile_wrapped_lorentz, _tile_vmf) is derived here by hand, following the
-// conventions of the plain version, torch.autograd through
-// tail_kernels.tail_forward_ref:
+// _tile_wrapped_lorentz, _tile_vmf, _tile_wrapped_stereo) is derived here by
+// hand, following the conventions of the plain version, torch.autograd
+// through tail_kernels.tail_forward_ref:
 //  - a clamp passes the whole gradient when its input equals the bound
 //    (torch.clamp), not half of it (jnp.maximum at a tie);
 //  - each side of a series window is differentiated as written: the
@@ -17,11 +17,18 @@
 //    cancels near 0;
 //  - the clips (exp at 85, the vMF cosine at +-(1 - 1e-7), the softplus
 //    branch at 0, the Householder degeneracy guard) gate the gradient
-//    exactly where the forward's branch is taken.
+//    exactly where the forward's branch is taken;
+//  - in the stereographic tile: floor() has no gradient; a branch of the
+//    drawn-radius sum gets its softmax weight when it is live and nothing
+//    when it is masked (the shift of the log-sum-exp is a constant); the
+//    universal kind (sign 0) follows the branch its row's K selects; the
+//    sigma cap, the wrap period and the ball radius carry their curvature
+//    gradients, each gated where its max / min floor is taken.
 //
 // Bound: bytes. Per row it reads W + E + Z + nc + 2 floats and writes
 // W + nc (45 floats at the h2,s2,e2 flagship, ~23 KB at batch 128) and does
-// a few hundred flops; the launch dominates.
+// a few hundred flops (a few thousand with a stereographic component at
+// wraps = 1); the launch dominates.
 //
 // Design: one thread per batch row. The row's forward is recomputed in
 // registers and local memory by the forward tiles of tail_tiles.cuh (the
@@ -115,6 +122,76 @@ __device__ float d_acosh_1p(float u) {
   float g = gy + gp * w;
   if (u >= 0.f) g = g + gp * (u + 2.f);
   return g;
+}
+
+// d/du of poly5
+__device__ __forceinline__ float dpoly5(float u, float c1, float c2, float c3,
+                                        float c4, float c5) {
+  return c1 + u * (2.f * c2 + u * (3.f * c3 + u * (4.f * c4
+                                                  + u * (5.f * c5))));
+}
+
+// d tandiv_u / du
+__device__ float d_tandiv_u(float u, int sign) {
+  if (fabsf(u) < CUTOFF) return dpoly5(u, TANDIV_C);
+  const float su = sqrtf(fabsf(u));
+  float gsu;
+  if (sign > 0 || (sign == 0 && u > 0.f)) {
+    const float tn = tanf(su);
+    gsu = (1.f + tn * tn) / su - tn / (su * su);
+  } else {
+    const float th = tanhf(su);
+    gsu = (1.f - th * th) / su - th / (su * su);
+  }
+  return gsu * sgn_f(u) / (2.f * su);
+}
+
+// d arctandiv_u / dw
+__device__ float d_arctandiv_u(float w, int sign) {
+  if (fabsf(w) < CUTOFF) return dpoly5(w, ARCTANDIV_C);
+  if (sign > 0 || (sign == 0 && w > 0.f)) {
+    if (!(w >= TINY)) return 0.f;
+    const float sw = sqrtf(w);
+    const float gsw = 1.f / ((1.f + sw * sw) * sw) - atanf(sw) / (sw * sw);
+    return gsw / (2.f * sw);
+  }
+  const float q_hi = F((1.0 - 1e-6) * (1.0 - 1e-6));
+  const float q = fminf(fmaxf(-w, TINY), q_hi);
+  const float sw = sqrtf(q);
+  // atanh_clamped(x) = log1p(2 x / (1 - x)) / 2 with x clipped at 1 - eps
+  const float x = fminf(sw, ONE_M_EPS);
+  const float y = 2.f * x / (1.f - x);
+  float gx = 0.5f / (1.f + y)
+             * (2.f / (1.f - x) + 2.f * x / ((1.f - x) * (1.f - x)));
+  if (!(sw <= ONE_M_EPS)) gx = 0.f;
+  const float gsw = gx / sw - atanh_clamped(sw) / (sw * sw);
+  if (!(-w >= TINY && -w <= q_hi)) return 0.f;
+  return -gsw / (2.f * sw);
+}
+
+// Gradients of log_abs_sin_soft(x, taper) with respect to x and taper
+__device__ __forceinline__ void d_log_abs_sin_soft(float x, float taper,
+                                                   float* gx, float* gtaper) {
+  const float sn = sinf(x);
+  const float tt = taper * F(1.0 / PI);
+  const float t = fminf(tt, 1.f);
+  const float d = SHELL_DELTA * t * t * t;
+  const float gS = 0.5f / (sn * sn + d * d);
+  *gx = gS * 2.f * sn * cosf(x);
+  const float gt = gS * 2.f * d * SHELL_DELTA * 3.f * t * t;
+  *gtaper = (tt <= 1.f) ? gt * F(1.0 / PI) : 0.f;
+}
+
+// d log_sindiv_u_soft / du
+__device__ float d_log_sindiv_u_soft(float u, int sign) {
+  if (sign < 0 || (sign == 0 && !(u > 0.f)) || fabsf(u) < CUTOFF)
+    return d_log_sindiv_u_neg(u);
+  const float su = sqrtf(fabsf(u));
+  float gx, gtaper;
+  d_log_abs_sin_soft(su, su, &gx, &gtaper);
+  float gsu = gx + gtaper;
+  if (su >= EPS) gsu = gsu - 1.f / su;
+  return gsu * sgn_f(u) / (2.f * su);
 }
 
 // --- per-tile reverse sweeps ----------------------------------------------------
@@ -369,6 +446,272 @@ __device__ float tile_vmf_s2_bwd(const float* raw, const float* eps, float k,
   return (k >= TINY) ? gkk : 0.f;
 }
 
+// Reverse of s = ball_scale(k, smax, xn2): adds to the gradients of smax
+// and xn2
+__device__ __forceinline__ void ball_scale_bwd(float k, float smax, float xn2,
+                                               float gs, float* gsmax,
+                                               float* gxn2) {
+  if (!(k < 0.f)) return;
+  const float q = fmaxf(xn2, TINY);
+  const float rs = rsqrtf(q);
+  if (!(smax * rs <= 1.f)) return;
+  *gsmax += gs * rs;
+  if (xn2 >= TINY) *gxn2 += gs * smax * (-0.5f * rs / q);
+}
+
+// Reverse of logq_drawn: from glq, adds to the gradients of vsq, ls and k.
+// Each live branch of the sum gets its softmax weight; a dead branch none.
+__device__ void logq_drawn_bwd(int n, int wraps, int sign, float k, float vsq,
+                               float s2, float ls, const LqCommon& c,
+                               float mx, float acc, float g, float* gvsq,
+                               float* gls, float* gk) {
+  const float nm1 = F(n - 1.0);
+  if (sign < 0) {
+    const float vsq_g = vsq + TINY;
+    const float gu = -nm1 * g * d_log_sindiv_u_soft(k * vsq_g, sign);
+    *gls -= g;
+    *gvsq += gu * k;
+    *gk += gu * vsq_g;
+    return;
+  }
+  const int M = (wraps == 0) ? 0 : wraps + 3;
+  float grp = 0.f, gquad = 0.f, gperiod = 0.f, gsqk = 0.f, gkpos = 0.f,
+        gxred = 0.f, gvsq_g = 0.f, gr = 0.f;
+  for (int m = -M; m <= M; ++m) {
+    float rb, t;
+    if (!lq_term(n, sign, ls, c, m, &rb, &t)) continue;
+    const float gt = (M == 0) ? g : g * (expf(t - mx) / acc);
+    float grb = -gt * rb * c.quad;
+    gquad += -0.5f * gt * rb * rb;
+    *gls -= gt;
+    if (m == 0) {
+      const float gu0 = -gt * nm1 * d_log_sindiv_u_soft(c.u0, sign);
+      if (c.pos) {
+        gkpos += gu0 * c.rp * c.rp;
+        grp += gu0 * c.kpos * 2.f * c.rp;
+      } else {
+        *gk += gu0 * c.vsq_g;
+        gvsq_g += gu0 * k;
+      }
+    } else {
+      const float gsph = -gt * nm1;
+      const float arb = fabsf(rb);
+      const float xb = c.sqk * arb;
+      float gx, gtaper;
+      d_log_abs_sin_soft(c.x_red, xb, &gx, &gtaper);
+      gxred += gsph * gx;
+      float gxb = gsph * gtaper;
+      if (xb >= TINY) gxb -= gsph / xb;
+      gsqk += gxb * arb;
+      grb += gxb * c.sqk * sgn_f(rb);
+      gperiod += grb * (float)m;
+    }
+    grp += grb;
+  }
+  // x_red = sqk rp; rp = |r - period floor(r / period + 1/2)| or r
+  gsqk += gxred * c.rp;
+  grp += gxred * c.sqk;
+  if (c.pos) {
+    const float gd = grp * sgn_f(c.d);
+    gr += gd;
+    gperiod -= gd * c.fl;
+  } else {
+    gr += grp;
+  }
+  // period = 2 pi / sqk, sqk = sqrt(kpos), kpos = max(k, 1e-20)
+  gsqk -= gperiod * c.period / c.sqk;
+  gkpos += gsqk / (2.f * c.sqk);
+  if (k >= 1e-20f) *gk += gkpos;
+  // quad = s2 / vsq_g, r = sqrt(vsq_g), vsq_g = vsq + tiny
+  gvsq_g -= gquad * c.quad / c.vsq_g;
+  gvsq_g += gr / (2.f * c.r);
+  *gvsq += gvsq_g;
+}
+
+// Reverse of logp_prior: from glp, returns the gradient of r0 and adds to
+// the gradient of k
+__device__ float logp_prior_bwd(int n, int sign, float k, float r0,
+                                const LpSaved& s, float g, float* gk) {
+  const float nm1 = F(n - 1.0);
+  const float g0 = s.wrapped ? g * (expf(s.t[0] - s.mx) / s.acc) : g;
+  const float gup = -g0 * nm1 * d_log_sindiv_u_soft(s.up, sign);
+  *gk += gup * s.r02;
+  const float gr02 = -0.5f * g0 + gup * k;
+  float gr0 = gr02 * 2.f * r0;
+  if (!s.wrapped) return gr0;
+  float gsqk0 = 0.f, gperiod = 0.f;
+  const float x0 = s.sqk0 * r0;
+  for (int i = 1; i <= 2; ++i) {
+    if (!s.live[i]) continue;
+    const float gt = g * (expf(s.t[i] - s.mx) / s.acc);
+    const float rb = s.rb[i], arb = fabsf(rb);
+    float grb = -gt * rb;
+    const float glsk = -gt * nm1;
+    if (arb >= TINY) grb += gt * nm1 / arb * sgn_f(rb);
+    gsqk0 -= glsk / s.sqk0;
+    const float xb = s.sqk0 * arb;
+    float gx, gtaper;
+    d_log_abs_sin_soft(x0, xb, &gx, &gtaper);
+    gsqk0 += glsk * gx * r0;
+    gr0 += glsk * gx * s.sqk0;
+    gsqk0 += glsk * gtaper * arb;
+    grb += glsk * gtaper * s.sqk0 * sgn_f(rb);
+    gr0 += grb;
+    gperiod += (i == 1) ? grb : -grb;
+  }
+  gsqk0 -= gperiod * s.period / s.sqk0;
+  if (k >= 1e-20f) *gk += gsqk0 / (2.f * s.sqk0);
+  return gr0;
+}
+
+// Reverse of stereo_draw: from dz and the cotangents of log q and log p,
+// the gradients of mu and sig, the gradient of k added to *gk
+__device__ void stereo_draw_bwd(int n, int sign, int wraps, float k,
+                                const float* mu, const float* sig,
+                                const float* eps, const StereoSaved& s,
+                                const float* dz, float gq, float gp,
+                                float* gmu, float* gsig, float* gk) {
+  float gsmax = 0.f;
+  // lp from r0 = 2 sqrt(zn2 + tiny) arctandiv(k zn2)
+  const float gr0 = logp_prior_bwd(n, sign, k, s.r0, s.lp, gp, gk);
+  const float gsq = gr0 * 2.f * s.ad;
+  const float gw = gr0 * 2.f * s.sq * d_arctandiv_u(s.w, sign);
+  *gk += gw * s.zn2;
+  const float gzn2 = gw * k + gsq / (2.f * s.sq);
+
+  // the final ball clamp: z = zpre bsz, zn2 = max(zn2pre bsz^2, 0)
+  float gzpre[MAX_DIM];
+  float gzn2pre;
+  if (sign <= 0) {
+    const float gm = (s.zn2m >= 0.f) ? gzn2 : 0.f;
+    gzn2pre = gm * s.bsz * s.bsz;
+    float gbsz = gm * 2.f * s.zn2pre * s.bsz;
+    for (int j = 0; j < n; ++j) {
+      gbsz += dz[j] * s.zpre[j];
+      gzpre[j] = dz[j] * s.bsz;
+    }
+    ball_scale_bwd(k, s.smax, s.zn2pre, gbsz, &gsmax, &gzn2pre);
+  } else {
+    gzn2pre = gzn2;
+    for (int j = 0; j < n; ++j) gzpre[j] = dz[j];
+  }
+
+  // zpre = p mu + q v with p = a / den, q = b / den
+  float gpp = 0.f, gqq = 0.f;
+  float gv[MAX_DIM];
+  for (int j = 0; j < n; ++j) {
+    gzpre[j] += gzn2pre * 2.f * s.zpre[j];
+    gpp += gzpre[j] * mu[j];
+    gqq += gzpre[j] * s.v[j];
+    gmu[j] = gzpre[j] * s.p;
+    gv[j] = gzpre[j] * s.q;
+  }
+  const float ga = gpp * s.inv, gb = gqq * s.inv;
+  const float ginv = gpp * s.a + gqq * s.b;
+  const float gden0 =
+      (fabsf(s.den0) < 1e-6f) ? 0.f : -ginv * s.inv * s.inv;
+  // den0 = 1 - 2 k gxv + k^2 x2 g2v; a = 1 - 2 k gxv - k g2v;
+  // b = (1 + k x2) g
+  const float ggxv = (gden0 + ga) * (-2.f * k);
+  float gg2v = gden0 * k * k * s.x2 - ga * k;
+  float gx2 = gden0 * k * k * s.g2v + gb * k * s.g;
+  *gk += gden0 * (-2.f * s.gxv + 2.f * k * s.x2 * s.g2v)
+         + ga * (-2.f * s.gxv - s.g2v) + gb * s.x2 * s.g;
+  // gxv = g xv; g2v = g^2 vsq
+  float gg = gb * (1.f + k * s.x2) + ggxv * s.xv + gg2v * 2.f * s.g * s.vsq;
+  const float gxv = ggxv * s.g;
+  float gvsq = gg2v * s.g * s.g;
+  // g = g0 ball_scale(g0^2 vsq); g0 = tandiv(k vsq / 4) / 2
+  float gg0 = gg;
+  if (sign <= 0) {
+    gg0 = gg * s.bsg;
+    float gxn2 = 0.f;
+    ball_scale_bwd(k, s.smax, s.g0 * s.g0 * s.vsq, gg * s.g0, &gsmax, &gxn2);
+    gg0 += gxn2 * 2.f * s.g0 * s.vsq;
+    gvsq += gxn2 * s.g0 * s.g0;
+  }
+  const float gug = 0.5f * gg0 * d_tandiv_u(s.ug, sign);
+  *gk += gug * s.vsq / 4.f;
+  gvsq += gug * k / 4.f;
+
+  float gls = 0.f;
+  logq_drawn_bwd(n, wraps, sign, k, s.vsq, s.s2, s.ls, s.lqc, s.lq_mx,
+                 s.lq_acc, gq, &gvsq, &gls, gk);
+
+  for (int j = 0; j < n; ++j) {
+    gv[j] += gvsq * 2.f * s.v[j] + gxv * mu[j];
+    gmu[j] += gxv * s.v[j] + gx2 * 2.f * mu[j];
+    gsig[j] = gv[j] * eps[j];
+    if (sig[j] >= TINY) gsig[j] += gls / sig[j];
+  }
+  // smax = (1 - eps) rsqrt(-min(k, -tiny))
+  if (k <= -TINY) *gk += gsmax * 0.5f * s.smax / (-k);
+}
+
+// _tile_wrapped_stereo: draw[0 : n + ns] and the returned dL/dk. Kept out
+// of line so that products without a stereographic component run the code
+// they ran before this tile existed.
+__device__ __noinline__ float tile_wrapped_stereo_bwd(const float* raw, const float* eps,
+                                         int n, int ns, int sign, int wraps,
+                                         float k, const float* dz, float gkl,
+                                         float glq, float glp, float* draw) {
+  StereoHead h;
+  StereoSaved s;
+  float zbuf[MAX_DIM], kl, q, p;
+  tile_wrapped_stereo(raw, eps, n, ns, sign, wraps, k, zbuf, &kl, &q, &p, h,
+                      s);
+  float gmu[MAX_DIM], gsig[MAX_DIM];
+  float gk = 0.f;
+  stereo_draw_bwd(n, sign, wraps, k, h.mu, h.sig, eps, s, dz, glq + gkl,
+                  glp - gkl, gmu, gsig, &gk);
+
+  // mu = gm mu_tan ball_scale(gm^2 r2m), gm = tandiv(k r2m / 4) / 2
+  float ggm = 0.f, gr2m = 0.f, gsmax = 0.f;
+  if (sign <= 0) {
+    float gbs = 0.f;
+    for (int j = 0; j < n; ++j) {
+      gbs += gmu[j] * h.mu0[j];
+      gmu[j] = gmu[j] * h.bsm;
+    }
+    float gxn2 = 0.f;
+    ball_scale_bwd(k, h.smax, h.gm * h.gm * h.r2m, gbs, &gsmax, &gxn2);
+    ggm += gxn2 * 2.f * h.gm * h.r2m;
+    gr2m += gxn2 * h.gm * h.gm;
+    if (k <= -TINY) gk += gsmax * 0.5f * h.smax / (-k);
+  }
+  for (int j = 0; j < n; ++j) ggm += gmu[j] * raw[j];
+  const float gum = 0.5f * ggm * d_tandiv_u(h.um, sign);
+  gk += gum * h.r2m / 4.f;
+  gr2m += gum * k / 4.f;
+  for (int j = 0; j < n; ++j) draw[j] = gmu[j] * h.gm + gr2m * 2.f * raw[j];
+
+  // sig = capr tc (1 + tc^6)^(-1/6), tc = min(sig0 / capr, 8),
+  // capr = pi rsqrt(max(k, 1e-12)); sig0 = softplus(raw)
+  float gcapr = 0.f, gsum = 0.f;
+  for (int j = 0; j < n; ++j) {
+    float gs0 = gsig[j];
+    if (sign >= 0) {
+      const float tc = h.tc[j], tc2 = tc * tc;
+      gcapr += gsig[j] * tc * h.pw[j];
+      const float gpw = gsig[j] * h.capr * tc;
+      const float gw6 = gpw * F(-1.0 / 6.0) * powf(h.w6[j], F(-7.0 / 6.0));
+      const float gtc = gsig[j] * h.capr * h.pw[j]
+                        + gw6 * 3.f * tc2 * tc2 * 2.f * tc;
+      const float gtq = (h.tq[j] <= 8.f) ? gtc : 0.f;
+      gs0 = gtq / h.capr;
+      gcapr -= gtq * h.tq[j] / h.capr;
+    }
+    if (ns == 1) {
+      gsum = (j == 0) ? gs0 : gsum + gs0;
+    } else {
+      draw[n + j] = gs0 * d_softplus(raw[n + j]);
+    }
+  }
+  if (ns == 1) draw[n] = gsum * d_softplus(raw[n]);
+  if (sign >= 0 && k >= 1e-12f) gk += gcapr * (-0.5f) * h.capr / h.kc;
+  return gk;
+}
+
 __global__ void __launch_bounds__(THREADS)
 tail_bwd_kernel(const float* __restrict__ raw, const float* __restrict__ eps,
                 const float* __restrict__ kvec, const float* __restrict__ dz,
@@ -397,8 +740,12 @@ tail_bwd_kernel(const float* __restrict__ raw, const float* __restrict__ eps,
     } else if (t.kind[i] == KIND_WRAPPED_H) {
       dk[i] = tile_wrapped_h_bwd(ri, ei, t.dim[i], t.nscale[i], kvec[i], gzi,
                                  ga[i], glq, glp, dri);
-    } else {
+    } else if (t.kind[i] == KIND_VMF_S2) {
       dk[i] = tile_vmf_s2_bwd(ri, ei, kvec[i], gzi, ga[i], glq, glp, dri);
+    } else {
+      dk[i] = tile_wrapped_stereo_bwd(ri, ei, t.dim[i], t.nscale[i],
+                                      t.sign[i], t.wraps[i], kvec[i], gzi,
+                                      ga[i], glq, glp, dri);
     }
   }
 }

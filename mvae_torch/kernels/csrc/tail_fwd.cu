@@ -2,7 +2,9 @@
 // log q / log p and the per-component KL, for every component at once.
 //
 // Replaces the TPU kernel mvae_tpu/kernels/tail_kernels.py::_fwd_pallas
-// (its tiles _tile_normal, _tile_wrapped_lorentz and _tile_vmf).
+// (its tiles _tile_normal, _tile_wrapped_lorentz, _tile_vmf and
+// _tile_wrapped_stereo; the wrapped tile of the embedded sphere is not
+// ported, and the wrapper refuses such a product).
 //
 // Bound: bytes. Per batch row the kernel reads W head pre-activations and
 // E noise values and writes Z latent coordinates and nc + 2 aux values
@@ -28,11 +30,23 @@
 //   int tail_fwd_launch(raw (B, W), eps (B, E), kvec (nc,), z (B, Z),
 //                       aux (B, nc + 2), B, W, E, Z, nc, table, stream)
 // `table` is a host array of nc rows (kind, dim, n_scale, raw_off,
-// eps_off, z_off). Returns cudaGetLastError() after the launch.
+// eps_off, z_off, sign, wraps). Returns cudaGetLastError() after the launch.
 
 #include "tail_tiles.cuh"
 
 #define THREADS 128
+
+// The stereographic tile with its intermediates, kept out of line so that
+// products without such a component run the code they ran before it existed.
+__device__ __noinline__ void stereo_tile_fwd(const float* raw,
+                                             const float* eps, int n, int ns,
+                                             int sign, int wraps, float k,
+                                             float* z, float* kl, float* lq,
+                                             float* lp) {
+  StereoHead h;
+  StereoSaved s;
+  tile_wrapped_stereo(raw, eps, n, ns, sign, wraps, k, z, kl, lq, lp, h, s);
+}
 
 __global__ void __launch_bounds__(THREADS)
 tail_fwd_kernel(const float* __restrict__ raw, const float* __restrict__ eps,
@@ -57,9 +71,12 @@ tail_fwd_kernel(const float* __restrict__ raw, const float* __restrict__ eps,
       HSaved s;
       tile_wrapped_h(ri, ei, t.dim[i], t.nscale[i], kvec[i], zi, &kl, &q, &p,
                      s);
-    } else {
+    } else if (t.kind[i] == KIND_VMF_S2) {
       VmfSaved s;
       tile_vmf_s2(ri, ei, kvec[i], zi, &kl, &q, &p, s);
+    } else {
+      stereo_tile_fwd(ri, ei, t.dim[i], t.nscale[i], t.sign[i], t.wraps[i],
+                      kvec[i], zi, &kl, &q, &p);
     }
     ar[i] = kl;
     lq = lq + q;

@@ -3,7 +3,8 @@
 // forward with these same expressions before its reverse sweep.
 //
 // Port of the tiles of mvae_tpu/kernels/tail_kernels.py (_tile_normal,
-// _tile_wrapped_lorentz, _tile_vmf) in the order of the plain version
+// _tile_wrapped_lorentz, _tile_vmf, _tile_wrapped_stereo with
+// _logq_drawn_rows and _logp_prior_rows) in the order of the plain version
 // mvae_torch/kernels/tail_kernels.py::tail_forward_ref: the exp-based
 // cosh/sinh clipped at 85, the series window at |u| < 1e-2, the vMF cosine
 // clip, the Householder degeneracy guard, and reductions over a row's
@@ -13,7 +14,13 @@
 // forward kernel's bit for bit.
 //
 // The wrapped and vMF tiles record their intermediates in a struct (HSaved,
-// VmfSaved) for the backward; the forward kernel discards them.
+// VmfSaved, StereoSaved) for the backward; the forward kernel discards them.
+//
+// The stereographic tile (kinds d/p/u) takes the component's static
+// curvature sign (-1, +1, or 0 for the universal kind, whose branch follows
+// the run-time sign of K per row) and its count of wrap-image pairs from the
+// table. Its draw, stereo_draw, is also the body of the IWAE chunk reparam
+// kernel (reparam_stereo.cu), so both evaluate the same expressions.
 
 #pragma once
 
@@ -23,7 +30,13 @@
 #define MAX_COMPS 16
 #define MAX_DIM 32
 
-enum { KIND_NORMAL = 0, KIND_WRAPPED_H = 1, KIND_VMF_S2 = 2 };
+enum {
+  KIND_NORMAL = 0,
+  KIND_WRAPPED_H = 1,
+  KIND_VMF_S2 = 2,
+  KIND_WRAPPED_STEREO = 3
+};
+#define TABLE_COLS 8
 
 struct TailTable {
   int nc;
@@ -33,21 +46,29 @@ struct TailTable {
   int raw_off[MAX_COMPS];
   int eps_off[MAX_COMPS];
   int z_off[MAX_COMPS];
+  int sign[MAX_COMPS];
+  int wraps[MAX_COMPS];
 };
 
 // Fill a TailTable from the host array of nc rows (kind, dim, n_scale,
-// raw_off, eps_off, z_off); false when a row is out of range.
+// raw_off, eps_off, z_off, sign, wraps); false when a row is out of range.
 static inline bool tail_table_from(const int* table, int nc, TailTable* t) {
   if (nc < 1 || nc > MAX_COMPS) return false;
   t->nc = nc;
   for (int i = 0; i < nc; ++i) {
-    t->kind[i] = table[6 * i + 0];
-    t->dim[i] = table[6 * i + 1];
-    t->nscale[i] = table[6 * i + 2];
-    t->raw_off[i] = table[6 * i + 3];
-    t->eps_off[i] = table[6 * i + 4];
-    t->z_off[i] = table[6 * i + 5];
+    const int* row = table + TABLE_COLS * i;
+    t->kind[i] = row[0];
+    t->dim[i] = row[1];
+    t->nscale[i] = row[2];
+    t->raw_off[i] = row[3];
+    t->eps_off[i] = row[4];
+    t->z_off[i] = row[5];
+    t->sign[i] = row[6];
+    t->wraps[i] = row[7];
     if (t->dim[i] < 1 || t->dim[i] > MAX_DIM) return false;
+    if (t->kind[i] < KIND_NORMAL || t->kind[i] > KIND_WRAPPED_STEREO)
+      return false;
+    if (t->sign[i] < -1 || t->sign[i] > 1 || t->wraps[i] < 0) return false;
   }
   return true;
 }
@@ -61,6 +82,9 @@ static inline bool tail_table_from(const int* table, int nc, TailTable* t) {
 #define TINY 1e-15f
 #define EPS 1e-6f
 #define CUTOFF 1e-2f
+#define SHELL_DELTA 1e-3f
+#define ONE_M_EPS F(1.0 - 1e-6)
+#define DEAD_TERM -1e30f
 
 __device__ __forceinline__ float softplus_f(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
@@ -324,4 +348,324 @@ __device__ void tile_vmf_s2(const float* raw, const float* eps, float k,
   *lq = log_cm + kap * s.cosv + area;
   *lp = F(-LOG_4PI) + area;
   *kl = kap * s.a_m + log_cm + F(LOG_4PI);
+}
+
+// --- the stereographic family (kinds d/p/u) --------------------------------------
+
+// Horner form of 1 + c1 u + ... + c5 u^5 (stable._poly)
+__device__ __forceinline__ float poly5(float u, float c1, float c2, float c3,
+                                       float c4, float c5) {
+  float acc = 0.f;
+  acc = u * (acc + c5);
+  acc = u * (acc + c4);
+  acc = u * (acc + c3);
+  acc = u * (acc + c2);
+  acc = u * (acc + c1);
+  return 1.f + acc;
+}
+
+#define TANDIV_C F(1.0 / 3), F(2.0 / 15), F(17.0 / 315), F(62.0 / 2835), \
+                 F(1382.0 / 155925)
+#define ARCTANDIV_C F(-1.0 / 3), F(1.0 / 5), F(-1.0 / 7), F(1.0 / 9), \
+                    F(-1.0 / 11)
+
+// stable._tandiv_u_sgn: tan(sqrt u) / sqrt u, tanh for u < 0; a pinned sign
+// drops the branch it cannot take
+__device__ float tandiv_u(float u, int sign) {
+  if (fabsf(u) < CUTOFF) return poly5(u, TANDIV_C);
+  const float su = sqrtf(fabsf(u));
+  if (sign > 0 || (sign == 0 && u > 0.f)) return tanf(su) / su;
+  return tanhf(su) / su;
+}
+
+// stable.atanh_clamped
+__device__ __forceinline__ float atanh_clamped(float x) {
+  x = fminf(fmaxf(x, F(-1.0 + 1e-6)), ONE_M_EPS);
+  return 0.5f * log1pf(2.f * x / (1.f - x));
+}
+
+// stable._arctandiv_u_sgn: atan(sqrt w) / sqrt w, artanh for w < 0
+__device__ float arctandiv_u(float w, int sign) {
+  if (fabsf(w) < CUTOFF) return poly5(w, ARCTANDIV_C);
+  if (sign > 0 || (sign == 0 && w > 0.f)) {
+    const float sw = sqrtf(fmaxf(w, TINY));
+    return atanf(sw) / sw;
+  }
+  const float sw =
+      sqrtf(fminf(fmaxf(-w, TINY), F((1.0 - 1e-6) * (1.0 - 1e-6))));
+  return atanh_clamped(sw) / sw;
+}
+
+// stable.log_abs_sin_soft: log|sin x| floored near the zeros of sin at
+// m pi, m >= 1, by d = delta min(taper / pi, 1)^3
+__device__ __forceinline__ float log_abs_sin_soft(float x, float taper) {
+  const float sn = sinf(x);
+  const float t = fminf(taper * F(1.0 / PI), 1.f);
+  const float d = SHELL_DELTA * t * t * t;
+  return 0.5f * logf(sn * sn + d * d);
+}
+
+// stable._log_sindiv_u_sgn_soft
+__device__ float log_sindiv_u_soft(float u, int sign) {
+  if (sign < 0 || (sign == 0 && !(u > 0.f)) || fabsf(u) < CUTOFF)
+    return log_sindiv_u_neg(u);
+  const float su = sqrtf(fabsf(u));
+  return log_abs_sin_soft(su, su) - logf(fmaxf(su, EPS));
+}
+
+// The ball radius (1 - eps) / sqrt(-min(K, -tiny)) of a K < 0 component
+__device__ __forceinline__ float ball_smax(float k) {
+  return ONE_M_EPS * rsqrtf(-fminf(k, -TINY));
+}
+
+// tail_kernels._ball_scale: the factor of stereographic.project
+__device__ __forceinline__ float ball_scale(float k, float smax, float xn2) {
+  if (!(k < 0.f)) return 1.f;
+  return fminf(smax * rsqrtf(fmaxf(xn2, TINY)), 1.f);
+}
+
+// The scalars every branch of the drawn-radius sum shares
+struct LqCommon {
+  float vsq_g, r, quad, c0, kpos, sqk, period, fl, d, rp, u0, x_red;
+  bool pos;  // the positive-curvature branch is taken (static or K > 0)
+};
+
+__device__ __forceinline__ void lq_common(int n, int sign, float k, float vsq,
+                                          float s2, LqCommon& c) {
+  c.vsq_g = vsq + TINY;
+  c.r = sqrtf(c.vsq_g);
+  c.quad = s2 / c.vsq_g;
+  c.c0 = F(0.5 * n * LOG_2PI);
+  c.kpos = fmaxf(k, 1e-20f);
+  c.sqk = sqrtf(c.kpos);
+  c.period = F(2.0 * PI) / c.sqk;
+  c.fl = floorf(c.r / c.period + 0.5f);
+  c.d = c.r - c.period * c.fl;
+  c.pos = sign > 0 || k > 0.f;
+  c.rp = c.pos ? fabsf(c.d) : c.r;
+  c.u0 = c.pos ? c.kpos * c.rp * c.rp : k * c.vsq_g;
+  c.x_red = c.sqk * c.rp;
+}
+
+// Branch m of the drawn-radius sum: log N(rb v_hat; 0, sigma) - logdet(rb)
+// at rb = rp + m T; false (and DEAD_TERM) for a wrap image that carries no
+// mass (K <= 0, or a z-score that would overflow)
+__device__ bool lq_term(int n, int sign, float ls, const LqCommon& c, int m,
+                        float* rb_out, float* t_out) {
+  const float nm1 = F(n - 1.0);
+  float rb = c.rp + (float)m * c.period;
+  float logdet;
+  if (m == 0) {
+    logdet = nm1 * log_sindiv_u_soft(c.u0, sign);
+  } else {
+    const bool live = c.pos && (rb * rb * c.quad < 1e30f);
+    if (!live) {
+      *rb_out = c.rp;
+      *t_out = DEAD_TERM;
+      return false;
+    }
+    const float xb = c.sqk * fabsf(rb);
+    logdet = nm1 * (log_abs_sin_soft(c.x_red, xb) - logf(fmaxf(xb, TINY)));
+  }
+  *rb_out = rb;
+  *t_out = -0.5f * rb * rb * c.quad - ls - c.c0 - logdet;
+  return true;
+}
+
+// tail_kernels._logq_drawn_rows; `mx` and `acc` are the shift and the sum of
+// the log-sum-exp (1 term: mx is the term and acc 1)
+__device__ float logq_drawn(int n, int wraps, int sign, float k, float vsq,
+                            float s2, float ls, LqCommon& c, float* mx_out,
+                            float* acc_out) {
+  *mx_out = 0.f;
+  *acc_out = 1.f;
+  if (sign < 0)  // pinned negative curvature never wraps
+    return -0.5f * s2 - ls - F(0.5 * n * LOG_2PI)
+           - F(n - 1.0) * log_sindiv_u_soft(k * (vsq + TINY), sign);
+  lq_common(n, sign, k, vsq, s2, c);
+  float rb, t;
+  if (wraps == 0) {
+    lq_term(n, sign, ls, c, 0, &rb, &t);
+    *mx_out = t;
+    return t;
+  }
+  const int M = wraps + 3;
+  float mx = 0.f;
+  for (int m = -M; m <= M; ++m) {
+    lq_term(n, sign, ls, c, m, &rb, &t);
+    mx = (m == -M) ? t : fmaxf(mx, t);
+  }
+  float acc = 0.f;
+  for (int m = -M; m <= M; ++m) {
+    lq_term(n, sign, ls, c, m, &rb, &t);
+    acc = acc + expf(t - mx);
+  }
+  *mx_out = mx;
+  *acc_out = acc;
+  return mx + logf(acc);
+}
+
+// The prior's branches: the principal one and the nearest wrap-image pair
+struct LpSaved {
+  float r02, up, kp, sqk0, period, t[3], rb[3], mx, acc;
+  bool live[3], wrapped;
+};
+
+// tail_kernels._logp_prior_rows
+__device__ float logp_prior(int n, int wraps, int sign, float k, float r0,
+                            LpSaved& s) {
+  const float nm1 = F(n - 1.0);
+  const float c0 = F(0.5 * n * LOG_2PI);
+  s.r02 = r0 * r0;
+  s.up = k * s.r02;
+  s.t[0] = -0.5f * s.r02 - c0 - nm1 * log_sindiv_u_soft(s.up, sign);
+  s.wrapped = wraps > 0 && sign >= 0;
+  if (!s.wrapped) return s.t[0];
+  s.kp = fmaxf(k, 1e-20f);
+  s.sqk0 = sqrtf(s.kp);
+  s.period = F(2.0 * PI) / s.sqk0;
+  for (int i = 1; i <= 2; ++i) {
+    const float rb_raw = r0 + (i == 1 ? 1.f : -1.f) * s.period;
+    s.live[i] = k > 0.f && fabsf(rb_raw) < 1e15f;
+    s.rb[i] = s.live[i] ? rb_raw : r0;
+    const float rb = s.rb[i];
+    const float logn = -0.5f * rb * rb - c0;
+    const float lsk = log_abs_sin_soft(s.sqk0 * r0, s.sqk0 * fabsf(rb))
+                      - logf(s.sqk0);
+    const float logd = nm1 * (lsk - logf(fmaxf(fabsf(rb), TINY)));
+    s.t[i] = s.live[i] ? logn - logd : DEAD_TERM;
+  }
+  s.mx = fmaxf(fmaxf(s.t[0], s.t[1]), s.t[2]);
+  s.acc = 0.f;
+  for (int i = 0; i < 3; ++i) s.acc = s.acc + expf(s.t[i] - s.mx);
+  return s.mx + logf(s.acc);
+}
+
+// Intermediates of one stereographic draw (names as in the plain version;
+// *0 is a value before its ball clamp or guard)
+struct StereoSaved {
+  float smax, x2, ls, vsq, xv, s2, ug, g0, bsg, g, gxv, g2v, a, b, den0, inv,
+      p, q, zn2pre, bsz, zn2m, zn2, sq, w, ad, r0, lq_mx, lq_acc;
+  LqCommon lqc;
+  LpSaved lp;
+  float v[MAX_DIM], zpre[MAX_DIM], z[MAX_DIM];
+};
+
+// tail_kernels._stereo_draw: z = mu (+)_K exp_0(sig eps) by per-row Gram
+// coefficients, log q by the drawn-radius branch sum, the prior's log p
+__device__ void stereo_draw(int n, int sign, int wraps, float k,
+                            const float* mu, const float* sig,
+                            const float* eps, float* lq, float* lp,
+                            StereoSaved& s) {
+  s.smax = ball_smax(k);
+  float x2 = 0.f, ls = 0.f, vsq = 0.f, xv = 0.f, s2 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float vj = sig[j] * eps[j];
+    s.v[j] = vj;
+    const float t0 = mu[j] * mu[j], t1 = logf(fmaxf(sig[j], TINY)),
+                t2 = vj * vj, t3 = mu[j] * vj, t4 = eps[j] * eps[j];
+    x2 = (j == 0) ? t0 : x2 + t0;
+    ls = (j == 0) ? t1 : ls + t1;
+    vsq = (j == 0) ? t2 : vsq + t2;
+    xv = (j == 0) ? t3 : xv + t3;
+    s2 = (j == 0) ? t4 : s2 + t4;
+  }
+  s.x2 = x2;
+  s.ls = ls;
+  s.vsq = vsq;
+  s.xv = xv;
+  s.s2 = s2;
+
+  s.ug = k * vsq / 4.f;
+  s.g0 = 0.5f * tandiv_u(s.ug, sign);
+  s.bsg = (sign <= 0) ? ball_scale(k, s.smax, s.g0 * s.g0 * vsq) : 1.f;
+  s.g = (sign <= 0) ? s.g0 * s.bsg : s.g0;
+  s.gxv = s.g * xv;
+  s.g2v = s.g * s.g * vsq;
+  s.a = 1.f - 2.f * k * s.gxv - k * s.g2v;
+  s.b = (1.f + k * x2) * s.g;
+  s.den0 = 1.f - 2.f * k * s.gxv + k * k * x2 * s.g2v;
+  const float den = (fabsf(s.den0) < 1e-6f) ? 1e-6f : s.den0;
+  s.inv = 1.f / den;
+  s.p = s.a * s.inv;
+  s.q = s.b * s.inv;
+  float zn2 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    s.zpre[j] = s.p * mu[j] + s.q * s.v[j];
+    const float t = s.zpre[j] * s.zpre[j];
+    zn2 = (j == 0) ? t : zn2 + t;
+  }
+  s.zn2pre = zn2;
+  if (sign <= 0) {
+    s.bsz = ball_scale(k, s.smax, zn2);
+    for (int j = 0; j < n; ++j) s.z[j] = s.zpre[j] * s.bsz;
+    s.zn2m = zn2 * s.bsz * s.bsz;
+    s.zn2 = fmaxf(s.zn2m, 0.f);
+  } else {
+    s.bsz = 1.f;
+    for (int j = 0; j < n; ++j) s.z[j] = s.zpre[j];
+    s.zn2m = zn2;
+    s.zn2 = zn2;
+  }
+
+  *lq = logq_drawn(n, wraps, sign, k, vsq, s2, ls, s.lqc, &s.lq_mx,
+                   &s.lq_acc);
+  // the prior's preimage radius straight from z (isotropic sigma = 1)
+  s.sq = sqrtf(s.zn2 + TINY);
+  s.w = k * s.zn2;
+  s.ad = arctandiv_u(s.w, sign);
+  s.r0 = 2.f * s.sq * s.ad;
+  *lp = logp_prior(n, wraps, sign, k, s.r0, s.lp);
+}
+
+// The head of the stereographic tile: the scale with its cap and the mean
+struct StereoHead {
+  float kc, capr, r2m, um, gm, bsm, smax;
+  float sig0[MAX_DIM], tq[MAX_DIM], tc[MAX_DIM], w6[MAX_DIM], pw[MAX_DIM],
+      sig[MAX_DIM], mu0[MAX_DIM], mu[MAX_DIM];
+};
+
+// tail_kernels._tile_wrapped_stereo: wrapped normal on d/p/u
+__device__ void tile_wrapped_stereo(const float* raw, const float* eps, int n,
+                                    int ns, int sign, int wraps, float k,
+                                    float* z, float* kl, float* lq, float* lp,
+                                    StereoHead& h, StereoSaved& s) {
+  // sigma saturates at the positive-K injectivity radius pi / sqrt(K)
+  // (components.cap_sigma_positive_k)
+  h.kc = fmaxf(k, 1e-12f);
+  h.capr = F(PI) * rsqrtf(h.kc);
+  for (int j = 0; j < n; ++j) {
+    h.sig0[j] = softplus_f(raw[n + (ns == 1 ? 0 : j)]);
+    if (sign >= 0) {
+      h.tq[j] = h.sig0[j] / h.capr;
+      h.tc[j] = fminf(h.tq[j], 8.f);
+      const float tc2 = h.tc[j] * h.tc[j];
+      h.w6[j] = 1.f + tc2 * tc2 * tc2;
+      h.pw[j] = powf(h.w6[j], F(-1.0 / 6.0));
+      h.sig[j] = h.capr * h.tc[j] * h.pw[j];
+    } else {
+      h.sig[j] = h.sig0[j];
+    }
+  }
+  // mu = exp_map_mu0(mu_tan) = project(0.5 tandiv mu_tan)
+  float r2m = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float t = raw[j] * raw[j];
+    r2m = (j == 0) ? t : r2m + t;
+  }
+  h.r2m = r2m;
+  h.um = k * r2m / 4.f;
+  h.gm = 0.5f * tandiv_u(h.um, sign);
+  h.smax = ball_smax(k);
+  h.bsm = (sign <= 0) ? ball_scale(k, h.smax, h.gm * h.gm * r2m) : 1.f;
+  for (int j = 0; j < n; ++j) {
+    h.mu0[j] = h.gm * raw[j];
+    h.mu[j] = (sign <= 0) ? h.mu0[j] * h.bsm : h.mu0[j];
+  }
+  float q, p;
+  stereo_draw(n, sign, wraps, k, h.mu, h.sig, eps, &q, &p, s);
+  for (int j = 0; j < n; ++j) z[j] = s.z[j];
+  *lq = q;
+  *lp = p;
+  *kl = q - p;
 }

@@ -12,8 +12,11 @@ product with respect to the raw heads and the curvatures in one launch of
 wires the two into autograd; the noise gets no gradient.
 
 Families in the kernels (the whole product must be in them, see
-``component_supported``): 'normal' on e, 'wrapped' on h, 'vmf' on s with
-m = 3. The wrapped-sphere and stereographic tiles are a later slice.
+``component_supported``): 'normal' on e, 'wrapped' on h and on the
+stereographic kinds d/p/u (sigma cap, drawn-radius branch sum and prior
+wrap pair in the tile), 'vmf' on s with m = 3. The wrapped tile of the
+embedded sphere is not ported yet, so 'wrapped' on s takes the plain
+per-component tail.
 
 ``tail_forward_ref`` is the plain PyTorch forward: the CPU path, the
 tests' subject against the JAX tile, and the card check's reference.
@@ -38,9 +41,9 @@ from . import _build
 _LOG_2PI = 1.8378770664093453
 _LOG_4PI = math.log(4.0 * math.pi)
 
-KIND_NORMAL, KIND_WRAPPED_H, KIND_VMF_S2 = 0, 1, 2
-MAX_COMPS = 16  # csrc/tail_fwd.cu MAX_COMPS
-MAX_DIM = 32    # csrc/tail_fwd.cu MAX_DIM
+KIND_NORMAL, KIND_WRAPPED_H, KIND_VMF_S2, KIND_WRAPPED_STEREO = 0, 1, 2, 3
+MAX_COMPS = 16  # csrc/tail_tiles.cuh MAX_COMPS
+MAX_DIM = 32    # csrc/tail_tiles.cuh MAX_DIM
 
 
 def component_supported(comp) -> bool:
@@ -48,7 +51,12 @@ def component_supported(comp) -> bool:
     if comp.posterior == "normal":
         return comp.dim <= MAX_DIM
     if comp.posterior == "wrapped":
-        return comp.manifold.kind == "h" and comp.dim <= MAX_DIM
+        kind = comp.manifold.kind
+        if (comp.manifold.curvature_sign >= 0 and kind != "e"
+                and not comp.sigma_cap):
+            return False  # the tile bakes the sigma cap in; an uncapped
+            # positive-capable component takes the plain tail
+        return kind in ("h", "d", "p", "u") and comp.dim <= MAX_DIM
     if comp.posterior == "vmf":
         return comp.manifold.kind == "s" and comp.dim == 2
     return False
@@ -59,7 +67,9 @@ def _kind(comp) -> int:
         return KIND_NORMAL
     if comp.posterior == "vmf":
         return KIND_VMF_S2
-    return KIND_WRAPPED_H
+    if comp.manifold.kind == "h":
+        return KIND_WRAPPED_H
+    return KIND_WRAPPED_STEREO
 
 
 def _dims(comps):
@@ -219,6 +229,176 @@ def _tile_vmf(comp, raw, eps, k):
     return z, kl, lq, lp
 
 
+def _ball_scale(k, smax, xn2, tin):
+    """The factor of ``stereographic.project``: pulls a K < 0 point of
+    squared norm xn2 inside the open ball of radius smax; 1 for K >= 0."""
+    inside = torch.clamp(smax * torch.rsqrt(torch.clamp(xn2, min=tin)),
+                         max=1.0)
+    return torch.where(k < 0, inside, torch.ones_like(inside))
+
+
+def _logsumexp_terms(terms):
+    """log sum exp over a list of terms, shifted by their largest (a
+    constant of the gradient, which is each term's softmax weight)."""
+    mx = terms[0]
+    for t in terms[1:]:
+        mx = torch.maximum(mx, t)
+    mx = mx.detach()
+    acc = torch.zeros_like(mx)
+    for t in terms:
+        acc = acc + torch.exp(t - mx)
+    return mx + torch.log(acc)
+
+
+def _dead(like):
+    return torch.full_like(like, -1e30)
+
+
+def _logq_drawn_rows(n, wraps, sign, k, vsq, s2, ls):
+    """Drawn-radius branch-sum log q on (..., 1) rows: the twin of
+    ``distributions.wrapped_normal._sample_log_prob_drawn`` without a round
+    trip (r^2 quad == |eps|^2 exactly). Shared by the stereographic tile
+    and the IWAE chunk reparam, so both evaluate the same expressions."""
+    tin = stable.tiny(vsq.dtype)
+    vsq_g = vsq + tin
+    r = torch.sqrt(vsq_g)
+    quad = s2 / vsq_g
+    half_l2pi = 0.5 * n * _LOG_2PI
+
+    if sign < 0:
+        # pinned negative curvature never wraps: principal preimage = v
+        return (-0.5 * s2 - ls - half_l2pi
+                - (n - 1.0) * stable._log_sindiv_u_sgn_soft(k * vsq_g, sign))
+    kpos = torch.clamp(k, min=1e-20)
+    sqk = torch.sqrt(kpos)
+    period = 2.0 * math.pi / sqk
+    rp_w = torch.abs(r - period * torch.floor(r / period + 0.5))
+    rp = rp_w if sign > 0 else torch.where(k > 0, rp_w, r)
+    # the m = 0 branch's log-det argument: its zero at rp = 0 is the
+    # removable one, so it takes the series-windowed log(sin x / x)
+    u0 = (kpos * rp * rp if sign > 0
+          else torch.where(k > 0, kpos * rp * rp, k * vsq_g))
+    if wraps == 0:
+        return (-0.5 * rp * rp * quad - ls - half_l2pi
+                - (n - 1.0) * stable._log_sindiv_u_sgn_soft(u0, sign))
+    x_red = sqk * rp
+    terms = []
+    for m in range(-(wraps + 3), wraps + 4):
+        rb_raw = rp + m * period
+        if m == 0:
+            live, rb = None, rb_raw
+            logdet = (n - 1.0) * stable._log_sindiv_u_sgn_soft(u0, sign)
+        else:
+            live = (k > 0) & (rb_raw * rb_raw * quad < 1e30)
+            rb = torch.where(live, rb_raw, rp)
+            xb = sqk * torch.abs(rb)
+            sph = (stable.log_abs_sin_soft(x_red, taper_x=xb)
+                   - torch.log(torch.clamp(xb, min=tin)))
+            if sign == 0:
+                sph = torch.where(k > 0, sph, stable._log_sindiv_u_sgn_soft(
+                    k * vsq_g, sign))
+            logdet = (n - 1.0) * sph
+        t_b = -0.5 * rb * rb * quad - ls - half_l2pi - logdet
+        if live is not None:
+            t_b = torch.where(live, t_b, _dead(t_b))
+        terms.append(t_b)
+    return _logsumexp_terms(terms)
+
+
+def _logp_prior_rows(n, wraps, sign, k, r0):
+    """Prior WrappedNormal(mu0, 1) log-density on (..., 1) rows from the
+    preimage radius r0 (principal branch plus one wrap-image pair for the
+    positive-capable kinds): the twin of
+    ``wrapped_normal._log_prob_from_principal`` at isotropic sigma = 1."""
+    tin = stable.tiny(r0.dtype)
+    half_l2pi = 0.5 * n * _LOG_2PI
+    r02 = r0 * r0
+    logp = (-0.5 * r02 - half_l2pi
+            - (n - 1.0) * stable._log_sindiv_u_sgn_soft(k * r02, sign))
+    if wraps <= 0 or sign < 0:
+        return logp
+    sqk0 = torch.sqrt(torch.clamp(k, min=1e-20))
+    period = 2.0 * math.pi / sqk0
+    terms = [logp]
+    for sgn in (1.0, -1.0):
+        rb_raw = r0 + sgn * period
+        live = (k > 0) & (torch.abs(rb_raw) < 1e15)
+        rb = torch.where(live, rb_raw, r0)
+        logn_b = -0.5 * rb * rb - half_l2pi
+        lsk_b = stable.log_abs_sin_soft(
+            sqk0 * r0, taper_x=sqk0 * torch.abs(rb)) - torch.log(sqk0)
+        logd_b = (n - 1.0) * (lsk_b - stable._log_max(torch.abs(rb), tin))
+        terms.append(torch.where(live, logn_b - logd_b, _dead(logp)))
+    return _logsumexp_terms(terms)
+
+
+def _stereo_draw(sign, wraps, k, mu, sig, eps):
+    """z = mu (+)_K exp_0(sig eps) on the kappa-stereographic family by
+    per-row Gram coefficients, its log q by the drawn-radius branch sum and
+    the prior's log p at z. mu and sig broadcast against eps (..., n);
+    returns (z (..., n), log q (..., 1), log p (..., 1))."""
+    n = eps.shape[-1]
+    e = stable.eps(eps.dtype)
+    tin = stable.tiny(eps.dtype)
+    smax = (1.0 - e) * torch.rsqrt(-torch.clamp(k, max=-tin))  # K<0 ball
+    x2 = _rowsum(mu * mu)
+    ls = _rowsum(torch.log(torch.clamp(sig, min=tin)))
+    v = sig * eps
+    vsq = _rowsum(v * v)
+    xv = _rowsum(mu * v)
+    s2 = _rowsum(eps * eps)
+
+    g = 0.5 * stable._tandiv_u_sgn(k * vsq / 4.0, sign)
+    if sign <= 0:
+        g = g * _ball_scale(k, smax, g * g * vsq, tin)
+    gxv = g * xv
+    g2v = g * g * vsq
+    a = 1.0 - 2.0 * k * gxv - k * g2v
+    b = (1.0 + k * x2) * g
+    den = 1.0 - 2.0 * k * gxv + k * k * x2 * g2v
+    den = torch.where(torch.abs(den) < 1e-6, torch.full_like(den, 1e-6), den)
+    inv_den = 1.0 / den
+    z = (a * inv_den) * mu + (b * inv_den) * v
+    zn2 = _rowsum(z * z)
+    if sign <= 0:
+        s = _ball_scale(k, smax, zn2, tin)
+        z = z * s
+        zn2 = torch.clamp(zn2 * s * s, min=0.0)
+
+    logq = _logq_drawn_rows(n, wraps, sign, k, vsq, s2, ls)
+    # the prior's preimage radius straight from z (isotropic sigma = 1)
+    r0 = 2.0 * torch.sqrt(zn2 + tin) * stable._arctandiv_u_sgn(k * zn2, sign)
+    logp = _logp_prior_rows(n, wraps, sign, k, r0)
+    return z, logq, logp
+
+
+def _tile_wrapped_stereo(comp, raw, eps, k):
+    """Wrapped normal on the kappa-stereographic family (d/p/u): the scale
+    saturating at the positive-K injectivity radius
+    (``components.cap_sigma_positive_k``), the mu head (exp_map_mu0 of the
+    raw tangent), then ``_stereo_draw``."""
+    sign = comp.manifold.curvature_sign
+    n = comp.dim
+    e = stable.eps(raw.dtype)
+    tin = stable.tiny(raw.dtype)
+    mu_tan = raw[:, :n]
+    sig = _sig(comp, raw)
+    if sign >= 0:
+        capr = math.pi * torch.rsqrt(torch.clamp(k, min=1e-12))
+        tc = torch.clamp(sig / capr, max=8.0)
+        tc2 = tc * tc
+        sig = capr * tc * (1.0 + tc2 * tc2 * tc2) ** (-1.0 / 6.0)
+    # mu = exp_map_mu0(mu_tan) = project(0.5 tandiv mu_tan)
+    r2m = _rowsum(mu_tan * mu_tan)
+    gm = 0.5 * stable._tandiv_u_sgn(k * r2m / 4.0, sign)
+    mu = gm * mu_tan
+    if sign <= 0:
+        smax = (1.0 - e) * torch.rsqrt(-torch.clamp(k, max=-tin))
+        mu = mu * _ball_scale(k, smax, gm * gm * r2m, tin)
+    z, logq, logp = _stereo_draw(sign, comp.wraps, k, mu, sig, eps)
+    return z, logq - logp, logq, logp
+
+
 def tail_forward_ref(comps, raw, eps, k):
     """Plain PyTorch tail: raw (B, W) head pre-activations, eps (B, E)
     standard noise, k (nc,) curvatures, or (B, nc) per row -> (z (B, Z),
@@ -236,8 +416,10 @@ def tail_forward_ref(comps, raw, eps, k):
             z, kl, q, p = _tile_normal(comp, r, e)
         elif comp.posterior == "vmf":
             z, kl, q, p = _tile_vmf(comp, r, e, ki)
-        else:
+        elif comp.manifold.kind == "h":
             z, kl, q, p = _tile_wrapped_lorentz(comp, r, e, ki)
+        else:
+            z, kl, q, p = _tile_wrapped_stereo(comp, r, e, ki)
         zs.append(z)
         kls.append(kl)
         lq = lq + q
@@ -251,10 +433,12 @@ def tail_forward_ref(comps, raw, eps, k):
 @functools.lru_cache(maxsize=None)
 def _table(comps):
     """The kernel's component table: (kind, dim, n_scale, raw offset, eps
-    offset, z offset) per component."""
+    offset, z offset, static curvature sign, wrap-image pairs) per
+    component."""
     rows, ro, eo, zo = [], 0, 0, 0
     for c in comps:
-        rows += [_kind(c), c.dim, c.n_scale, ro, eo, zo]
+        rows += [_kind(c), c.dim, c.n_scale, ro, eo, zo,
+                 c.manifold.curvature_sign, c.wraps]
         ro += c.head_width
         eo += c.noise_width
         zo += c.ambient_dim

@@ -10,8 +10,10 @@ Counterpart of ``mvae_tpu/models/vae.py`` (MLP VAE):
             ELBO = log p(x|z) - sum_c KL_c; ``loss_fn`` = -mean ELBO.
   log_likelihood: IWAE-n estimate logsumexp_n[log p(x|z_i) + log p(z_i)
             - log q(z_i|x)] - log n, encoding once and drawing the
-            importance samples in chunks decoded by the CUDA decode+BCE
-            kernel.
+            importance samples in chunks: wrapped components on the
+            stereographic kinds d/p/u through the CUDA chunk reparam
+            kernel, the others in plain PyTorch, all decoded by the CUDA
+            decode+BCE kernel.
 
 Every draw takes its standard noise as an optional tensor (the layout of
 ``kernels.tail_kernels.draw_noise``); without it, the noise comes from the
@@ -26,7 +28,7 @@ import math
 import torch
 
 from ..components import Component, reparametrize, total_ambient_dim
-from ..kernels import decoder_kernels, tail_kernels
+from ..kernels import decoder_kernels, manifold_kernels, tail_kernels
 from ..ops.stable import softplus
 from . import nets
 
@@ -266,26 +268,48 @@ def _fused_decoder_eligible(cfg: VAEConfig, params) -> bool:
     return decoder_kernels.shape_supported(cfg.z_dim, cfg.h_dim)
 
 
+def _fused_reparam_eligible(comp, comp_params) -> bool:
+    """The chunk reparam kernel (manifold_kernels.wrapped_reparam_stereo_t)
+    covers wrapped posteriors on the kappa-stereographic family (Poincare
+    ball / projected sphere / universal) in f32; other components draw in
+    plain PyTorch, and the two mix freely inside one product latent."""
+    return (comp.posterior == "wrapped"
+            and comp.manifold.kind in ("d", "p", "u")
+            and comp.dim <= manifold_kernels.MAX_DIM
+            and comp_params["w_mu"].dtype == torch.float32)
+
+
 def _reparam_chunk_t(cfg: VAEConfig, params, feats, chunk_size: int,
                      noise=None, generator=None):
     """IWAE chunk reparam: zt (chunk, Z, B) in the decoder kernel's layout
     plus summed log q / log p (chunk, B). ``noise`` is (chunk, B, E).
-    The per-component draws are plain PyTorch, as in the reference."""
+    Wrapped d/p/u components run as one launch of the chunk reparam kernel
+    each, writing their rows of zt; the others draw per sample in plain
+    PyTorch. Both read the same columns of ``noise``."""
     comps = cfg.components
     B = feats.shape[0]
     if noise is None:
         noise = tail_kernels.draw_noise(comps, (chunk_size, B), feats,
                                         generator)
-    zs, log_q, log_p = [], 0.0, 0.0
+    zt = torch.empty((chunk_size, cfg.z_dim, B), dtype=feats.dtype,
+                     device=feats.device)
+    log_q, log_p, zo = 0.0, 0.0, 0
     for comp, cp, raw, nz in zip(comps, params["components"],
                                  _fused_head_raw(cfg, params, feats),
                                  _split_noise(comps, noise)):
-        rep = reparametrize(comp, cp, feats, raw=raw, noise=nz)
-        zs.append(rep.z)
-        log_q = log_q + rep.log_q
-        log_p = log_p + rep.log_p
-    # (chunk, B, Z) -> (chunk, Z, B): batch contiguous for the kernel
-    zt = torch.cat(zs, dim=-1).transpose(1, 2).contiguous()
+        if _fused_reparam_eligible(comp, cp):
+            mu, scale, k = comp.posterior_params_from_raw(cp, raw)
+            _, lq, lp = manifold_kernels.wrapped_reparam_stereo_t(
+                nz, mu, scale.expand(mu.shape), k, wraps=comp.wraps,
+                sign=comp.manifold.curvature_sign, out=zt, z_off=zo)
+        else:
+            rep = reparametrize(comp, cp, feats, raw=raw, noise=nz)
+            # (chunk, B, n) -> (chunk, n, B): batch contiguous for the kernel
+            zt[:, zo:zo + comp.ambient_dim] = rep.z.transpose(1, 2)
+            lq, lp = rep.log_q, rep.log_p
+        log_q = log_q + lq
+        log_p = log_p + lp
+        zo += comp.ambient_dim
     return zt, log_q, log_p
 
 
@@ -346,9 +370,14 @@ def fused_path_report(cfg: VAEConfig, params) -> dict:
     else:
         idec = entry(False, "decoder not depth-1 f32 MLP within the "
                      "kernel's shared memory -> plain PyTorch decode")
-    reparam = [entry(False, f"{c.name}#{i}: {c.posterior} on "
-                     f"'{c.manifold.kind}' draws in plain PyTorch")
-               for i, c in enumerate(cfg.components)]
+    reparam = [
+        entry(True, f"{c.name}#{i}: kernel csrc/reparam_stereo.cu (plain "
+              "wrapped_reparam_stereo_ref on CPU tensors)")
+        if _fused_reparam_eligible(c, cp) else
+        entry(False, f"{c.name}#{i}: {c.posterior} on '{c.manifold.kind}' "
+              "draws in plain PyTorch")
+        for i, (c, cp) in enumerate(zip(cfg.components,
+                                        params["components"]))]
     return {"train_tail": entry(*_fused_tail_gate(cfg, params)),
             "train_decoder": entry(*_fused_train_decoder_gate(cfg, params)),
             "iwae_decoder": idec, "iwae_reparam": reparam,

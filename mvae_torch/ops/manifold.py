@@ -6,9 +6,6 @@ passed at call time. Curvature parameterization: components store an
 unconstrained scalar ``c_param``; ``K = sign * exp(c_param)`` for
 sign-pinned manifolds (never crosses zero, dK/dc = K) and ``K = c_param``
 for the universal manifold.
-
-The kinds d/p/u are parsed and sized here, but their geometry belongs to a
-later slice of the port: touching it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,15 +14,19 @@ import math
 
 import torch
 
-from . import euclidean, lorentz, sphere
+from . import (euclidean, lorentz, poincare, sphere, spherical_projected,
+               universal)
 
-_MODULES = {"e": euclidean, "h": lorentz, "s": sphere}
+_MODULES = {
+    "e": euclidean,
+    "h": lorentz,
+    "d": poincare,
+    "s": sphere,
+    "p": spherical_projected,
+    "u": universal,
+}
 
-# curvature sign and whether a point carries one extra (embedding) coordinate
-_SIGN = {"e": 0, "h": -1, "d": -1, "s": 1, "p": 1, "u": 0}
-_EMBEDDED = {"h", "s"}
-
-KINDS = tuple(_SIGN)
+KINDS = tuple(_MODULES)
 
 FULL_NAMES = {
     "e": "Euclidean",
@@ -49,28 +50,24 @@ class Manifold:
     dim: int
 
     def __post_init__(self):
-        if self.kind not in _SIGN:
+        if self.kind not in _MODULES:
             raise ValueError(f"unknown manifold kind {self.kind!r}; "
-                             f"expected one of {sorted(_SIGN)}")
+                             f"expected one of {sorted(_MODULES)}")
         if self.dim < 1:
             raise ValueError(f"manifold dim must be >= 1, got {self.dim}")
 
     @property
     def ops(self):
-        if self.kind not in _MODULES:
-            raise NotImplementedError(
-                f"later slice: the {FULL_NAMES[self.kind]} geometry "
-                f"('{self.kind}') is not ported yet")
         return _MODULES[self.kind]
 
     @property
     def ambient_dim(self) -> int:
         """Coordinate size of a point (n+1 for embedded h/s, n otherwise)."""
-        return self.dim + (1 if self.kind in _EMBEDDED else 0)
+        return self.ops.ambient_dim(self.dim)
 
     @property
     def curvature_sign(self) -> int:
-        return _SIGN[self.kind]
+        return self.ops.CURVATURE_SIGN
 
     @property
     def has_curvature_param(self) -> bool:
@@ -103,3 +100,6 @@ class Manifold:
 
     def sample_projection_mu0(self, v, mu, k):
         return self.ops.sample_projection_mu0(v, mu, k)
+
+    def inverse_sample_projection_mu0(self, z, mu, k):
+        return self.ops.inverse_sample_projection_mu0(z, mu, k)

@@ -16,8 +16,10 @@ and the reference agree to rounding.
 The ``_sgn`` variants (and ``_cos_u_sgn`` / ``_sindiv_u_kernel``) are the
 forms the fused tail kernel traces: cosh/sinh through ``exp`` clipped at
 85, and the branch a curvature-pinned kind cannot take dropped. The CUDA
-tail kernel (``kernels/csrc/tail_fwd.cu``) evaluates these same
-expressions.
+tail tiles (``kernels/csrc/tail_tiles.cuh``) evaluate these same
+expressions. Where the reference's kernels spell ``atan`` as a polynomial
+and ``tan`` as ``sin/(cos x)`` for their compiler's sake, the port calls
+``atan`` and ``tan``.
 """
 from __future__ import annotations
 
@@ -69,6 +71,13 @@ def acosh_1p(u: Tensor) -> Tensor:
     return torch.log1p(u + torch.sqrt(u * (u + 2.0)))
 
 
+def atanh_clamped(x: Tensor) -> Tensor:
+    """atanh with |x| clamped to 1 - eps(dtype); stable via log1p."""
+    e = eps(x.dtype)
+    x = torch.clamp(x, -1.0 + e, 1.0 - e)
+    return 0.5 * torch.log1p(2.0 * x / (1.0 - x))
+
+
 def cosh_clamped(x: Tensor, max_arg: float = 85.0) -> Tensor:
     return torch.cosh(torch.clamp(x, -max_arg, max_arg))
 
@@ -98,6 +107,8 @@ def _poly(u: Tensor, coeffs) -> Tensor:
 _SINDIV = [-1.0 / 6, 1.0 / 120, -1.0 / 5040, 1.0 / 362880]
 _COS = [-1.0 / 2, 1.0 / 24, -1.0 / 720, 1.0 / 40320]
 _ARCSINDIV = [1.0 / 6, 3.0 / 40, 15.0 / 336, 105.0 / 3456]
+_TANDIV = [1.0 / 3, 2.0 / 15, 17.0 / 315, 62.0 / 2835, 1382.0 / 155925]
+_ARCTANDIV = [-1.0 / 3, 1.0 / 5, -1.0 / 7, 1.0 / 9, -1.0 / 11]
 
 
 def _log_sindiv_series(us: Tensor) -> Tensor:
@@ -124,6 +135,22 @@ def cos_u(u: Tensor) -> Tensor:
     su = torch.sqrt(torch.abs(uc))
     closed = torch.where(uc > 0, torch.cos(su), cosh_clamped(su))
     return torch.where(small, series, closed)
+
+
+def tandiv_u(u: Tensor) -> Tensor:
+    """tan(sqrt(u))/sqrt(u), analytic in u (=> tanh for u < 0).
+
+    Callers must keep u < (pi/2)**2 when u > 0 (tan pole).
+    """
+    return _tandiv_u_sgn(u, 0)
+
+
+def arctandiv_u(w: Tensor) -> Tensor:
+    """atan(sqrt(w))/sqrt(w), analytic in w (=> artanh for w < 0).
+
+    Callers must keep w > -1 (artanh pole); clamp is applied at w <= -1+eps.
+    """
+    return _arctandiv_u_sgn(w, 0)
 
 
 def arcsindiv_u(w: Tensor) -> Tensor:
@@ -259,12 +286,58 @@ def _log_sindiv_u_sgn_soft(u: Tensor, sign: int) -> Tensor:
     return torch.where(small, series, closed)
 
 
+def _tandiv_u_sgn(u: Tensor, sign: int) -> Tensor:
+    """tandiv_u specialised on the sign of the curvature (0: either)."""
+    small, us, uc = _split_series_window(u)
+    series = _poly(us, _TANDIV)
+    su = torch.sqrt(torch.abs(uc))
+    if sign > 0:
+        closed = torch.tan(su) / su
+    elif sign < 0:
+        closed = torch.tanh(su) / su
+    else:
+        closed = torch.where(uc > 0, torch.tan(su) / su, torch.tanh(su) / su)
+    return torch.where(small, series, closed)
+
+
+def _arctandiv_u_sgn(w: Tensor, sign: int) -> Tensor:
+    """arctandiv_u specialised on the sign of the curvature (0: either)."""
+    small, ws, wc = _split_series_window(w)
+    series = _poly(ws, _ARCTANDIV)
+    e = eps(w.dtype)
+    tin = tiny(w.dtype)
+    sw_p = torch.sqrt(torch.clamp(wc, min=tin))
+    sw_n = torch.sqrt(torch.clamp(-wc, tin, (1.0 - e) ** 2))
+    if sign > 0:
+        closed = torch.atan(sw_p) / sw_p
+    elif sign < 0:
+        closed = atanh_clamped(sw_n) / sw_n
+    else:
+        closed = torch.where(wc > 0, torch.atan(sw_p) / sw_p,
+                             atanh_clamped(sw_n) / sw_n)
+    return torch.where(small, series, closed)
+
+
+def _log_max(x: Tensor, floor: float) -> Tensor:
+    return torch.log(torch.clamp(x, min=floor))
+
+
 def _acosh_1p(u: Tensor) -> Tensor:
     """The tail kernel's acosh(1 + u) (no clamp of the outer u)."""
     return torch.log1p(u + torch.sqrt(torch.clamp(u, min=0.0) * (u + 2.0)))
 
 
 # --- in terms of (r, K) -------------------------------------------------------
+
+
+def tan_k(r: Tensor, k: Tensor) -> Tensor:
+    """Generalized tangent: tan(sqrt(K) r)/sqrt(K); tanh-form for K < 0."""
+    return r * tandiv_u(k * r * r)
+
+
+def arctan_k(y: Tensor, k: Tensor) -> Tensor:
+    """Inverse of tan_k: atan(sqrt(K) y)/sqrt(K); artanh-form for K < 0."""
+    return y * arctandiv_u(k * y * y)
 
 
 def arcsin_k(y: Tensor, k: Tensor) -> Tensor:

@@ -7,6 +7,9 @@ last-digit differences only) and 1e-5 in float32 (a few ulps through the
 exp/log chains; values are O(1-10)). float32 cases keep hyperbolic radii
 where float32 is well-conditioned; the vMF KL in float32 is held to 1e-4,
 because its Bessel series sums 64 log-space terms of magnitude ~100.
+The positive-curvature wrapped normal in float32 is held to 1e-4: near the
+injectivity shell d logdet / d r ~ cot(theta) amplifies last-digit
+differences of the radius.
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,7 @@ import torch
 
 from mvae_tpu.components import parse_components as j_parse
 from mvae_tpu.components import reparametrize as j_reparametrize
+from mvae_tpu.components.component import cap_sigma_positive_k as j_cap
 from mvae_tpu.distributions import normal as jn
 from mvae_tpu.distributions import von_mises_fisher as jv
 from mvae_tpu.distributions import wrapped_normal as jw
@@ -23,6 +27,7 @@ from mvae_tpu.kernels.tail_kernels import draw_noise_t
 from mvae_tpu.ops import Manifold as JManifold
 from mvae_torch.components import parse_components as t_parse
 from mvae_torch.components import reparametrize as t_reparametrize
+from mvae_torch.components.component import cap_sigma_positive_k as t_cap
 from mvae_torch.convert import params_from_jax
 from mvae_torch.distributions import normal as tn
 from mvae_torch.distributions import von_mises_fisher as tv
@@ -114,6 +119,68 @@ def test_vmf_other_m_is_a_later_slice():
                   noise=torch.rand(4, 5))
 
 
+WRAPPED_CASES = [(kind, k) for kind, ks in (
+    ("d", (-1.0, -1e-3)), ("p", (1.0, 1e-3, 3.0)), ("s", (1.0, 0.3)),
+    ("u", (-1.0, -1e-3, 0.0, 1e-3, 1.0))) for k in ks]
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    pytest.param(np.float64, 1e-10, id="f64"),
+    pytest.param(np.float32, 1e-4, id="f32")])
+@pytest.mark.parametrize("wraps", [0, 1, 2])
+@pytest.mark.parametrize("sig_scale", [0.3, 2.0])
+@pytest.mark.parametrize("kind,k", WRAPPED_CASES)
+def test_wrapped_normal_any_curvature(kind, k, sig_scale, wraps, dtype, tol):
+    """The drawn-radius branch sum, ``log_prob`` through the inverse round
+    trip and the prior's ``log_prob_mu0`` on d/p/s/u, small and large
+    scales (at 2.0 the wrap images carry mass on K > 0)."""
+    rng = np.random.default_rng(8)
+    jm, tm = JManifold(kind, 3), TManifold(kind, 3)
+    kj = jnp.asarray(k, dtype)
+    kt = torch.tensor(k, dtype=getattr(torch, dtype.__name__))
+    v_mu = (0.5 * rng.standard_normal((B, 3))).astype(dtype)
+    mu_j = jm.exp_map_mu0(jnp.asarray(v_mu), kj)
+    mu_t = tm.exp_map_mu0(_t(v_mu), kt)
+    sig = (sig_scale * (0.1 + rng.random((B, 3)))).astype(dtype)
+    key = jax.random.key(9)
+    noise = jax.random.normal(key, (B, 3), dtype)
+    z_j, lq_j = jw.sample_and_log_prob(key, jm, mu_j, jnp.asarray(sig), kj,
+                                       wraps=wraps)
+    z_t, lq_t = tw.sample_and_log_prob(tm, mu_t, _t(sig), kt, wraps=wraps,
+                                       noise=_t(noise))
+    _close(z_t, z_j, tol)
+    _close(lq_t, lq_j, tol)
+    one = np.ones((), dtype)
+    _close(tw.log_prob_mu0(tm, z_t, _t(one), kt, wraps=wraps),
+           jw.log_prob_mu0(jm, z_j, jnp.asarray(one), kj, wraps=wraps), tol)
+    if dtype == np.float64:   # the round trip is ill-conditioned in float32
+        iso = np.full((), 0.8 * sig_scale, dtype)
+        _close(tw.log_prob(tm, z_t, mu_t, _t(iso), kt, wraps=wraps),
+               jw.log_prob(jm, z_j, mu_j, jnp.asarray(iso), kj, wraps=wraps),
+               1e-8)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cap_sigma_positive_k(dtype, tol):
+    """The saturating scale cap: identity at K <= 0 and small sigma,
+    pi / sqrt(K) at large sigma, and the same gradient in sigma and K."""
+    sig = np.array([1e-3, 0.3, 1.0, 3.0, 10.0, 100.0], dtype)
+    for k in (-1.0, 0.0, 1e-3, 1.0, 4.0):
+        want = j_cap(jnp.asarray(sig), jnp.asarray(k, dtype))
+        st = _t(sig).requires_grad_()
+        kt = torch.tensor(k, dtype=st.dtype, requires_grad=True)
+        got = t_cap(st, kt)
+        _close(got, want, tol)
+        got.sum().backward()
+        g_s, g_k = jax.grad(lambda s, kk: jnp.sum(j_cap(s, kk)), (0, 1))(
+            jnp.asarray(sig), jnp.asarray(k, dtype))
+        _close(st.grad, g_s, tol)
+        np.testing.assert_allclose(kt.grad.numpy(), np.asarray(g_k),
+                                   rtol=10 * tol, atol=tol)
+    assert float(t_cap(torch.tensor(100.0), torch.tensor(4.0))) == \
+        pytest.approx(np.pi / 2, rel=1e-5)
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("spec", ["h2", "s2", "e2", "h3:wrapped", "e3"])
 def test_reparametrize_component(spec, dtype, tol):
@@ -126,6 +193,32 @@ def test_reparametrize_component(spec, dtype, tol):
              ).astype(dtype)
     key = jax.random.key(7)
     # draw_noise_t splits its key per component, as the model's router does
+    (ck,) = jax.random.split(key, 1)
+    rep_j = j_reparametrize(ck, jc, params_j, jnp.asarray(feats))
+    noise = np.asarray(draw_noise_t(key, (jc,), B, dtype)).T
+    params_t = params_from_jax(jax.tree.map(np.asarray, params_j))
+    rep_t = t_reparametrize(tc, params_t, _t(feats), noise=_t(noise))
+    for ours, theirs in zip(rep_t, rep_j):
+        _close(ours, theirs, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    pytest.param(np.float64, 1e-10, id="f64"),
+    pytest.param(np.float32, 1e-4, id="f32")])
+@pytest.mark.parametrize("spec,opts", [
+    ("d2", {}), ("p2", {}), ("u3", {}), ("s3:wrapped", {}),
+    ("p3", {"scalar_sigma": True}), ("u3", {"wraps": 0}),
+    ("p3", {"sigma_cap": False})])
+def test_reparametrize_wrapped_component(spec, opts, dtype, tol):
+    """Wrapped components on d/p/u/s through ``reparametrize``: heads, the
+    sigma cap under the reference's condition, draw, log q / log p / KL."""
+    (jc,) = j_parse(spec, fixed_curvature=False, **opts)
+    (tc,) = t_parse(spec, fixed_curvature=False, **opts)
+    params_j = jc.init_params(jax.random.key(1), 16, 1.0, dtype)
+    params_j["b_sig"] = params_j["b_sig"] + 1.5      # scales near the cap
+    feats = (0.5 * np.random.default_rng(7).standard_normal((B, 16))
+             ).astype(dtype)
+    key = jax.random.key(8)
     (ck,) = jax.random.split(key, 1)
     rep_j = j_reparametrize(ck, jc, params_j, jnp.asarray(feats))
     noise = np.asarray(draw_noise_t(key, (jc,), B, dtype)).T

@@ -1,5 +1,6 @@
-"""mvae_torch ops (stable scalar math, special functions, Lorentz and sphere
-geometry) against the JAX package on the same numpy inputs.
+"""mvae_torch ops (stable scalar math, special functions, Lorentz, sphere
+and kappa-stereographic geometry) against the JAX package on the same numpy
+inputs.
 
 Tolerances: 1e-10 in float64 (the two packages evaluate the same
 expressions; what remains is the libraries' own last-digit differences in
@@ -9,6 +10,9 @@ JAX side runs under jit, so XLA's fusion rounds differently from PyTorch's
 op-by-op evaluation; float32 cases stay where the functions are
 well-conditioned in float32 (hyperbolic radii up to 1, Bessel orders up to
 4 -- the vMF path uses orders 0.5 and 1.5), and float64 covers the rest.
+The reference's kernel forms spell atan as a polynomial within 6.3e-9 of
+it, so ``_arctandiv_u_sgn`` in float64 is held to 1e-7 on its positive
+closed branch.
 """
 import jax
 import jax.numpy as jnp
@@ -19,12 +23,21 @@ import torch
 from mvae_tpu.kernels import manifold_kernels as jmk
 from mvae_tpu.kernels import tail_kernels as jtk
 from mvae_tpu.ops import lorentz as jl
+from mvae_tpu.ops import poincare as jpo
 from mvae_tpu.ops import sphere as js
+from mvae_tpu.ops import spherical_projected as jsproj
 from mvae_tpu.ops import stable as jst
+from mvae_tpu.ops import stereographic as jstereo
+from mvae_tpu.ops import universal as juni
 from mvae_tpu.utils import special as jsp
+from mvae_torch.ops import Manifold
 from mvae_torch.ops import lorentz as tl
+from mvae_torch.ops import poincare as tpo
 from mvae_torch.ops import sphere as ts
+from mvae_torch.ops import spherical_projected as tsproj
 from mvae_torch.ops import stable as tst
+from mvae_torch.ops import stereographic as tstereo
+from mvae_torch.ops import universal as tuni
 from mvae_torch.utils import special as tsp
 
 DTYPES = [pytest.param(np.float64, 1e-10, id="f64"),
@@ -154,3 +167,117 @@ def test_sphere_against_reference(k, dtype, tol):
     tv, jv = _both(v, dtype)
     tw, jw = _both(w, dtype)
     _check_geometry(ts, js, tv, tw, tk_, jv, jw, jk, tol)
+
+
+# --- the kappa-stereographic family -------------------------------------------
+
+# w = K |z|^2 > -1 for arctandiv; u < (pi/2)^2 for tandiv
+W_ATAN = np.array([-0.999, -0.9, -0.5, -0.1] + [-v for v in _EDGE[:11]]
+                  + _EDGE + [9.0, 100.0])
+U_TAN = np.array([-v for v in _EDGE] + [-9.0, -30.0, -400.0] + _EDGE[:13]
+                 + [2.2])
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("name,points", [
+    ("tandiv_u", U_TAN), ("arctandiv_u", W_ATAN),
+    ("atanh_clamped", np.array([-1.5, -1.0, -0.9, 0.0, 1e-4, 0.5, 0.999,
+                                1.0, 2.0]))])
+def test_stereographic_series_functions(name, points, dtype, tol):
+    t, j = _both(points, dtype)
+    _close(getattr(tst, name)(t), jax.jit(getattr(jst, name))(j), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("sign", [-1, 0, 1])
+def test_stereographic_kernel_forms(sign, dtype, tol):
+    """The sign-specialised forms the stereographic tile evaluates; the
+    reference's use sin / cos for tan and a polynomial for atan."""
+    keep = {-1: lambda a: a[a <= 0], 1: lambda a: a[a >= 0],
+            0: lambda a: a}[sign]
+    t, j = _both(keep(U_TAN), dtype)
+    _close(tst._tandiv_u_sgn(t, sign),
+           jax.jit(lambda u: jmk._tandiv_u_sgn(u, sign))(j), tol)
+    t, j = _both(keep(W_ATAN), dtype)
+    _close(tst._arctandiv_u_sgn(t, sign),
+           jax.jit(lambda w: jmk._arctandiv_u_sgn(w, sign))(j),
+           max(tol, 1e-7))
+    t, j = _both(np.array([0.0, 1e-20, 1e-3, 2.0]), dtype)
+    _close(tst._log_max(t, 1e-15), jmk._log_max(j, 1e-15), tol)
+    r, kk = np.array([0.1, 0.7, 1.2]), np.array([-0.8, 0.0, 0.9])
+    (tr, jr), (tk_, jk) = _both(r, dtype), _both(kk, dtype)
+    _close(tst.tan_k(tr, tk_), jst.tan_k(jr, jk), tol)
+    _close(tst.arctan_k(tr, tk_), jst.arctan_k(jr, jk), tol)
+
+
+def _stereo_ops(m, v, w, u, k):
+    """Every op of the gyrovector API, on points x, y from tangents v, w."""
+    x = m.exp_map_mu0(v, k)
+    y = m.exp_map_mu0(w, k)
+    return (x, m.project(3.0 * x, k), m.lambda_x(x, k), m.mobius_add(x, y, k),
+            m.mobius_scalar_mul(0.7, x, k), m.gyration(x, y, u, k),
+            m.distance(x, y, k), m.exp_map(x, u, k), m.log_map(x, y, k),
+            m.parallel_transport(x, y, u, k), m.log_map_mu0(x, k),
+            m.transp_mu0(x, u, k), m.inv_transp_mu0(x, u, k),
+            m.sample_projection_mu0(w, x, k),
+            m.inverse_sample_projection_mu0(y, x, k))
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("name,k", [
+    ("stereographic", -1.0), ("stereographic", 0.0), ("stereographic", 0.6),
+    ("poincare", -1.0), ("poincare", -1e-3), ("poincare", -4.0),
+    ("spherical_projected", 1.0), ("spherical_projected", 1e-3),
+    ("spherical_projected", 4.0),
+    ("universal", -0.7), ("universal", -1e-3), ("universal", 0.0),
+    ("universal", 1e-3), ("universal", 0.7)])
+def test_stereographic_family_against_reference(name, k, dtype, tol):
+    tmod = {"stereographic": tstereo, "poincare": tpo,
+            "spherical_projected": tsproj, "universal": tuni}[name]
+    jmod = {"stereographic": jstereo, "poincare": jpo,
+            "spherical_projected": jsproj, "universal": juni}[name]
+    assert (tmod.KIND, tmod.CURVATURE_SIGN) == (jmod.KIND,
+                                                jmod.CURVATURE_SIGN)
+    rng = np.random.default_rng(2)
+    scale = 1.0 / max(abs(k), 1.0) ** 0.5
+    args = [_both(scale * _points(rng, 6, 3, dtype), dtype) for _ in range(3)]
+    tk_, jk = _both(k, dtype)
+    ref = jax.jit(lambda v, w, u, kk: _stereo_ops(jmod, v, w, u, kk))(
+        *[a[1] for a in args], jk)
+    for ours, theirs in zip(_stereo_ops(tmod, *[a[0] for a in args], tk_),
+                            ref):
+        _close(ours, theirs, tol)
+
+
+def test_sign_pinned_wrappers_clamp_the_curvature():
+    """poincare pins K < 0 and spherical_projected K > 0 whatever they are
+    given; mu0 is the origin."""
+    x = torch.tensor([[0.3, -0.2]])
+    for tmod, jmod, k in ((tpo, jpo, 0.5), (tsproj, jsproj, -0.5)):
+        _close(tmod.exp_map_mu0(x, torch.tensor(k)),
+               jmod.exp_map_mu0(jnp.asarray(x.numpy()), jnp.float32(k)),
+               1e-6)
+    assert torch.equal(tuni.mu0(3, torch.tensor(0.1), torch.float32),
+                       torch.zeros(3))
+
+
+@pytest.mark.parametrize("kind", ["e", "h", "d", "s", "p", "u"])
+def test_manifold_descriptor_matches_reference(kind):
+    from mvae_tpu.ops import Manifold as JManifold
+    tm, jm = Manifold(kind, 3), JManifold(kind, 3)
+    assert (tm.ambient_dim, tm.curvature_sign, tm.has_curvature_param) == (
+        jm.ambient_dim, jm.curvature_sign, jm.has_curvature_param)
+    c = tm.init_curvature_param(0.5)
+    np.testing.assert_allclose(c.numpy(),
+                               np.asarray(jm.init_curvature_param(0.5)))
+    k_t, k_j = tm.curvature(c), jm.curvature(jnp.asarray(c.numpy()))
+    np.testing.assert_allclose(k_t.numpy(), np.asarray(k_j), rtol=1e-6)
+    v = torch.tensor([[0.3, -0.2, 0.1]])
+    z_t = tm.exp_map_mu0(v, k_t)
+    z_j = jm.exp_map_mu0(jnp.asarray(v.numpy()), k_j)
+    np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        tm.inverse_sample_projection_mu0(z_t, z_t, k_t).numpy(),
+        np.asarray(jm.inverse_sample_projection_mu0(z_j, z_j, k_j)),
+        rtol=1e-5, atol=1e-5)

@@ -19,7 +19,9 @@ On the card the forward kernel and its plain version evaluate the same
 float32 operations in the same order (built with --fmad=false), so they
 are held to 1e-5 (1 + |z|) on z and 1e-4 on the log-densities; the
 backward kernel, whose reverse sweep is derived by hand, to the float32
-backward contract above.
+backward contract above. The stereographic tile (d/p/u) in float64 is held
+to 1e-7 where the others are held to 1e-10 and 1e-9: the reference spells
+atan as a polynomial within 6.3e-9 of it, the port calls atan.
 
 The JAX package is imported inside the CPU tests only, so the card tests
 also run where JAX is not installed:
@@ -37,14 +39,24 @@ B, F = 40, 24
 SPECS = ["h2,s2,e2", "2h2", "3s2", "e2", "h3,e4"]
 
 
-def _setup(spec, dtype, scalar_sigma=False, seed=0):
+def _setup(spec, dtype, scalar_sigma=False, seed=0, wraps=1, c_params=None):
+    """Components of both packages, JAX head params (``c_params`` overrides
+    the curvature leaves of the components that have one, in order), the
+    raw heads of B random feature rows, and the reparam key."""
     import jax
+    import jax.numpy as jnp
     from mvae_tpu.components import parse_components as j_parse
-    jc = j_parse(spec, fixed_curvature=False, scalar_sigma=scalar_sigma)
-    tc = t_parse(spec, fixed_curvature=False, scalar_sigma=scalar_sigma)
+    jc = j_parse(spec, fixed_curvature=False, scalar_sigma=scalar_sigma,
+                 wraps=wraps)
+    tc = t_parse(spec, fixed_curvature=False, scalar_sigma=scalar_sigma,
+                 wraps=wraps)
     k_init, k_feat, k_rep = jax.random.split(jax.random.key(seed), 3)
     params = tuple(c.init_params(kk, F, 1.0, dtype)
                    for c, kk in zip(jc, jax.random.split(k_init, len(jc))))
+    if c_params is not None:
+        with_c = [cp for cp in params if "c_param" in cp]
+        for cp, c in zip(with_c, c_params, strict=True):
+            cp["c_param"] = jnp.asarray(c, dtype)
     feats = 0.7 * jax.random.normal(k_feat, (B, F), dtype)
     raw = np.concatenate(
         [np.concatenate([np.asarray(feats @ cp["w_mu"] + cp["b_mu"]),
@@ -284,7 +296,194 @@ def test_tail_backward_on_cpu_is_the_plain_version():
 def test_capability_predicate():
     sup = [ttk.component_supported(c) for c in t_parse(
         "h2,s2,e2,s3,s2:wrapped,d2,u2,h33")]
-    assert sup == [True, True, True, False, False, False, False, False]
+    assert sup == [True, True, True, False, False, True, True, False]
+    # the tile bakes the sigma cap in: uncapped positive-capable components
+    # are outside the family, an uncapped 'd' is not
+    sup = [ttk.component_supported(c) for c in t_parse(
+        "p2,u2,d2,p33", sigma_cap=False)]
+    assert sup == [False, False, True, False]
+
+
+# --- the stereographic tile (d/p/u) ---------------------------------------------
+
+# (spec, scalar_sigma, wraps, c_params): the universal tile at K = -1e-3, 0,
+# 1e-3 runs both of its run-time branches next to the series window
+STEREO = [
+    pytest.param("d2,p2,e2", False, 1, None, id="d2p2e2"),
+    pytest.param("d2,p2,e2", True, 1, None, id="d2p2e2-scalar"),
+    pytest.param("d2,p2,e2", False, 0, None, id="d2p2e2-wraps0"),
+    pytest.param("d2,p2,e2", False, 1, (np.log(0.3), np.log(2.5)),
+                 id="d2p2e2-K-0.3+2.5"),
+    pytest.param("u6", False, 1, None, id="u6"),
+    pytest.param("u6", False, 0, (0.5,), id="u6-wraps0"),
+    pytest.param("u6", False, 1, (-1.0,), id="u6-K-1"),
+    pytest.param("u6", False, 1, (-1e-3,), id="u6-K-1e-3"),
+    pytest.param("u6", False, 1, (0.0,), id="u6-K0"),
+    pytest.param("u6", False, 1, (1e-3,), id="u6-K+1e-3"),
+    pytest.param("p6", False, 1, None, id="p6"),
+    pytest.param("p6", True, 1, (np.log(3.0),), id="p6-scalar-K3"),
+    pytest.param("d6", False, 1, None, id="d6"),
+    pytest.param("u2,h2,p3", False, 1, (0.5, np.log(0.7), np.log(1.3)),
+                 id="u2h2p3"),
+]
+
+
+# against reparam_all_jnp in both types, and against the Pallas reparam_all in
+# interpret mode in float32 (the TPU kernel's type)
+FWD_MODES = [pytest.param(np.float64, 1e-7, 1e-7, False, id="f64-jnp"),
+             pytest.param(np.float32, 1e-5, 1e-4, False, id="f32-jnp"),
+             pytest.param(np.float32, 1e-5, 1e-4, True, id="f32-pallas")]
+BWD_MODES = [pytest.param(np.float64, 1e-7, 1e-7, 1e-7, False, id="f64-jnp"),
+             pytest.param(np.float32, 1e-3, 5e-4, 2e-3, False, id="f32-jnp")]
+# the interpreted Pallas backward takes 5-20 s a case: one case per family
+PALLAS_BWD = [p for p in STEREO
+              if p.id in ("d2p2e2", "u6", "u6-K-1e-3", "p6", "d6")]
+
+
+@pytest.mark.parametrize("dtype,tol,atol,fused", FWD_MODES)
+@pytest.mark.parametrize("spec,scalar_sigma,wraps,c_params", STEREO)
+def test_stereo_tile_forward_matches_jax(monkeypatch, spec, scalar_sigma,
+                                         wraps, c_params, dtype, tol, atol,
+                                         fused):
+    from mvae_tpu.kernels import tail_kernels as jtk
+    monkeypatch.setenv("MVAE_FUSED_TAIL", "1")
+    jc, tc, params, raw, k_rep = _setup(spec, dtype, scalar_sigma, 1, wraps,
+                                        c_params)
+    fn = jtk.reparam_all if fused else jtk.reparam_all_jnp
+    z_j, lq_j, lp_j, kl_j, kv_j = fn(k_rep, jc, params, raw)
+    eps = np.asarray(jtk.draw_noise_t(k_rep, jc, B, dtype)).T
+    kvec = _kvec(tc, params)
+    np.testing.assert_allclose(kvec.numpy(), np.asarray(kv_j), rtol=tol)
+    z, aux = ttk.tail_forward_ref(tc, torch.from_numpy(raw),
+                                  torch.from_numpy(eps.copy()), kvec)
+    nc = len(tc)
+    for ours, theirs in ((z, z_j), (aux[:, :nc], kl_j), (aux[:, nc], lq_j),
+                         (aux[:, nc + 1], lp_j)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs),
+                                   rtol=tol, atol=atol)
+
+
+def _dk_dc(tc, kvec):
+    """dK/dc per component: K for the pinned kinds (K = +-e^c), 1 for the
+    universal kind (K = c)."""
+    return torch.stack([torch.ones(()) if c.manifold.kind == "u" else k
+                        for c, k in zip(tc, kvec.detach())])
+
+
+@pytest.mark.parametrize("dtype,rtol,atol,ktol,fused", BWD_MODES)
+@pytest.mark.parametrize("spec,scalar_sigma,wraps,c_params", STEREO)
+def test_stereo_tile_backward_matches_jax(spec, scalar_sigma, wraps,
+                                          c_params, dtype, rtol, atol, ktol,
+                                          fused):
+    """``_TailFn`` under ``loss.backward()`` and ``tail_backward_ref``
+    against ``jax.grad`` of ``reparam_all_jnp``, the curvature gradient
+    included."""
+    _check_stereo_backward(spec, scalar_sigma, wraps, c_params, dtype, rtol,
+                           atol, ktol, fused)
+
+
+@pytest.mark.parametrize("spec,scalar_sigma,wraps,c_params", PALLAS_BWD)
+def test_stereo_tile_backward_matches_pallas_bwd_interpret(
+        monkeypatch, spec, scalar_sigma, wraps, c_params):
+    """Against the JAX kernel's own backward (``_bwd_pallas`` in interpret
+    mode, MVAE_FUSED_TAIL=1), float32, the curvature gradient included."""
+    monkeypatch.setenv("MVAE_FUSED_TAIL", "1")
+    _check_stereo_backward(spec, scalar_sigma, wraps, c_params, np.float32,
+                           1e-3, 5e-4, 2e-3, True)
+
+
+def _check_stereo_backward(spec, scalar_sigma, wraps, c_params, dtype, rtol,
+                           atol, ktol, fused):
+    import jax
+    from mvae_tpu.kernels import tail_kernels as jtk
+    jc, tc, params, raw, k_rep = _setup(spec, dtype, scalar_sigma, 2, wraps,
+                                        c_params)
+    g_raw_j, g_c_j = _jax_grads(jc, params, raw, k_rep, fused=fused)
+    eps = torch.from_numpy(np.asarray(
+        jtk.draw_noise_t(k_rep, jc, B, dtype)).T.copy())
+    tparams = params_from_jax(jax.tree.map(np.asarray, params))
+    curv = [cp["c_param"].requires_grad_() for cp in tparams
+            if "c_param" in cp]
+    raw_t = torch.from_numpy(raw).requires_grad_()
+    z, lq, lp, kl, kvec = ttk.reparam_all(tc, tparams, raw_t, noise=eps)
+    (torch.mean(torch.sum(z * z, -1)) + torch.mean(kl)
+     + 0.1 * torch.mean(lq - lp)).backward()
+    np.testing.assert_allclose(raw_t.grad.numpy(), g_raw_j, rtol=rtol,
+                               atol=atol)
+    assert len(curv) == len(g_c_j)
+    for ours, theirs in zip(curv, g_c_j):
+        np.testing.assert_allclose(ours.grad.numpy(), theirs, rtol=ktol,
+                                   atol=atol)
+    if fused:
+        return
+    nc = len(tc)
+    daux = torch.from_numpy(_loss_cotangents(B, z.shape[1], nc, dtype))
+    draw, dk_rows = ttk.tail_backward_ref(tc, torch.from_numpy(raw), eps,
+                                          kvec.detach(),
+                                          2.0 * z.detach() / B, daux)
+    np.testing.assert_allclose(draw.numpy(), g_raw_j, rtol=rtol, atol=atol)
+    dc = (dk_rows.sum(0) * _dk_dc(tc, kvec)).numpy()
+    idx = [i for i, c in enumerate(tc) if c.manifold.has_curvature_param]
+    for i, theirs in zip(idx, g_c_j):
+        np.testing.assert_allclose(dc[i], theirs, rtol=ktol, atol=atol)
+
+
+@pytest.mark.parametrize("spec,kset,scalar_sigma,wraps", [
+    ("d2,p2,e2", (-0.7, 1.3, 0.0), False, 1),
+    ("d2,p2", (-0.7, 1.3), True, 0),
+    ("u3", (0.8,), False, 1), ("u3", (-0.8,), False, 1),
+    ("u3", (1e-3,), False, 1), ("u3", (-1e-3,), False, 1)])
+def test_stereo_tail_fn_gradcheck_f64(spec, kset, scalar_sigma, wraps):
+    """torch.autograd.gradcheck of _TailFn over the stereographic tile
+    (float64, CPU): raw heads and curvature against finite differences,
+    the sigma heads large enough that the cap's gradient matters."""
+    tc = tuple(t_parse(spec, fixed_curvature=False,
+                       scalar_sigma=scalar_sigma, wraps=wraps))
+    W, E, _ = ttk._dims(tc)
+    g = torch.Generator().manual_seed(4)
+    raw = torch.randn(5, W, generator=g, dtype=torch.float64)
+    raw[::2] += 1.0
+    eps = ttk.draw_noise(tc, (5,), raw, g)
+    k = torch.tensor(kset, dtype=torch.float64)
+    assert torch.autograd.gradcheck(
+        lambda r, kk: ttk._TailFn.apply(tc, r, eps, kk),
+        (raw.requires_grad_(), k.requires_grad_()))
+
+
+@pytest.mark.parametrize("kset", [(-1.0, 1.0, 1.0), (-1e-3, 1e-3, 1e-3),
+                                  (-1.0, 1.0, 0.0), (-1.0, 1.0, -1e-3)])
+def test_stereo_tie_rows_have_finite_gradients(kset):
+    """Rows at the ties of the stereographic tile: mu_tan = 0 with eps = 0
+    (every norm at its floor), mu_tan = 0 alone, eps = 0 alone, a saturated
+    sigma cap, and a point pushed to the K < 0 ball's rim. Values and
+    gradients stay finite in float32, and on the rows float32 resolves (all
+    but the rim) the plain backward agrees with its float64 evaluation."""
+    tc = tuple(t_parse("d2,p2,u2", fixed_curvature=False))
+    g = torch.Generator().manual_seed(6)
+    raw = 0.5 * torch.randn(6, 12, generator=g)
+    eps = ttk.draw_noise(tc, (6,), raw, g)
+    mu_cols = [0, 1, 4, 5, 8, 9]
+    sig_cols = [6, 7, 10, 11]                # of p2 and u2: the capped kinds
+    raw[0, mu_cols] = 0.0
+    eps[0] = 0.0
+    raw[1, mu_cols] = 0.0
+    eps[2] = 0.0
+    raw[3, sig_cols] = 9.0                   # sigma far beyond the cap
+    raw[4, mu_cols] = 40.0                   # the rim of the ball
+    k = torch.tensor(kset)
+    dz = torch.randn(6, 6, generator=g)
+    daux = torch.randn(6, 5, generator=g)
+    z, aux = ttk.tail_forward_ref(tc, raw, eps, k)
+    assert bool(torch.isfinite(z).all() and torch.isfinite(aux).all())
+    draw, dk = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
+    assert bool(torch.isfinite(draw).all() and torch.isfinite(dk).all())
+    d64, k64 = ttk.tail_backward_ref(tc, raw.double(), eps.double(),
+                                     k.double(), dz.double(), daux.double())
+    rows = [0, 1, 2, 3, 5]
+    np.testing.assert_allclose(draw[rows].numpy(), d64[rows].numpy(),
+                               rtol=1e-3, atol=5e-4)
+    np.testing.assert_allclose(dk[rows].numpy(), k64[rows].numpy(),
+                               rtol=2e-3, atol=5e-4)
 
 
 @pytest.mark.cuda
@@ -328,6 +527,50 @@ def test_backward_kernel_matches_plain_version_on_card(cuda_device, batch):
                      <= 1e-3 * draw_r.abs() + 5e-4).all())
         dks, dks_r = dk.sum(0), dk_r.sum(0)
         assert bool(((dks - dks_r).abs() <= 2e-3 * dks_r.abs() + 5e-4).all())
+
+
+STEREO_CARD = [("d2,p2,e2", (-1.0, 1.0, 0.0)), ("d2,p2,e2", (-1e-3, 1e-3, 0.0)),
+               ("u6", (1.0,)), ("u6", (-1.0,)), ("u6", (0.0,)),
+               ("u6", (1e-3,)), ("u6", (-1e-3,)), ("p6", (1.0,)),
+               ("d6", (-1.0,))]
+
+
+def _stereo_card_inputs(comps, batch, kset, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    W, _, Z = ttk._dims(comps)
+    raw = 0.5 * torch.randn(batch, W, generator=gen, device=device)
+    eps = ttk.draw_noise(comps, (batch,), raw, gen)
+    raw[0], eps[0] = 0.0, 0.0                # mu_tan = 0, eps = 0
+    k = torch.tensor(kset, device=device)
+    dz = torch.randn(batch, Z, generator=gen, device=device)
+    daux = torch.randn(batch, len(comps) + 2, generator=gen, device=device)
+    return raw, eps, k, dz, daux
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [128, 512])
+@pytest.mark.parametrize("spec,kset", STEREO_CARD)
+def test_stereo_tile_kernels_match_plain_version_on_card(cuda_device, spec,
+                                                         kset, batch):
+    """B1 and B3 over the stereographic tile against the plain versions, at
+    heads of the size training produces: z within 1e-5 (1 + |z|), the
+    log-densities within 1e-4 (1 + 0.01 |ref|), the backward within the
+    float32 contract."""
+    comps = tuple(t_parse(spec, fixed_curvature=False))
+    raw, eps, k, dz, daux = _stereo_card_inputs(comps, batch, kset,
+                                                cuda_device, 3)
+    z, aux = ttk.tail_forward(comps, raw, eps, k)
+    z_r, aux_r = ttk.tail_forward_ref(comps, raw, eps, k)
+    draw, dk = ttk.tail_backward(comps, raw, eps, k, dz, daux)
+    draw_r, dk_r = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
+    torch.cuda.synchronize()
+    assert bool(((z - z_r).abs() <= 1e-5 * (1 + z_r.abs())).all())
+    assert bool(((aux - aux_r).abs() <= 1e-4 * (1 + 1e-2 * aux_r.abs()))
+                .all())
+    assert bool(torch.isfinite(draw).all() and torch.isfinite(dk).all())
+    assert bool(((draw - draw_r).abs() <= 1e-3 * draw_r.abs() + 5e-4).all())
+    dks, dks_r = dk.sum(0), dk_r.sum(0)
+    assert bool(((dks - dks_r).abs() <= 2e-3 * dks_r.abs() + 5e-4).all())
 
 
 @pytest.fixture

@@ -57,7 +57,10 @@ def _max_rel_delta(jax_params, torch_params):
 
 @pytest.mark.parametrize("spec,fixed,burnin", [("e2", True, 0),
                                                ("h2", False, 1),
-                                               ("h2,s2,e2", False, 0)])
+                                               ("h2,s2,e2", False, 0),
+                                               ("d2,p2,e2", False, 0),
+                                               ("u6", False, 0),
+                                               ("p6", False, 1)])
 def test_one_epoch_matches_jax_trainer(tmp_path, spec, fixed, burnin):
     import jax
     from mvae_tpu.components import parse_components as j_parse
@@ -142,6 +145,39 @@ def test_fixed_curvature_never_moves(tmp_path):
     tr.train_one_epoch(0)
     tr.train_one_epoch(1)
     assert all(torch.equal(a, b) for a, b in zip(_curvature(tr), c0))
+
+
+@pytest.mark.parametrize("spec", ["d2,p2,e2", "u6"])
+def test_stereographic_curvature_gets_the_curvature_group(tmp_path, spec):
+    """The curvature leaves of d/p/u (for 'u', K itself) train in the
+    ``curvature_lr`` group, frozen through burn-in and moving after."""
+    tr = _trainer(tmp_path, spec=spec, burnin_epochs=1, curvature_lr=3e-3)
+    c0 = _curvature(tr)
+    group = tr.opt.param_groups[-1]
+    assert group["lr"] == 3e-3 and len(group["params"]) == len(c0)
+    tr.train_one_epoch(0)
+    assert all(torch.equal(a, b) for a, b in zip(_curvature(tr), c0))
+    tr.train_one_epoch(1)
+    assert all(not torch.equal(a, b) for a, b in zip(_curvature(tr), c0))
+    assert all(bool(torch.isfinite(t).all()) for t in _leaves(tr.params))
+
+
+def test_universal_curvature_crosses_zero_in_training(tmp_path):
+    """Two u3 runs started at K = +1e-3 and K = -1e-3 with a curvature
+    step of 1e-3: every statistic stays finite on both sides of K = 0 and
+    through it (the run the gradient pushes toward 0 crosses)."""
+    crossed = 0
+    for name, k0 in (("pos", 1e-3), ("neg", -1e-3)):
+        tr = _trainer(tmp_path / name, spec="u3", init_k=k0,
+                      curvature_lr=1e-3)
+        assert float(_curvature(tr)[0]) == pytest.approx(k0)
+        for epoch in range(2):
+            stats = tr.train_one_epoch(epoch)
+            assert all(np.isfinite(v) for v in stats.values()), stats
+        k1 = float(_curvature(tr)[0])
+        assert np.isfinite(tr.evaluate_log_likelihood("test"))
+        crossed += (k1 > 0) != (k0 > 0)
+    assert crossed >= 1
 
 
 def test_loss_falls_over_five_epochs(tmp_path):
