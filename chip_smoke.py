@@ -8,7 +8,8 @@ Phases:
     full-f32 matmuls (TF32 off);
  2. build every kernel of ``mvae_torch/kernels/csrc`` with nvcc (parallel:
     B1 tail_fwd, B2 decode_bce, B3 tail_bwd, B6 train_decode,
-    B5 reparam_stereo; B4a lives in the header B1 and B3 share);
+    B5 reparam_stereo, B7 manifold_dist; B4a and B4b live in the header B1
+    and B3 share);
  3. the tail kernel (tail_fwd.cu) against ``tail_forward_ref`` at the
     flagship product h2,s2,e2, B = 512 and B = 1000 (ragged), random heads
     with large-|mu| rows and curvatures that put rows on both sides of the
@@ -56,7 +57,27 @@ Phases:
 15. u6 at h_dim 400: two runs of 150 steps from K = +1e-3 and K = -1e-3
     (finite losses on both sides of K = 0) and IWAE-500 on 1,024 examples
     through the sign-0 instance of B4a and B5;
-16. one JSON line of kernel numbers, then the result line.
+16. the embedded-sphere tile (B4b) inside B1 and B3 against the plain
+    versions for the tables of s6:wrapped and s3:wrapped,h2,e2 at B = 512
+    and B = 128: curvatures 1, 1e-3, 4, rows with a saturated sigma cap,
+    with mu_tan = 0 and eps = 0, with the mean at the antipode of mu0; then
+    the rows where the tile's K-dependent floors are taken, held to the
+    float32 plain version directly;
+17. the distance kernels (manifold_dist.cu, B7a and B7b) against their
+    plain versions at (B, n) = (1,048,576, 128) and (1000, 6), K in
+    {-1, -1e-3, 0, 1e-3, 1} for B7a, with device time, bytes bound and the
+    plain composition's time; then the distance entry points driven as a
+    user would (counts read around that run), gradients included;
+18. the spherical family end to end, s6:wrapped at h_dim 400 with learnable
+    curvature: test ELBO and IWAE-500 over the 10,000-example test split
+    through B1 (+B4b) and B2 with launch counts, recomputed on the same
+    noise with the plain versions (pass means and per example); one
+    training epoch of 468 steps at batch 128 with burn-in off (B1 and B3
+    once per step); the plain replay of phase 10; profiles;
+19. s6 (vMF by rejection, m = 7) at h_dim 400: 150 training steps with
+    finite losses and IWAE-500 on 1,024 examples; p2:vmf,e2: the ELBO of
+    one batch; ``generate(16)`` and ``reconstruct`` on the card;
+20. one JSON line of kernel numbers, then the result line.
 
 Where float32 does not resolve a value (a point at the K < 0 ball's rim,
 a radius within an ulp of the K > 0 injectivity shell), the stereographic
@@ -112,14 +133,20 @@ SPEC = "h2,s2,e2"
 STEREO_SPEC = "d2,p2,e2"
 # rough per-row arithmetic of the tail tiles (transcendentals count one op)
 _TAIL_OPS = {"normal": lambda n: 12 * n, "wrapped": lambda n: 30 * n + 80,
-             "vmf": lambda n: 120, "stereo": lambda n: 40 * n + 500}
+             "vmf": lambda n: 120, "stereo": lambda n: 40 * n + 500,
+             "sphere": lambda n: 60 * n + 520}
+SPHERE_SPEC = "s6:wrapped"
 
 
 def _tail_ops(comps) -> int:
     """Rough arithmetic of one row of the product's tail."""
-    return sum(_TAIL_OPS["stereo" if (c.posterior == "wrapped"
-                                      and c.manifold.kind in "dpu")
-                         else c.posterior](c.dim) for c in comps)
+    def tile(c):
+        if c.posterior == "wrapped" and c.manifold.kind in "dpu":
+            return "stereo"
+        if c.posterior == "wrapped" and c.manifold.kind == "s":
+            return "sphere"
+        return c.posterior
+    return sum(_TAIL_OPS[tile(c)](c.dim) for c in comps)
 
 
 def check(cond: bool, what: str) -> None:
@@ -144,20 +171,31 @@ def time_ms(fn, iters: int) -> float:
 
 
 def kernel_ms(fn, iters: int, *kernels: str):
-    """(device ms per call of ``fn`` spent in the named kernels, from the
-    profiler trace, or None when the trace has none; ms per call by CUDA
-    events)."""
+    """(device ms per call of ``fn`` spent in the named kernels, each of
+    which it launches once, from the profiler trace, or None when the trace
+    has none; ms per call by CUDA events). A kernel's time is the mean over
+    the launches the trace holds: the trace may drop records (it held 15 of
+    20 launches of a 350 us kernel once), so the sum over ``iters`` calls
+    would understate it."""
     per_call = time_ms(fn, iters)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = count = 0
+    total = {k: 0.0 for k in kernels}
+    count = {k: 0 for k in kernels}
     for ev in prof.key_averages():
-        if any(k in ev.key for k in kernels):
-            total += ev.device_time_total
-            count += ev.count
-    return (total / iters / 1e3 if count else None), per_call
+        for k in kernels:
+            if k in ev.key:
+                total[k] += ev.device_time_total
+                count[k] += ev.count
+                break
+    if not all(count.values()):
+        return None, per_call
+    if any(c != iters for c in count.values()):
+        print(f"[profile] the trace holds {count} of {iters} launches each; "
+              f"times are means over those")
+    return sum(total[k] / count[k] for k in kernels) / 1e3, per_call
 
 
 # Training-step layers by device kernel name (first match wins); the GEMMs
@@ -862,6 +900,90 @@ def held(ours, ref, ref64, tol, what: str) -> tuple[float, float]:
     return ratio, (ours - ref).abs()[res].max().item()
 
 
+def _tile_case(tag: str, comps, args, what: str):
+    """One case of a wrapped tile (``tag``: B4a or B4b) inside B1 and B3
+    against the plain versions, float32 and float64. Returns the shares of
+    the tolerance used (forward, raw gradient, batch-summed curvature
+    gradient), the largest errors on resolved entries (forward, backward)
+    and the number of rows float32 resolves."""
+    a64 = [t.double() for t in args]
+    z, aux = tail_kernels.tail_forward(comps, *args[:3])
+    z_r, aux_r = tail_kernels.tail_forward_ref(comps, *args[:3])
+    z64, aux64 = tail_kernels.tail_forward_ref(comps, *a64[:3])
+    draw, dk = tail_kernels.tail_backward(comps, *args)
+    pr, pk = tail_kernels.tail_backward_ref(comps, *args)
+    p64, pk64 = tail_kernels.tail_backward_ref(comps, *a64)
+    torch.cuda.synchronize()
+    rz, ez = held(z, z_r, z64, 1e-5 * (1 + z_r.abs()), f"{tag} z at {what}")
+    ra, ea = held(aux, aux_r, aux64, 1e-4 * (1 + 1e-2 * aux_r.abs()),
+                  f"{tag} log-densities at {what}")
+    tol = 1e-3 * pr.abs() + 5e-4
+    rb, eb = held(draw, pr, p64, tol, f"{tag} raw gradient at {what}")
+    # the curvature gradient is held as the reference holds it, summed over
+    # the batch (a row's own value cancels terms of size 1 / K): over the
+    # rows float32 resolves in both; by row it must be as near float64 as
+    # the plain version
+    ktol = 2e-3 * pk.abs() + 5e-4
+    check(bool(torch.isfinite(dk).all()),
+          f"{tag} curvature gradient finite at {what}")
+    kfar = ((dk.double() - pk64).abs()
+            / ((pk.double() - pk64).abs() + ktol)).max().item()
+    check(kfar <= 10.0, f"{tag} curvature gradient by row no farther from "
+                        f"float64 than 10x the plain version at {what}: "
+                        f"{kfar:.3g}")
+    res = (((pr.double() - p64).abs() <= 0.1 * tol).all(1)
+           & ((pk.double() - pk64).abs() <= 0.1 * ktol).all(1))
+    dks, pks = dk[res].sum(0), pk[res].sum(0)
+    kr = ((dks - pks).abs() / (2e-3 * pks.abs() + 5e-4)).max().item()
+    check(kr <= 1.0, f"{tag} curvature gradient within rtol 2e-3 at {what}: "
+                     f"{kr:.3g} (kernel {dks.tolist()}, plain {pks.tolist()}, "
+                     f"float64 {pk64[res].sum(0).tolist()})")
+    return max(rz, ra), rb, kr, max(ez, ea), eb, int(res.sum())
+
+
+def _tile_times(tag: str, spec: str, comps, f, b, prefix: str, line: int,
+                err_f: float, err_b: float) -> list[dict]:
+    """Times of B1 (inputs ``f``, B = 512) and B3 (inputs ``b``, B = 128)
+    over a product with a wrapped tile, beside their bounds and the plain
+    versions: the tile's two rows of the kernels line (``prefix``_fwd and
+    ``prefix``_bwd, replacing the TPU tile at ``line``)."""
+    W, E, Z = tail_kernels._dims(comps)
+    nc = len(comps)
+    fwd_dev, fwd_call = kernel_ms(
+        lambda: tail_kernels.tail_forward(comps, *f[:3]), 500,
+        "tail_fwd_kernel")
+    bwd_dev, bwd_call = kernel_ms(
+        lambda: tail_kernels.tail_backward(comps, *b), 500, "tail_bwd_kernel")
+    fwd_plain = time_ms(
+        lambda: tail_kernels.tail_forward_ref(comps, *f[:3]), 20)
+    bwd_plain = time_ms(lambda: tail_kernels.tail_backward_ref(comps, *b), 10)
+    rows = []
+    for name, B, dev, call, plain, nbytes, ops, err in (
+            (f"{prefix}_fwd", 512, fwd_dev, fwd_call, fwd_plain,
+             4 * (512 * (W + E + Z + nc + 2) + nc), 512 * _tail_ops(comps),
+             err_f),
+            (f"{prefix}_bwd", 128, bwd_dev, bwd_call, bwd_plain,
+             4 * (128 * (W + E + Z + nc + 2) + nc + 128 * (W + nc)),
+             3 * 128 * _tail_ops(comps), err_b)):
+        ms = call if dev is None else dev
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+        print(f"[{tag}] {spec} {name} at B={B}: kernel device "
+              f"{ms * 1e3:.2f} us (events {call * 1e3:.2f} us), plain "
+              f"{plain * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.4f} us "
+              f"({nbytes} B), ops bound {ops_ms * 1e3:.4f} us")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "mvae_torch/kernels/csrc/tail_tiles.cuh"
+            if name.endswith("fwd") else "mvae_torch/kernels/csrc/tail_bwd.cu",
+            "replaces": f"mvae_tpu/kernels/tail_kernels.py:{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None})
+    return rows
+
+
 def _stereo_inputs(comps, B, kset, gen):
     """Heads of the size training produces, with the rows the tile's guards
     exist for: every 13th |mu| large, row 1 mu_tan = 0 and eps = 0, every
@@ -901,94 +1023,22 @@ def phase_stereo_tail(gen) -> list[dict]:
         comps = tuple(parse_components(spec, fixed_curvature=False))
         for B in (512, 128):
             for kset in ksets:
-                args = _stereo_inputs(comps, B, kset, gen)
-                a64 = [t.double() for t in args]
                 what = f"{spec} B={B} k={kset}"
-                z, aux = tail_kernels.tail_forward(comps, *args[:3])
-                z_r, aux_r = tail_kernels.tail_forward_ref(comps, *args[:3])
-                z64, aux64 = tail_kernels.tail_forward_ref(comps, *a64[:3])
-                draw, dk = tail_kernels.tail_backward(comps, *args)
-                pr, pk = tail_kernels.tail_backward_ref(comps, *args)
-                p64, pk64 = tail_kernels.tail_backward_ref(comps, *a64)
-                torch.cuda.synchronize()
-                rz, ez = held(z, z_r, z64, 1e-5 * (1 + z_r.abs()),
-                              f"B4a z at {what}")
-                ra, ea = held(aux, aux_r, aux64,
-                              1e-4 * (1 + 1e-2 * aux_r.abs()),
-                              f"B4a log-densities at {what}")
-                rf = max(rz, ra)
-                tol = 1e-3 * pr.abs() + 5e-4
-                rb, eb = held(draw, pr, p64, tol,
-                              f"B4a raw gradient at {what}")
-                err_f, err_b = max(err_f, ez, ea), max(err_b, eb)
-                # the curvature gradient is held as the reference holds it,
-                # summed over the batch (a row's own value cancels terms of
-                # size 1 / K): over the rows float32 resolves in both; by
-                # row it must be as near float64 as the plain version
-                ktol = 2e-3 * pk.abs() + 5e-4
-                check(bool(torch.isfinite(dk).all()),
-                      f"B4a curvature gradient finite at {what}")
-                kfar = ((dk.double() - pk64).abs()
-                        / ((pk.double() - pk64).abs() + ktol)).max().item()
-                check(kfar <= 10.0, f"B4a curvature gradient by row no "
-                                    f"farther from float64 than 10x the "
-                                    f"plain version at {what}: {kfar:.3g}")
-                res = (((pr.double() - p64).abs() <= 0.1 * tol).all(1)
-                       & ((pk.double() - pk64).abs() <= 0.1 * ktol).all(1))
-                dks, pks = dk[res].sum(0), pk[res].sum(0)
-                kr = ((dks - pks).abs() / (2e-3 * pks.abs() + 5e-4)).max() \
-                    .item()
-                check(kr <= 1.0, f"B4a curvature gradient within rtol 2e-3 "
-                                 f"at {what}: {kr:.3g} (kernel {dks.tolist()}, "
-                                 f"plain {pks.tolist()}, float64 "
-                                 f"{pk64[res].sum(0).tolist()})")
+                rf, rb, kr, ef, eb, n_res = _tile_case(
+                    "B4a", comps, _stereo_inputs(comps, B, kset, gen), what)
+                err_f, err_b = max(err_f, ef), max(err_b, eb)
                 worst_f, worst_b = max(worst_f, rf), max(worst_b, rb, kr)
                 print(f"[stereo_tile] {what}: forward {rf:.3g} of tol, "
                       f"backward {rb:.3g}, curvature {kr:.3g} "
-                      f"({int(res.sum())}/{B} rows resolved)")
+                      f"({n_res}/{B} rows resolved)")
     out = []
     for spec in (STEREO_SPEC, "u6"):
         comps = tuple(parse_components(spec, fixed_curvature=False))
         kset = (-1.0, 1.0, 0.0) if spec == STEREO_SPEC else (0.5,)
-        W, E, Z = tail_kernels._dims(comps)
-        nc = len(comps)
-        f = _stereo_inputs(comps, 512, kset, gen)
-        b = _stereo_inputs(comps, 128, kset, gen)
-        fwd_dev, fwd_call = kernel_ms(
-            lambda: tail_kernels.tail_forward(comps, *f[:3]), 500,
-            "tail_fwd_kernel")
-        bwd_dev, bwd_call = kernel_ms(
-            lambda: tail_kernels.tail_backward(comps, *b), 500,
-            "tail_bwd_kernel")
-        fwd_plain = time_ms(
-            lambda: tail_kernels.tail_forward_ref(comps, *f[:3]), 20)
-        bwd_plain = time_ms(
-            lambda: tail_kernels.tail_backward_ref(comps, *b), 10)
-        rows = []
-        for name, B, dev, call, plain, nbytes, ops, err in (
-                ("stereo_tile_fwd", 512, fwd_dev, fwd_call, fwd_plain,
-                 4 * (512 * (W + E + Z + nc + 2) + nc), 512 * _tail_ops(comps),
-                 err_f),
-                ("stereo_tile_bwd", 128, bwd_dev, bwd_call, bwd_plain,
-                 4 * (128 * (W + E + Z + nc + 2) + nc + 128 * (W + nc)),
-                 3 * 128 * _tail_ops(comps), err_b)):
-            ms = call if dev is None else dev
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-            print(f"[stereo_tile] {spec} {name} at B={B}: kernel device "
-                  f"{ms * 1e3:.2f} us (events {call * 1e3:.2f} us), plain "
-                  f"{plain * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.4f} us "
-                  f"({nbytes} B), ops bound {ops_ms * 1e3:.4f} us")
-            rows.append({
-                "name": name, "route": "cuda",
-                "source": "mvae_torch/kernels/csrc/tail_tiles.cuh"
-                if name.endswith("fwd")
-                else "mvae_torch/kernels/csrc/tail_bwd.cu",
-                "replaces": "mvae_tpu/kernels/tail_kernels.py:462",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None})
+        rows = _tile_times("stereo_tile", spec, comps,
+                           _stereo_inputs(comps, 512, kset, gen),
+                           _stereo_inputs(comps, 128, kset, gen),
+                           "stereo_tile", 462, err_f, err_b)
         if spec == STEREO_SPEC:
             out = rows
     print(f"[stereo_tile] worst share of the tolerance: forward "
@@ -1179,6 +1229,429 @@ def phase_u6(ds, tmp) -> None:
                  lambda: trainer.evaluate_log_likelihood("test", 1024))
 
 
+
+# --- the spherical family: B4b inside B1 / B3, B7, s6:wrapped, s6, p2:vmf ------
+
+
+def _sphere_inputs(comps, B, kset, gen):
+    """Heads of the size training produces, with the rows the sphere tile's
+    guards exist for: every 13th |mu| large, row 1 mu_tan = 0 and eps = 0,
+    every 17th row (from row 2) a sigma beyond the cap where K > 0, row 3
+    the mean at the antipode of mu0, row 4 eps = 0 alone, row 5 mu_tan = 0
+    alone."""
+    W, _, Z = tail_kernels._dims(comps)
+    nc = len(comps)
+    raw = 0.5 * torch.randn(B, W, generator=gen, device="cuda")
+    eps = tail_kernels.draw_noise(comps, (B,), raw, gen)
+    off = 0
+    for c, kc in zip(comps, kset):
+        mu_cols = slice(off, off + c.dim)
+        sig_cols = slice(off + c.dim, off + c.head_width)
+        raw[::13, mu_cols] *= 4.0
+        raw[2::17, sig_cols] += 7.0 if kc > 0 else 1.0
+        if c.manifold.kind == "s":
+            raw[3, mu_cols] = 0.0
+            raw[3, off] = math.pi / kc ** 0.5
+        raw[5, mu_cols] = 0.0
+        off += c.head_width
+    raw[1] = 0.0
+    eps[1] = 0.0
+    eps[4] = 0.0
+    k = torch.tensor(kset, device="cuda")
+    dz = torch.randn(B, Z, generator=gen, device="cuda")
+    daux = torch.randn(B, nc + 2, generator=gen, device="cuda")
+    return raw, eps, k, dz, daux
+
+
+_SPHERE_CASES = (
+    (SPHERE_SPEC, ((1.0,), (1e-3,), (4.0,))),
+    ("s3:wrapped,h2,e2", ((1.0, -1.0, 0.0), (2.5, -0.3, 0.0))),
+    ("s4:wrapped,s2", ((0.25, 1.0),)))
+
+
+def _sphere_floor_rows(spec, kval, gen, **opts):
+    """The rows where the sphere tile's K-dependent floors are taken, held
+    to the float32 plain version directly (the float64 plain version floors
+    elsewhere, so ``held`` compares nothing there): row 0 the mean 1e-3 rad
+    from the antipode of mu0 (the transport's denominator under its floor),
+    row 1 the mean at the antipode with eps = 0 (the half chord at its
+    cap), row 2 mu_tan = 0 with a saturated scale and a unit draw (z next
+    to the antipode), row 3 a saturated cap with a free draw, row 4
+    mu_tan = 0 with eps = 0. Forward within B1's contract; the raw gradient
+    within 1e-2 of the row's largest entry; the row's curvature gradient
+    within rtol 1e-2 (0.1 on rows 1-2, where float32 quantizes what is left
+    of two cancelling terms ~1e5 times larger)."""
+    comps = tuple(parse_components(spec, fixed_curvature=False, **opts))
+    n = comps[0].dim
+    raw, eps, k, dz, daux = _sphere_inputs(comps, 16, (kval,), gen)
+    raw[:5, :n] = 0.0
+    raw[0, 0] = (math.pi - 1e-3) / kval ** 0.5
+    raw[1, 0] = math.pi / kval ** 0.5
+    eps[1] = 0.0
+    raw[2:4, n:] = 10.0 * math.pi / kval ** 0.5
+    eps[2] = 0.0
+    eps[2, 1] = 1.0
+    eps[4] = 0.0
+    z, aux = tail_kernels.tail_forward(comps, raw, eps, k)
+    z_r, aux_r = tail_kernels.tail_forward_ref(comps, raw, eps, k)
+    draw, dk = tail_kernels.tail_backward(comps, raw, eps, k, dz, daux)
+    pr, pk = tail_kernels.tail_backward_ref(comps, raw, eps, k, dz, daux)
+    torch.cuda.synchronize()
+    what = f"B4b floor rows of {spec} {opts or ''} at K={kval}"
+    half = ((z_r[:, 0] - 1.0 / kval ** 0.5) ** 2
+            + (z_r[:, 1:] ** 2).sum(1)).sqrt() / 2.0
+    check(bool((half[1:3] > (1.0 - 1e-6) / kval ** 0.5).all()
+               and (half[3:] < (1.0 - 1e-6) / kval ** 0.5).all()),
+          f"{what}: the half chord's cap is taken on rows 1-2 only")
+    check(bool(((z - z_r).abs() <= 1e-5 * (1 + z_r.abs())).all()),
+          f"{what}: z")
+    check(bool(((aux - aux_r).abs() <= 1e-4 * (1 + 1e-2 * aux_r.abs()))
+               .all()), f"{what}: log-densities")
+    check(bool(torch.isfinite(draw).all() and torch.isfinite(dk).all()
+               and torch.isfinite(pr).all() and torch.isfinite(pk).all()),
+          f"{what}: finite gradients")
+    scale = pr.abs().amax(1, keepdim=True)
+    r_raw = ((draw - pr).abs() / (1e-2 * scale + 5e-4)).max().item()
+    check(r_raw <= 1.0, f"{what}: raw gradient ({r_raw:.3g} of tol)")
+    rtol = torch.full_like(pk, 1e-2)
+    rtol[1:3] = 0.1
+    r_k = ((dk - pk).abs() / (rtol * pk.abs() + 5e-4)).max().item()
+    check(r_k <= 1.0, f"{what}: curvature gradient by row ({r_k:.3g} of "
+                      f"tol; kernel {dk[:5, 0].tolist()}, plain "
+                      f"{pk[:5, 0].tolist()})")
+    return max(r_raw, r_k)
+
+
+def phase_sphere_tail(gen) -> list[dict]:
+    """B4b: the embedded-sphere tile inside B1 and B3 against the plain
+    versions, then the two kernels' times at the s6:wrapped product."""
+    worst_f = worst_b = err_f = err_b = 0.0
+    for spec, ksets in _SPHERE_CASES:
+        comps = tuple(parse_components(spec, fixed_curvature=False))
+        for B in (512, 128):
+            for kset in ksets:
+                what = f"{spec} B={B} k={kset}"
+                rf, rb, kr, ef, eb, n_res = _tile_case(
+                    "B4b", comps, _sphere_inputs(comps, B, kset, gen), what)
+                err_f, err_b = max(err_f, ef), max(err_b, eb)
+                worst_f, worst_b = max(worst_f, rf), max(worst_b, rb, kr)
+                print(f"[sphere_tile] {what}: forward {rf:.3g} of tol, "
+                      f"backward {rb:.3g}, curvature {kr:.3g} "
+                      f"({n_res}/{B} rows resolved)")
+    floor = 0.0
+    for spec, opts in (("s3:wrapped", {}), ("s6:wrapped",
+                                            {"scalar_sigma": True}),
+                       ("s2:wrapped", {"wraps": 0})):
+        for kval in (1.0, 2.5, 0.2):
+            floor = max(floor, _sphere_floor_rows(spec, kval, gen, **opts))
+    print(f"[sphere_tile] floor rows (antipode, capped chord, saturated "
+          f"sigma, 0 / 0 pin), 9 cases: worst share of their tolerance "
+          f"{floor:.3g}")
+    comps = tuple(parse_components(SPHERE_SPEC, fixed_curvature=False))
+    rows = _tile_times("sphere_tile", SPHERE_SPEC, comps,
+                       _sphere_inputs(comps, 512, (1.0,), gen),
+                       _sphere_inputs(comps, 128, (1.0,), gen),
+                       "sphere_tile", 301, err_f, err_b)
+    print(f"[sphere_tile] worst share of the tolerance: forward "
+          f"{worst_f:.3g}, backward {worst_b:.3g}; largest error on resolved "
+          f"entries: forward {err_f:.3g}, backward {err_b:.3g}")
+    return rows
+
+
+def _stereo_points(B, n, kval, gen):
+    """Rows x, y (B, n) in the manifold's chart: norms up to 0.9 of the
+    ball's radius for K < 0, up to 1.5 / sqrt(max(K, 1)) otherwise; x = y in
+    row 0."""
+    lim = 0.9 / (-kval) ** 0.5 if kval < 0 else 1.5 / max(kval, 1.0) ** 0.5
+    out = []
+    for _ in range(2):
+        v = torch.randn(B, n, generator=gen, device="cuda")
+        v *= (lim * torch.rand(B, 1, generator=gen, device="cuda")
+              / v.norm(dim=1, keepdim=True))
+        out.append(v)
+    out[1][0] = out[0][0]
+    return out
+
+
+def _lorentz_points(B, n, kval, gen):
+    """Rows x, y (B, n) ambient on the hyperboloid, tangent norms ~0.7 R."""
+    from mvae_torch.ops import lorentz
+    k = torch.tensor(kval, device="cuda")
+    scale = 0.7 / ((n - 1) * -kval) ** 0.5
+    out = [lorentz.exp_map_mu0(scale * torch.randn(
+        B, n - 1, generator=gen, device="cuda"), k) for _ in range(2)]
+    out[1][0] = out[0][0]
+    return out
+
+
+def _dist_row(name, line, fn, ref, x, y, k, err, kernel_name):
+    """Times of one distance kernel at (x, y, k) beside its bytes bound."""
+    B, n = x.shape
+    dev_ms, call_ms = kernel_ms(lambda: fn(x, y, k), 20, kernel_name)
+    ms = call_ms if dev_ms is None else dev_ms
+    plain_ms = time_ms(lambda: ref(x, y, k), 5)
+    nbytes = 4 * (2 * B * n + 1 + B)
+    ops = B * (6 * n + 40)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    print(f"[dist] {name} at (B, n) = ({B}, {n}), K = {float(k):g}: kernel "
+          f"device {ms * 1e3:.2f} us ({nbytes / ms / 1e6:.1f} GB/s; events "
+          f"{call_ms * 1e3:.2f} us), plain composition {plain_ms * 1e3:.1f} "
+          f"us, bytes bound {bytes_ms * 1e3:.2f} us ({nbytes} B), ops bound "
+          f"{ops_ms * 1e3:.2f} us")
+    return {"name": name, "route": "cuda",
+            "source": "mvae_torch/kernels/csrc/manifold_dist.cu",
+            "replaces": f"mvae_tpu/kernels/manifold_kernels.py:{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
+def phase_dist(gen) -> tuple[list[dict], dict]:
+    """B7a and B7b against their plain versions (within 1e-5 (1 + |ref|) on
+    every entry float32 resolves: the kernels sum a row across a warp, the
+    plain versions in PyTorch's order), their times at the roofline shape,
+    then the entry points driven with the counts read around them."""
+    from mvae_torch import kernels
+    from mvae_torch.ops import lorentz, stereographic
+    big, small = (1 << 20, 128), (1000, 6)
+    err_s = err_l = worst = 0.0
+    for B, n in (big, small):
+        for kval in (-1.0, -1e-3, 0.0, 1e-3, 1.0):
+            x, y = _stereo_points(B, n, kval, gen)
+            k = torch.tensor(kval, device="cuda")
+            d = manifold_kernels.stereo_distance(x, y, k)
+            d_r = manifold_kernels.stereo_distance_ref(x, y, k)
+            d64 = manifold_kernels.stereo_distance_ref(x.double(), y.double(),
+                                                       k.double())
+            lib = stereographic.distance(x, y, k)
+            torch.cuda.synchronize()
+            check(d.shape == (B,), "B7a output shape")
+            r, e = held(d[1:], d_r[1:], d64[1:], 1e-5 * (1 + d_r[1:].abs()),
+                        f"B7a at ({B}, {n}), K={kval}")
+            # at x = y the Gram form cancels a^2 |x|^2 + b^2 |y|^2 against
+            # 2 a b <x, y>: what float32 leaves of it is a residue of
+            # ~sqrt(eps) |x| in the Mobius difference (the reference's own
+            # test bounds it by 5e-3 at |x| < 1), times the conformal factor
+            x2 = float((x[0] * x[0]).sum())
+            bound = 5e-3 * (1 + x2 ** 0.5) / abs(1 + kval * x2)
+            check(float(d[0]) <= bound and float(d_r[0]) <= bound,
+                  f"B7a d(x, x) = {float(d[0]):.3g} (plain "
+                  f"{float(d_r[0]):.3g}) within {bound:.3g} at ({B}, {n}), "
+                  f"K={kval}")
+            # the library op (vector form) is the same distance away from
+            # the Gram form's cancellation at x ~ y
+            far = d_r > 1e-2 * (1.0 if kval == 0 else abs(kval) ** -0.5)
+            lib_gap = ((lib - d_r).abs() / (1 + d_r.abs()))[far].max().item()
+            check(lib_gap <= 1e-4, f"B7a plain version agrees with "
+                                   f"ops.stereographic.distance: {lib_gap:.3g}")
+            err_s, worst = max(err_s, e), max(worst, r)
+        for kval in (-1.0, -1e-3, -4.0):
+            x, y = _lorentz_points(B, n, kval, gen)
+            k = torch.tensor(kval, device="cuda")
+            d = manifold_kernels.lorentz_distance(x, y, k)
+            d_r = manifold_kernels.lorentz_distance_ref(x, y, k)
+            d64 = manifold_kernels.lorentz_distance_ref(
+                x.double(), y.double(), k.double())
+            torch.cuda.synchronize()
+            r, e = held(d, d_r, d64, 1e-5 * (1 + d_r.abs()),
+                        f"B7b at ({B}, {n}), K={kval}")
+            check(float(d[0]) <= 1e-6 * (-kval) ** -0.5,
+                  f"B7b d(x, x) = {float(d[0]):.3g} at ({B}, {n}), K={kval}")
+            err_l, worst = max(err_l, e), max(worst, r)
+    print(f"[dist] 16 cases: worst share of 1e-5 (1 + |ref|) on resolved "
+          f"entries {worst:.3g}; largest error B7a {err_s:.3g}, B7b "
+          f"{err_l:.3g}")
+    rows = []
+    for kval in (-1.0, 1.0):
+        x, y = _stereo_points(*big, kval, gen)
+        row = _dist_row("stereo_dist", 161, manifold_kernels.stereo_distance,
+                        manifold_kernels.stereo_distance_ref, x, y,
+                        torch.tensor(kval, device="cuda"), err_s,
+                        "stereo_dist_kernel")
+        lib_ms = time_ms(lambda: stereographic.distance(
+            x, y, torch.tensor(kval, device="cuda")), 5)
+        print(f"[dist] ops.stereographic.distance (vector form) at the same "
+              f"inputs: {lib_ms * 1e3:.1f} us")
+    rows.append(row)
+    x, y = _lorentz_points(*big, -1.0, gen)
+    k = torch.tensor(-1.0, device="cuda")
+    rows.append(_dist_row("lorentz_dist", 221,
+                          manifold_kernels.lorentz_distance,
+                          manifold_kernels.lorentz_distance_ref, x, y, k,
+                          err_l, "lorentz_dist_kernel"))
+    lib_ms = time_ms(lambda: lorentz.distance(x, y, k), 5)
+    print(f"[dist] ops.lorentz.distance at the same inputs: "
+          f"{lib_ms * 1e3:.1f} us")
+    xs, ys = _stereo_points(*small, -1.0, gen)
+    xl, yl = _lorentz_points(*small, -1.0, gen)
+    for name, fn, a, b, kern in (
+            ("stereo_dist", manifold_kernels.stereo_distance, xs, ys,
+             "stereo_dist_kernel"),
+            ("lorentz_dist", manifold_kernels.lorentz_distance, xl, yl,
+             "lorentz_dist_kernel")):
+        dev_ms, call_ms = kernel_ms(lambda: fn(a, b, k), 200, kern)
+        print(f"[dist] {name} at (1000, 6): kernel device "
+              f"{(call_ms if dev_ms is None else dev_ms) * 1e3:.2f} us "
+              f"(events {call_ms * 1e3:.2f} us)")
+
+    # the distance entry points as a user calls them: the package's exports
+    # on (B, n) point sets, the big shape forward and the small one with the
+    # gradients in x, y and K (backward through the library op)
+    counted = {"stereo_dist": manifold_kernels.stereo_distance,
+               "lorentz_dist": manifold_kernels.lorentz_distance}
+    for fn in counted.values():
+        fn.launches = 0
+    xb, yb = _stereo_points(*big, 1.0, gen)
+    d_big = kernels.stereo_distance(xb, yb, torch.tensor(1.0, device="cuda"))
+    dl_big = kernels.lorentz_distance(x, y, k)
+    grads = []
+    for fn, a, b in ((kernels.stereo_distance, xs, ys),
+                     (kernels.lorentz_distance, xl, yl)):
+        a, b = a[1:].clone().requires_grad_(), b[1:].clone().requires_grad_()
+        kk = k.clone().requires_grad_()
+        fn(a, b, kk).sum().backward()
+        grads += [a.grad, b.grad, kk.grad]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    check(bool(torch.isfinite(d_big).all() and torch.isfinite(dl_big).all()),
+          "distances of the entry points finite")
+    check(float(d_big.max()) <= math.pi + 1e-4,
+          "K = 1 distances at most pi R")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "distance gradients finite")
+    check(launches == {"stereo_dist": 2, "lorentz_dist": 2},
+          f"each distance entry point launched its kernel: {launches}")
+    print(f"[dist] entry points: mean d on P^128 (K = 1) "
+          f"{d_big.mean().item():.4f}, on H^127 (K = -1) "
+          f"{dl_big.mean().item():.4f}; launches {launches}")
+    return rows, launches
+
+
+def phase_sphere_train(ds, tmp) -> tuple[dict, Trainer]:
+    """One epoch of s6:wrapped at full width with burn-in off: B1 and B3
+    (with the sphere tile) once per step, the curvature moves, every
+    statistic finite under the non-finite guard."""
+    trainer = _flagship(ds, f"{tmp}/sphere", SPHERE_SPEC, seed=0, epochs=1,
+                        burnin_epochs=0)
+    with torch.no_grad():
+        k0 = float(trainer.model_cfg.components[0].curvature(
+            trainer.params["components"][0]))
+    check(trainer.fused_paths["train_tail"]["active"]
+          and not trainer.fused_paths["iwae_reparam"][0]["active"],
+          f"training routed through B1/B3: {trainer.fused_paths}")
+    counted = {"tail_fwd": tail_kernels.tail_forward,
+               "tail_bwd": tail_kernels.tail_backward,
+               "decode_bce": decoder_kernels.fused_decode_bce_t}
+    for fn in counted.values():
+        fn.launches = 0
+    result = trainer.fit(verbose=True, ll_max_examples=1024)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    steps = trainer.step
+    rec = result["history"][0]
+    print(f"[train] {SPHERE_SPEC} h_dim 400, batch 128, {steps} steps: "
+          f"{result['train_steps_per_sec']:.1f} train steps/s (first epoch, "
+          f"warm-up included), train ELBO {rec['train/elbo']:.4f}, IWAE-500 "
+          f"on 1024 test examples {result['test/log_likelihood_iwae']:.4f}; "
+          f"launches {launches}")
+    check(all(math.isfinite(v) for v in rec.values()),
+          "finite statistics of the s6:wrapped epoch")
+    check(math.isfinite(result["test/log_likelihood_iwae"]), "finite IWAE")
+    check(launches["tail_bwd"] == steps, "B3 launched once per step")
+    check(launches["tail_fwd"] >= steps, "B1 launched at least once a step")
+    check(launches["decode_bce"] == 2 * 4,
+          "B2 launched 2 batches x 4 chunks in the final IWAE")
+    k1 = rec["train/curvature/s6#0"]
+    check(k1 != k0, "curvature s6#0 moves with burn-in off")
+    print(f"[train] curvature K(s6) {k0} -> {k1}")
+    rates = [_epoch_rate(trainer, 10 + i) for i in range(2)]
+    print(f"[train] {SPHERE_SPEC} steps/s by epoch: "
+          + ", ".join(f"{r:.1f}" for r in rates))
+    profile_pass(f"{SPHERE_SPEC} train epoch ({trainer.steps_per_epoch} "
+                 f"steps)", lambda: trainer.train_one_epoch(20), layers=True)
+    return launches, trainer
+
+
+def _sample_check(trainer, what: str) -> None:
+    """``generate(16)`` and ``reconstruct`` of 16 test examples on the card:
+    Bernoulli means of the data's shape, finite, in [0, 1]."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    with torch.no_grad():
+        out = vae.generate(trainer.model_cfg, trainer.params, 16, gen)
+        x = (trainer._test_data[:16] > 0.5).float()
+        rec = vae.reconstruct(trainer.model_cfg, trainer.params, x,
+                              generator=gen)
+    torch.cuda.synchronize()
+    for name, t in (("generate", out), ("reconstruct", rec)):
+        check(t.is_cuda and tuple(t.shape) == (16,)
+              + tuple(trainer.model_cfg.data_shape),
+              f"{what}: {name} shape {tuple(t.shape)} on the card")
+        check(bool(torch.isfinite(t).all()) and float(t.min()) >= 0.0
+              and float(t.max()) <= 1.0, f"{what}: {name} in [0, 1]")
+    print(f"[generate] {what}: generate(16) mean {out.mean().item():.4f}, "
+          f"reconstruct mean {rec.mean().item():.4f} (inputs "
+          f"{x.mean().item():.4f})")
+
+
+def phase_vmf(ds, tmp) -> None:
+    """s6 (the vMF by rejection, m = 7) at full width: 150 steps with
+    burn-in off, finite losses, then IWAE-500 on 1,024 examples (B2 decodes;
+    the tail is plain PyTorch: the rejection cosine has no tile). Then
+    p2:vmf,e2: the ELBO of one eval batch through the stereographic
+    isometry."""
+    trainer = _flagship(ds, f"{tmp}/s6", "s6", seed=0, burnin_epochs=0)
+    check(not trainer.fused_paths["train_tail"]["active"]
+          and trainer.fused_paths["iwae_decoder"]["active"],
+          f"s6: plain tail, B2 decode: {trainer.fused_paths}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    perm = torch.randperm(len(trainer._train_data), device="cuda",
+                          generator=gen)
+    bs = trainer.tc.batch_size
+    c = trainer.params["components"][0]["c_param"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    elbos = torch.stack([trainer._train_step(
+        trainer._train_data[perm[s * bs:(s + 1) * bs]])["elbo"]
+        for s in range(150)])
+    torch.cuda.synchronize()
+    rate = 150 / (time.time() - t0)
+    check(bool(torch.isfinite(elbos).all()),
+          "s6: finite loss at every step")
+    check(all(bool(torch.isfinite(t).all()) for t in _leaves(trainer.params)),
+          "s6: finite parameters")
+    check(float(elbos[-10:].mean()) > float(elbos[:10].mean()),
+          "s6: the ELBO rises over 150 steps")
+    decoder_kernels.fused_decode_bce_t.launches = 0
+    ll = trainer.evaluate_log_likelihood("test", 1024)
+    check(math.isfinite(ll), "s6: finite IWAE-500")
+    check(decoder_kernels.fused_decode_bce_t.launches == 2 * 4,
+          "s6: B2 launched 2 batches x 4 chunks")
+    print(f"[s6] vMF m = 7 by rejection: 150 steps at {rate:.1f} steps/s "
+          f"(warm-up included), ELBO {elbos[0].item():.3f} -> "
+          f"{elbos[-1].item():.3f}, K(s6) {math.exp(float(c.detach())):.4f}; IWAE-500 "
+          f"on 1024 test examples {ll:.4f}")
+    _sample_check(trainer, "s6")
+
+    pv = _flagship(ds, f"{tmp}/p2vmf", "p2:vmf,e2", seed=0, burnin_epochs=0)
+    x = (pv._test_data[:512] > 0.5).float()
+    with torch.no_grad():
+        value, stats = vae.elbo(pv.model_cfg, pv.params, x,
+                                generator=pv.generator)
+    check(tuple(value.shape) == (512,) and bool(torch.isfinite(value).all()),
+          "p2:vmf,e2: finite per-example ELBO of one batch")
+    check(bool((stats["kl_per_comp"] >= 0).all()),
+          "p2:vmf,e2: the analytic KLs are non-negative")
+    for _ in range(20):
+        pv._train_step(pv._train_data[:bs])
+    check(all(bool(torch.isfinite(t).all()) for t in _leaves(pv.params)),
+          "p2:vmf,e2: finite parameters after 20 steps")
+    print(f"[p2:vmf,e2] ELBO of one 512-example batch "
+          f"{stats['elbo'].item():.4f}, KL per component "
+          f"{stats['kl_per_comp'].tolist()}")
+    _sample_check(pv, "p2:vmf,e2")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1203,6 +1676,14 @@ def main() -> int:
         stereo_train = phase_stereo_train(ds, tmp)
         phase_replay(ds, tmp, STEREO_SPEC, b6=False, free_run=False)
         phase_u6(ds, tmp)
+        kernels += phase_sphere_tail(gen)
+        dist_rows, dist_launches = phase_dist(gen)
+        kernels += dist_rows
+        sphere_eval = phase_end_to_end(SPHERE_SPEC)
+        sphere_train, sphere_trainer = phase_sphere_train(ds, tmp)
+        _sample_check(sphere_trainer, SPHERE_SPEC)
+        phase_replay(ds, tmp, SPHERE_SPEC, b6=False, free_run=False)
+        phase_vmf(ds, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]
@@ -1212,6 +1693,10 @@ def main() -> int:
     launches["stereo_tile_fwd"] = stereo_eval["tail_fwd"]
     launches["stereo_tile_bwd"] = stereo_train["tail_bwd"]
     launches["reparam_stereo"] = stereo_eval["reparam_stereo"]
+    # likewise the sphere tile on the s6:wrapped path
+    launches["sphere_tile_fwd"] = sphere_eval["tail_fwd"]
+    launches["sphere_tile_bwd"] = sphere_train["tail_bwd"]
+    launches.update(dist_launches)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(card)

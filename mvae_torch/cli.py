@@ -8,6 +8,8 @@ the end), writes ``<run_dir>/result.json`` and prints it as one JSON line,
 with the kernels the run was routed through (``fused_paths``).
 ``--resume`` continues from the latest checkpoint of ``run_dir``;
 ``--eval_only`` restores it and evaluates the test ELBO and IWAE-n LL.
+``--generate N`` then writes N prior samples and N test-set reconstructions
+(with the binarized inputs they reconstruct) to ``<run_dir>/samples.npz``.
 Runs on CUDA unless ``--device cpu`` is given. The reference's
 ``--train_rng``, ``--debug_nans`` and ``--profile_epochs`` have no
 counterpart: the port's training randomness is one torch generator.
@@ -60,7 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restore the latest checkpoint and only evaluate "
                         "the test ELBO and IWAE marginal LL (no training)")
     p.add_argument("--generate", type=int, default=0, metavar="N",
-                   help="prior samples and reconstructions (a later slice)")
+                   help="after training (or with --eval_only, from the "
+                        "checkpoint) write N prior samples and N test-set "
+                        "reconstructions to <run_dir>/samples.npz")
     p.add_argument("--checkpoint_every", type=int, default=0)
     p.add_argument("--ll_max_examples", type=int, default=None,
                    help="cap IWAE eval set size (speed)")
@@ -77,9 +81,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.generate:
-        raise NotImplementedError("later slice: --generate")
-
     from .components import canonical_name, parse_components
     from .data import load_dataset
     from .models import VAEConfig
@@ -115,11 +116,38 @@ def main(argv=None):
           f"arch={arch}, dtype={args.dtype}, run_dir={run_dir}")
     trainer = Trainer(model_cfg, dataset, tc, run_dir, device=args.device)
 
+    def write_samples(n):
+        """N prior samples and N test reconstructions. The reconstruction
+        inputs go through the dataset's binarization first, as every
+        training and eval input does; ``originals`` are those inputs. The
+        draws come from a generator of their own (seed + 777), so the file
+        does not depend on how far the trainer's generator has run."""
+        import numpy as np
+        import torch
+
+        from .data.base import binarize_batch
+        from .models import vae
+        gen = torch.Generator(device=trainer.device)
+        gen.manual_seed(tc.seed + 777)
+        with torch.no_grad():
+            generated = vae.generate(model_cfg, trainer.params, n, gen)
+            x = binarize_batch(trainer._test_data[:n], dataset.binarize, gen)
+            rec = vae.reconstruct(model_cfg, trainer.params, x, generator=gen)
+        path = Path(run_dir) / "samples.npz"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            path, generated=generated.float().cpu().numpy(),
+            originals=x.float().cpu().numpy(),
+            reconstructions=rec.float().cpu().numpy())
+        print(f"wrote {path} (generated/originals/reconstructions x{n})")
+
     if args.eval_only:
         trainer.restore_checkpoint()
         elbo = trainer.evaluate_elbo("test")
         ll = trainer.evaluate_log_likelihood(
             max_examples=args.ll_max_examples, repeats=args.ll_repeats)
+        if args.generate:
+            write_samples(args.generate)
         result = {"test/elbo": elbo["elbo"], "test/log_likelihood_iwae": ll,
                   "step": trainer.step, "eval_only": True,
                   "device": str(trainer.device),
@@ -133,6 +161,8 @@ def main(argv=None):
                          ll_repeats=args.ll_repeats)
     result["fused_paths"] = trainer.fused_paths
     result["device"] = str(trainer.device)
+    if args.generate:
+        write_samples(args.generate)
 
     summary = {k: v for k, v in result.items() if k != "history"}
     Path(run_dir).mkdir(parents=True, exist_ok=True)

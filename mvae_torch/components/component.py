@@ -10,9 +10,9 @@ A Component is a static dataclass; its learnable state is a plain dict of
 tensors {w_mu, b_mu, w_sig, b_sig, c_param} inside the model params.
 
 Posterior families ported so far: 'normal' on e, 'wrapped' on every kind,
-'vmf' on s with dim 2. The spec DSL accepts every family the reference
-has; the others ('vmf' on p or with dim != 2, 'riemannian') raise
-``NotImplementedError`` when sampled.
+'vmf' on s and p (the exact inverse-CDF cosine at dim 2, the Wood rejection
+cosine otherwise). The spec DSL accepts every family the reference has;
+'riemannian' raises ``NotImplementedError`` when sampled.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import torch
 
 from ..distributions import (hyperspherical_uniform, normal,
                              von_mises_fisher, wrapped_normal)
-from ..ops import Manifold, stable
+from ..ops import Manifold, sphere, stable
 
 POSTERIORS = ("wrapped", "normal", "vmf", "riemannian")
 
@@ -122,9 +122,14 @@ class Component:
 
     @property
     def noise_width(self) -> int:
-        """Standard noise values one draw consumes: the tangent normals,
-        plus the cosine's uniform for the vMF."""
-        return self.dim + (1 if self.posterior == "vmf" else 0)
+        """Noise values one draw consumes: the tangent normals; for the
+        vMF led by the cosine's uniform and, where the cosine is drawn by
+        rejection (dim != 2), followed by the rejection draw's numbers
+        (``von_mises_fisher.wood_proposals``)."""
+        if self.posterior != "vmf":
+            return self.dim
+        wood = 0 if self.dim == 2 else 2 * von_mises_fisher.OVERSAMPLE
+        return self.dim + 1 + wood
 
     def posterior_params_from_raw(self, params, raw):
         """raw (..., head_width) pre-activations -> (mu ambient, scale, k)."""
@@ -172,13 +177,17 @@ class Reparametrized(NamedTuple):
 
 def draw_noise(comp: Component, shape, like: torch.Tensor, generator=None):
     """Standard noise (*shape, noise_width) for one component: N(0, 1)
-    tangent draws, led by the cosine's U[1e-7, 1) for the vMF."""
+    tangent draws, led by the cosine's U[1e-7, 1) for the vMF and, for the
+    rejection cosine (dim != 2), followed by its proposals."""
     shape = tuple(shape)
     g = normal.standard_normal(shape + (comp.dim,), like, generator)
     if comp.posterior != "vmf":
         return g
-    u = von_mises_fisher.uniform(shape + (1,), like, generator)
-    return torch.cat([u, g], dim=-1)
+    cols = [von_mises_fisher.uniform(shape + (1,), like, generator), g]
+    if comp.dim != 2:
+        cols.append(von_mises_fisher.wood_proposals(comp.dim + 1, shape, like,
+                                                    generator))
+    return torch.cat(cols, dim=-1)
 
 
 def reparametrize(comp: Component, params, features, raw=None, noise=None,
@@ -215,14 +224,50 @@ def reparametrize(comp: Component, params, features, raw=None, noise=None,
         return Reparametrized(z, log_q, log_p, log_q - log_p)
 
     if comp.posterior == "vmf":
+        m = comp.dim + 1
+        proposals = noise[..., m:] if m != 3 else None
         if man.kind == "p":
-            raise NotImplementedError(
-                "later slice: vMF on the projected sphere")
-        z = von_mises_fisher.sample(mu, scale, k, noise=noise)
-        log_q = von_mises_fisher.log_prob(z, mu, scale, k)
-        log_p = hyperspherical_uniform.log_prob(z, k)
-        kl = von_mises_fisher.kl_to_uniform(comp.dim + 1, scale)
+            # sample on the embedded sphere and push through the
+            # stereographic isometry: projected coordinates carry no norm
+            # constraint, so the vMF machinery runs at the sphere pre-images
+            # (densities w.r.t. the Riemannian measure are invariant)
+            mu_s = sphere.projected_to_sphere(mu, k)
+            z_s = von_mises_fisher.sample(mu_s, scale, k, noise=noise,
+                                          proposals=proposals)
+            z = sphere.sphere_to_projected(z_s, k)
+        else:
+            mu_s = mu
+            z_s = z = von_mises_fisher.sample(mu, scale, k, noise=noise,
+                                              proposals=proposals)
+        log_q = von_mises_fisher.log_prob(z_s, mu_s, scale, k)
+        log_p = hyperspherical_uniform.log_prob(z_s, k)
+        kl = von_mises_fisher.kl_to_uniform(m, scale)
         return Reparametrized(z, log_q, log_p, kl.expand(log_q.shape))
 
     raise NotImplementedError(
         f"later slice: the {comp.posterior!r} posterior")
+
+
+def sample_prior(comp: Component, params, shape, dtype=torch.float32,
+                 generator=None):
+    """Draw (*shape, ambient_dim) from the component's prior, on the device
+    of ``params``: the standard normal, the uniform on the sphere (pushed
+    through the stereographic isometry for 'p'), or the wrapped normal at
+    mu0 with unit scale."""
+    man = comp.manifold
+    shape = tuple(shape)
+    k = comp.curvature(params)
+    like = torch.zeros((), dtype=dtype, device=k.device)
+    if comp.posterior == "normal":
+        return normal.standard_normal(shape + (comp.dim,), like, generator)
+    if comp.posterior == "vmf":
+        z_s = hyperspherical_uniform.sample(shape, comp.dim + 1, k, like,
+                                            generator)
+        if man.kind == "p":
+            return sphere.sphere_to_projected(z_s, k)
+        return z_s
+    if comp.posterior == "riemannian":
+        raise NotImplementedError("later slice: the 'riemannian' posterior")
+    mu0 = torch.broadcast_to(man.mu0(k, dtype), shape + (man.ambient_dim,))
+    return wrapped_normal.sample(man, mu0, torch.ones_like(like), k,
+                                 generator=generator)

@@ -23,3 +23,13 @@ def log_prob(z, k):
     m = z.shape[-1]
     return torch.broadcast_to(-log_surface_area(m, k).to(z.dtype),
                               z.shape[:-1])
+
+
+def sample(shape, m: int, k, like: torch.Tensor, generator=None):
+    """Uniform draw on the radius-R sphere: a normalized Gaussian times R,
+    (*shape, m) with ``like``'s dtype and device."""
+    g = torch.randn(tuple(shape) + (m,), generator=generator,
+                    dtype=like.dtype, device=like.device)
+    g = g / torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True) + 1e-30)
+    r = 1.0 / torch.sqrt(torch.clamp(k, min=1e-30))
+    return g * r.to(like.dtype)

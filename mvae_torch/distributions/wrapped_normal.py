@@ -172,6 +172,16 @@ def _sample_log_prob_drawn(man, v, sigma, k, wraps: int):
     return torch.logsumexp(torch.stack(logps, dim=-1), dim=-1)
 
 
+def sample(man, mu, sigma, k, noise=None, generator=None):
+    """Draw z; mu has ambient coordinates, sigma broadcasts against
+    (..., dim). ``noise`` is the standard normal draw; without it the draw
+    comes from ``generator``."""
+    if noise is None:
+        noise = normal.standard_normal(mu.shape[:-1] + (man.dim,), mu,
+                                       generator)
+    return man.sample_projection_mu0(sigma * noise, mu, k)
+
+
 def sample_and_log_prob(man, mu, sigma, k, wraps: int = 1, noise=None,
                         generator=None):
     """Draw z and its log q(z). ``noise`` is the standard normal draw

@@ -35,13 +35,18 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # Lorentz difference forms by more than the comparison tolerance at large
 # hyperbolic radius. The backward recomputes the forward's intermediates,
 # so it takes the same flag to recompute them bit for bit. The IWAE chunk
-# reparam runs the stereographic tile's draw and is built like it.
+# reparam runs the stereographic tile's draw and is built like it. The
+# distance kernels sum a row across a warp, in another order than any plain
+# version, but their Gram form cancels to zero at x = y only while the three
+# sums of a row are rounded alike and the scalar tail is evaluated as
+# written: a contracted tail leaves a residue of ~sqrt(eps) |x| there.
 EXTRA_FLAGS = {
     "tail_fwd": ["--fmad=false"],
     "tail_bwd": ["--fmad=false"],
     "reparam_stereo": ["--fmad=false"],
     "decode_bce": [],
     "train_decode": [],
+    "manifold_dist": ["--fmad=false"],
 }
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)

@@ -6,9 +6,10 @@
 // Replaces the TPU kernel mvae_tpu/kernels/tail_kernels.py::_bwd_pallas,
 // which recomputes the tile under jax.vjp inside the kernel. CUDA has no
 // autodiff, so the reverse sweep of each tile (_tile_normal,
-// _tile_wrapped_lorentz, _tile_vmf, _tile_wrapped_stereo) is derived here by
-// hand, following the conventions of the plain version, torch.autograd
-// through tail_kernels.tail_forward_ref:
+// _tile_wrapped_lorentz, _tile_vmf, _tile_wrapped_stereo,
+// _tile_wrapped_sphere) is derived here by hand, following the conventions
+// of the plain version, torch.autograd through
+// tail_kernels.tail_forward_ref:
 //  - a clamp passes the whole gradient when its input equals the bound
 //    (torch.clamp), not half of it (jnp.maximum at a tie);
 //  - each side of a series window is differentiated as written: the
@@ -23,7 +24,11 @@
 //    when it is masked (the shift of the log-sum-exp is a constant); the
 //    universal kind (sign 0) follows the branch its row's K selects; the
 //    sigma cap, the wrap period and the ball radius carry their curvature
-//    gradients, each gated where its max / min floor is taken.
+//    gradients, each gated where its max / min floor is taken;
+//  - in the embedded-sphere tile: the transport's denominator
+//    max(1 + alpha, eps) (taken at the antipode of mu0) and the half
+//    chord's cap (1 - eps) R gate likewise; where the cap is taken the
+//    gradient goes to the curvature through the cap, not to the chord.
 //
 // Bound: bytes. Per row it reads W + E + Z + nc + 2 floats and writes
 // W + nc (45 floats at the h2,s2,e2 flagship, ~23 KB at batch 128) and does
@@ -192,6 +197,36 @@ __device__ float d_log_sindiv_u_soft(float u, int sign) {
   float gsu = gx + gtaper;
   if (su >= EPS) gsu = gsu - 1.f / su;
   return gsu * sgn_f(u) / (2.f * su);
+}
+
+// d arcsindiv_u_pos / dw
+__device__ float d_arcsindiv_u_pos(float w) {
+  if (fabsf(w) < CUTOFF) return dpoly4(w, ARCSINDIV_C);
+  if (!(w >= TINY && w <= ONE_M_EPS)) return 0.f;
+  const float sw = sqrtf(w);
+  const float q_in = 1.f - w;
+  const float q = fmaxf(q_in, EPS);
+  const float rq = rsqrtf(q);
+  const float a = sw * rq;
+  // a = sw rsqrt(q): da/dw = rq / (2 sw) + sw (rq^3 / 2) where q = 1 - w
+  float ga = rq / (2.f * sw);
+  if (q_in >= EPS) ga = ga + sw * 0.5f * rq * rq * rq;
+  return ga / ((1.f + a * a) * sw) - atanf(a) / (sw * sw) / (2.f * sw);
+}
+
+// Reverse of sigma_cap for one coordinate: from the gradient of the capped
+// scale, the gradient of the softplus scale; adds to the gradient of capr
+__device__ __forceinline__ float sigma_cap_bwd(float gsig, float capr,
+                                               float tq, float tc, float w6,
+                                               float pw, float* gcapr) {
+  const float tc2 = tc * tc;
+  *gcapr += gsig * tc * pw;
+  const float gpw = gsig * capr * tc;
+  const float gw6 = gpw * F(-1.0 / 6.0) * powf(w6, F(-7.0 / 6.0));
+  const float gtc = gsig * capr * pw + gw6 * 3.f * tc2 * tc2 * 2.f * tc;
+  const float gtq = (tq <= 8.f) ? gtc : 0.f;
+  *gcapr -= gtq * tq / capr;
+  return gtq / capr;
 }
 
 // --- per-tile reverse sweeps ----------------------------------------------------
@@ -690,17 +725,9 @@ __device__ __noinline__ float tile_wrapped_stereo_bwd(const float* raw, const fl
   float gcapr = 0.f, gsum = 0.f;
   for (int j = 0; j < n; ++j) {
     float gs0 = gsig[j];
-    if (sign >= 0) {
-      const float tc = h.tc[j], tc2 = tc * tc;
-      gcapr += gsig[j] * tc * h.pw[j];
-      const float gpw = gsig[j] * h.capr * tc;
-      const float gw6 = gpw * F(-1.0 / 6.0) * powf(h.w6[j], F(-7.0 / 6.0));
-      const float gtc = gsig[j] * h.capr * h.pw[j]
-                        + gw6 * 3.f * tc2 * tc2 * 2.f * tc;
-      const float gtq = (h.tq[j] <= 8.f) ? gtc : 0.f;
-      gs0 = gtq / h.capr;
-      gcapr -= gtq * h.tq[j] / h.capr;
-    }
+    if (sign >= 0)
+      gs0 = sigma_cap_bwd(gsig[j], h.capr, h.tq[j], h.tc[j], h.w6[j], h.pw[j],
+                          &gcapr);
     if (ns == 1) {
       gsum = (j == 0) ? gs0 : gsum + gs0;
     } else {
@@ -709,6 +736,153 @@ __device__ __noinline__ float tile_wrapped_stereo_bwd(const float* raw, const fl
   }
   if (ns == 1) draw[n] = gsum * d_softplus(raw[n]);
   if (sign >= 0 && k >= 1e-12f) gk += gcapr * (-0.5f) * h.capr / h.kc;
+  return gk;
+}
+
+// _tile_wrapped_sphere: draw[0 : n + ns] and the returned dL/dk; dz has
+// n + 1 entries. Out of line like the stereographic sweep.
+__device__ __noinline__ float tile_wrapped_sphere_bwd(
+    const float* raw, const float* eps, int n, int ns, int wraps, float k,
+    const float* dz, float gkl, float glq, float glp, float* draw) {
+  SphSaved s;
+  float zbuf[MAX_DIM + 1], kl, q, p;
+  tile_wrapped_sphere(raw, eps, n, ns, wraps, k, zbuf, &kl, &q, &p, s);
+  const float gq = glq + gkl;  // kl = lq - lp
+  const float gp = glp - gkl;
+  float gkk = 0.f, gsqk = 0.f, gr = 0.f;
+  float gmsp[MAX_DIM], gusp[MAX_DIM], gv[MAX_DIM], gwsp[MAX_DIM];
+
+  // lp from r0 = 2 half arcsindiv(kk half^2), half = min(sqrt(chord0 + tiny)
+  // / 2, (1 - eps) r), chord0 = (z_t - r)^2 + |z_sp|^2
+  const float gr0 = logp_prior_bwd(n, 1, s.kk, s.r0, s.lp, gp, &gkk);
+  float ghalf = gr0 * 2.f * s.asd;
+  const float gwa = gr0 * 2.f * s.half * d_arcsindiv_u_pos(s.wa);
+  gkk += gwa * s.half * s.half;
+  ghalf += gwa * s.kk * 2.f * s.half;
+  float gchord0 = 0.f;
+  if (s.half_in <= s.hcap) {
+    gchord0 = ghalf / 2.f / (2.f * s.hs);
+  } else {
+    gr += ghalf * ONE_M_EPS;
+  }
+  const float gdzt = gchord0 * 2.f * s.dz_t;
+  gr -= gdzt;
+  const float gz_t = dz[0] + gdzt;
+
+  // lq = logq_drawn(kk, vsq, s2, ls)
+  float gvsq = 0.f, gls = 0.f;
+  logq_drawn_bwd(n, wraps, 1, s.kk, s.vsq, s.s2, s.ls, s.lqc, s.lq_mx,
+                 s.lq_acc, gq, &gvsq, &gls, &gkk);
+
+  // z = z0 zsc, zsc = r / zn, zn = sqrt(zt0^2 + |zs0|^2 + tiny);
+  // z0 = cu mu + sd u
+  float gzsc = gz_t * s.zt0;
+  for (int j = 0; j < n; ++j) {
+    const float gzj = dz[1 + j] + gchord0 * 2.f * s.z_sp[j];
+    gzsc += gzj * s.zs0[j];
+    gusp[j] = gzj * s.zsc;  // the gradient of zs0, for now
+  }
+  gr += gzsc / s.zn;
+  const float gzn2 = -gzsc * s.zsc / s.zn / (2.f * s.zn);
+  const float gzt0 = gz_t * s.zsc + gzn2 * 2.f * s.zt0;
+  float gcu = gzt0 * s.mu_t, gsd = gzt0 * s.u_t;
+  float gmu_t = gzt0 * s.cu;
+  float gu_t = gzt0 * s.sd;
+  for (int j = 0; j < n; ++j) {
+    const float gz0 = gusp[j] + gzn2 * 2.f * s.zs0[j];
+    gcu += gz0 * s.mu_sp[j];
+    gsd += gz0 * s.u_sp[j];
+    gmsp[j] = gz0 * s.cu;
+    gusp[j] = gz0 * s.sd;
+  }
+  // tt = kk usq, usq = u_t^2 + |u_sp|^2
+  const float gtt = gcu * d_cos_u_sgn(s.tt, 1) + gsd * d_sindiv_u(s.tt);
+  gkk += gtt * s.usq;
+  const float gusq = gtt * s.kk;
+  gu_t += gusq * 2.f * s.u_t;
+
+  // u = w pin, pin = nv / nw, nv = sqrt(vsq + tiny),
+  // nw = sqrt(w_t^2 + |w_sp|^2 + tiny)
+  float gpin = gu_t * s.w_t;
+  float gw_t = gu_t * s.pin;
+  for (int j = 0; j < n; ++j) {
+    gusp[j] += gusq * 2.f * s.u_sp[j];
+    gpin += gusp[j] * s.w_sp[j];
+    gwsp[j] = gusp[j] * s.pin;
+  }
+  gvsq += gpin / s.nw / (2.f * s.nv);
+  const float gnw2 = -gpin * s.pin / s.nw / (2.f * s.nw);
+  gw_t += gnw2 * 2.f * s.w_t;
+
+  // w_t = -coef (r + mu_t); w_sp = v - coef mu_sp
+  float gcoef = -gw_t * (s.r + s.mu_t);
+  gr -= gw_t * s.coef;
+  gmu_t -= gw_t * s.coef;
+  for (int j = 0; j < n; ++j) {
+    gwsp[j] += gnw2 * 2.f * s.w_sp[j];
+    gcoef -= gwsp[j] * s.mu_sp[j];
+    gv[j] = gwsp[j];
+    gmsp[j] -= gwsp[j] * s.coef;
+  }
+  // coef = kk smv / den, den = max(1 + alpha, eps),
+  // alpha = 1 - kk chord2 / 2, chord2 = (mu_t - r)^2 + sp2
+  const float gnum = gcoef / s.den;
+  gkk += gnum * s.smv;
+  const float gsmv = gnum * s.kk;
+  const float galpha = (s.den_in >= EPS) ? -gcoef * s.coef / s.den : 0.f;
+  gkk -= galpha * s.chord2 / 2.f;
+  const float gchord2 = -galpha * s.kk / 2.f;
+  const float gdt = gchord2 * 2.f * s.d_t;
+  gmu_t += gdt;
+  gr -= gdt;
+
+  // v = sig eps; mu = m sc with sc = r / mnorm, sp2 = sp2_m sc^2
+  float gsc = gmu_t * s.m_t + gchord2 * s.sp2_m * 2.f * s.sc;
+  float gsp2_m = gchord2 * s.sc * s.sc;
+  for (int j = 0; j < n; ++j) {
+    gmsp[j] += gsmv * s.v[j];
+    gv[j] += gsmv * s.mu_sp[j] + gvsq * 2.f * s.v[j];
+    gsc += gmsp[j] * s.m_sp[j];
+    gmsp[j] = gmsp[j] * s.sc;  // the gradient of m_sp from here on
+  }
+  gr += gsc / s.mnorm;
+  const float gmn2 = -gsc * s.sc / s.mnorm / (2.f * s.mnorm);
+  const float gm_t = gmu_t * s.sc + gmn2 * 2.f * s.m_t;
+  gsp2_m += gmn2;
+  // m_t = cos_u(t_m) r; m_sp = sindiv(t_m) mu_tan; t_m = kk r2m
+  float gsdm = 0.f;
+  for (int j = 0; j < n; ++j) {
+    gmsp[j] += gsp2_m * 2.f * s.m_sp[j];
+    gsdm += gmsp[j] * raw[j];
+  }
+  gr += gm_t * s.cm;
+  const float gtm = gm_t * s.r * d_cos_u_sgn(s.t_m, 1)
+                    + gsdm * d_sindiv_u(s.t_m);
+  gkk += gtm * s.r2m;
+  const float gr2m = gtm * s.kk;
+  for (int j = 0; j < n; ++j)
+    draw[j] = gmsp[j] * s.sdm + gr2m * 2.f * raw[j];
+
+  // sig = sigma_cap(softplus(raw), capr), capr = pi rsqrt(max(k, 1e-12))
+  float gcapr = 0.f, gsum = 0.f;
+  for (int j = 0; j < n; ++j) {
+    float gsig = gv[j] * eps[j];
+    if (s.sig[j] >= TINY) gsig += gls / s.sig[j];
+    const float gs0 = sigma_cap_bwd(gsig, s.capr, s.tq[j], s.tc[j], s.w6[j],
+                                    s.pw[j], &gcapr);
+    if (ns == 1) {
+      gsum = (j == 0) ? gs0 : gsum + gs0;
+    } else {
+      draw[n + j] = gs0 * d_softplus(raw[n + j]);
+    }
+  }
+  if (ns == 1) draw[n] = gsum * d_softplus(raw[n]);
+
+  // r = 1 / sqrt_k, sqrt_k = sqrt(kk), kk = max(k, tiny)
+  gsqk -= gr * s.r * s.r;
+  gkk += gsqk / (2.f * s.sqrt_k);
+  float gk = (k >= TINY) ? gkk : 0.f;
+  if (k >= 1e-12f) gk += gcapr * (-0.5f) * s.capr / s.kc;
   return gk;
 }
 
@@ -742,10 +916,14 @@ tail_bwd_kernel(const float* __restrict__ raw, const float* __restrict__ eps,
                                  ga[i], glq, glp, dri);
     } else if (t.kind[i] == KIND_VMF_S2) {
       dk[i] = tile_vmf_s2_bwd(ri, ei, kvec[i], gzi, ga[i], glq, glp, dri);
-    } else {
+    } else if (t.kind[i] == KIND_WRAPPED_STEREO) {
       dk[i] = tile_wrapped_stereo_bwd(ri, ei, t.dim[i], t.nscale[i],
                                       t.sign[i], t.wraps[i], kvec[i], gzi,
                                       ga[i], glq, glp, dri);
+    } else {
+      dk[i] = tile_wrapped_sphere_bwd(ri, ei, t.dim[i], t.nscale[i],
+                                      t.wraps[i], kvec[i], gzi, ga[i], glq,
+                                      glp, dri);
     }
   }
 }

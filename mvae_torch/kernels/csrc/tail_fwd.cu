@@ -2,9 +2,8 @@
 // log q / log p and the per-component KL, for every component at once.
 //
 // Replaces the TPU kernel mvae_tpu/kernels/tail_kernels.py::_fwd_pallas
-// (its tiles _tile_normal, _tile_wrapped_lorentz, _tile_vmf and
-// _tile_wrapped_stereo; the wrapped tile of the embedded sphere is not
-// ported, and the wrapper refuses such a product).
+// (its tiles _tile_normal, _tile_wrapped_lorentz, _tile_vmf,
+// _tile_wrapped_stereo and _tile_wrapped_sphere).
 //
 // Bound: bytes. Per batch row the kernel reads W head pre-activations and
 // E noise values and writes Z latent coordinates and nc + 2 aux values
@@ -48,6 +47,16 @@ __device__ __noinline__ void stereo_tile_fwd(const float* raw,
   tile_wrapped_stereo(raw, eps, n, ns, sign, wraps, k, z, kl, lq, lp, h, s);
 }
 
+// The embedded-sphere tile with its intermediates, out of line likewise.
+__device__ __noinline__ void sphere_tile_fwd(const float* raw,
+                                             const float* eps, int n, int ns,
+                                             int wraps, float k, float* z,
+                                             float* kl, float* lq,
+                                             float* lp) {
+  SphSaved s;
+  tile_wrapped_sphere(raw, eps, n, ns, wraps, k, z, kl, lq, lp, s);
+}
+
 __global__ void __launch_bounds__(THREADS)
 tail_fwd_kernel(const float* __restrict__ raw, const float* __restrict__ eps,
                 const float* __restrict__ kvec, float* __restrict__ z,
@@ -74,9 +83,12 @@ tail_fwd_kernel(const float* __restrict__ raw, const float* __restrict__ eps,
     } else if (t.kind[i] == KIND_VMF_S2) {
       VmfSaved s;
       tile_vmf_s2(ri, ei, kvec[i], zi, &kl, &q, &p, s);
-    } else {
+    } else if (t.kind[i] == KIND_WRAPPED_STEREO) {
       stereo_tile_fwd(ri, ei, t.dim[i], t.nscale[i], t.sign[i], t.wraps[i],
                       kvec[i], zi, &kl, &q, &p);
+    } else {
+      sphere_tile_fwd(ri, ei, t.dim[i], t.nscale[i], t.wraps[i], kvec[i], zi,
+                      &kl, &q, &p);
     }
     ar[i] = kl;
     lq = lq + q;

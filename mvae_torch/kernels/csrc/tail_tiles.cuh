@@ -3,8 +3,9 @@
 // forward with these same expressions before its reverse sweep.
 //
 // Port of the tiles of mvae_tpu/kernels/tail_kernels.py (_tile_normal,
-// _tile_wrapped_lorentz, _tile_vmf, _tile_wrapped_stereo with
-// _logq_drawn_rows and _logp_prior_rows) in the order of the plain version
+// _tile_wrapped_lorentz, _tile_vmf, _tile_wrapped_stereo and
+// _tile_wrapped_sphere with _logq_drawn_rows, _logp_prior_rows and
+// _arcsindiv_u_pos) in the order of the plain version
 // mvae_torch/kernels/tail_kernels.py::tail_forward_ref: the exp-based
 // cosh/sinh clipped at 85, the series window at |u| < 1e-2, the vMF cosine
 // clip, the Householder degeneracy guard, and reductions over a row's
@@ -14,13 +15,20 @@
 // forward kernel's bit for bit.
 //
 // The wrapped and vMF tiles record their intermediates in a struct (HSaved,
-// VmfSaved, StereoSaved) for the backward; the forward kernel discards them.
+// VmfSaved, StereoSaved, SphSaved) for the backward; the forward kernel
+// discards them.
 //
 // The stereographic tile (kinds d/p/u) takes the component's static
 // curvature sign (-1, +1, or 0 for the universal kind, whose branch follows
 // the run-time sign of K per row) and its count of wrap-image pairs from the
 // table. Its draw, stereo_draw, is also the body of the IWAE chunk reparam
 // kernel (reparam_stereo.cu), so both evaluate the same expressions.
+//
+// The embedded-sphere tile (kind s, K > 0 pinned) shares the sigma cap, the
+// drawn-radius sum logq_drawn and the prior pair logp_prior with the
+// stereographic tile. Its ambient point has dim + 1 <= MAX_DIM + 1
+// coordinates: the time coordinate is a scalar of its own and every array
+// holds the dim spatial ones.
 
 #pragma once
 
@@ -34,7 +42,8 @@ enum {
   KIND_NORMAL = 0,
   KIND_WRAPPED_H = 1,
   KIND_VMF_S2 = 2,
-  KIND_WRAPPED_STEREO = 3
+  KIND_WRAPPED_STEREO = 3,
+  KIND_WRAPPED_S = 4
 };
 #define TABLE_COLS 8
 
@@ -66,7 +75,7 @@ static inline bool tail_table_from(const int* table, int nc, TailTable* t) {
     t->sign[i] = row[6];
     t->wraps[i] = row[7];
     if (t->dim[i] < 1 || t->dim[i] > MAX_DIM) return false;
-    if (t->kind[i] < KIND_NORMAL || t->kind[i] > KIND_WRAPPED_STEREO)
+    if (t->kind[i] < KIND_NORMAL || t->kind[i] > KIND_WRAPPED_S)
       return false;
     if (t->sign[i] < -1 || t->sign[i] > 1 || t->wraps[i] < 0) return false;
   }
@@ -618,6 +627,18 @@ __device__ void stereo_draw(int n, int sign, int wraps, float k,
   *lp = logp_prior(n, wraps, sign, k, s.r0, s.lp);
 }
 
+// components.cap_sigma_positive_k for one coordinate: the scale saturating
+// at capr = pi / sqrt(max(K, 1e-12)); records the intermediates
+__device__ __forceinline__ float sigma_cap(float sig0, float capr, float* tq,
+                                           float* tc, float* w6, float* pw) {
+  *tq = sig0 / capr;
+  *tc = fminf(*tq, 8.f);
+  const float tc2 = *tc * *tc;
+  *w6 = 1.f + tc2 * tc2 * tc2;
+  *pw = powf(*w6, F(-1.0 / 6.0));
+  return capr * *tc * *pw;
+}
+
 // The head of the stereographic tile: the scale with its cap and the mean
 struct StereoHead {
   float kc, capr, r2m, um, gm, bsm, smax;
@@ -637,12 +658,8 @@ __device__ void tile_wrapped_stereo(const float* raw, const float* eps, int n,
   for (int j = 0; j < n; ++j) {
     h.sig0[j] = softplus_f(raw[n + (ns == 1 ? 0 : j)]);
     if (sign >= 0) {
-      h.tq[j] = h.sig0[j] / h.capr;
-      h.tc[j] = fminf(h.tq[j], 8.f);
-      const float tc2 = h.tc[j] * h.tc[j];
-      h.w6[j] = 1.f + tc2 * tc2 * tc2;
-      h.pw[j] = powf(h.w6[j], F(-1.0 / 6.0));
-      h.sig[j] = h.capr * h.tc[j] * h.pw[j];
+      h.sig[j] = sigma_cap(h.sig0[j], h.capr, &h.tq[j], &h.tc[j], &h.w6[j],
+                           &h.pw[j]);
     } else {
       h.sig[j] = h.sig0[j];
     }
@@ -665,6 +682,158 @@ __device__ void tile_wrapped_stereo(const float* raw, const float* eps, int n,
   float q, p;
   stereo_draw(n, sign, wraps, k, h.mu, h.sig, eps, &q, &p, s);
   for (int j = 0; j < n; ++j) z[j] = s.z[j];
+  *lq = q;
+  *lp = p;
+  *kl = q - p;
+}
+
+// --- the embedded sphere (kind s) -------------------------------------------------
+
+#define ARCSINDIV_C F(1.0 / 6), F(3.0 / 40), F(15.0 / 336), F(105.0 / 3456)
+
+// stable._arcsindiv_u_pos: asin(sqrt w) / sqrt w for w >= 0, asin spelled
+// atan(x / sqrt(1 - x^2)) with x clamped inside the domain
+__device__ float arcsindiv_u_pos(float w) {
+  if (fabsf(w) < CUTOFF) return poly4(w, ARCSINDIV_C);
+  const float pw = fminf(fmaxf(w, TINY), ONE_M_EPS);
+  const float sw = sqrtf(pw);
+  return atanf(sw * rsqrtf(fmaxf(1.f - pw, EPS))) / sw;
+}
+
+// Intermediates of one row of the embedded-sphere tile (names as in the plain
+// version; *_in is a clamp's input, *0 a value before its renormalization)
+struct SphSaved {
+  float kk, sqrt_k, r, kc, capr, r2m, t_m, cm, sdm, m_t, sp2_m, mnorm, sc,
+      mu_t, sp2, vsq, s2, ls, smv, d_t, chord2, alpha, den_in, den, coef, w_t,
+      nv, nw, pin, u_t, usq, tt, cu, sd, zt0, zn, zsc, z_t, dz_t, chord0, hs,
+      half_in, hcap, half, wa, asd, r0, lq_mx, lq_acc;
+  LqCommon lqc;
+  LpSaved lp;
+  float sig0[MAX_DIM], tq[MAX_DIM], tc[MAX_DIM], w6[MAX_DIM], pw[MAX_DIM],
+      sig[MAX_DIM], m_sp[MAX_DIM], mu_sp[MAX_DIM], v[MAX_DIM], w_sp[MAX_DIM],
+      u_sp[MAX_DIM], zs0[MAX_DIM], z_sp[MAX_DIM];
+};
+
+// tail_kernels._tile_wrapped_sphere: wrapped normal on the embedded sphere
+// S^n (K > 0 pinned): capped scale, exp_map_mu0 mean head, chord-form
+// parallel transport mu0 -> mu with its norm pinned to |v|, exp at mu with
+// the renormalizing projection; log q by the drawn-radius sum, log p at the
+// chord-form arcsin distance from mu0. z has n + 1 coordinates.
+__device__ void tile_wrapped_sphere(const float* raw, const float* eps, int n,
+                                    int ns, int wraps, float k, float* z,
+                                    float* kl, float* lq, float* lp,
+                                    SphSaved& s) {
+  s.kk = fmaxf(k, TINY);
+  s.sqrt_k = sqrtf(s.kk);
+  s.r = 1.f / s.sqrt_k;
+  s.kc = fmaxf(k, 1e-12f);
+  s.capr = F(PI) * rsqrtf(s.kc);
+
+  // mu = exp_map_mu0(mu_tan); project() renormalizes to radius R
+  float r2m = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float t = raw[j] * raw[j];
+    r2m = (j == 0) ? t : r2m + t;
+  }
+  s.r2m = r2m;
+  s.t_m = s.kk * r2m;
+  s.cm = cos_u_sgn(s.t_m, 1);
+  s.m_t = s.cm * s.r;
+  s.sdm = sindiv_u(s.t_m);
+  float sp2_m = 0.f;
+  for (int j = 0; j < n; ++j) {
+    s.m_sp[j] = s.sdm * raw[j];
+    const float t = s.m_sp[j] * s.m_sp[j];
+    sp2_m = (j == 0) ? t : sp2_m + t;
+  }
+  s.sp2_m = sp2_m;
+  s.mnorm = sqrtf(s.m_t * s.m_t + sp2_m + TINY);
+  s.sc = s.r / s.mnorm;
+  s.mu_t = s.m_t * s.sc;
+  s.sp2 = sp2_m * s.sc * s.sc;
+
+  float vsq = 0.f, s2 = 0.f, ls = 0.f, smv = 0.f;
+  for (int j = 0; j < n; ++j) {
+    s.mu_sp[j] = s.m_sp[j] * s.sc;
+    s.sig0[j] = softplus_f(raw[n + (ns == 1 ? 0 : j)]);
+    s.sig[j] = sigma_cap(s.sig0[j], s.capr, &s.tq[j], &s.tc[j], &s.w6[j],
+                         &s.pw[j]);
+    s.v[j] = s.sig[j] * eps[j];
+    const float t0 = s.v[j] * s.v[j], t1 = eps[j] * eps[j],
+                t2 = logf(fmaxf(s.sig[j], TINY)), t3 = s.mu_sp[j] * s.v[j];
+    vsq = (j == 0) ? t0 : vsq + t0;
+    s2 = (j == 0) ? t1 : s2 + t1;
+    ls = (j == 0) ? t2 : ls + t2;
+    smv = (j == 0) ? t3 : smv + t3;
+  }
+  s.vsq = vsq;
+  s.s2 = s2;
+  s.ls = ls;
+  s.smv = smv;
+
+  // PT_{mu0->mu}((0, v)): chord-form alpha, norm pinned to |v|
+  s.d_t = s.mu_t - s.r;
+  s.chord2 = s.d_t * s.d_t + s.sp2;
+  s.alpha = 1.f - s.kk * s.chord2 / 2.f;
+  s.den_in = 1.f + s.alpha;
+  s.den = fmaxf(s.den_in, EPS);
+  s.coef = s.kk * smv / s.den;
+  s.w_t = -s.coef * (s.r + s.mu_t);
+  float wsp2 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    s.w_sp[j] = s.v[j] - s.coef * s.mu_sp[j];
+    const float t = s.w_sp[j] * s.w_sp[j];
+    wsp2 = (j == 0) ? t : wsp2 + t;
+  }
+  s.nv = sqrtf(vsq + TINY);
+  s.nw = sqrtf(s.w_t * s.w_t + wsp2 + TINY);
+  s.pin = s.nv / s.nw;
+  s.u_t = s.w_t * s.pin;
+  float usp2 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    s.u_sp[j] = s.w_sp[j] * s.pin;
+    const float t = s.u_sp[j] * s.u_sp[j];
+    usp2 = (j == 0) ? t : usp2 + t;
+  }
+
+  // z = exp_map(mu, u); project() renormalizes
+  s.usq = s.u_t * s.u_t + usp2;
+  s.tt = s.kk * s.usq;
+  s.cu = cos_u_sgn(s.tt, 1);
+  s.sd = sindiv_u(s.tt);
+  s.zt0 = s.cu * s.mu_t + s.sd * s.u_t;
+  float zs02 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    s.zs0[j] = s.cu * s.mu_sp[j] + s.sd * s.u_sp[j];
+    const float t = s.zs0[j] * s.zs0[j];
+    zs02 = (j == 0) ? t : zs02 + t;
+  }
+  s.zn = sqrtf(s.zt0 * s.zt0 + zs02 + TINY);
+  s.zsc = s.r / s.zn;
+  s.z_t = s.zt0 * s.zsc;
+  z[0] = s.z_t;
+  float zsp2 = 0.f;
+  for (int j = 0; j < n; ++j) {
+    s.z_sp[j] = s.zs0[j] * s.zsc;
+    z[1 + j] = s.z_sp[j];
+    const float t = s.z_sp[j] * s.z_sp[j];
+    zsp2 = (j == 0) ? t : zsp2 + t;
+  }
+
+  const float q = logq_drawn(n, wraps, 1, s.kk, vsq, s2, ls, s.lqc, &s.lq_mx,
+                             &s.lq_acc);
+
+  // log p: r0 = 2R asin(|z - mu0| / 2R), the chord form of sphere.distance
+  s.dz_t = s.z_t - s.r;
+  s.chord0 = s.dz_t * s.dz_t + zsp2;
+  s.hs = sqrtf(s.chord0 + TINY);
+  s.half_in = s.hs / 2.f;
+  s.hcap = ONE_M_EPS * s.r;
+  s.half = fminf(s.half_in, s.hcap);
+  s.wa = s.kk * s.half * s.half;
+  s.asd = arcsindiv_u_pos(s.wa);
+  s.r0 = 2.f * s.half * s.asd;
+  const float p = logp_prior(n, wraps, 1, s.kk, s.r0, s.lp);
   *lq = q;
   *lp = p;
   *kl = q - p;

@@ -1,8 +1,8 @@
-"""IWAE chunk reparameterization of a wrapped normal on the
-kappa-stereographic family (kinds d/p/u), as one kernel launch.
+"""The manifold kernels: the IWAE chunk reparameterization of a wrapped
+normal on the kappa-stereographic family (kinds d/p/u) and the two geodesic
+distances, each as one kernel launch.
 
-Counterpart of ``mvae_tpu/kernels/manifold_kernels.py`` (the reparam
-kernel; the opt-in distance kernels are not ported yet).
+Counterpart of ``mvae_tpu/kernels/manifold_kernels.py``.
 ``wrapped_reparam_stereo_t`` computes, for a whole chunk of importance
 samples of one component,
 
@@ -26,6 +26,19 @@ shares), not the library composition ``sample_projection_mu0`` +
 arithmetic but round differently near the K > 0 antipode, and the tests
 hold one to the other at the tolerance the reference states for its own
 kernel.
+
+``stereo_distance(x, y, k)`` (the gyrovector distance 2 arctan_K(|(-x)
+(+)_K y|), any sign of K) and ``lorentz_distance(x, y, k)`` (the
+hyperboloid distance R acosh(1 + c |y - x|_L^2 / 2)) run one launch each of
+``csrc/manifold_dist.cu`` on rows of (B, n) points (replace the TPU kernels
+``manifold_kernels._stereo_dist_fwd_pallas`` and
+``_lorentz_dist_fwd_pallas``). Each is a ``torch.autograd.Function`` whose
+backward is autograd through the library op (``ops.stereographic.distance``,
+``ops.lorentz.distance``), as the reference's is: no backward kernel.
+``stereo_distance_ref`` and ``lorentz_distance_ref`` are the plain
+versions, the kernels' own expressions (the Gram form with its guards).
+The reference's ``MVAE_PALLAS`` switch routes nothing there and is not
+ported: a caller picks the kernel by calling these functions.
 """
 from __future__ import annotations
 
@@ -34,6 +47,7 @@ import functools
 
 import torch
 
+from ..ops import lorentz, stable, stereographic
 from . import _build
 from .tail_kernels import MAX_DIM, _stereo_draw
 
@@ -115,3 +129,121 @@ def wrapped_reparam_stereo_t(eps, mu, sigma, k, wraps: int = 1,
 
 
 wrapped_reparam_stereo_t.launches = 0
+
+
+# --- geodesic distances ----------------------------------------------------------
+
+
+def stereo_distance_ref(x, y, k):
+    """Plain PyTorch gyrovector distance of rows x, y (B, n) at curvature k
+    (0-d) -> (B,): |(-x) (+)_K y|^2 from the three Gram values of a row,
+    the Mobius denominator guarded at |den| < 1e-6, then
+    2 sqrt(w2 + 1e-30) arctandiv(K w2)."""
+    x2 = torch.sum(x * x, dim=1)
+    y2 = torch.sum(y * y, dim=1)
+    xy = torch.sum(x * y, dim=1)
+    a = 1.0 + 2.0 * k * xy - k * y2      # coefficient of -x in the numerator
+    b = 1.0 + k * x2                     # coefficient of y
+    den = 1.0 + 2.0 * k * xy + k * k * x2 * y2
+    den = torch.where(torch.abs(den) < 1e-6, torch.full_like(den, 1e-6), den)
+    w2 = (a * a * x2 + b * b * y2 - 2.0 * a * b * xy) / (den * den)
+    w2 = torch.clamp(w2, min=0.0)
+    return 2.0 * torch.sqrt(w2 + 1e-30) * stable.arctandiv_u(k * w2)
+
+
+def lorentz_distance_ref(x, y, k):
+    """Plain PyTorch hyperboloid distance of rows x, y (B, n) at curvature k
+    (0-d, negative) -> (B,): the Lorentzian square of y - x in the
+    difference form sum_i d_i^2 - 2 d_0^2, then
+    acosh_1p(max(c dsq / 2, 0) + 1e-30) / sqrt(c), c = max(-K, 1e-30)."""
+    c = torch.clamp(-k, min=1e-30)
+    d = y - x
+    dsq = torch.sum(d * d, dim=1) - 2.0 * d[:, 0] * d[:, 0]
+    e = torch.clamp(c * dsq / 2.0, min=0.0) + 1e-30
+    return stable.acosh_1p(e) / torch.sqrt(c)
+
+
+@functools.lru_cache(maxsize=None)
+def _dist_lib(entry: str):
+    fn = getattr(_build.load("manifold_dist"), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _distance_forward(wrapper, entry, ref, x, y, k):
+    """Checks, then one launch of ``entry`` on CUDA tensors or the plain
+    version ``ref`` on CPU tensors."""
+    k = torch.as_tensor(k)
+    if x.dim() != 2 or x.shape != y.shape or x.shape[1] < 1:
+        raise ValueError(f"x and y must be (B, n), got {tuple(x.shape)} and "
+                         f"{tuple(y.shape)}")
+    if k.numel() != 1:
+        raise ValueError("k must be one curvature")
+    if x.device.type == "cpu":
+        return ref(x, y, k.reshape(()))
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    for name, t in (("x", x), ("y", y), ("k", k)):
+        if t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name} must be float32 on {x.device}")
+    x, y = x.detach().contiguous(), y.detach().contiguous()
+    k1 = k.detach().reshape(1)
+    B, n = x.shape
+    out = torch.empty((B,), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(_dist_lib(entry)(x.data_ptr(), y.data_ptr(), k1.data_ptr(),
+                                  out.data_ptr(), B, n, stream), entry)
+    wrapper.launches += 1
+    return out
+
+
+class _DistanceFn(torch.autograd.Function):
+    """A distance kernel under autograd: forward the kernel (its plain
+    version on CPU tensors), backward autograd through the library op."""
+
+    @staticmethod
+    def forward(ctx, wrapper, entry, ref, op, x, y, k):
+        ctx.op = op
+        ctx.save_for_backward(x, y, k)
+        return _distance_forward(wrapper, entry, ref, x, y, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, k = ctx.saved_tensors
+        need = ctx.needs_input_grad[4:]
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(n)
+                    for t, n in zip((x, y, k), need)]
+            d = ctx.op(*args)
+            wanted = [a for a, n in zip(args, need) if n]
+            got = iter(torch.autograd.grad(d, wanted, g))
+        return (None, None, None, None,
+                *[next(got) if n else None for n in need])
+
+
+def stereo_distance(x, y, k):
+    """Gyrovector distance d(x, y) = 2 arctan_K(|(-x) (+)_K y|) of rows
+    x, y (B, n) -> (B,), any sign of K: on CUDA tensors one launch of
+    ``stereo_dist_kernel`` (``csrc/manifold_dist.cu``), on CPU tensors
+    ``stereo_distance_ref``. Differentiable in x, y and k through
+    ``ops.stereographic.distance``."""
+    return _DistanceFn.apply(stereo_distance, "stereo_dist_launch",
+                             stereo_distance_ref, stereographic.distance,
+                             x, y, torch.as_tensor(k))
+
+
+def lorentz_distance(x, y, k):
+    """Hyperboloid distance R acosh(1 + c |y - x|_L^2 / 2) of rows x, y
+    (B, n) ambient -> (B,): on CUDA tensors one launch of
+    ``lorentz_dist_kernel`` (``csrc/manifold_dist.cu``), on CPU tensors
+    ``lorentz_distance_ref``. Differentiable in x, y and k through
+    ``ops.lorentz.distance``."""
+    return _DistanceFn.apply(lorentz_distance, "lorentz_dist_launch",
+                             lorentz_distance_ref, lorentz.distance,
+                             x, y, torch.as_tensor(k))
+
+
+stereo_distance.launches = 0
+lorentz_distance.launches = 0

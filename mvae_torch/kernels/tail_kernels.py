@@ -12,11 +12,12 @@ product with respect to the raw heads and the curvatures in one launch of
 wires the two into autograd; the noise gets no gradient.
 
 Families in the kernels (the whole product must be in them, see
-``component_supported``): 'normal' on e, 'wrapped' on h and on the
-stereographic kinds d/p/u (sigma cap, drawn-radius branch sum and prior
-wrap pair in the tile), 'vmf' on s with m = 3. The wrapped tile of the
-embedded sphere is not ported yet, so 'wrapped' on s takes the plain
-per-component tail.
+``component_supported``): 'normal' on e, 'wrapped' on h, on the
+stereographic kinds d/p/u and on the embedded sphere s (sigma cap,
+drawn-radius branch sum and prior wrap pair in the tile), 'vmf' on s with
+m = 3. The vMF with m != 3 draws its cosine by rejection and takes the
+plain per-component tail, as does an uncapped positive-curvature wrapped
+component.
 
 ``tail_forward_ref`` is the plain PyTorch forward: the CPU path, the
 tests' subject against the JAX tile, and the card check's reference.
@@ -34,6 +35,7 @@ import math
 
 import torch
 
+from ..components.component import cap_sigma_positive_k
 from ..components.component import draw_noise as _component_noise
 from ..ops import stable
 from . import _build
@@ -42,6 +44,7 @@ _LOG_2PI = 1.8378770664093453
 _LOG_4PI = math.log(4.0 * math.pi)
 
 KIND_NORMAL, KIND_WRAPPED_H, KIND_VMF_S2, KIND_WRAPPED_STEREO = 0, 1, 2, 3
+KIND_WRAPPED_S = 4
 MAX_COMPS = 16  # csrc/tail_tiles.cuh MAX_COMPS
 MAX_DIM = 32    # csrc/tail_tiles.cuh MAX_DIM
 
@@ -56,7 +59,7 @@ def component_supported(comp) -> bool:
                 and not comp.sigma_cap):
             return False  # the tile bakes the sigma cap in; an uncapped
             # positive-capable component takes the plain tail
-        return kind in ("h", "d", "p", "u") and comp.dim <= MAX_DIM
+        return kind in ("h", "d", "p", "u", "s") and comp.dim <= MAX_DIM
     if comp.posterior == "vmf":
         return comp.manifold.kind == "s" and comp.dim == 2
     return False
@@ -69,6 +72,8 @@ def _kind(comp) -> int:
         return KIND_VMF_S2
     if comp.manifold.kind == "h":
         return KIND_WRAPPED_H
+    if comp.manifold.kind == "s":
+        return KIND_WRAPPED_S
     return KIND_WRAPPED_STEREO
 
 
@@ -160,6 +165,77 @@ def _tile_wrapped_lorentz(comp, raw, eps, k):
     lp = (-0.5 * r02 - 0.5 * n * _LOG_2PI
           - (n - 1.0) * stable._log_sindiv_u_sgn(k * r02, -1))
     return torch.cat([z_t, z_sp], dim=1), lq - lp, lq, lp
+
+
+def _tile_wrapped_sphere(comp, raw, eps, k):
+    """Wrapped normal on the embedded sphere S^n (K > 0 pinned; the chord
+    forms of ``ops/sphere.py``): exp_map_mu0 mean head, the capped scale,
+    parallel transport mu0 -> mu with its norm pinned to |v|, exp at mu with
+    the renormalizing projection; log q by the drawn-radius branch sum and
+    log p at the chord-form arcsin distance from mu0, both through the
+    helpers the stereographic tile evaluates."""
+    n = comp.dim
+    tin = stable.tiny(raw.dtype)
+    e = stable.eps(raw.dtype)
+    kk = torch.clamp(k, min=tin)
+    sqrt_k = torch.sqrt(kk)
+    r_rad = 1.0 / sqrt_k
+    mu_tan = raw[:, :n]
+    sig = cap_sigma_positive_k(_sig(comp, raw), k)
+
+    # mu = exp_map_mu0(mu_tan); project() renormalizes to radius R
+    r2m = _rowsum(mu_tan * mu_tan)
+    t_m = kk * r2m
+    m_t = stable._cos_u_sgn(t_m, 1) * r_rad
+    m_sp = stable._sindiv_u_kernel(t_m) * mu_tan
+    sp2_m = _rowsum(m_sp * m_sp)
+    mnorm = torch.sqrt(m_t * m_t + sp2_m + tin)
+    sc = r_rad / mnorm
+    mu_t = m_t * sc
+    mu_sp = m_sp * sc
+    sp2 = sp2_m * sc * sc
+
+    v = sig * eps
+    vsq = _rowsum(v * v)
+    s2 = _rowsum(eps * eps)
+    ls = _rowsum(torch.log(torch.clamp(sig, min=tin)))
+
+    # PT_{mu0->mu}((0, v)): chord-form alpha, norm pinned to |v|
+    d_t = mu_t - r_rad
+    chord2 = d_t * d_t + sp2
+    alpha = 1.0 - kk * chord2 / 2.0
+    den = torch.clamp(1.0 + alpha, min=e)
+    coef = kk * _rowsum(mu_sp * v) / den
+    w_t = -coef * (r_rad + mu_t)
+    w_sp = v - coef * mu_sp
+    nv = torch.sqrt(vsq + tin)
+    nw = torch.sqrt(w_t * w_t + _rowsum(w_sp * w_sp) + tin)
+    pin = nv / nw
+    u_t = w_t * pin
+    u_sp = w_sp * pin
+
+    # z = exp_map(mu, u); project() renormalizes
+    usq = u_t * u_t + _rowsum(u_sp * u_sp)
+    tt = kk * usq
+    cu = stable._cos_u_sgn(tt, 1)
+    sd = stable._sindiv_u_kernel(tt)
+    z_t = cu * mu_t + sd * u_t
+    z_sp = cu * mu_sp + sd * u_sp
+    zn = torch.sqrt(z_t * z_t + _rowsum(z_sp * z_sp) + tin)
+    zsc = r_rad / zn
+    z_t = z_t * zsc
+    z_sp = z_sp * zsc
+
+    logq = _logq_drawn_rows(n, comp.wraps, 1, kk, vsq, s2, ls)
+
+    # log p: r0 = 2R asin(|z - mu0| / 2R), the chord form of sphere.distance
+    dz_t = z_t - r_rad
+    chord0 = dz_t * dz_t + _rowsum(z_sp * z_sp)
+    half = torch.sqrt(chord0 + tin) / 2.0
+    half = torch.clamp(half, max=(1.0 - e) * r_rad)
+    r0 = 2.0 * half * stable._arcsindiv_u_pos(kk * half * half)
+    logp = _logp_prior_rows(n, comp.wraps, 1, kk, r0)
+    return torch.cat([z_t, z_sp], dim=1), logq - logp, logq, logp
 
 
 def _tile_vmf(comp, raw, eps, k):
@@ -384,10 +460,7 @@ def _tile_wrapped_stereo(comp, raw, eps, k):
     mu_tan = raw[:, :n]
     sig = _sig(comp, raw)
     if sign >= 0:
-        capr = math.pi * torch.rsqrt(torch.clamp(k, min=1e-12))
-        tc = torch.clamp(sig / capr, max=8.0)
-        tc2 = tc * tc
-        sig = capr * tc * (1.0 + tc2 * tc2 * tc2) ** (-1.0 / 6.0)
+        sig = cap_sigma_positive_k(sig, k)
     # mu = exp_map_mu0(mu_tan) = project(0.5 tandiv mu_tan)
     r2m = _rowsum(mu_tan * mu_tan)
     gm = 0.5 * stable._tandiv_u_sgn(k * r2m / 4.0, sign)
@@ -418,6 +491,8 @@ def tail_forward_ref(comps, raw, eps, k):
             z, kl, q, p = _tile_vmf(comp, r, e, ki)
         elif comp.manifold.kind == "h":
             z, kl, q, p = _tile_wrapped_lorentz(comp, r, e, ki)
+        elif comp.manifold.kind == "s":
+            z, kl, q, p = _tile_wrapped_sphere(comp, r, e, ki)
         else:
             z, kl, q, p = _tile_wrapped_stereo(comp, r, e, ki)
         zs.append(z)

@@ -27,7 +27,8 @@ import math
 
 import torch
 
-from ..components import Component, reparametrize, total_ambient_dim
+from ..components import (Component, reparametrize, sample_prior,
+                          total_ambient_dim)
 from ..kernels import decoder_kernels, manifold_kernels, tail_kernels
 from ..ops.stable import softplus
 from . import nets
@@ -354,6 +355,23 @@ def log_likelihood(cfg: VAEConfig, params, x, n_samples: int = 500,
     log_w = _log_weights(cfg, params, x, n_samples, chunk_size, noise,
                          generator)
     return torch.logsumexp(log_w, dim=0) - math.log(n_samples)
+
+
+def generate(cfg: VAEConfig, params, n: int, generator=None):
+    """Ancestral sampling: one prior draw per component -> the decoder's
+    Bernoulli means, (n, *data_shape) in [0, 1]."""
+    dtype = params["decoder"]["out"]["w"].dtype
+    zs = [sample_prior(comp, cp, (n,), dtype, generator)
+          for comp, cp in zip(cfg.components, params["components"])]
+    return torch.sigmoid(decode(cfg, params, torch.cat(zs, dim=-1)))
+
+
+def reconstruct(cfg: VAEConfig, params, x, noise=None, generator=None):
+    """encode -> one posterior draw -> one decode: the Bernoulli means of
+    x's reconstruction (no log-likelihood work)."""
+    feats = encode(cfg, params, x)
+    z = _reparam_components(cfg, params, feats, noise, generator)[0]
+    return torch.sigmoid(decode(cfg, params, z))
 
 
 def fused_path_report(cfg: VAEConfig, params) -> dict:

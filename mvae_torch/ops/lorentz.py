@@ -52,6 +52,11 @@ def project(x, k):
     return torch.cat([x0, spatial], dim=-1)
 
 
+def project_tangent(x, u, k):
+    """Project u onto the tangent space at x: u + c<x,u>_L x."""
+    return u + _c(k) * lorentz_product(x, u, keepdim=True) * x
+
+
 def _alpha_m1(x, y, k):
     """alpha - 1 where alpha = -c <x,y>_L, via the stable difference form."""
     d = y - x
@@ -126,3 +131,20 @@ def sample_projection_mu0(v, mu, k):
 
 def inverse_sample_projection_mu0(z, mu, k):
     return inv_transp_mu0(mu, log_map(mu, z, k), k)
+
+
+# --- isometries --------------------------------------------------------------
+
+
+def lorentz_to_poincare(x, k):
+    """H^n_K (ambient R^{n+1}) -> Poincare ball coords (R^n), same K."""
+    return x[..., 1:] / (1.0 + torch.sqrt(_c(k)) * x[..., :1])
+
+
+def poincare_to_lorentz(p, k):
+    """Poincare ball coords -> hyperboloid ambient coords, same K."""
+    c = _c(k)
+    psq = torch.sum(p * p, dim=-1, keepdim=True)
+    denom = torch.clamp(1.0 - c * psq, min=stable.eps(p.dtype))
+    x0 = (1.0 + c * psq) / (denom * torch.sqrt(c))
+    return torch.cat([x0, 2.0 * p / denom], dim=-1)

@@ -92,6 +92,9 @@ class Manifold:
 
     # --- dispatched geometry at mu0 (k = sectional curvature, 0-d tensor) ---
 
+    def mu0(self, k, dtype=torch.float32):
+        return self.ops.mu0(self.dim, k, dtype)
+
     def exp_map_mu0(self, v, k):
         return self.ops.exp_map_mu0(v, k)
 

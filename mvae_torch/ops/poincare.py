@@ -1,11 +1,12 @@
 """Poincare ball D^n_K (K < 0): the gyrovector API over the stereographic
 core, with the curvature clamped strictly negative. Counterpart of
-``mvae_tpu/ops/poincare.py`` (without the Lorentz isometry pair)."""
+``mvae_tpu/ops/poincare.py``."""
 from __future__ import annotations
 
 import torch
 
 from . import stable, stereographic
+from .lorentz import lorentz_to_poincare, poincare_to_lorentz  # noqa: F401
 
 KIND = "d"
 CURVATURE_SIGN = -1

@@ -39,6 +39,11 @@ def project(x, k):
     return x * (r / stable.safe_norm(x, keepdim=True))
 
 
+def project_tangent(x, u, k):
+    """Remove the radial component: u - <x,u> x / R^2."""
+    return u - _kk(k) * torch.sum(x * u, dim=-1, keepdim=True) * x
+
+
 def _chord_sq(x, y):
     d = y - x
     return torch.sum(d * d, dim=-1, keepdim=True)
@@ -117,3 +122,22 @@ def sample_projection_mu0(v, mu, k):
 
 def inverse_sample_projection_mu0(z, mu, k):
     return inv_transp_mu0(mu, log_map(mu, z, k), k)
+
+
+# --- isometries --------------------------------------------------------------
+
+
+def sphere_to_projected(x, k):
+    """S^n_K ambient -> stereographic coords (projection from -mu0). The
+    projection point itself maps to infinity; the guarded denominator gives
+    a huge finite coordinate there instead of inf."""
+    den = 1.0 + torch.sqrt(_kk(k)) * x[..., :1]
+    return x[..., 1:] / torch.clamp(den, min=stable.eps(x.dtype))
+
+
+def projected_to_sphere(p, k):
+    kk = _kk(k)
+    psq = torch.sum(p * p, dim=-1, keepdim=True)
+    denom = 1.0 + kk * psq
+    x0 = (1.0 - kk * psq) / (denom * torch.sqrt(kk))
+    return torch.cat([x0, 2.0 * p / denom], dim=-1)

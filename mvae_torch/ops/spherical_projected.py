@@ -1,12 +1,12 @@
 """Stereographically projected sphere P^n_K (K > 0): the gyrovector API
 over the stereographic core, with the curvature clamped strictly positive.
-Counterpart of ``mvae_tpu/ops/spherical_projected.py`` (without the sphere
-isometry pair)."""
+Counterpart of ``mvae_tpu/ops/spherical_projected.py``."""
 from __future__ import annotations
 
 import torch
 
 from . import stable, stereographic
+from .sphere import projected_to_sphere, sphere_to_projected  # noqa: F401
 
 KIND = "p"
 CURVATURE_SIGN = 1

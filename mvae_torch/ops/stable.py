@@ -318,6 +318,19 @@ def _arctandiv_u_sgn(w: Tensor, sign: int) -> Tensor:
     return torch.where(small, series, closed)
 
 
+def _arcsindiv_u_pos(w: Tensor) -> Tensor:
+    """arcsindiv_u pinned to w >= 0 (the sphere's chord distance), with
+    asin(x) spelled atan(x / sqrt(1 - x^2)) as the embedded-sphere tile
+    evaluates it; x is clamped inside the domain as arcsindiv_u clamps."""
+    small, ws, wc = _split_series_window(w)
+    series = _poly(ws, _ARCSINDIV)
+    e = eps(w.dtype)
+    pos_w = torch.clamp(wc, tiny(w.dtype), 1.0 - e)
+    sw = torch.sqrt(pos_w)
+    closed = torch.atan(sw * torch.rsqrt(torch.clamp(1.0 - pos_w, min=e))) / sw
+    return torch.where(small, series, closed)
+
+
 def _log_max(x: Tensor, floor: float) -> Tensor:
     return torch.log(torch.clamp(x, min=floor))
 

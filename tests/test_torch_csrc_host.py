@@ -1,4 +1,5 @@
-"""The CUDA sources of the tail and reparam kernels, compiled for the host.
+"""The CUDA sources of the tail, reparam and distance kernels, compiled for
+the host.
 
 The device code of ``mvae_torch/kernels/csrc`` is plain C++ apart from its
 qualifiers and its launch syntax, so a machine without ``nvcc`` can still
@@ -7,7 +8,10 @@ compiled by ``g++`` against a small stand-in for ``cuda_runtime.h`` (empty
 qualifiers, ``blockIdx`` / ``threadIdx`` as globals, ``rsqrtf``), and its
 kernel function is called once per thread index from a host loop. The
 forward tiles, the hand-derived backward and the IWAE chunk reparam are held
-against their plain PyTorch versions on the same inputs.
+against their plain PyTorch versions on the same inputs. The distance
+kernels sum a row across a warp by shuffles, which a host loop cannot
+stand in for, so of them the scalar tails (from a row's Gram values to the
+distance) are compiled and held here, and the reductions on the card.
 
 This checks the expressions and the reverse sweep, not the build for the
 card or the launch: those are ``chip_smoke.py``'s and the ``-m cuda`` tests'.
@@ -20,6 +24,7 @@ contract of the reference's in-kernel VJP, rtol 1e-3 / atol 5e-4 on the raw
 gradient and rtol 2e-3 on the batch-summed curvature gradient.
 """
 import ctypes
+import math
 import shutil
 import subprocess
 from pathlib import Path
@@ -45,6 +50,8 @@ _STUB = r"""
 struct HostIdx { int x; };
 static HostIdx blockIdx, threadIdx;
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+struct float4 { float x, y, z, w; };
+static inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 """
 
 _HARNESS = {
@@ -86,6 +93,14 @@ extern "C" void host_run(const float* eps, long long stride, const float* mu,
     reparam_stereo_kernel(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B,
                           n, Z, sign, wraps);
   }
+}
+""",
+    "manifold_dist": r"""
+extern "C" void host_run(int lorentz, const float* k, const float* a,
+                         const float* b, const float* c, float* out, int B) {
+  for (int i = 0; i < B; ++i)
+    out[i] = lorentz ? lorentz_dist_tail(k[0], a[i])
+                     : stereo_dist_tail(k[0], a[i], b[i], c[i]);
 }
 """,
 }
@@ -137,8 +152,17 @@ def _inputs(comps, B, kset, seed, big_sigma=False):
             raw[::5, sig_cols] += (7.0 if kset[i] > 0
                                    else 2.0 if kset[i] >= -1.0 else 0.5)
     raw[1] = 0.0                                   # mu_tan = 0 ...
+    for i, c in enumerate(comps):
+        if c.manifold.kind == "s" and c.posterior == "wrapped":
+            # rows 2 and 3: the mean at the antipode of mu0 (the transport's
+            # denominator at its floor) and just short of it
+            off = sum(cc.head_width for cc in comps[:i])
+            raw[2:4, off:off + c.dim] = 0.0
+            raw[2, off] = math.pi / kset[i] ** 0.5
+            raw[3, off + c.dim - 1] = 0.999 * math.pi / kset[i] ** 0.5
     eps = ttk.draw_noise(comps, (B,), raw, g)
     eps[1] = 0.0                                   # ... and eps = 0
+    eps[4] = 0.0                                   # eps = 0 alone
     k = torch.tensor(kset, dtype=torch.float32)
     dz = torch.randn(B, Z, generator=g)
     daux = torch.randn(B, nc + 2, generator=g)
@@ -157,6 +181,12 @@ CASES = [
     ("d6", (-1.0,), {}), ("d6", (-4.0,), {}),
     ("h2,s2,e2", (-1.0, 1.0, 0.0), {}),
     ("u2,h2,p3", (0.5, -0.7, 1.3), {}),
+    ("s6:wrapped", (1.0,), {}), ("s6:wrapped", (1e-3,), {}),
+    ("s6:wrapped", (4.0,), {"scalar_sigma": True}),
+    ("s6:wrapped", (0.7,), {"wraps": 0}),
+    ("s4:wrapped,s2", (2.5, 1.0), {}),
+    ("s3:wrapped,h2,e2", (1.0, -1.0, 0.0), {}),
+    ("s32:wrapped", (0.25,), {}),
 ]
 
 
@@ -264,3 +294,162 @@ def test_reparam_source_matches_plain_version(host_libs, sign, kval, wraps,
     assert bool(((z - z_r).abs() <= 1e-5 * (1 + z_r.abs())).all())
     _held(lq, lq_r, lq64, 1e-4 * (1 + 1e-2 * lq_r.abs()), 0.9)
     _held(lp, lp_r, lp64, 1e-4 * (1 + 1e-2 * lp_r.abs()), 0.9)
+
+
+def _sphere_floor_rows(comps, kval, seed):
+    """Inputs for one wrapped component on the embedded sphere whose first
+    rows sit where the tile's K-dependent floors act: row 0 the mean 1e-3 rad
+    from the antipode of mu0 (the transport's denominator 1 + alpha = 5e-7
+    under its floor eps, where the floored coefficient is ~1e3 |v|), row 1
+    the mean at the antipode with eps = 0 (z at the antipode: the half chord
+    at its cap),
+    row 2 mu_tan = 0 with a saturated scale and a unit draw (|v| at the
+    cap radius, z next to the antipode), row 3 a saturated cap with a free
+    draw, row 4 mu_tan = 0 with eps = 0 (the norm pin at 0 / 0)."""
+    (c,) = comps
+    n = c.dim
+    raw, eps, k, dz, daux = _inputs(comps, 16, (kval,), seed)
+    raw[:5, :n] = 0.0
+    raw[0, 0] = (math.pi - 1e-3) / kval ** 0.5
+    raw[1, 0] = math.pi / kval ** 0.5
+    eps[1] = 0.0
+    raw[2:4, n:] = 10.0 * math.pi / kval ** 0.5
+    eps[2] = 0.0
+    eps[2, 1] = 1.0
+    eps[4] = 0.0
+    return raw, eps, k, dz, daux
+
+
+FLOOR_CASES = [("s3:wrapped", {}), ("s6:wrapped", {"scalar_sigma": True}),
+               ("s2:wrapped", {"wraps": 0})]
+
+
+def _check_floor_rows(spec, opts, kval, device, forward, backward):
+    """Where a floor of the embedded-sphere tile is taken, the float64 plain
+    version floors elsewhere (eps(float64) = 1e-12), so ``_held`` compares
+    nothing there. These rows hold ``forward`` / ``backward`` (the compiled
+    source, or the kernels on the card) to the float32 plain version
+    directly: the forward within the card's contract, the raw gradient
+    within rtol 1e-2 of the row's largest entry, the row's own curvature
+    gradient within rtol 1e-2. Where z sits at the antipode (rows 1-2) the
+    prior's log-det has a slope of ~1 / (2 delta) = 500 and the curvature
+    gradient is what is left of two cancelling terms ~1e5 times larger,
+    through the chord's cap and through K itself: float32 quantizes it to
+    ~1/32, so it is held to rtol 0.1 there (dropping either term misses by
+    1e5). First checks that the floors are taken."""
+    from mvae_torch.ops import sphere
+    comps = _comps(spec, opts)
+    n = comps[0].dim
+    raw, eps, k, dz, daux = [t.to(device) for t in
+                             _sphere_floor_rows(comps, kval, 7)]
+    z, aux = forward(comps, raw, eps, k)
+    z_r, aux_r = ttk.tail_forward_ref(comps, raw, eps, k)
+    # the floors act: 1 + alpha < eps at rows 0-1, the half chord beyond its
+    # cap at rows 1-2
+    mu0 = sphere.mu0(n, k[0], torch.float32)
+    mu = sphere.exp_map_mu0(raw[:, :n], k[0])
+    den_in = 2.0 - k[0] * ((mu - mu0) ** 2).sum(1) / 2.0
+    assert bool((den_in[:2] < 1e-6).all() and (den_in[2:] > 1e-3).all())
+    half = ((z_r - mu0) ** 2).sum(1).sqrt() / 2.0
+    assert bool((half[1:3] > (1.0 - 1e-6) / kval ** 0.5).all())
+    assert bool((half[3:] < (1.0 - 1e-6) / kval ** 0.5).all())
+    assert bool(((z - z_r).abs() <= 1e-5 * (1 + z_r.abs())).all())
+    assert bool(((aux - aux_r).abs() <= 1e-4 * (1 + 1e-2 * aux_r.abs()))
+                .all())
+
+    draw, dk = backward(comps, raw, eps, k, dz, daux)
+    draw_r, dk_r = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
+    assert bool(torch.isfinite(draw).all() and torch.isfinite(dk).all())
+    assert bool(torch.isfinite(draw_r).all() and torch.isfinite(dk_r).all())
+    scale = draw_r.abs().amax(1, keepdim=True)
+    assert bool(((draw - draw_r).abs() <= 1e-2 * scale + 5e-4).all())
+    rtol = torch.full_like(dk_r, 1e-2)
+    rtol[1:3] = 0.1
+    assert bool(((dk - dk_r).abs() <= rtol * dk_r.abs() + 5e-4).all())
+
+
+@pytest.mark.parametrize("kval", [1.0, 2.5, 0.2])
+@pytest.mark.parametrize("spec,opts", FLOOR_CASES)
+def test_sphere_tile_floor_rows(host_libs, spec, opts, kval):
+    """The compiled source on the rows where the sphere tile's floors act."""
+
+    def forward(comps, raw, eps, k):
+        B = raw.shape[0]
+        W, E, Z = ttk._dims(comps)
+        z = torch.full((B, Z), float("nan"))
+        aux = torch.full((B, 3), float("nan"))
+        host_libs["tail_fwd"](_ptr(raw), _ptr(eps), _ptr(k), _ptr(z),
+                              _ptr(aux), B, W, E, Z, 1, ttk._table(comps))
+        return z, aux
+
+    def backward(comps, raw, eps, k, dz, daux):
+        B = raw.shape[0]
+        W, E, Z = ttk._dims(comps)
+        draw = torch.full((B, W), float("nan"))
+        dk = torch.full((B, 1), float("nan"))
+        host_libs["tail_bwd"](_ptr(raw), _ptr(eps), _ptr(k), _ptr(dz),
+                              _ptr(daux), _ptr(draw), _ptr(dk), B, W, E, Z,
+                              1, ttk._table(comps))
+        return draw, dk
+
+    _check_floor_rows(spec, opts, kval, "cpu", forward, backward)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kval", [1.0, 2.5, 0.2])
+@pytest.mark.parametrize("spec,opts", FLOOR_CASES)
+def test_sphere_tile_floor_rows_on_card(spec, opts, kval):
+    """The CUDA kernels on the same rows (the card has no JAX: run with
+    ``--noconftest -m cuda``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the tail kernels have no CPU mode")
+    _check_floor_rows(spec, opts, kval, "cuda", ttk.tail_forward,
+                      ttk.tail_backward)
+
+
+@pytest.mark.parametrize("kval", [-1.0, -1e-3, 0.0, 1e-3, 1.0, 2.5])
+def test_stereo_distance_tail_matches_plain_version(host_libs, kval):
+    """The scalar tail of the stereographic distance kernel, fed the Gram
+    values PyTorch sums, against ``stereo_distance_ref``: 1e-5 relative
+    (libm's atan and log1p against PyTorch's). Rows include x = y (w2 = 0
+    under the 1e-30 floor), the K > 0 antipodal pair (the guarded Mobius
+    denominator) and, for K < 0, a point next to the ball's rim (the atanh
+    clamp sets the value)."""
+    g = torch.Generator().manual_seed(3)
+    x = 0.4 * torch.randn(64, 6, generator=g)
+    y = 0.4 * torch.randn(64, 6, generator=g)
+    if kval < 0:
+        x, y = x / max(-kval, 1.0) ** 0.5, y / max(-kval, 1.0) ** 0.5
+        x[2] = 0.0
+        x[2, 0] = (1.0 - 1e-6) / (-kval) ** 0.5
+    y[0] = x[0]
+    if kval > 0:
+        y[1] = -x[1] / (kval * (x[1] * x[1]).sum())    # the antipode of x[1]
+    k = torch.tensor(kval)
+    grams = [(x * x).sum(1), (y * y).sum(1), (x * y).sum(1)]
+    out = torch.full((64,), float("nan"))
+    host_libs["manifold_dist"](0, _ptr(k.reshape(1)), *[_ptr(t) for t in grams],
+                               _ptr(out), 64)
+    ref = tmk.stereo_distance_ref(x, y, k)
+    assert bool(torch.isfinite(out).all())
+    assert bool(((out - ref).abs() <= 1e-5 * (1 + ref.abs())).all())
+
+
+@pytest.mark.parametrize("kval", [-1.0, -1e-3, -4.0])
+def test_lorentz_distance_tail_matches_plain_version(host_libs, kval):
+    """The scalar tail of the hyperboloid distance kernel against
+    ``lorentz_distance_ref`` (1e-5 relative), with x = y in row 0."""
+    from mvae_torch.ops import lorentz
+    g = torch.Generator().manual_seed(4)
+    k = torch.tensor(kval)
+    x = lorentz.exp_map_mu0(0.6 * torch.randn(64, 5, generator=g), k)
+    y = lorentz.exp_map_mu0(0.6 * torch.randn(64, 5, generator=g), k)
+    y[0] = x[0]
+    d = y - x
+    dsq = (d * d).sum(1) - 2.0 * d[:, 0] * d[:, 0]
+    out = torch.full((64,), float("nan"))
+    host_libs["manifold_dist"](1, _ptr(k.reshape(1)), _ptr(dsq), None, None,
+                               _ptr(out), 64)
+    ref = tmk.lorentz_distance_ref(x, y, k)
+    assert bool(torch.isfinite(out).all())
+    assert bool(((out - ref).abs() <= 1e-5 * (1 + ref.abs())).all())

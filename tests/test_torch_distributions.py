@@ -10,6 +10,12 @@ because its Bessel series sums 64 log-space terms of magnitude ~100.
 The positive-curvature wrapped normal in float32 is held to 1e-4: near the
 injectivity shell d logdet / d r ~ cot(theta) amplifies last-digit
 differences of the radius.
+
+The rejection cosine of the vMF (m != 3) is fed the proposals JAX drew
+(``jax_noise`` rebuilds its key tree: Beta variates and acceptance
+uniforms): the accepted cosine is a selection among the same candidates, so
+z agrees to the tolerances above; the implicit gradient dw/dkappa (32-node
+quadrature and a Bessel ratio) to 1e-9 in float64 and 1e-4 in float32.
 """
 import jax
 import jax.numpy as jnp
@@ -114,9 +120,127 @@ def test_vmf_m3(k, dtype, tol):
 
 
 def test_vmf_other_m_is_a_later_slice():
-    with pytest.raises(NotImplementedError):
-        tv.sample(torch.ones(4, 5), torch.ones(4), torch.tensor(1.0),
-                  noise=torch.rand(4, 5))
+    """m != 3 was a later slice's and raised; it now draws its cosine by
+    rejection, from the generator when no proposals are given."""
+    g = torch.Generator().manual_seed(0)
+    z = tv.sample(torch.ones(4, 5), torch.ones(4), torch.tensor(1.0),
+                  noise=torch.rand(4, 5), generator=g)
+    assert z.shape == (4, 5) and bool(torch.isfinite(z).all())
+    np.testing.assert_allclose(z.norm(dim=1).numpy(), 1.0, rtol=1e-6)
+
+
+def jax_noise(key, comps, batch, dtype):
+    """(batch, E) noise of one draw of the JAX product in the port's layout:
+    ``draw_noise_t``'s key discipline (split per component; the vMF splits
+    again into cosine and direction), plus, for the rejection cosine, the
+    proposals ``_sample_w_raw`` draws from the cosine's key."""
+    cols = []
+    for comp, ck in zip(comps, jax.random.split(key, len(comps))):
+        if comp.posterior != "vmf":
+            cols.append(jax.random.normal(ck, (batch, comp.dim), dtype))
+            continue
+        k_w, k_dir = jax.random.split(ck)
+        cols += [jax.random.uniform(k_w, (batch, 1), dtype=dtype,
+                                    minval=1e-7),
+                 jax.random.normal(k_dir, (batch, comp.dim), dtype)]
+        if comp.dim != 2:
+            k_beta, k_u = jax.random.split(k_w)
+            shape = (batch, jv._OVERSAMPLE)
+            cols += [jv._beta_sym_half_int(k_beta, comp.dim, shape, dtype),
+                     jax.random.uniform(k_u, shape, dtype=dtype,
+                                        minval=1e-12)]
+    return np.concatenate([np.asarray(c) for c in cols], axis=1)
+
+
+def test_jax_noise_is_draw_noise_t_without_rejection():
+    comps = j_parse("h2,s2,e2")
+    key = jax.random.key(2)
+    np.testing.assert_array_equal(
+        jax_noise(key, comps, B, np.float32),
+        np.asarray(draw_noise_t(key, comps, B, np.float32)).T)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("m,k", [(7, 1.0), (4, 0.3), (2, 1.0), (13, 2.0)])
+def test_vmf_wood_matches_jax_on_its_proposals(m, k, dtype, tol):
+    """z, log q and the KL at m != 3, kappa from 1 to 60 (1 + softplus of a
+    head), on the proposals JAX drew."""
+    rng = np.random.default_rng(4)
+    mu = rng.standard_normal((B, m)).astype(dtype)
+    kappa = (1.0 + 60.0 * rng.random(B) ** 2).astype(dtype)
+    kj = jnp.asarray(k, dtype)
+    kt = torch.tensor(k, dtype=getattr(torch, dtype.__name__))
+    key = jax.random.key(6)
+    (comp,) = j_parse(f"s{m - 1}")
+    # jax_noise splits per component first; sample() gets the component key
+    (ck,) = jax.random.split(key, 1)
+    noise = _t(jax_noise(key, (comp,), B, dtype))
+    z_j = jv.sample(ck, jnp.asarray(mu), jnp.asarray(kappa), kj)
+    z_t = tv.sample(_t(mu), _t(kappa), kt, noise=noise,
+                    proposals=noise[:, m:])
+    assert noise.shape == (B, m + 2 * tv.OVERSAMPLE)
+    _close(z_t, z_j, tol)
+    _close(tv.log_prob(z_t, _t(mu), _t(kappa), kt),
+           jv.log_prob(z_j, jnp.asarray(mu), jnp.asarray(kappa), kj), tol)
+    ktol = max(tol, 1e-4) if dtype == np.float32 else tol
+    _close(tv.kl_to_uniform(m, _t(kappa)),
+           jv.kl_to_uniform(m, jnp.asarray(kappa)), ktol)
+    _close(tv.log_normalizer(m, _t(kappa)),
+           jv.log_normalizer(m, jnp.asarray(kappa)), ktol)
+
+
+@pytest.mark.parametrize("dtype,tol", [pytest.param(np.float64, 1e-9,
+                                                    id="f64"),
+                                       pytest.param(np.float32, 1e-4,
+                                                    id="f32")])
+@pytest.mark.parametrize("m", [7, 4, 2])
+def test_vmf_wood_implicit_gradient_matches_jax(m, dtype, tol):
+    """dw/dkappa of the accepted cosine (``_SampleW.backward``) against the
+    reference's ``custom_jvp``, and no gradient into the proposals."""
+    rng = np.random.default_rng(5)
+    kappa = (1.0 + 40.0 * rng.random(B) ** 2).astype(dtype)
+    wts = rng.standard_normal(B).astype(dtype)
+    key = jax.random.key(7)
+    k_beta, k_u = jax.random.split(key)
+    shape = (B, jv._OVERSAMPLE)
+    prop = np.concatenate([
+        np.asarray(jv._beta_sym_half_int(k_beta, m - 1, shape, dtype)),
+        np.asarray(jax.random.uniform(k_u, shape, dtype=dtype,
+                                      minval=1e-12))], axis=1)
+    w_j = jv._sample_w(key, m, jnp.asarray(kappa))
+    g_j = jax.grad(lambda kap: jnp.sum(jv._sample_w(key, m, kap) * wts))(
+        jnp.asarray(kappa))
+    kap_t = _t(kappa).requires_grad_()
+    prop_t = _t(prop).requires_grad_()
+    w_t = tv._SampleW.apply(m, kap_t, prop_t)
+    _close(w_t, w_j, tol)
+    (w_t * _t(wts)).sum().backward()
+    assert prop_t.grad is None
+    _close(kap_t.grad, g_j, tol)
+    assert bool((kap_t.grad != 0).any())
+
+
+@pytest.mark.parametrize("kappa", [1.0, 10.0, 80.0])
+def test_vmf_wood_mean_cosine_is_the_bessel_ratio(kappa):
+    """E[<mu, z>] = A_m(kappa) at m = 7 over 40,000 draws from a seeded
+    generator: within 5 standard errors (Var w <= 1 / m at any kappa)."""
+    m, n = 7, 40000
+    g = torch.Generator().manual_seed(11)
+    like = torch.zeros((), dtype=torch.float64)
+    kap = torch.full((n,), kappa, dtype=torch.float64)
+    prop = tv.wood_proposals(m, (n,), like, g)
+    assert prop.shape == (n, 2 * tv.OVERSAMPLE)
+    assert float(prop.min()) > 0.0 and float(prop.max()) < 1.0
+    w = tv._SampleW.apply(m, kap, prop)
+    want = float(tv.mean_resultant_length(m, kap[:1]))
+    se = float(w.std()) / n ** 0.5
+    assert abs(float(w.mean()) - want) < 5.0 * se + 1e-4, (w.mean(), want)
+    # the whole draw: unit vectors whose mean cosine to mu is the same
+    mu = torch.zeros(n, m, dtype=torch.float64)
+    mu[:, 2] = 3.0
+    z = tv.sample(mu, kap, torch.tensor(1.0, dtype=torch.float64),
+                  generator=g)
+    assert abs(float(z[:, 2].mean()) - want) < 5.0 * se + 1e-4
 
 
 WRAPPED_CASES = [(kind, k) for kind, ks in (
@@ -179,6 +303,81 @@ def test_cap_sigma_positive_k(dtype, tol):
                                    rtol=10 * tol, atol=tol)
     assert float(t_cap(torch.tensor(100.0), torch.tensor(4.0))) == \
         pytest.approx(np.pi / 2, rel=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("spec", ["s6", "s3", "p2:vmf", "p3:vmf", "p6:vmf"])
+def test_reparametrize_vmf_component(spec, dtype, tol):
+    """The vMF components beyond s2 through ``reparametrize``: the rejection
+    cosine on JAX's proposals, and on 'p' the draw on the embedded sphere
+    pushed through the stereographic isometry, densities at the sphere
+    pre-images. float32 on 'p' is held to 1e-4: the projection divides by
+    1 + sqrt(K) z_0, which amplifies the last digit toward the antipode."""
+    (jc,) = j_parse(spec, fixed_curvature=False)
+    (tc,) = t_parse(spec, fixed_curvature=False)
+    params_j = jc.init_params(jax.random.key(2), 16, 1.0, dtype)
+    params_j["c_param"] = jnp.asarray(np.log(1.7), dtype)
+    feats = (0.5 * np.random.default_rng(8).standard_normal((B, 16))
+             ).astype(dtype)
+    key = jax.random.key(9)
+    (ck,) = jax.random.split(key, 1)
+    rep_j = j_reparametrize(ck, jc, params_j, jnp.asarray(feats))
+    noise = jax_noise(key, (jc,), B, dtype)
+    assert noise.shape == (B, tc.noise_width)
+    params_t = params_from_jax(jax.tree.map(np.asarray, params_j))
+    rep_t = t_reparametrize(tc, params_t, _t(feats), noise=_t(noise))
+    if dtype == np.float32 and tc.manifold.kind == "p":
+        tol = 1e-4
+    for ours, theirs in zip(rep_t, rep_j):
+        _close(ours, theirs, tol)
+    # drawn from a generator instead: same shapes, finite
+    rep_g = t_reparametrize(tc, params_t, _t(feats),
+                            generator=torch.Generator().manual_seed(0))
+    assert all(a.shape == b.shape and bool(torch.isfinite(a).all())
+               for a, b in zip(rep_g, rep_t))
+
+
+@pytest.mark.parametrize("spec", ["e3", "h2", "s2", "s6", "p2:vmf", "p3",
+                                  "d2", "u3", "s3:wrapped"])
+def test_sample_prior_lies_on_the_manifold(spec):
+    """``sample_prior``: shape, determinism under a seeded generator, and
+    the manifold's constraint (radius R on h and s; inside the ball on d)."""
+    from mvae_torch.components import sample_prior
+    (tc,) = t_parse(spec, fixed_curvature=False)
+    params = tc.init_params(8, init_k=2.0,
+                            generator=torch.Generator().manual_seed(0))
+    z = sample_prior(tc, params, (5, 7),
+                     generator=torch.Generator().manual_seed(1))
+    z2 = sample_prior(tc, params, (5, 7),
+                      generator=torch.Generator().manual_seed(1))
+    assert z.shape == (5, 7, tc.ambient_dim) and torch.equal(z, z2)
+    assert bool(torch.isfinite(z).all())
+    kind = tc.manifold.kind
+    if kind == "s":
+        np.testing.assert_allclose((z * z).sum(-1).numpy(), 0.5, rtol=1e-5)
+    elif kind == "h":
+        lor = (z[..., 1:] ** 2).sum(-1) - z[..., 0] ** 2
+        np.testing.assert_allclose(lor.numpy(), -0.5, rtol=1e-4)
+    elif kind == "d":
+        assert float((z * z).sum(-1).max()) < 0.5
+    with pytest.raises(NotImplementedError):
+        (rc,) = t_parse("d3:riemannian")
+        sample_prior(rc, rc.init_params(
+            8, generator=torch.Generator().manual_seed(0)), (2,))
+
+
+def test_sample_prior_on_p_is_the_projected_uniform():
+    """The vMF prior on 'p' is the sphere's uniform pushed through the
+    isometry: back on the sphere the mean of the draws is ~0."""
+    from mvae_torch.components import sample_prior
+    from mvae_torch.ops import sphere
+    (tc,) = t_parse("p2:vmf")
+    params = tc.init_params(8, generator=torch.Generator().manual_seed(0))
+    z = sample_prior(tc, params, (20000,), torch.float64,
+                     torch.Generator().manual_seed(2))
+    zs = sphere.projected_to_sphere(z, torch.tensor(1.0, dtype=torch.float64))
+    np.testing.assert_allclose((zs * zs).sum(-1).numpy(), 1.0, rtol=1e-9)
+    assert float(zs.mean(0).abs().max()) < 5.0 * (1.0 / 3 / 20000) ** 0.5
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)

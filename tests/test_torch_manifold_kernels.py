@@ -17,6 +17,16 @@ log-densities rtol 1e-4 / atol 3e-3) in float32, and 1e-8 in float64. On
 the card kernel and plain version run the same float32 operations: z within
 1e-5 (1 + |z|), log-densities within 1e-4 where float32 resolves them.
 
+The distance kernels' plain versions ``stereo_distance_ref`` and
+``lorentz_distance_ref`` are held within 1e-5 relative of the JAX kernels in
+interpret mode (the same Gram-form expressions; the reference spells atan
+as a polynomial) and of the library ops ``ops.*.distance``; the gradients
+in x, y and k, which both packages take through the library op, within
+1e-4 relative. On the card the kernels sum a row across a warp, in another
+order than PyTorch's reduction: 1e-5 (1 + |ref|), except next to the K < 0
+ball's rim, where the atanh clamp amplifies the last digit of the Gram
+values (held there against float64 like every such entry).
+
 The JAX package is imported inside the CPU tests only, so the card tests
 also run where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_manifold_kernels.py
@@ -214,6 +224,193 @@ def test_kernel_matches_plain_version_on_card(cuda_device, sign, k, wraps, n):
         res = (ref.double() - ref64).abs() <= 1e-5
         assert float(res.double().mean()) >= 0.95
         assert float((ours - ref).abs()[res].max()) <= 1e-4
+
+
+# --- the geodesic distances -----------------------------------------------------
+
+DIST_KS = [-1.0, -1e-3, 0.0, 1e-3, 1.0]
+
+
+def _dist_points(seed, b, n, k):
+    """Rows x, y inside the manifold's chart (within 0.8 of the ball's
+    radius for K < 0), with x = y in row 0."""
+    rng = np.random.default_rng(seed)
+    x = (0.3 * rng.standard_normal((b, n))).astype(np.float32)
+    y = (0.3 * rng.standard_normal((b, n))).astype(np.float32)
+    if k < 0:
+        lim = 0.8 / np.sqrt(-k)
+        x *= np.minimum(1.0, lim / np.linalg.norm(x, axis=1, keepdims=True))
+        y *= np.minimum(1.0, lim / np.linalg.norm(y, axis=1, keepdims=True))
+    y[0] = x[0]
+    return x, y
+
+
+@pytest.mark.parametrize("b,n", [(300, 6), (37, 128), (5, 1)])
+@pytest.mark.parametrize("k", DIST_KS)
+def test_stereo_distance_ref_matches_jax_kernel_interpret(k, b, n):
+    import jax.numpy as jnp
+    from mvae_tpu.kernels import manifold_kernels as jmk
+    from mvae_tpu.ops import stereographic as j_stereo
+    x, y = _dist_points(11, b, n, k)
+    want = np.asarray(jmk.stereo_distance(jnp.asarray(x), jnp.asarray(y),
+                                          jnp.float32(k)))
+    lib = np.asarray(j_stereo.distance(jnp.asarray(x), jnp.asarray(y),
+                                       jnp.float32(k)))
+    kt = torch.tensor(k)
+    got = tmk.stereo_distance_ref(torch.from_numpy(x), torch.from_numpy(y),
+                                  kt)
+    assert got.shape == (b,)
+    ours = t_stereo.distance(torch.from_numpy(x), torch.from_numpy(y), kt)
+    for other in (want, lib, ours.numpy()):
+        np.testing.assert_allclose(got.numpy()[1:], other[1:], rtol=1e-5,
+                                   atol=1e-6)
+    # x = y: the Gram form cancels to w2 = 0 exactly here and the distance
+    # is the floor 2 sqrt(1e-30); the reference's kernel keeps a rounding
+    # residue of the cancellation (~sqrt(eps) |x|)
+    assert float(got[0]) <= 1e-6 and abs(float(want[0])) < 5e-3
+
+
+@pytest.mark.parametrize("b,n", [(300, 7), (37, 128)])
+@pytest.mark.parametrize("k", [-1.0, -1e-3, -4.0])
+def test_lorentz_distance_ref_matches_jax_kernel_interpret(k, b, n):
+    import jax.numpy as jnp
+    from mvae_tpu.kernels import manifold_kernels as jmk
+    from mvae_torch.ops import lorentz as t_lorentz
+    rng = np.random.default_rng(12)
+    kt = torch.tensor(k)
+    scale = 0.5 / np.sqrt(n - 1)
+    x = t_lorentz.exp_map_mu0(torch.from_numpy(
+        (scale * rng.standard_normal((b, n - 1))).astype(np.float32)), kt)
+    y = t_lorentz.exp_map_mu0(torch.from_numpy(
+        (scale * rng.standard_normal((b, n - 1))).astype(np.float32)), kt)
+    y[0] = x[0]
+    want = np.asarray(jmk.lorentz_distance(jnp.asarray(x.numpy()),
+                                           jnp.asarray(y.numpy()),
+                                           jnp.float32(k)))
+    got = tmk.lorentz_distance_ref(x, y, kt)
+    # atol 3e-6: at x = y (row 0) the kernel's floor 1e-30 gives
+    # sqrt(2e-30) R; the library op floors at tiny(float32) = 1e-15 and
+    # gives sqrt(2e-15) R = 1.4e-6 at K = -1e-3, as the reference's
+    # interpreted kernel does
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=3e-6)
+    np.testing.assert_allclose(got.numpy(),
+                               t_lorentz.distance(x, y, kt).numpy(),
+                               rtol=1e-5, atol=3e-6)
+
+
+@pytest.mark.parametrize("k", DIST_KS)
+def test_stereo_distance_gradients_match_jax(k):
+    """``stereo_distance`` under autograd (CPU: the plain forward, the
+    library op's backward) against ``jax.grad`` of the JAX kernel entry, in
+    x, y and k."""
+    import jax
+    import jax.numpy as jnp
+    from mvae_tpu.kernels import manifold_kernels as jmk
+    x, y = _dist_points(13, 64, 6, k)
+    x, y = x[1:], y[1:]          # d is not differentiable at x = y
+    w = np.random.default_rng(1).standard_normal(63).astype(np.float32)
+    gj = jax.grad(lambda a, b, c: jnp.sum(jmk.stereo_distance(a, b, c) * w),
+                  (0, 1, 2))(jnp.asarray(x), jnp.asarray(y), jnp.float32(k))
+    xt = torch.from_numpy(x).requires_grad_()
+    yt = torch.from_numpy(y).requires_grad_()
+    kt = torch.tensor(k, requires_grad=True)
+    before = tmk.stereo_distance.launches
+    (tmk.stereo_distance(xt, yt, kt) * torch.from_numpy(w)).sum().backward()
+    assert tmk.stereo_distance.launches == before     # CPU: no launch
+    for ours, theirs in zip((xt, yt, kt), gj):
+        np.testing.assert_allclose(ours.grad.numpy(), np.asarray(theirs),
+                                   rtol=1e-4, atol=1e-4)
+    # only the gradients asked for are computed
+    xt.grad = None
+    tmk.stereo_distance(xt, torch.from_numpy(y), k).sum().backward()
+    assert xt.grad is not None
+
+
+@pytest.mark.parametrize("k", [-1.0, -0.05])
+def test_lorentz_distance_gradients_match_jax(k):
+    import jax
+    import jax.numpy as jnp
+    from mvae_tpu.kernels import manifold_kernels as jmk
+    from mvae_torch.ops import lorentz as t_lorentz
+    rng = np.random.default_rng(14)
+    kt0 = torch.tensor(k)
+    x = t_lorentz.exp_map_mu0(torch.from_numpy(
+        (0.4 * rng.standard_normal((48, 3))).astype(np.float32)), kt0)
+    y = t_lorentz.exp_map_mu0(torch.from_numpy(
+        (0.4 * rng.standard_normal((48, 3))).astype(np.float32)), kt0)
+    gj = jax.grad(lambda a, b, c: jnp.sum(jmk.lorentz_distance(a, b, c)),
+                  (0, 1, 2))(jnp.asarray(x.numpy()), jnp.asarray(y.numpy()),
+                             jnp.float32(k))
+    xt, yt = x.clone().requires_grad_(), y.clone().requires_grad_()
+    kt = torch.tensor(k, requires_grad=True)
+    tmk.lorentz_distance(xt, yt, kt).sum().backward()
+    for ours, theirs in zip((xt, yt, kt), gj):
+        np.testing.assert_allclose(ours.grad.numpy(), np.asarray(theirs),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_distance_wrappers_reject_bad_input():
+    from mvae_torch import kernels
+    assert kernels.stereo_distance is tmk.stereo_distance
+    assert kernels.lorentz_distance is tmk.lorentz_distance
+    x = torch.zeros(4, 3)
+    for fn in (tmk.stereo_distance, tmk.lorentz_distance):
+        with pytest.raises(ValueError):
+            fn(x, torch.zeros(4, 2), torch.tensor(-1.0))
+        with pytest.raises(ValueError):
+            fn(x[0], x[0], torch.tensor(-1.0))
+        with pytest.raises(ValueError):
+            fn(x, x, torch.tensor([-1.0, -2.0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(100000, 128), (1000, 6), (33, 7), (5, 1)])
+@pytest.mark.parametrize("k", DIST_KS)
+def test_stereo_distance_kernel_matches_plain_version_on_card(cuda_device, k,
+                                                              b, n):
+    x, y = (torch.from_numpy(a).to(cuda_device)
+            for a in _dist_points(15, b, n, k))
+    kt = torch.tensor(k, device=cuda_device)
+    before = tmk.stereo_distance.launches
+    got = tmk.stereo_distance(x, y, kt)
+    ref = tmk.stereo_distance_ref(x, y, kt)
+    torch.cuda.synchronize()
+    assert tmk.stereo_distance.launches == before + 1
+    assert got.shape == (b,) and bool(torch.isfinite(got).all())
+    assert bool(((got - ref).abs() <= 1e-5 * (1 + ref.abs()))[1:].all())
+    # x = y (row 0): the Gram form's cancellation leaves at most the
+    # rounding residue the reference's kernel keeps (~sqrt(eps) |x|)
+    assert float(got[0]) < 5e-3 and float(ref[0]) < 5e-3
+    # the backward goes through the library op, on the card too
+    xg = x.clone().requires_grad_()
+    tmk.stereo_distance(xg, y, kt).sum().backward()
+    assert bool(torch.isfinite(xg.grad).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(100000, 128), (1000, 7), (33, 2)])
+@pytest.mark.parametrize("k", [-1.0, -1e-3, -4.0])
+def test_lorentz_distance_kernel_matches_plain_version_on_card(cuda_device,
+                                                               k, b, n):
+    from mvae_torch.ops import lorentz as t_lorentz
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    kt = torch.tensor(k, device=cuda_device)
+    scale = 0.5 / max(n - 1, 1) ** 0.5
+    x = t_lorentz.exp_map_mu0(scale * torch.randn(
+        b, n - 1, generator=gen, device=cuda_device), kt)
+    y = t_lorentz.exp_map_mu0(scale * torch.randn(
+        b, n - 1, generator=gen, device=cuda_device), kt)
+    y[0] = x[0]
+    before = tmk.lorentz_distance.launches
+    got = tmk.lorentz_distance(x, y, kt)
+    ref = tmk.lorentz_distance_ref(x, y, kt)
+    torch.cuda.synchronize()
+    assert tmk.lorentz_distance.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    # the Lorentzian square cancels sum d_i^2 against 2 d_0^2: an ulp of the
+    # 128-term sum is ~1e-6 of the distance's square
+    assert bool(((got - ref).abs() <= 1e-5 * (1 + ref.abs())
+                 + 3e-4 * (n > 16)).all())
 
 
 @pytest.fixture

@@ -281,3 +281,90 @@ def test_manifold_descriptor_matches_reference(kind):
         tm.inverse_sample_projection_mu0(z_t, z_t, k_t).numpy(),
         np.asarray(jm.inverse_sample_projection_mu0(z_j, z_j, k_j)),
         rtol=1e-5, atol=1e-5)
+
+
+# --- isometries, tangent projections, the sphere tile's arcsin form -----------
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("k", [1.0, 1e-3, 4.0])
+def test_sphere_projected_isometry_pair(k, dtype, tol):
+    """sphere_to_projected / projected_to_sphere against the reference, the
+    round trip both ways, distances carried over (the map is an isometry),
+    and a huge finite coordinate at the projection point -mu0."""
+    rng = np.random.default_rng(3)
+    p = (_points(rng, 2, 3, dtype)[:8] / np.sqrt(k)).astype(dtype)
+    tk_, jk = _both(k, dtype)
+    tp, jp = _both(p, dtype)
+    x_t = ts.projected_to_sphere(tp, tk_)
+    _close(x_t, js.projected_to_sphere(jp, jk), tol)
+    _close(ts.sphere_to_projected(x_t, tk_),
+           js.sphere_to_projected(js.projected_to_sphere(jp, jk), jk), tol)
+    _close(ts.sphere_to_projected(x_t, tk_), jp, 10 * tol / np.sqrt(k))
+    _close((x_t * x_t).sum(-1) * k, np.ones(8), 10 * tol)
+    assert tsproj.sphere_to_projected is ts.sphere_to_projected
+    assert tsproj.projected_to_sphere is ts.projected_to_sphere
+    d_s = ts.distance(x_t[:4], x_t[4:], tk_)
+    d_p = tsproj.distance(tp[:4], tp[4:], tk_)
+    _close(d_s, d_p.numpy(), 1e-4 if dtype == np.float32 else 1e-9)
+    south = -ts.mu0(3, tk_, tk_.dtype)
+    _close(ts.sphere_to_projected(south, tk_),
+           js.sphere_to_projected(jnp.asarray(south.numpy()), jk), tol)
+    assert bool(torch.isfinite(ts.sphere_to_projected(south, tk_)).all())
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("k", [-1.0, -1e-3, -4.0])
+def test_lorentz_poincare_isometry_pair(k, dtype, tol):
+    rng = np.random.default_rng(4)
+    p = (0.6 * np.tanh(_points(rng, 2, 3, dtype)[:8])
+         / np.sqrt(-k)).astype(dtype)
+    tk_, jk = _both(k, dtype)
+    tp, jp = _both(p, dtype)
+    x_t = tl.poincare_to_lorentz(tp, tk_)
+    _close(x_t, jl.poincare_to_lorentz(jp, jk), tol)
+    _close(tl.lorentz_to_poincare(x_t, tk_),
+           jl.lorentz_to_poincare(jl.poincare_to_lorentz(jp, jk), jk), tol)
+    _close(tl.lorentz_to_poincare(x_t, tk_), jp, 10 * tol / np.sqrt(-k))
+    assert tpo.lorentz_to_poincare is tl.lorentz_to_poincare
+    assert tpo.poincare_to_lorentz is tl.poincare_to_lorentz
+    d_h = tl.distance(x_t[:4], x_t[4:], tk_)
+    d_d = tpo.distance(tp[:4], tp[4:], tk_)
+    _close(d_h, d_d.numpy(), 1e-4 if dtype == np.float32 else 1e-9)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_project_tangent(dtype, tol):
+    """project_tangent of both embedded models against the reference; the
+    projected vector is orthogonal to x in the model's own product."""
+    rng = np.random.default_rng(5)
+    v = _points(rng, 2, 3, dtype)[:6]
+    u = rng.standard_normal((6, 4)).astype(dtype)
+    tu, ju = _both(u, dtype)
+    tv, jv = _both(v, dtype)
+    for tmod, jmod, k in ((ts, js, 2.0), (tl, jl, -2.0)):
+        tk_, jk = _both(k, dtype)
+        x_t, x_j = tmod.exp_map_mu0(tv, tk_), jmod.exp_map_mu0(jv, jk)
+        got = tmod.project_tangent(x_t, tu, tk_)
+        _close(got, jmod.project_tangent(x_j, ju, jk), tol)
+        inner = (tl.lorentz_product(x_t, got) if tmod is tl
+                 else (x_t * got).sum(-1))
+        _close(inner, np.zeros(6), 100 * tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [pytest.param(np.float64, 1e-7,
+                                                    id="f64"),
+                                       pytest.param(np.float32, 1e-5,
+                                                    id="f32")])
+def test_arcsindiv_u_pos_kernel_form(dtype, tol):
+    """The sphere tile's asin(sqrt w) / sqrt w: the reference spells its
+    atan as a polynomial within 6.3e-9 of it and the port calls atan, so
+    float64 is held to 1e-7 (against asin itself, 1e-12 away from the
+    clamp at w -> 1)."""
+    w = np.array(_EDGE[:10] + [0.3, 0.5, 0.9, 0.99, 0.999999, 1.0, 1.5])
+    t, j = _both(w, dtype)
+    _close(tst._arcsindiv_u_pos(t), jax.jit(jtk._arcsindiv_u_pos)(j), tol)
+    if dtype == np.float64:
+        inner = w[(w > 1e-2) & (w < 0.9999)]
+        _close(tst._arcsindiv_u_pos(torch.from_numpy(inner)),
+               np.arcsin(np.sqrt(inner)) / np.sqrt(inner), 1e-12)

@@ -19,9 +19,10 @@ On the card the forward kernel and its plain version evaluate the same
 float32 operations in the same order (built with --fmad=false), so they
 are held to 1e-5 (1 + |z|) on z and 1e-4 on the log-densities; the
 backward kernel, whose reverse sweep is derived by hand, to the float32
-backward contract above. The stereographic tile (d/p/u) in float64 is held
-to 1e-7 where the others are held to 1e-10 and 1e-9: the reference spells
-atan as a polynomial within 6.3e-9 of it, the port calls atan.
+backward contract above. The stereographic tile (d/p/u) and the
+embedded-sphere tile (wrapped on s) in float64 are held to 1e-7 where the
+others are held to 1e-10 and 1e-9: the reference spells atan as a polynomial
+within 6.3e-9 of it, the port calls atan.
 
 The JAX package is imported inside the CPU tests only, so the card tests
 also run where JAX is not installed:
@@ -125,9 +126,15 @@ def test_wrapper_rejects_bad_input():
         ttk.tail_forward(tc, raw[:, :10], eps, k)
     with pytest.raises(ValueError):
         ttk.tail_forward(tc, raw, eps[:, :6], k)
-    with pytest.raises(ValueError):  # wrapped sphere: a later slice's tile
-        ttk.tail_forward(t_parse("s2:wrapped"), torch.zeros(4, 4),
-                         torch.zeros(4, 2), torch.ones(1))
+    with pytest.raises(ValueError):  # the rejection cosine has no tile
+        ttk.tail_forward(t_parse("s3"), torch.zeros(4, 4),
+                         torch.zeros(4, 36), torch.ones(1))
+    with pytest.raises(ValueError):  # nor has an uncapped wrapped sphere
+        ttk.tail_forward(t_parse("s2:wrapped", sigma_cap=False),
+                         torch.zeros(4, 4), torch.zeros(4, 2), torch.ones(1))
+    z, aux = ttk.tail_forward(t_parse("s2:wrapped"), torch.zeros(4, 4),
+                              torch.zeros(4, 2), torch.ones(1))
+    assert z.shape == (4, 3) and aux.shape == (4, 3)
 
 
 def _loss_cotangents(B, Z, nc, dtype):
@@ -295,13 +302,14 @@ def test_tail_backward_on_cpu_is_the_plain_version():
 
 def test_capability_predicate():
     sup = [ttk.component_supported(c) for c in t_parse(
-        "h2,s2,e2,s3,s2:wrapped,d2,u2,h33")]
-    assert sup == [True, True, True, False, False, True, True, False]
+        "h2,s2,e2,s3,s2:wrapped,d2,u2,h33,s32:wrapped,s33:wrapped,p2:vmf")]
+    assert sup == [True, True, True, False, True, True, True, False, True,
+                   False, False]
     # the tile bakes the sigma cap in: uncapped positive-capable components
     # are outside the family, an uncapped 'd' is not
     sup = [ttk.component_supported(c) for c in t_parse(
-        "p2,u2,d2,p33", sigma_cap=False)]
-    assert sup == [False, False, True, False]
+        "p2,u2,d2,p33,s6:wrapped", sigma_cap=False)]
+    assert sup == [False, False, True, False, False]
 
 
 # --- the stereographic tile (d/p/u) ---------------------------------------------
@@ -345,8 +353,14 @@ PALLAS_BWD = [p for p in STEREO
 def test_stereo_tile_forward_matches_jax(monkeypatch, spec, scalar_sigma,
                                          wraps, c_params, dtype, tol, atol,
                                          fused):
-    from mvae_tpu.kernels import tail_kernels as jtk
     monkeypatch.setenv("MVAE_FUSED_TAIL", "1")
+    _check_tile_forward(spec, scalar_sigma, wraps, c_params, dtype, tol, atol,
+                        fused)
+
+
+def _check_tile_forward(spec, scalar_sigma, wraps, c_params, dtype, tol, atol,
+                        fused):
+    from mvae_tpu.kernels import tail_kernels as jtk
     jc, tc, params, raw, k_rep = _setup(spec, dtype, scalar_sigma, 1, wraps,
                                         c_params)
     fn = jtk.reparam_all if fused else jtk.reparam_all_jnp
@@ -486,6 +500,127 @@ def test_stereo_tie_rows_have_finite_gradients(kset):
                                rtol=2e-3, atol=5e-4)
 
 
+# --- the embedded-sphere tile (wrapped on s) ------------------------------------
+
+# (spec, scalar_sigma, wraps, c_params): K = e^c in {1, 1e-3, 4}; the
+# reference's own products (tests/kernels/test_tail_kernels.py SPECS)
+SPHERE = [
+    pytest.param("s6:wrapped", False, 1, None, id="s6w"),
+    pytest.param("s6:wrapped", False, 1, (np.log(1e-3),), id="s6w-K1e-3"),
+    pytest.param("s6:wrapped", False, 1, (np.log(4.0),), id="s6w-K4"),
+    pytest.param("s6:wrapped", True, 1, (np.log(4.0),), id="s6w-scalar-K4"),
+    pytest.param("s6:wrapped", False, 0, None, id="s6w-wraps0"),
+    pytest.param("s4:wrapped,s2", False, 1, (np.log(2.5), 0.0), id="s4w-s2"),
+    pytest.param("s3:wrapped,h2,e2", False, 1, None, id="s3w-h2-e2"),
+    pytest.param("s32:wrapped", False, 1, (np.log(0.25),), id="s32w"),
+]
+SPHERE_PALLAS_BWD = [p for p in SPHERE
+                     if p.id in ("s6w", "s6w-K4", "s3w-h2-e2")]
+
+
+@pytest.mark.parametrize("dtype,tol,atol,fused", FWD_MODES)
+@pytest.mark.parametrize("spec,scalar_sigma,wraps,c_params", SPHERE)
+def test_sphere_tile_forward_matches_jax(monkeypatch, spec, scalar_sigma,
+                                         wraps, c_params, dtype, tol, atol,
+                                         fused):
+    """``_tile_wrapped_sphere`` inside ``tail_forward_ref`` against the
+    reference's tile (``reparam_all_jnp``, and the Pallas kernel in
+    interpret mode): 1e-7 in float64, 1e-5 relative with a 1e-4 floor in
+    float32."""
+    monkeypatch.setenv("MVAE_FUSED_TAIL", "1")
+    _check_tile_forward(spec, scalar_sigma, wraps, c_params, dtype, tol, atol,
+                        fused)
+
+
+@pytest.mark.parametrize("dtype,rtol,atol,ktol,fused", BWD_MODES)
+@pytest.mark.parametrize("spec,scalar_sigma,wraps,c_params", SPHERE)
+def test_sphere_tile_backward_matches_jax(spec, scalar_sigma, wraps, c_params,
+                                          dtype, rtol, atol, ktol, fused):
+    """``_TailFn`` under ``loss.backward()`` and ``tail_backward_ref`` over
+    the sphere tile against ``jax.grad`` of the reference's tile, the
+    curvature gradient included."""
+    _check_stereo_backward(spec, scalar_sigma, wraps, c_params, dtype, rtol,
+                           atol, ktol, fused)
+
+
+@pytest.mark.parametrize("spec,scalar_sigma,wraps,c_params",
+                         SPHERE_PALLAS_BWD)
+def test_sphere_tile_backward_matches_pallas_bwd_interpret(
+        monkeypatch, spec, scalar_sigma, wraps, c_params):
+    """Against the JAX kernel's own backward (``_bwd_pallas`` in interpret
+    mode differentiates the tile in-kernel), float32."""
+    monkeypatch.setenv("MVAE_FUSED_TAIL", "1")
+    _check_stereo_backward(spec, scalar_sigma, wraps, c_params, np.float32,
+                           1e-3, 5e-4, 2e-3, True)
+
+
+@pytest.mark.parametrize("spec,kset,scalar_sigma,wraps", [
+    ("s3:wrapped", (1.3,), False, 1), ("s3:wrapped", (0.2,), True, 1),
+    ("s2:wrapped,h2", (2.5, -0.7), False, 0),
+    ("s4:wrapped", (1e-3,), False, 1)])
+def test_sphere_tail_fn_gradcheck_f64(spec, kset, scalar_sigma, wraps):
+    """torch.autograd.gradcheck of _TailFn over the sphere tile (float64,
+    CPU), the sigma heads large enough that the cap's gradient matters."""
+    tc = tuple(t_parse(spec, fixed_curvature=False,
+                       scalar_sigma=scalar_sigma, wraps=wraps))
+    W, E, _ = ttk._dims(tc)
+    g = torch.Generator().manual_seed(4)
+    raw = torch.randn(5, W, generator=g, dtype=torch.float64)
+    raw[::2] += 1.0
+    eps = ttk.draw_noise(tc, (5,), raw, g)
+    k = torch.tensor(kset, dtype=torch.float64)
+    assert torch.autograd.gradcheck(
+        lambda r, kk: ttk._TailFn.apply(tc, r, eps, kk),
+        (raw.requires_grad_(), k.requires_grad_()))
+
+
+@pytest.mark.parametrize("kval", [1.0, 1e-3, 4.0])
+def test_sphere_tie_rows_have_finite_gradients(kval):
+    """Rows at the ties of the sphere tile: mu_tan = 0 with eps = 0 (the norm
+    pin nv / nw at 0 / 0 gives 1), mu_tan = 0 alone, eps = 0 alone, a
+    saturated sigma cap, the mean at the antipode of mu0 (the transport's
+    denominator at its floor) and the mean there with eps = 0 (z at the
+    antipode: the half chord at its cap). Values and gradients stay finite
+    in float32, and on the rows float32 resolves (all but the two antipode
+    rows, whose floors sit elsewhere in float64) the plain backward agrees
+    with its float64 evaluation."""
+    tc = tuple(t_parse("s3:wrapped,s2:wrapped", fixed_curvature=False,
+                       scalar_sigma=False))
+    g = torch.Generator().manual_seed(6)
+    raw = 0.5 * torch.randn(7, 11, generator=g) / kval ** 0.5
+    eps = ttk.draw_noise(tc, (7,), raw, g)
+    mu_cols = [0, 1, 2, 6, 7]
+    sig_cols = [3, 4, 5, 8, 9]
+    raw[:, sig_cols] = raw[:, sig_cols] * kval ** 0.5 - 1.0
+    raw[0, mu_cols] = 0.0
+    eps[0] = 0.0
+    raw[1, mu_cols] = 0.0
+    eps[2] = 0.0
+    raw[3, sig_cols] = 12.0 * np.pi / kval ** 0.5    # far beyond the cap
+    raw[4:6, mu_cols] = 0.0
+    raw[4:6, 0] = np.pi / kval ** 0.5
+    raw[4:6, 6] = np.pi / kval ** 0.5
+    eps[5] = 0.0
+    k = torch.tensor([kval, kval])
+    dz = torch.randn(7, 7, generator=g)
+    daux = torch.randn(7, 4, generator=g)
+    z, aux = ttk.tail_forward_ref(tc, raw, eps, k)
+    assert bool(torch.isfinite(z).all() and torch.isfinite(aux).all())
+    # every z on the sphere of radius 1 / sqrt(K)
+    np.testing.assert_allclose((z[:, :4] ** 2).sum(1).numpy() * kval, 1.0,
+                               rtol=1e-5)
+    draw, dk = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
+    assert bool(torch.isfinite(draw).all() and torch.isfinite(dk).all())
+    d64, k64 = ttk.tail_backward_ref(tc, raw.double(), eps.double(),
+                                     k.double(), dz.double(), daux.double())
+    rows = [0, 1, 2, 3, 6]
+    scale = d64[rows].abs().amax(1, keepdim=True).numpy()
+    assert np.all(np.abs(draw[rows].numpy() - d64[rows].numpy())
+                  <= 1e-3 * scale + 5e-4)
+    np.testing.assert_allclose(dk[rows].numpy(), k64[rows].numpy(),
+                               rtol=2e-3, atol=5e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [512, 1000])
 def test_kernel_matches_plain_version_on_card(cuda_device, batch):
@@ -532,7 +667,10 @@ def test_backward_kernel_matches_plain_version_on_card(cuda_device, batch):
 STEREO_CARD = [("d2,p2,e2", (-1.0, 1.0, 0.0)), ("d2,p2,e2", (-1e-3, 1e-3, 0.0)),
                ("u6", (1.0,)), ("u6", (-1.0,)), ("u6", (0.0,)),
                ("u6", (1e-3,)), ("u6", (-1e-3,)), ("p6", (1.0,)),
-               ("d6", (-1.0,))]
+               ("d6", (-1.0,)),
+               ("s6:wrapped", (1.0,)), ("s6:wrapped", (1e-3,)),
+               ("s6:wrapped", (4.0,)), ("s3:wrapped,h2,e2", (1.0, -1.0, 0.0)),
+               ("s4:wrapped,s2", (2.5, 1.0)), ("s32:wrapped", (0.25,))]
 
 
 def _stereo_card_inputs(comps, batch, kset, device, seed):
@@ -552,7 +690,8 @@ def _stereo_card_inputs(comps, batch, kset, device, seed):
 @pytest.mark.parametrize("spec,kset", STEREO_CARD)
 def test_stereo_tile_kernels_match_plain_version_on_card(cuda_device, spec,
                                                          kset, batch):
-    """B1 and B3 over the stereographic tile against the plain versions, at
+    """B1 and B3 over the stereographic and the embedded-sphere tiles against
+    the plain versions, at
     heads of the size training produces: z within 1e-5 (1 + |z|), the
     log-densities within 1e-4 (1 + 0.01 |ref|), the backward within the
     float32 contract."""

@@ -9,7 +9,10 @@ and fed through ``Trainer._train_step``) must land on the same weights
 within the budget of ``tests/parity/test_training_parity.py``: a maximum
 relative parameter delta of 5e-4 (float32 Adam in two frameworks over a
 few steps, and the port's tile log p against the JAX jnp path's log-map
-round trip, both float32 evaluations of one quantity).
+round trip, both float32 evaluations of one quantity). The spherical
+family runs the same way: wrapped-on-s through the sphere tile's plain
+version and its autograd backward, the vMF beyond s2 through the rejection
+cosine on the proposals the JAX Trainer drew, implicit gradient included.
 """
 import json
 
@@ -35,10 +38,14 @@ def _data(seed=0):
 
 def _port_noise(kinds, comp_noise):
     """epoch_noise's per-component draws in the port's (B, E) layout: the
-    tangent normals, led by the cosine's uniform for the vMF."""
+    tangent normals, led by the cosine's uniform for the vMF and, for its
+    rejection cosine (dim != 2), followed by the proposals (Beta variates,
+    acceptance uniforms); the leading uniform is then not read."""
     cols = []
-    for (_, _, posterior), nz in zip(kinds, comp_noise):
-        if posterior == "vmf":
+    for (_, dim, posterior), nz in zip(kinds, comp_noise):
+        if posterior == "vmf" and dim != 2:
+            cols += [nz["u"][:, :1], nz["g"], nz["eps_beta"], nz["u"]]
+        elif posterior == "vmf":
             cols += [nz["u"][:, None], nz["g"]]
         else:
             cols.append(nz["eps"])
@@ -60,7 +67,11 @@ def _max_rel_delta(jax_params, torch_params):
                                                ("h2,s2,e2", False, 0),
                                                ("d2,p2,e2", False, 0),
                                                ("u6", False, 0),
-                                               ("p6", False, 1)])
+                                               ("p6", False, 1),
+                                               ("s6:wrapped", False, 0),
+                                               ("s3:wrapped,h2,e2", False, 0),
+                                               ("s6", False, 0),
+                                               ("p2:vmf,e2", False, 0)])
 def test_one_epoch_matches_jax_trainer(tmp_path, spec, fixed, burnin):
     import jax
     from mvae_tpu.components import parse_components as j_parse

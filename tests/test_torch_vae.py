@@ -20,6 +20,11 @@ the same expressions, 1e-5 relative with a 1e-4 floor, except that the
 reference's IWAE decode kernel splits its float32 products in three bf16
 passes (~2e-3 nats per sample against plain float32): the IWAE estimate is
 held to 5e-3 nats and the chunk reparam alone to the tight tolerance.
+
+The spherical family (s6:wrapped, s3:wrapped,h2,e2, s6, p2:vmf,e2) likewise:
+wrapped-on-s takes the kernel route in float32 (the JAX tile in interpret
+mode on the other side), the vMF beyond s2 the plain per-component tail in
+both packages, fed the rejection proposals JAX drew (``jax_noise``).
 """
 import json
 
@@ -40,6 +45,7 @@ from mvae_torch.data import ArrayDataset
 from mvae_torch.data.base import binarize_rows
 from mvae_torch.models import vae as tvae
 from mvae_torch.train import TrainConfig, Trainer
+from tests.test_torch_distributions import jax_noise
 
 SPEC, D, H, B = "h2,s2,e2", 64, 32, 24
 DTYPES = [pytest.param(np.float64, 1e-9, 1e-9, id="f64"),
@@ -201,8 +207,12 @@ def test_cli_eval_only_on_cpu(capsys, tmp_path):
         "test/log_likelihood_iwae"]
     assert np.isfinite(line["test/elbo"])
     assert line["fused_paths"]["train_tail"]["active"]
-    with pytest.raises(NotImplementedError):
-        cli.main(args + ["--generate", "4"])
+    # --generate with --eval_only samples from the restored checkpoint
+    cli.main(args + ["--eval_only", "--generate", "4"])
+    with np.load(tmp_path / "samples.npz") as f:
+        assert {k: f[k].shape for k in f.files} == {
+            k: (4,) + tuple(f["originals"].shape[1:])
+            for k in ("generated", "originals", "reconstructions")}
 
 
 # --- the spec DSL, on the strings of tests/components TestSpecParser --------
@@ -236,19 +246,23 @@ def test_spec_rejects(bad):
 
 
 def test_later_slice_geometry_raises():
-    """The stereographic kinds are ported: their geometry runs. What is
-    still to come raises: the vMF on the projected sphere and the
+    """The stereographic kinds are ported: their geometry runs, and so does
+    the vMF on the projected sphere. What is still to come raises: the
     Riemannian normal."""
     from mvae_torch.components import reparametrize
     (comp,) = parse_components("d2")
     z = comp.manifold.exp_map_mu0(torch.ones(3, 2), torch.tensor(-1.0))
     assert bool(torch.isfinite(z).all()) and float(z.norm(dim=1).max()) < 1.0
-    for spec in ("p2:vmf", "d2:riemannian"):
-        (comp,) = parse_components(spec)
-        params = comp.init_params(8, generator=torch.Generator())
-        with pytest.raises(NotImplementedError):
-            reparametrize(comp, params, torch.zeros(3, 8),
-                          generator=torch.Generator())
+    (comp,) = parse_components("p2:vmf")
+    params = comp.init_params(8, generator=torch.Generator())
+    rep = reparametrize(comp, params, torch.zeros(3, 8),
+                        generator=torch.Generator())
+    assert rep.z.shape == (3, 2) and bool(torch.isfinite(rep.z).all())
+    (comp,) = parse_components("d2:riemannian")
+    params = comp.init_params(8, generator=torch.Generator())
+    with pytest.raises(NotImplementedError):
+        reparametrize(comp, params, torch.zeros(3, 8),
+                      generator=torch.Generator())
 
 
 # --- the stereographic family ------------------------------------------------
@@ -294,15 +308,18 @@ def test_elbo_matches_jax_stereo(monkeypatch, spec, c_params, dtype, tol,
 
 def _chunk_noise(ck, jcfg, jparams, chunk, dtype, fused):
     """(chunk, B, E) noise of one IWAE chunk of the JAX estimator: per
-    sample ``draw_noise_t(split(ck, chunk)[s])``; with the fused reparam,
-    a kernel component ci instead reads its block
+    sample ``jax_noise(split(ck, chunk)[s])`` (``draw_noise_t`` plus the
+    rejection cosine's proposals); with the fused reparam, a kernel
+    component ci instead reads its block
     ``normal(fold_in(ck, ci), (dim, chunk, B))``."""
     comps = jcfg.components
-    rows = np.stack([np.asarray(draw_noise_t(sk, comps, B, dtype)).T
+    rows = np.stack([jax_noise(sk, comps, B, dtype)
                      for sk in jax.random.split(ck, chunk)])
     off = 0
     for ci, (comp, cp) in enumerate(zip(comps, jparams["components"])):
-        width = comp.dim + (1 if comp.posterior == "vmf" else 0)
+        width = comp.dim
+        if comp.posterior == "vmf":
+            width += 1 + (0 if comp.dim == 2 else 32)
         if fused and jvae._fused_reparam_eligible(comp, cp):
             eps = jax.random.normal(jax.random.fold_in(ck, ci),
                                     (comp.dim, chunk, B), dtype)
@@ -359,14 +376,14 @@ def test_log_likelihood_matches_jax_stereo(monkeypatch, spec, c_params,
 
 PREDICATE_SPECS = ["e2", "h2", "d2", "p2", "u2", "s2", "s3", "s2:wrapped",
                    "s6:wrapped", "p2:vmf", "d3:riemannian", "h33", "u32",
-                   "e2:wrapped", "d2,p2,e2", "u6"]
+                   "e2:wrapped", "d2,p2,e2", "u6", "s32:wrapped",
+                   "s33:wrapped", "s6", "s3:wrapped,h2,e2"]
 
 
 @pytest.mark.parametrize("sigma_cap", [True, False])
 def test_kernel_predicates_agree_with_jax(monkeypatch, sigma_cap):
     """``component_supported`` and ``_fused_reparam_eligible`` agree with
-    the JAX predicates, with one stated difference: wrapped on 's' is in
-    the JAX tail kernel's family and not yet in the port's."""
+    the JAX predicates on every spec."""
     from mvae_tpu.kernels import tail_kernels as jtk
     monkeypatch.setenv("MVAE_FUSED_REPARAM", "1")
     for spec in PREDICATE_SPECS:
@@ -375,8 +392,7 @@ def test_kernel_predicates_agree_with_jax(monkeypatch, sigma_cap):
         for jc, tc in zip(jcs, tcs, strict=True):
             want = jtk.component_supported(jc)
             if tc.posterior == "wrapped" and tc.manifold.kind == "s":
-                assert want == sigma_cap and tc.dim <= 32
-                want = False
+                assert want == (sigma_cap and tc.dim <= 32)
             assert tvae.tail_kernels.component_supported(tc) == want, spec
             for dt_j, dt_t in ((jnp.float32, torch.float32),
                                (jnp.float64, torch.float64)):
@@ -386,23 +402,25 @@ def test_kernel_predicates_agree_with_jax(monkeypatch, sigma_cap):
                     jc, {"w_mu": jnp.zeros(1, dt_j)}), spec
 
 
-@pytest.mark.parametrize("spec,opts", [("s6:wrapped", {}),
+@pytest.mark.parametrize("spec,opts", [("s6:wrapped", {"sigma_cap": False}),
                                        ("p6", {"sigma_cap": False}),
                                        ("p6", {"wraps": 0}),
-                                       ("u6", {"sigma_cap": False})])
+                                       ("u6", {"sigma_cap": False}),
+                                       ("s6", {}), ("p2:vmf,e2", {}),
+                                       ("s3,s2", {})])
 def test_plain_tail_products_match_jax(spec, opts):
-    """Products outside the tail kernel's family (wrapped on the embedded
-    sphere; an uncapped positive-capable component) take the plain
-    per-component tail and match the JAX package's jnp path: float32, 1e-5
-    relative with a 2e-4 floor (library path against library path); the
-    capped wraps = 0 product stays on the kernel route."""
+    """Products outside the tail kernel's family (an uncapped
+    positive-capable component; a vMF beyond s2 or on the projected sphere)
+    take the plain per-component tail and match the JAX package's jnp path:
+    float32, 1e-5 relative with a 2e-4 floor (library path against library
+    path); the capped wraps = 0 product stays on the kernel route."""
     jcfg, tcfg, jparams, tparams, x = _models(np.float32, 4, spec, **opts)
     rep = tvae.fused_path_report(tcfg, tparams)
     assert rep["train_tail"]["active"] == ("wraps" in opts)
-    assert rep["iwae_reparam"][0]["active"] == (spec != "s6:wrapped")
+    assert rep["iwae_reparam"][0]["active"] == spec.startswith(("p6", "u6"))
     key = jax.random.key(31)
     val_j, _ = jvae.elbo(key, jcfg, jparams, jnp.asarray(x))
-    noise = np.asarray(draw_noise_t(key, jcfg.components, B, np.float32)).T
+    noise = jax_noise(key, jcfg.components, B, np.float32)
     val_t, _ = tvae.elbo(tcfg, tparams, torch.from_numpy(x),
                          noise=torch.from_numpy(noise.copy()))
     np.testing.assert_allclose(val_t.numpy(), np.asarray(val_j), rtol=1e-5,
@@ -416,3 +434,183 @@ def test_plain_tail_products_match_jax(spec, opts):
                                noise=torch.from_numpy(noise))
     np.testing.assert_allclose(ll_t.numpy(), np.asarray(ll_j), rtol=1e-5,
                                atol=5e-4)
+
+
+# --- the spherical family -----------------------------------------------------
+
+SPHERE = [pytest.param("s6:wrapped", None, {}, id="s6w"),
+          pytest.param("s6:wrapped", (np.log(4.0),), {}, id="s6w-K4"),
+          pytest.param("s6:wrapped", (np.log(1e-3),), {"wraps": 0},
+                       id="s6w-K1e-3-wraps0"),
+          pytest.param("s3:wrapped,h2,e2", None, {"scalar_sigma": True},
+                       id="s3w-h2-e2-scalar"),
+          pytest.param("s6", (np.log(2.0),), {}, id="s6-vmf"),
+          pytest.param("p2:vmf,e2", None, {}, id="p2vmf-e2"),
+          pytest.param("3s2", None, {}, id="3s2")]
+
+
+@pytest.mark.parametrize("dtype,tol,atol", DTYPES)
+@pytest.mark.parametrize("spec,c_params,opts", SPHERE)
+def test_elbo_matches_jax_sphere(monkeypatch, spec, c_params, opts, dtype,
+                                 tol, atol):
+    """``forward`` / ``elbo`` of the spherical family on converted weights
+    and the JAX draw's noise; wrapped-on-s and 3s2 on the kernel route in
+    float32."""
+    _fused_env(monkeypatch, dtype)
+    jcfg, tcfg, jparams, tparams, x = _models(dtype, 5, spec, c_params,
+                                              **opts)
+    key = jax.random.key(41)
+    val_j, stats_j = jvae.elbo(key, jcfg, jparams, jnp.asarray(x))
+    noise = torch.from_numpy(jax_noise(key, jcfg.components, B, dtype))
+    val_t, stats_t = tvae.elbo(tcfg, tparams, torch.from_numpy(x),
+                               noise=noise)
+    on_tail = dtype == np.float32 and "vmf" not in spec and spec != "s6"
+    assert tvae.fused_path_report(tcfg, tparams)["train_tail"]["active"] == \
+        on_tail
+    np.testing.assert_allclose(val_t.numpy(), np.asarray(val_j), rtol=tol,
+                               atol=atol)
+    for k in ("kl_per_comp", "curvature", "bce"):
+        np.testing.assert_allclose(stats_t[k].numpy(),
+                                   np.asarray(stats_j[k]), rtol=tol,
+                                   atol=atol)
+    fwd_j = jvae.forward(key, jcfg, jparams, jnp.asarray(x))
+    fwd_t = tvae.forward(tcfg, tparams, torch.from_numpy(x), noise=noise)
+    for name in ("z", "log_q", "log_p", "log_px_z"):
+        np.testing.assert_allclose(getattr(fwd_t, name).numpy(),
+                                   np.asarray(getattr(fwd_j, name)),
+                                   rtol=max(tol, 1e-5) * 3, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,tol,atol", [
+    pytest.param(np.float64, 1e-9, 1e-9, id="f64"),
+    pytest.param(np.float32, 1e-5, 5e-4, id="f32")])
+@pytest.mark.parametrize("spec,c_params,opts", SPHERE[:1] + SPHERE[3:6])
+def test_log_likelihood_matches_jax_sphere(spec, c_params, opts, dtype, tol,
+                                           atol):
+    """IWAE on the spherical family: every component draws per sample in
+    plain PyTorch (no chunk reparam kernel covers them), library path
+    against library path."""
+    jcfg, tcfg, jparams, tparams, x = _models(dtype, 6, spec, c_params,
+                                              **opts)
+    assert not any(r["active"] for r in
+                   tvae.fused_path_report(tcfg, tparams)["iwae_reparam"])
+    key = jax.random.key(42)
+    n, chunk = 6, 3
+    ll_j = jvae.log_likelihood(key, jcfg, jparams, jnp.asarray(x), n, chunk)
+    noise = np.concatenate([
+        _chunk_noise(ck, jcfg, jparams, chunk, dtype, False)
+        for ck in jax.random.split(key, n // chunk)])
+    ll_t = tvae.log_likelihood(tcfg, tparams, torch.from_numpy(x), n, chunk,
+                               noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(ll_t.numpy(), np.asarray(ll_j), rtol=tol,
+                               atol=atol)
+
+
+def test_fused_path_report_of_the_spherical_family():
+    """Wrapped-on-s products ride the fused tail; the rejection-cosine vMF
+    and an uncapped wrapped sphere the plain per-component tail."""
+    def tail(spec, **opts):
+        cfg = tvae.VAEConfig(parse_components(spec, **opts), (D,), h_dim=H)
+        params = tvae.init_params(cfg,
+                                  generator=torch.Generator().manual_seed(0))
+        return tvae.fused_path_report(cfg, params)["train_tail"]
+
+    for spec in ("s6:wrapped", "s3:wrapped,h2,e2", "3s2"):
+        assert tail(spec)["active"] and "tail_bwd.cu" in tail(spec)["why"]
+    assert not tail("s6")["active"] and "s6:vmf" in tail("s6")["why"]
+    assert not tail("p2:vmf,e2")["active"]
+    assert not tail("s6:wrapped", sigma_cap=False)["active"]
+
+
+@pytest.mark.parametrize("spec", ["s6", "s6:wrapped", "p2:vmf,e2"])
+def test_params_from_jax_carries_the_spherical_family(spec):
+    """No new leaves: the reference's pytree of these products converts
+    leaf by leaf, in the structure ``init_params`` builds."""
+    jcfg, tcfg, jparams, tparams, _ = _models(np.float32, 2, spec)
+    flat_j, tree_j = jax.tree.flatten(jax.tree.map(np.asarray, jparams))
+    flat_t, tree_t = jax.tree.flatten(
+        jax.tree.map(lambda t: t.numpy(), tparams))
+    assert tree_j == tree_t
+    for a, b in zip(flat_j, flat_t):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    own = tvae.init_params(tcfg, generator=torch.Generator().manual_seed(0))
+    assert jax.tree.structure(jax.tree.map(lambda t: t.numpy(), own)) == \
+        tree_t
+    assert [tuple(a.shape) for a in jax.tree.leaves(
+        jax.tree.map(lambda t: t.numpy(), own))] == [a.shape for a in flat_t]
+
+
+@pytest.mark.parametrize("dtype,tol,atol", DTYPES)
+@pytest.mark.parametrize("spec", ["h2,s2,e2", "s6:wrapped", "s6",
+                                  "p2:vmf,e2"])
+def test_reconstruct_matches_jax(monkeypatch, spec, dtype, tol, atol):
+    _fused_env(monkeypatch, dtype)
+    jcfg, tcfg, jparams, tparams, x = _models(dtype, 7, spec)
+    key = jax.random.key(43)
+    rec_j = jvae.reconstruct(key, jcfg, jparams, jnp.asarray(x))
+    noise = torch.from_numpy(jax_noise(key, jcfg.components, B, dtype))
+    rec_t = tvae.reconstruct(tcfg, tparams, torch.from_numpy(x), noise=noise)
+    assert rec_t.shape == (B, D)
+    np.testing.assert_allclose(rec_t.numpy(), np.asarray(rec_j), rtol=tol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("spec", ["h2,s2,e2", "d2,p2,e2", "u6", "s6:wrapped",
+                                  "s6", "p2:vmf,e2", "s3:wrapped,h2,e2"])
+def test_generate_and_reconstruct(spec):
+    """``generate`` / ``reconstruct``: shapes, Bernoulli means in [0, 1],
+    finite, the same under the same seeded generator and different under
+    another."""
+    cfg = tvae.VAEConfig(parse_components(spec, fixed_curvature=False),
+                         (8, 8), h_dim=16)
+    params = tvae.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    x = (torch.rand(5, 8, 8, generator=torch.Generator().manual_seed(1))
+         < 0.3).float()
+
+    def run(seed):
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            return (tvae.generate(cfg, params, 6, g),
+                    tvae.reconstruct(cfg, params, x, generator=g))
+
+    gen, rec = run(3)
+    assert gen.shape == (6, 8, 8) and rec.shape == (5, 8, 8)
+    for out in (gen, rec):
+        assert bool(torch.isfinite(out).all())
+        assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+    gen2, rec2 = run(3)
+    assert torch.equal(gen, gen2) and torch.equal(rec, rec2)
+    gen3, rec3 = run(4)
+    assert not torch.equal(gen, gen3) and not torch.equal(rec, rec3)
+
+
+@pytest.mark.parametrize("model", ["s6:wrapped", "s6", "p2:vmf,e2"])
+def test_cli_trains_and_generates_the_spherical_family(model, capsys,
+                                                       tmp_path):
+    """``--device cpu --generate 4`` trains one epoch with learnable
+    curvature, evaluates and writes ``samples.npz``."""
+    result = cli.main(["--dataset", "bdp", "--model", model,
+                       "--fixed_curvature", "false", "--epochs", "1",
+                       "--h_dim", "16", "--generate", "4", "--device", "cpu",
+                       "--likelihood_n", "4", "--ll_max_examples", "16",
+                       "--run_dir", str(tmp_path)])
+    assert np.isfinite(result["test/log_likelihood_iwae"])
+    assert np.isfinite(result["history"][-1]["test/elbo"])
+    assert result["fused_paths"]["train_tail"]["active"] == (
+        model == "s6:wrapped")
+    out = capsys.readouterr().out
+    assert "samples.npz" in out
+    with np.load(tmp_path / "samples.npz") as f:
+        gen, orig, rec = f["generated"], f["originals"], f["reconstructions"]
+    assert gen.shape == orig.shape == rec.shape and len(gen) == 4
+    assert set(np.unique(orig)) <= {0.0, 1.0}        # the binarized inputs
+    for a in (gen, rec):
+        assert np.isfinite(a).all() and a.min() >= 0.0 and a.max() <= 1.0
+    # the file is a function of the checkpoint and the seed alone
+    first = gen.copy()
+    cli.main(["--dataset", "bdp", "--model", model, "--fixed_curvature",
+              "false", "--h_dim", "16", "--generate", "4", "--device", "cpu",
+              "--likelihood_n", "4", "--ll_max_examples", "16", "--run_dir",
+              str(tmp_path), "--eval_only"])
+    with np.load(tmp_path / "samples.npz") as f:
+        assert np.array_equal(f["generated"], first)
