@@ -8,8 +8,8 @@ Phases:
     full-f32 matmuls (TF32 off);
  2. build every kernel of ``mvae_torch/kernels/csrc`` with nvcc (parallel:
     B1 tail_fwd, B2 decode_bce, B3 tail_bwd, B6 train_decode,
-    B5 reparam_stereo, B7 manifold_dist; B4a and B4b live in the header B1
-    and B3 share);
+    B5 reparam_stereo, B7 manifold_dist, B8 roofline_probes; B4a and B4b
+    live in the header B1 and B3 share);
  3. the tail kernel (tail_fwd.cu) against ``tail_forward_ref`` at the
     flagship product h2,s2,e2, B = 512 and B = 1000 (ragged), random heads
     with large-|mu| rows and curvatures that put rows on both sides of the
@@ -77,7 +77,23 @@ Phases:
 19. s6 (vMF by rejection, m = 7) at h_dim 400: 150 training steps with
     finite losses and IWAE-500 on 1,024 examples; p2:vmf,e2: the ELBO of
     one batch; ``generate(16)`` and ``reconstruct`` on the card;
-20. one JSON line of kernel numbers, then the result line.
+20. the roofline harness (``kernels/roofline.py``, B8a-B8f in
+    ``roofline_probes.cu``): the triad, FMA and tanh (repeat 1 and 32),
+    reduce and transpose probes at (1,048,576, 128), both distance
+    skeletons and the stereographic twin (resident and streaming) there, the
+    reparam skeleton and twin at (S, B, n) = (125, 2048, 6), each against its
+    plain version; then ``roofline.main()`` with the probes' launch counts
+    read around it: the calibrated rates (each within its window: at most
+    105% of the data sheet) and the rows of B7a, B7b, B5 and B2 at the
+    reference's shapes, none above 105% of its binding floor or its peak;
+    then each row's kernel held to its plain version on the row's own
+    inputs (B7a, B7b and B5 at the tolerances of phases 17 and 13, float64
+    beside them; B2 within 1e-3 nats per row as in phase 4). The launch
+    counts of this phase count what ran on the card: ``roofline.measure``
+    captures its launches in a CUDA graph and counts each replay;
+21. ``Trainer.fit(profile_epochs=1)`` of a 20-step flagship epoch writes a
+    Chrome trace that holds the card's kernels (B1 among them);
+22. one JSON line of kernel numbers, then the result line.
 
 Where float32 does not resolve a value (a point at the K < 0 ball's rim,
 a radius within an ulp of the K > 0 injectivity shell), the stereographic
@@ -154,10 +170,10 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, warm: int = 2) -> float:
     """Mean device time of one call, by CUDA events around ``iters`` calls
-    after two warm-up calls."""
-    for _ in range(2):
+    after ``warm`` warm-up calls."""
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1652,6 +1668,252 @@ def phase_vmf(ds, tmp) -> None:
     _sample_check(pv, "p2:vmf,e2")
 
 
+def _probe_row(name, line, t, plain_ms, err, nbytes, ops, library_ms=None):
+    """One B8 probe's entry of the kernels line: ``t`` its timing from
+    ``roofline.main`` (the main path of this phase), its bound from this
+    run's shapes."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return {"name": name, "route": "cuda",
+            "source": "mvae_torch/kernels/csrc/roofline_probes.cu",
+            "replaces": f"mvae_tpu/kernels/roofline.py:{line}",
+            "max_abs_err": err, "ms": t["us"] / 1e3, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def _roofline_rows_held(rl) -> None:
+    """B7a, B7b, B5 and B2 held to their plain versions on the inputs of
+    ``roofline.main()``'s rows, at the tolerances of the earlier phases."""
+    k = torch.tensor(-1.0, device="cuda")
+    errs = {}
+    for tag, inputs, fn, ref in (
+            ("B7a", rl.stereo_inputs, manifold_kernels.stereo_distance,
+             manifold_kernels.stereo_distance_ref),
+            ("B7b", rl.lorentz_inputs, manifold_kernels.lorentz_distance,
+             manifold_kernels.lorentz_distance_ref)):
+        x, y = inputs()
+        d, d_r = fn(x, y, k), ref(x, y, k)
+        d64 = ref(x.double(), y.double(), k.double())
+        torch.cuda.synchronize()
+        errs[tag] = held(d, d_r, d64, 1e-5 * (1 + d_r.abs()),
+                         f"{tag} on its roofline row's inputs")[1]
+        del x, y, d, d_r, d64
+    eps, mu, sig, _, _ = rl.reparam_sets(1)[0]
+    got = manifold_kernels.wrapped_reparam_stereo_t(eps, mu, sig, k, sign=-1)
+    ref = manifold_kernels.wrapped_reparam_stereo_ref(eps, mu, sig, k,
+                                                      sign=-1)
+    ref64 = manifold_kernels.wrapped_reparam_stereo_ref(
+        eps.double(), mu.double(), sig.double(), k.double(), sign=-1)
+    torch.cuda.synchronize()
+    errs["B5"] = 0.0
+    for ours, r, r64, name in zip(got, ref, ref64, ("z", "log q", "log p")):
+        tol = (1e-5 * (1 + r.abs()) if name == "z"
+               else 1e-4 * (1 + 1e-2 * r.abs()))
+        errs["B5"] = max(errs["B5"], held(
+            ours, r, r64, tol, f"B5 {name} on its roofline row's inputs")[1])
+    args = rl.decode_sets(1)[0]
+    out = decoder_kernels.fused_decode_bce_t(*args)
+    ref = decoder_kernels.decode_bce_ref(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "B2 finite on its roofline row")
+    errs["B2"] = (out - ref).abs().max().item()
+    check(errs["B2"] <= 1e-3, f"B2 within 1e-3 nats per row of its plain "
+                              f"version on its roofline row's inputs")
+    print("[roofline] rows' kernels against their plain versions on the "
+          "rows' inputs, largest error on resolved entries: "
+          + ", ".join(f"{t} {e:.3g}" for t, e in errs.items())
+          + " (B2 in nats per row)")
+
+
+def phase_roofline(gen) -> tuple[list[dict], dict]:
+    """B8: every probe kernel against its plain version at the roofline
+    shapes, then ``roofline.main()`` (calibration and the B7a, B7b, B5, B2
+    rows) with the probes' launch counts read around it; then each row's
+    kernel held to its plain version on the inputs the row timed."""
+    from mvae_torch.kernels import roofline as rl
+    B, N, R = rl.B, rl.N, rl.CAL_REPEAT
+    x = 0.05 * torch.randn(B, N, generator=gen, device="cuda")
+    y = 0.05 * torch.randn(B, N, generator=gen, device="cuda")
+    err, plain = {}, {}
+
+    def close(name, got, ref, tol):
+        d = (got - ref).abs()
+        check(bool(torch.isfinite(got).all()) and bool((d <= tol).all()),
+              f"{name} within its tolerance of the plain version: max "
+              f"{d.max().item():.3g}")
+        err[name] = max(err.get(name, 0.0), d.max().item())
+
+    def timed(name, fn, iters=3, warm=2):
+        plain[name] = time_ms(fn, iters, warm)
+
+    close("probe_triad", rl.probe_triad(x, y), rl.probe_triad_ref(x, y), 0.0)
+    timed("probe_triad", lambda: rl.probe_triad_ref(x, y))
+    for repeat in (1, R):             # rel 1e-5: fmaf rounds once
+        ref = rl.probe_fma_ref(x, repeat)
+        close("probe_fma", rl.probe_fma(x, repeat), ref, 1e-5 * ref.abs())
+    timed("probe_fma", lambda: rl.probe_fma_ref(x, R), 1, 0)
+    for repeat in (1, R):             # 4 ulp for each tanh of a chain
+        ref = rl.probe_tanh_ref(x, repeat)
+        close("probe_tanh", rl.probe_tanh(x, repeat), ref,
+             4 * 4 * repeat * torch.finfo(torch.float32).eps * ref.abs())
+    timed("probe_tanh", lambda: rl.probe_tanh_ref(x, R), 1, 1)
+    # folds: 1e-5 of the row's absolute sum (warp order against PyTorch's)
+    fold = 8 * (x.abs() + 7.0).sum(1, keepdim=True)
+    close("probe_reduce", rl.probe_reduce(x), rl.probe_reduce_ref(x),
+         1e-5 * fold)
+    timed("probe_reduce", lambda: rl.probe_reduce_ref(x))
+    fold = 8 * (x[:, :8].abs() + 7.0).sum(1, keepdim=True)
+    close("probe_transpose", rl.probe_transpose(x), rl.probe_transpose_ref(x),
+         1e-5 * fold)
+    timed("probe_transpose", lambda: rl.probe_transpose_ref(x))
+    fold = x.abs().sum(1) + y.abs().sum(1) + x[:, 0].abs() + y[:, 0].abs()
+    for variant in ("rowstore", "block"):
+        close("skel_dist", rl.skel_dist(x, y, variant),
+             rl.skel_dist_ref(x, y, variant), 1e-5 * fold)
+    timed("skel_dist", lambda: rl.skel_dist_ref(x, y, "rowstore"))
+    for resident in (True, False):    # rel 1e-4, floored at 1% of the max
+        ref = rl.twin_stereo_ref(x, y, resident)
+        close("twin_stereo", rl.twin_stereo(x, y, resident), ref,
+             1e-4 * (ref.abs() + 1e-2 * ref.abs().max()))
+    timed("twin_stereo", lambda: rl.twin_stereo_ref(x, y, True))
+    eps = torch.randn(rl.RS, rl.RB, rl.RN, generator=gen, device="cuda")
+    k = torch.tensor(-1.0, device="cuda")
+    from mvae_torch.ops import stereographic
+    mu = stereographic.exp_map_mu0(
+        0.4 * torch.randn(rl.RB, rl.RN, generator=gen, device="cuda"), k)
+    sig = 0.5 + 0.7 * torch.rand(rl.RB, rl.RN, generator=gen, device="cuda")
+    hoist = rl.reparam_scalars(mu, sig)
+    zt, lq, lp = rl.skel_reparam(eps, mu, sig, k, hoist)
+    z_r, lq_r, _ = rl.skel_reparam_ref(eps, mu, sig, k, hoist)
+    close("skel_reparam", zt, z_r, 0.0)
+    scale = (mu.abs().sum(1) + sig.abs().sum(1) + sig.log().abs().sum(1)
+             + sig.min(1).values + (mu * mu).sum(1) + 1.0)
+    close("skel_reparam", lq, lq_r, 1e-5 * scale)
+    close("skel_reparam", lp, lq_r, 1e-5 * scale)
+    timed("skel_reparam", lambda: rl.skel_reparam_ref(eps, mu, sig, k, hoist))
+    for got, ref in zip(rl.twin_reparam(eps, mu, sig, k, hoist),
+                        rl.twin_reparam_ref(eps, mu, sig, k, hoist)):
+        close("twin_reparam", got, ref,
+             1e-4 * (ref.abs() + 1e-2 * ref.abs().max()))
+    timed("twin_reparam", lambda: rl.twin_reparam_ref(eps, mu, sig, k, hoist))
+    o = torch.empty_like(x)
+    library = {"probe_triad": time_ms(lambda: torch.add(x, y, out=o), 20),
+               "probe_reduce": time_ms(lambda: x.sum(1), 20)}
+    print(f"[roofline] 9 probes held to their plain versions: largest "
+          f"errors {', '.join(f'{k} {v:.3g}' for k, v in err.items())}")
+    del x, y, o, ref
+
+    for fn in rl.PROBES:
+        fn.launches = 0
+    t0 = time.time()
+    result = rl.main()
+    launches = {fn.__name__: fn.launches for fn in rl.PROBES}
+    cal = result["calibration"]
+    print(f"[roofline] {result['card']}: roofline.main() in "
+          f"{time.time() - t0:.1f} s; launches {launches}")
+    for name, (lo, hi) in rl.SANITY.items():
+        print(f"[roofline] calibration {name} = {cal[name]:.6g} (window "
+              f"{lo:g} .. {hi:g})")
+        check(lo <= cal[name] <= hi, f"calibrated {name} in its window")
+    print("[roofline] probe times, us per launch by CUDA events around a "
+          "CUDA-graph replay (CUPTI trace median): " + ", ".join(
+              f"{k} {t['us']:.3f} ({t['trace_us']})"
+              for k, t in result["probes"].items()))
+    print(f"[roofline] calibration reduce_us = {cal['reduce_us']:.6g} per "
+          f"row reduction, transpose_us = {cal['transpose_us']:.6g} per "
+          f"(2048, 8) relayout; fma and tanh at repeat {cal['repeat']}")
+    for row in result["rows"]:
+        peak = row.get("pct_of_hbm_peak", row.get("pct_of_fp32_peak"))
+        trace = row["timings"]["kernel"]["trace_us"]
+        errs = {k: v for k, v in row.items() if "err" in k}
+        print(f"[roofline] {row['kernel']} at {row['shape']}: "
+              f"{row['us']:.3f} us (CUPTI trace median "
+              f"{'none' if trace is None else f'{trace:.3f} us'}), "
+              f"{peak:.1f}% of the data-sheet peak; "
+              f"floors {row['floors_us']} -> binding "
+              f"{row['binding_floor_us']:.3f} us ({row['bound_by']}), "
+              f"{row['pct_of_binding']:.1f}% of it; plain "
+              f"{row['plain_us']:.1f} us; l2 {row['l2']}; errors {errs}"
+              + (f"; streaming twin {row['twin_streaming_us']:.3f} us"
+                 if "twin_streaming_us" in row else ""))
+        check(row["pct_of_binding"] <= 105.0 and peak <= 105.0,
+              f"{row['kernel']} within 105% of its floor and its peak")
+    dec = result["rows"][3]
+    print(f"[roofline] B2 yardsticks: two SGEMMs FP32 "
+          f"{dec['two_sgemm_fp32_us']:.1f} us, TF32 "
+          f"{dec['two_gemm_tf32_us']:.1f} us; error vs FP32: kernel "
+          f"{dec['max_abs_err_nats_vs_fp32']:.3g}, TF32 "
+          f"{dec['tf32_max_abs_err_nats_vs_fp32']:.3g} nats")
+    check(all(v > 0 for v in launches.values()),
+          f"every B8 probe launched by roofline.main(): {launches}")
+    _roofline_rows_held(rl)
+
+    p = result["probes"]
+    words = B * N
+    sb = rl.RS * rl.RB
+    # both read the hoisted (3, B) scalars; the twin reads mu_0 and sigma_0
+    # of mu and sigma, the skeleton every word
+    skel_bytes = rl.reparam_bytes(rl.RS, rl.RB, rl.RN) + 4 * 3 * rl.RB
+    twin_bytes = 4 * (2 * sb * rl.RN + 2 * sb + 5 * rl.RB + 1)
+    rows = [
+        _probe_row("probe_triad", 328, p["probe_triad"], plain["probe_triad"],
+                   err["probe_triad"], 12 * words, words,
+                   library["probe_triad"]),
+        _probe_row("probe_fma", 204, p["probe_fma"], plain["probe_fma"],
+                   err["probe_fma"], 8 * words, words * (128 * R + 15)),
+        _probe_row("probe_tanh", 204, p["probe_tanh"], plain["probe_tanh"],
+                   err["probe_tanh"], 8 * words, words * (16 * R + 7)),
+        _probe_row("probe_reduce", 204, p["probe_reduce"],
+                   plain["probe_reduce"], err["probe_reduce"], 8 * words,
+                   16 * words, library["probe_reduce"]),
+        _probe_row("probe_transpose", 204, p["probe_transpose"],
+                   plain["probe_transpose"], err["probe_transpose"],
+                   4 * (8 * B + words), 128 * B),
+        _probe_row("skel_dist", 373, p["skel_dist_rowstore"],
+                   plain["skel_dist"], err["skel_dist"], 4 * (2 * words + B),
+                   2 * words),
+        _probe_row("skel_reparam", 410, p["skel_reparam"],
+                   plain["skel_reparam"], err["skel_reparam"], skel_bytes,
+                   sb * (2 * rl.RN + 4)),
+        # the resident twin reads one 2048-row tile and writes a float a row
+        _probe_row("twin_stereo", 478, p["twin_stereo_resident"],
+                   plain["twin_stereo"], err["twin_stereo"],
+                   4 * (2 * rl.RESIDENT_ROWS * N + B),
+                   B * (6 * N + 2 * 67)),
+        _probe_row("twin_reparam", 552, p["twin_reparam"],
+                   plain["twin_reparam"], err["twin_reparam"], twin_bytes,
+                   sb * (18 * rl.RN + 2 * 120 + 4)),
+    ]
+    return rows, launches
+
+
+def phase_trace(ds, tmp) -> None:
+    """``fit(profile_epochs=1)`` of one short flagship epoch (20 steps)
+    writes a Chrome trace holding the card's kernels."""
+    import dataclasses
+    import glob
+    small = dataclasses.replace(ds, train=ds.train[:20 * 128],
+                                test=ds.test[:512])
+    trainer = _flagship(small, f"{tmp}/trace", seed=0, epochs=1,
+                        burnin_epochs=0)
+    t0 = time.time()
+    trainer.fit(verbose=False, ll_max_examples=512, profile_epochs=1)
+    files = glob.glob(f"{tmp}/trace/profile/trace_*.json")
+    check(len(files) == 1, f"one trace written: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    tails = sum("tail_fwd_kernel" in e.get("name", "") for e in kernels)
+    print(f"[trace] fit(profile_epochs=1), {trainer.step} steps, in "
+          f"{time.time() - t0:.1f} s: {len(events)} events, "
+          f"{len(kernels)} CUDA kernel events ({tails} of B1), "
+          f"{os.path.getsize(files[0])} bytes")
+    check(len(kernels) > 0 and tails > 0,
+          "the trace holds CUDA kernel events, B1 among them")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1684,6 +1946,9 @@ def main() -> int:
         _sample_check(sphere_trainer, SPHERE_SPEC)
         phase_replay(ds, tmp, SPHERE_SPEC, b6=False, free_run=False)
         phase_vmf(ds, tmp)
+        roofline_rows, roofline_launches = phase_roofline(gen)
+        kernels += roofline_rows
+        phase_trace(ds, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]
@@ -1697,6 +1962,7 @@ def main() -> int:
     launches["sphere_tile_fwd"] = sphere_eval["tail_fwd"]
     launches["sphere_tile_bwd"] = sphere_train["tail_bwd"]
     launches.update(dist_launches)
+    launches.update(roofline_launches)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(card)

@@ -10,9 +10,12 @@ with the kernels the run was routed through (``fused_paths``).
 ``--eval_only`` restores it and evaluates the test ELBO and IWAE-n LL.
 ``--generate N`` then writes N prior samples and N test-set reconstructions
 (with the binarized inputs they reconstruct) to ``<run_dir>/samples.npz``.
-Runs on CUDA unless ``--device cpu`` is given. The reference's
-``--train_rng``, ``--debug_nans`` and ``--profile_epochs`` have no
-counterpart: the port's training randomness is one torch generator.
+``--debug_nans`` makes every op and kernel that produces a NaN or an Inf
+raise, naming it (slow; ``utils.profiling.enable_nan_guard``), for the
+run; ``--profile_epochs N`` traces the training of the first N epochs into
+``<run_dir>/profile`` (a Chrome trace JSON). Runs on CUDA unless ``--device
+cpu`` is given. The reference's ``--train_rng`` has no counterpart: the
+port's training randomness is one torch generator.
 """
 from __future__ import annotations
 
@@ -73,6 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ll_repeats", type=int, default=1)
     p.add_argument("--mesh", default=None,
                    help="device mesh 'DATA,MODEL' (a later slice)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="fail fast on the first op or kernel producing a "
+                        "NaN or Inf (slow; debugging)")
+    p.add_argument("--profile_epochs", type=int, default=0,
+                   help="trace the training of the first N epochs into "
+                        "<run_dir>/profile (torch.profiler, Chrome trace)")
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (the CPU runs the "
                         "kernels' plain versions and must be asked for)")
@@ -81,6 +90,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if not args.debug_nans:
+        return _run(args)
+    from .utils import profiling
+    profiling.enable_nan_guard()
+    try:
+        return _run(args)
+    finally:
+        profiling.disable_nan_guard()
+
+
+def _run(args):
     from .components import canonical_name, parse_components
     from .data import load_dataset
     from .models import VAEConfig
@@ -158,6 +178,7 @@ def main(argv=None):
         trainer.restore_checkpoint()
         print(f"resumed at step {trainer.step}")
     result = trainer.fit(ll_max_examples=args.ll_max_examples,
+                         profile_epochs=args.profile_epochs,
                          ll_repeats=args.ll_repeats)
     result["fused_paths"] = trainer.fused_paths
     result["device"] = str(trainer.device)

@@ -39,7 +39,9 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # distance kernels sum a row across a warp, in another order than any plain
 # version, but their Gram form cancels to zero at x = y only while the three
 # sums of a row are rounded alike and the scalar tail is evaluated as
-# written: a contracted tail leaves a residue of ~sqrt(eps) |x| there.
+# written: a contracted tail leaves a residue of ~sqrt(eps) |x| there. The
+# roofline probes keep contraction on: the FMA probe has to time FFMA, not
+# FMUL + FADD, and the twins price their op volume in fused multiply-adds.
 EXTRA_FLAGS = {
     "tail_fwd": ["--fmad=false"],
     "tail_bwd": ["--fmad=false"],
@@ -47,6 +49,7 @@ EXTRA_FLAGS = {
     "decode_bce": [],
     "train_decode": [],
     "manifold_dist": ["--fmad=false"],
+    "roofline_probes": [],
 }
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)

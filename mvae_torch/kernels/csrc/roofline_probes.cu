@@ -1,0 +1,592 @@
+// Roofline probes: the kernels that measure what this card can reach, and
+// the floors of the port's memory-bound kernels, for kernels/roofline.py.
+//
+// Replace the TPU kernels of mvae_tpu/kernels/roofline.py:
+//   probe_triad_kernel      _calibrate_once.triad (_triad_kernel)   B8b
+//   probe_fma_kernel        _elementwise_call(_fma_kernel)          B8a
+//   probe_tanh_kernel       _elementwise_call(_tanh_kernel)         B8a
+//   probe_reduce_kernel     _elementwise_call(_reduce_kernel)       B8a
+//   probe_transpose_kernel  _elementwise_call(_transpose_kernel)    B8a
+//   skel_dist_kernel        _skel_dist ("rowstore", "block")        B8c
+//   skel_reparam_kernel     _skel_reparam                           B8d
+//   twin_stereo_kernel      _twin_stereo (resident or streaming)    B8e
+//   twin_reparam_kernel     _twin_reparam                           B8f
+// Each computes what its TPU probe computes, with two deliberate
+// differences. The FMA and tanh probes take an integer `repeat` that runs
+// their chain block `repeat` times before the store: at repeat = 1 (the TPU
+// function) the FMA probe does 16 FLOP a byte, below this card's FP32
+// balance point (67 TFLOP/s over 3.35 TB/s = 20), so it would measure the
+// memory. The distance skeleton folds every word it reads into its row's
+// output: a TPU block copy moves the whole block whatever the body reads,
+// but nvcc deletes a load whose value is unused, so a skeleton that read
+// one word would time an empty launch.
+//
+// Bound: triad, reduce, transpose and the skeletons by bytes (they do one
+// operation a word or less); fma and tanh by operations at repeat >= 2; the
+// resident stereographic twin by operations (its input tile stays in L2);
+// the reparam twin by operations. Each probe is timed whole: its launch
+// time, not a per-block cost, is the floor it stands for.
+//
+// Design: 16-byte loads throughout. The elementwise probes stride a grid
+// of eight 256-thread blocks per SM over float4 words. The row probes take
+// the launch shape of the kernel they price: the distance kernels'
+// (manifold_dist.cu: 256 threads, one warp per row, float4 loads, xor
+// butterfly sums, lane 0 stores) for reduce, the distance skeleton and the
+// stereographic twin; reparam_stereo.cu's (128 threads, one per (sample,
+// example), the example index fastest, z written into rows z_off.. of an
+// (S, Z, B) buffer, the noise read at eps_stride) for the reparam skeleton
+// and twin. The transpose probe stages a (256, 8) tile of each block's rows
+// through shared memory, padded to 9 columns so that the transposed reads
+// hit 32 different banks, eight times (one relayout for each of the TPU
+// probe's eight). Built without --fmad=false: the FMA probe times FFMA.
+//
+// Entry points (plain C, loaded with ctypes; each returns cudaGetLastError()
+// after its launch, or cudaErrorInvalidValue for a shape it does not take):
+//   int probe_triad_launch(x, y, o, n, stream)                 n % 4 == 0
+//   int probe_fma_launch(x, o, n, repeat, stream)              n % 4 == 0
+//   int probe_tanh_launch(x, o, n, repeat, stream)             n % 4 == 0
+//   int probe_reduce_launch(x, o (rows, cols), rows, cols, stream)
+//   int probe_transpose_launch(x, o (rows, cols), rows, cols, stream)
+//   int skel_dist_launch(x, y, out (rows,), rows, n, variant, stream)
+//   int twin_stereo_launch(x, y, out (rows,), rows, n, resident, stream)
+//   int skel_reparam_launch(eps, eps_stride, mu, sigma, hoist (3, B), k, zt,
+//                           z_off, lq, lp, S, B, n, Z, stream)
+//   int twin_reparam_launch(the same arguments)
+// Row probes take cols % 4 == 0 (and cols >= 8 for transpose) with 16-byte
+// aligned bases; the distance skeleton and twin read rows of any width.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define ELEM_THREADS 256
+#define ELEM_BLOCKS_PER_SM 8
+#define ROW_THREADS 256
+#define ROW_WARPS (ROW_THREADS / 32)
+#define REP_THREADS 128
+#define REP_MAX_DIM 32
+#define RESIDENT_ROWS 2048
+#define TP_ROWS 256
+#define TP_PAD 9
+
+__device__ __forceinline__ float probe_warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// --- elementwise probes ---------------------------------------------------
+
+// 8 independent chains of 8 fused multiply-adds, `repeat` times, summed in
+// the TPU probe's order
+__device__ __forceinline__ float fma_word(float x, int repeat) {
+  float a[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) a[j] = x + (float)j;
+  for (int r = 0; r < repeat; ++r) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a[j] = fmaf(a[j], 1.0000001f, x);
+    }
+  }
+  float acc = a[0];
+#pragma unroll
+  for (int j = 1; j < 8; ++j) acc += a[j];
+  return acc;
+}
+
+// 4 independent chains of 4 accurate tanh, `repeat` times
+__device__ __forceinline__ float tanh_word(float x, int repeat) {
+  float a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = x + (float)j;
+  for (int r = 0; r < repeat; ++r) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[j] = tanhf(a[j]);
+    }
+  }
+  return ((a[0] + a[1]) + a[2]) + a[3];
+}
+
+__global__ void __launch_bounds__(ELEM_THREADS)
+probe_triad_kernel(const float4* __restrict__ x, const float4* __restrict__ y,
+                   float4* __restrict__ o, long long n4) {
+  const long long step = (long long)gridDim.x * ELEM_THREADS;
+  for (long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
+       i < n4; i += step) {
+    const float4 a = x[i], b = y[i];
+    float4 r;
+    r.x = a.x + b.x;
+    r.y = a.y + b.y;
+    r.z = a.z + b.z;
+    r.w = a.w + b.w;
+    o[i] = r;
+  }
+}
+
+__global__ void __launch_bounds__(ELEM_THREADS)
+probe_fma_kernel(const float4* __restrict__ x, float4* __restrict__ o,
+                 long long n4, int repeat) {
+  const long long step = (long long)gridDim.x * ELEM_THREADS;
+  for (long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
+       i < n4; i += step) {
+    const float4 a = x[i];
+    float4 r;
+    r.x = fma_word(a.x, repeat);
+    r.y = fma_word(a.y, repeat);
+    r.z = fma_word(a.z, repeat);
+    r.w = fma_word(a.w, repeat);
+    o[i] = r;
+  }
+}
+
+__global__ void __launch_bounds__(ELEM_THREADS)
+probe_tanh_kernel(const float4* __restrict__ x, float4* __restrict__ o,
+                  long long n4, int repeat) {
+  const long long step = (long long)gridDim.x * ELEM_THREADS;
+  for (long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
+       i < n4; i += step) {
+    const float4 a = x[i];
+    float4 r;
+    r.x = tanh_word(a.x, repeat);
+    r.y = tanh_word(a.y, repeat);
+    r.z = tanh_word(a.z, repeat);
+    r.w = tanh_word(a.w, repeat);
+    o[i] = r;
+  }
+}
+
+// --- row probes (the distance kernels' launch shape) ----------------------
+
+// 8 independent row sums of x + i, tree-added, broadcast over the row
+__global__ void __launch_bounds__(ROW_THREADS)
+probe_reduce_kernel(const float* __restrict__ x, float* __restrict__ o,
+                    long long rows, int cols) {
+  const long long row = (long long)blockIdx.x * ROW_WARPS + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const float4* xr = reinterpret_cast<const float4*>(x + row * cols);
+  float s[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = 0.f;
+  for (int j = lane; j < cols / 4; j += 32) {
+    const float4 a = xr[j];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float fi = (float)i;
+      s[i] += ((a.x + fi) + (a.y + fi)) + ((a.z + fi) + (a.w + fi));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = probe_warp_sum(s[i]);
+  float4 v;
+  v.x = ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]));
+  v.y = v.x;
+  v.z = v.x;
+  v.w = v.x;
+  float4* orow = reinterpret_cast<float4*>(o + row * cols);
+  for (int j = lane; j < cols / 4; j += 32) orow[j] = v;
+}
+
+// Every element of row r becomes sum_c sum_i (x[r, c] + i) over the first
+// 8 columns (= 8 sum_c x[r, c] + 224), through eight relayouts of the
+// block's (TP_ROWS, 8) tile in shared memory
+__global__ void __launch_bounds__(TP_ROWS)
+probe_transpose_kernel(const float* __restrict__ x, float* __restrict__ o,
+                       long long rows, int cols) {
+  __shared__ float tile[TP_ROWS * TP_PAD];
+  __shared__ float val[TP_ROWS];
+  const long long row0 = (long long)blockIdx.x * TP_ROWS;
+  const int t = threadIdx.x;
+  // two threads a row, one float4 (four of the eight columns) each
+  float4 p[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = t / 2 + h * (TP_ROWS / 2);
+    if (row0 + r < rows) {
+      p[h] = reinterpret_cast<const float4*>(x + (row0 + r) * cols)[t % 2];
+    } else {
+      p[h].x = p[h].y = p[h].z = p[h].w = 0.f;
+    }
+  }
+  float a[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float fi = (float)i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* dst = tile + (t / 2 + h * (TP_ROWS / 2)) * TP_PAD + 4 * (t % 2);
+      dst[0] = p[h].x + fi;
+      dst[1] = p[h].y + fi;
+      dst[2] = p[h].z + fi;
+      dst[3] = p[h].w + fi;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < 8; ++c) a[i][c] = tile[t * TP_PAD + c];
+    __syncthreads();
+  }
+  float v = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    v += ((a[0][c] + a[1][c]) + (a[2][c] + a[3][c]))
+         + ((a[4][c] + a[5][c]) + (a[6][c] + a[7][c]));
+  val[t] = v;
+  __syncthreads();
+  // broadcast: warp w stores rows w, w + 8, ... with 16-byte stores
+  const int lane = t % 32;
+  for (int r = t / 32; r < TP_ROWS; r += TP_ROWS / 32) {
+    if (row0 + r >= rows) break;
+    float4 w;
+    w.x = w.y = w.z = w.w = val[r];
+    float4* orow = reinterpret_cast<float4*>(o + (row0 + r) * cols);
+    for (int j = lane; j < cols / 4; j += 32) orow[j] = w;
+  }
+}
+
+// The bytes floor of stereo_dist_kernel (variant 0, the TPU's "rowstore")
+// and lorentz_dist_kernel (variant 1, "block"): the same reads and one
+// store a row, each word folded with one add; variant 1 also re-reads
+// x[r, 0] and y[r, 0] in lane 0, as the Lorentz kernel does
+__global__ void __launch_bounds__(ROW_THREADS)
+skel_dist_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                 float* __restrict__ out, long long rows, int n, int vec4,
+                 int variant) {
+  const long long row = (long long)blockIdx.x * ROW_WARPS + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const float* xr = x + row * n;
+  const float* yr = y + row * n;
+  float acc = 0.f;
+  if (vec4) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const float4* y4 = reinterpret_cast<const float4*>(yr);
+    for (int j = lane; j < n / 4; j += 32) {
+      const float4 a = x4[j], b = y4[j];
+      acc += a.x;
+      acc += a.y;
+      acc += a.z;
+      acc += a.w;
+      acc += b.x;
+      acc += b.y;
+      acc += b.z;
+      acc += b.w;
+    }
+  } else {
+    for (int j = lane; j < n; j += 32) {
+      acc += xr[j];
+      acc += yr[j];
+    }
+  }
+  acc = probe_warp_sum(acc);
+  if (lane == 0) out[row] = variant ? (acc + xr[0]) + yr[0] : acc;
+}
+
+// The stereographic twin's scalar tail from a row's three Gram sums: the
+// TPU probe's lower-bound op volume (_STWIN_PREFIX_OPS = 9, three chains
+// of _STWIN_CHAIN_OPS = 18 with one sqrt, recip / exp each,
+// _STWIN_MERGE_OPS = 4)
+__device__ __forceinline__ float twin_stereo_tail(float r1, float r2,
+                                                  float r3) {
+  float t = (r1 + r2 * 1.0000001f) + r3;
+  for (int j = 0; j < 9; ++j) t = t * 1.0000001f + 0.1f;
+  float ta = t, tb = t + 1.f, tc = t + 2.f;
+  for (int j = 0; j < 18; ++j) {
+    if (j == 5) {
+      ta = sqrtf(fabsf(ta) + 1e-6f);
+      tb = sqrtf(fabsf(tb) + 1e-6f);
+      tc = sqrtf(fabsf(tc) + 1e-6f);
+    } else if (j == 12) {
+      ta = 1.f / (fabsf(ta) + 1.f);
+      tb = expf(-fabsf(tb) * 1e-3f);
+      tc = 1.f / (fabsf(tc) + 1.f);
+    } else {
+      ta = ta * 1.0000001f + 0.1f;
+      tb = tb * 1.0000002f + 0.1f;
+      tc = tc * 1.0000003f + 0.1f;
+    }
+  }
+  t = ta + tb * tc;
+  for (int j = 0; j < 4; ++j) t = t * 1.0000001f + 0.1f;
+  return t;
+}
+
+// The compute floor of stereo_dist_kernel: three row Gram sums, then the
+// tail. resident = 1 reads row (r mod RESIDENT_ROWS) for output row r, so
+// the input stays in L2 and the time is the arithmetic's
+__global__ void __launch_bounds__(ROW_THREADS)
+twin_stereo_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                   float* __restrict__ out, long long rows, int n, int vec4,
+                   int resident) {
+  const long long row = (long long)blockIdx.x * ROW_WARPS + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const long long src = resident ? row % RESIDENT_ROWS : row;
+  const float* xr = x + src * n;
+  const float* yr = y + src * n;
+  float x2 = 0.f, y2 = 0.f, xy = 0.f;
+  if (vec4) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const float4* y4 = reinterpret_cast<const float4*>(yr);
+    for (int j = lane; j < n / 4; j += 32) {
+      const float4 a = x4[j], b = y4[j];
+      x2 += a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w;
+      y2 += b.x * b.x + b.y * b.y + b.z * b.z + b.w * b.w;
+      xy += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+    }
+  } else {
+    for (int j = lane; j < n; j += 32) {
+      const float a = xr[j], b = yr[j];
+      x2 += a * a;
+      y2 += b * b;
+      xy += a * b;
+    }
+  }
+  x2 = probe_warp_sum(x2);
+  y2 = probe_warp_sum(y2);
+  xy = probe_warp_sum(xy);
+  if (lane == 0) out[row] = twin_stereo_tail(x2, y2, xy);
+}
+
+// --- reparam probes (reparam_stereo.cu's launch shape) --------------------
+
+// Both reparam probes take the TPU probes' hoisted per-example inputs as one
+// (3, B) array `hoist`: sum log sigma, min sigma and |mu|^2, computed once
+// per example by the caller (roofline.reparam_scalars), not once per sample.
+
+// The bytes floor of reparam_stereo_kernel: z = eps copied into its rows of
+// the (S, Z, B) buffer, log q = log p = the example's words of mu and sigma
+// folded with one add each, then its hoisted scalars and k
+__global__ void __launch_bounds__(REP_THREADS)
+skel_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
+                    const float* __restrict__ mu,
+                    const float* __restrict__ sigma,
+                    const float* __restrict__ hoist,
+                    const float* __restrict__ kptr, float* __restrict__ zt,
+                    int z_off, float* __restrict__ lq,
+                    float* __restrict__ lp, int S, int B, int n, int Z) {
+  const long long idx = (long long)blockIdx.x * REP_THREADS + threadIdx.x;
+  if (idx >= (long long)S * B) return;
+  const int b = (int)(idx % B);
+  const int s = (int)(idx / B);
+  const float* ep = eps + eps_stride * idx;
+  float* zr = zt + ((size_t)s * Z + z_off) * B + b;
+  for (int j = 0; j < n; ++j) zr[(size_t)j * B] = ep[j];
+  const float* m = mu + (size_t)b * n;
+  const float* sg = sigma + (size_t)b * n;
+  float acc = 0.f;
+  for (int j = 0; j < n; ++j) {
+    acc += m[j];
+    acc += sg[j];
+  }
+  const float c = (((acc + hoist[b]) + hoist[B + b]) + hoist[2 * B + b])
+                  + kptr[0];
+  lq[idx] = c;
+  lp[idx] = c;
+}
+
+// The compute floor of reparam_stereo_kernel: the TPU probe's counted op
+// volume (_TWIN_FULL_OPS = 9 full-width passes, a _TWIN_PREFIX_OPS = 40
+// prefix, two _TWIN_CHAIN_OPS = 40 chains, an exp every
+// _TWIN_TRANSC_EVERY = 12) in generic multiply-adds; it reads what the TPU
+// twin reads: eps, mu_0, sigma_0, the hoisted scalars and k
+__global__ void __launch_bounds__(REP_THREADS)
+twin_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
+                    const float* __restrict__ mu,
+                    const float* __restrict__ sigma,
+                    const float* __restrict__ hoist,
+                    const float* __restrict__ kptr, float* __restrict__ zt,
+                    int z_off, float* __restrict__ lq,
+                    float* __restrict__ lp, int S, int B, int n, int Z) {
+  const long long idx = (long long)blockIdx.x * REP_THREADS + threadIdx.x;
+  if (idx >= (long long)S * B) return;
+  const int b = (int)(idx % B);
+  const int s = (int)(idx / B);
+  const float* ep = eps + eps_stride * idx;
+  float e[REP_MAX_DIM], z[REP_MAX_DIM];
+  for (int j = 0; j < n; ++j) z[j] = e[j] = ep[j];
+  for (int p = 0; p < 9; ++p)
+    for (int j = 0; j < n; ++j) z[j] = z[j] * 1.0000001f + e[j];
+  float* zr = zt + ((size_t)s * Z + z_off) * B + b;
+  for (int j = 0; j < n; ++j) zr[(size_t)j * B] = z[j];
+  const float r = ((hoist[b] + hoist[B + b]) + hoist[2 * B + b]) + kptr[0];
+  float t = (z[0] + mu[(size_t)b * n]) + sigma[(size_t)b * n];
+  for (int i = 0; i < 40; ++i)
+    t = (i % 12 == 11) ? expf(-fabsf(t) * 1e-3f) : t * 1.0000001f + r;
+  float tq = t, tp = t + 1.f;
+  for (int i = 0; i < 40; ++i) {
+    if (i % 12 == 11) {
+      tq = expf(-fabsf(tq) * 1e-3f);
+      tp = expf(-fabsf(tp) * 1e-3f);
+    } else {
+      tq = tq * 1.0000001f + r;
+      tp = tp * 1.0000002f + r;
+    }
+  }
+  lq[idx] = tq;
+  lp[idx] = tp;
+}
+
+// --- launchers ------------------------------------------------------------
+
+// A grid of ELEM_BLOCKS_PER_SM blocks per SM (a full SM's 2048 threads),
+// fewer when the words run out first
+static inline cudaError_t elem_blocks(long long n4, unsigned* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long nb = (n4 + ELEM_THREADS - 1) / ELEM_THREADS;
+  const long long cap = (long long)sms * ELEM_BLOCKS_PER_SM;
+  *blocks = (unsigned)(nb < cap ? nb : cap);
+  return cudaSuccess;
+}
+
+static inline int aligned16(const void* p) { return ((size_t)p % 16) == 0; }
+
+static inline bool row_grid(long long rows, long long per_block,
+                            unsigned* blocks) {
+  if (rows < 0) return false;
+  const long long nb = (rows + per_block - 1) / per_block;
+  if (nb > 2147483647LL) return false;
+  *blocks = (unsigned)nb;
+  return true;
+}
+
+extern "C" int probe_triad_launch(const float* x, const float* y, float* o,
+                                  long long n, void* stream) {
+  unsigned blocks = 0;
+  if (n < 0 || n % 4 || !aligned16(x) || !aligned16(y) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const cudaError_t err = elem_blocks(n / 4, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    probe_triad_kernel<<<blocks, ELEM_THREADS, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(y),
+        reinterpret_cast<float4*>(o), n / 4);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_fma_launch(const float* x, float* o, long long n,
+                                int repeat, void* stream) {
+  unsigned blocks = 0;
+  if (n < 0 || n % 4 || repeat < 1 || !aligned16(x) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const cudaError_t err = elem_blocks(n / 4, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    probe_fma_kernel<<<blocks, ELEM_THREADS, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(o),
+        n / 4, repeat);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_tanh_launch(const float* x, float* o, long long n,
+                                 int repeat, void* stream) {
+  unsigned blocks = 0;
+  if (n < 0 || n % 4 || repeat < 1 || !aligned16(x) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const cudaError_t err = elem_blocks(n / 4, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    probe_tanh_kernel<<<blocks, ELEM_THREADS, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(o),
+        n / 4, repeat);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_reduce_launch(const float* x, float* o, long long rows,
+                                   int cols, void* stream) {
+  unsigned blocks;
+  if (cols < 4 || cols % 4 || !aligned16(x) || !aligned16(o)
+      || !row_grid(rows, ROW_WARPS, &blocks))
+    return (int)cudaErrorInvalidValue;
+  if (rows > 0)
+    probe_reduce_kernel<<<blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+        x, o, rows, cols);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_transpose_launch(const float* x, float* o,
+                                      long long rows, int cols,
+                                      void* stream) {
+  unsigned blocks;
+  if (cols < 8 || cols % 4 || !aligned16(x) || !aligned16(o)
+      || !row_grid(rows, TP_ROWS, &blocks))
+    return (int)cudaErrorInvalidValue;
+  if (rows > 0)
+    probe_transpose_kernel<<<blocks, TP_ROWS, 0, (cudaStream_t)stream>>>(
+        x, o, rows, cols);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int skel_dist_launch(const float* x, const float* y, float* out,
+                                long long rows, int n, int variant,
+                                void* stream) {
+  unsigned blocks;
+  if (n < 1 || variant < 0 || variant > 1
+      || !row_grid(rows, ROW_WARPS, &blocks))
+    return (int)cudaErrorInvalidValue;
+  const int vec4 = n % 4 == 0 && aligned16(x) && aligned16(y);
+  if (rows > 0)
+    skel_dist_kernel<<<blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+        x, y, out, rows, n, vec4, variant);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int twin_stereo_launch(const float* x, const float* y, float* out,
+                                  long long rows, int n, int resident,
+                                  void* stream) {
+  unsigned blocks;
+  if (n < 1 || resident < 0 || resident > 1
+      || !row_grid(rows, ROW_WARPS, &blocks))
+    return (int)cudaErrorInvalidValue;
+  const int vec4 = n % 4 == 0 && aligned16(x) && aligned16(y);
+  if (rows > 0)
+    twin_stereo_kernel<<<blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+        x, y, out, rows, n, vec4, resident);
+  return (int)cudaGetLastError();
+}
+
+static inline bool reparam_grid(int S, int B, int n, int Z, int z_off,
+                                unsigned* blocks) {
+  if (S < 0 || B < 0 || n < 1 || n > REP_MAX_DIM || z_off < 0
+      || z_off + n > Z)
+    return false;
+  return row_grid((long long)S * B, REP_THREADS, blocks);
+}
+
+extern "C" int skel_reparam_launch(const float* eps, long long eps_stride,
+                                   const float* mu, const float* sigma,
+                                   const float* hoist, const float* k,
+                                   float* zt, int z_off,
+                                   float* lq, float* lp, int S, int B, int n,
+                                   int Z, void* stream) {
+  unsigned blocks;
+  if (!reparam_grid(S, B, n, Z, z_off, &blocks))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)S * B > 0)
+    skel_reparam_kernel<<<blocks, REP_THREADS, 0, (cudaStream_t)stream>>>(
+        eps, eps_stride, mu, sigma, hoist, k, zt, z_off, lq, lp, S, B, n, Z);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int twin_reparam_launch(const float* eps, long long eps_stride,
+                                   const float* mu, const float* sigma,
+                                   const float* hoist, const float* k,
+                                   float* zt, int z_off,
+                                   float* lq, float* lp, int S, int B, int n,
+                                   int Z, void* stream) {
+  unsigned blocks;
+  if (!reparam_grid(S, B, n, Z, z_off, &blocks))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)S * B > 0)
+    twin_reparam_kernel<<<blocks, REP_THREADS, 0, (cudaStream_t)stream>>>(
+        eps, eps_stride, mu, sigma, hoist, k, zt, z_off, lq, lp, S, B, n, Z);
+  return (int)cudaGetLastError();
+}

@@ -35,6 +35,7 @@ import os
 import torch
 
 from ..ops import stable
+from ..utils.profiling import check_outputs
 from . import _build
 
 # The tiling of csrc/decode_bce.cu and csrc/train_decode.cu (one layout):
@@ -106,6 +107,7 @@ def fused_decode_bce_t(zt, xt, w1, b1, w2, b2):
     _build.check(_lib()(*[t.data_ptr() for t in args], out.data_ptr(),
                         S, Z, B, H, D, stream), "decode_bce_launch")
     fused_decode_bce_t.launches += 1
+    check_outputs("decode_bce", out)
     return out
 
 
@@ -179,6 +181,7 @@ def train_decode_fwd(z, x, w1, b1, w2, b2):
                               h.data_ptr(), gl.data_ptr(), part.data_ptr(),
                               B, Z, H, D, stream), "train_decode_launch")
     train_decode_bce.launches += 1
+    check_outputs("train_decode", ll, h, gl)
     return ll, h, gl
 
 

@@ -48,6 +48,7 @@ import functools
 import torch
 
 from ..ops import lorentz, stable, stereographic
+from ..utils.profiling import check_outputs
 from . import _build
 from .tail_kernels import MAX_DIM, _stereo_draw
 
@@ -125,6 +126,7 @@ def wrapped_reparam_stereo_t(eps, mu, sigma, k, wraps: int = 1,
                         z_off, lq.data_ptr(), lp.data_ptr(), S, B, n, Z,
                         sign, wraps, stream), "reparam_stereo_launch")
     wrapped_reparam_stereo_t.launches += 1
+    check_outputs("reparam_stereo", zt, lq, lp)
     return zt, lq, lp
 
 
@@ -196,6 +198,7 @@ def _distance_forward(wrapper, entry, ref, x, y, k):
     _build.check(_dist_lib(entry)(x.data_ptr(), y.data_ptr(), k1.data_ptr(),
                                   out.data_ptr(), B, n, stream), entry)
     wrapper.launches += 1
+    check_outputs(entry, out)
     return out
 
 

@@ -1,0 +1,1038 @@
+"""Roofline harness for the port's kernels on an NVIDIA Hopper card: what
+each kernel takes against a floor measured on the same card, not quoted.
+
+Counterpart of ``mvae_tpu/kernels/roofline.py``. Two pieces, as there:
+
+1. **Calibration** (``calibrate``), measured on the card: the HBM stream
+   rate of a triad ``o = x + y`` (``probe_triad``), the FP32 FMA rate
+   (``probe_fma``: 8 independent chains of 8 FMAs a word, run ``repeat``
+   times), the accurate-tanh rate (``probe_tanh``), the cost of one row
+   reduction (``probe_reduce``: a warp per row, shuffles) and of one (2048,
+   8) relayout through shared memory (``probe_transpose``), and the bf16
+   tensor-core rate of four chained 4096^3 ``torch.matmul`` (a plain large
+   product, which the JAX package left to XLA as well). A rate above 105%
+   of the H100 SXM data sheet's peak (``PEAK``; ``SANITY``) means the
+   measurement broke: it is measured once more and then raises
+   ``CalibrationError``. There is no nominal fallback.
+
+2. **Binding floors** for the kernels the reference measured (``main``):
+   for each, an I/O skeleton with the kernel's exact launch shape and reads
+   (``skel_dist``, ``skel_reparam``: the bytes floor) and a synthetic twin
+   that does a lower bound of its operations (``twin_stereo``,
+   ``twin_reparam``: the compute floor; ``resident=True`` keeps the twin's
+   input in L2 so its time is the arithmetic's). A kernel's binding floor
+   is the larger of the two whole-launch times: blocks run in parallel on
+   132 SMs, so the TPU's per-block cost times the number of blocks does not
+   apply. Where the reference has no twin, the floor is priced from the
+   calibrated rates and says so.
+
+The probes are one CUDA source, ``csrc/roofline_probes.cu`` (replaces the
+TPU kernels ``_elementwise_call`` with ``_fma_kernel``, ``_tanh_kernel``,
+``_reduce_kernel``, ``_transpose_kernel``; ``_calibrate_once.triad``;
+``_skel_dist``; ``_skel_reparam``; ``_twin_stereo``; ``_twin_reparam``).
+Each wrapper launches its kernel for CUDA tensors, runs its plain PyTorch
+version (``*_ref``, beside it) for CPU tensors and raises otherwise, and
+counts its launches. Bound and design of each are in the source's note.
+
+``measure`` gives a kernel's device time per launch from CUDA events
+around the replay of a CUDA graph of its launches, with the median of the
+``torch.profiler`` (CUPTI) trace's records of another replay beside it as
+the cross-check (on the card the trace's durations drift from session to
+session; see ``measure``). Shapes whose bytes fit in the 50 MB L2 are
+timed over rotating buffer sets, so that every launch reads from device
+memory as the real caller's would.
+
+Run on the card:  python -m mvae_torch.kernels.roofline [out.json]
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import dataclasses
+import functools
+import json
+import math
+import subprocess
+import sys
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..ops import lorentz, stable, stereographic
+from ..utils.profiling import check_outputs
+from . import _build, decoder_kernels, manifold_kernels
+
+# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
+PEAK = {"hbm_gbps": 3350.0, "fp32_tflops": 67.0, "bf16_tflops": 989.0}
+# A rate outside its window proves the measurement broke. A tanh costs at
+# least one FP32 instruction (67 TFLOP/s counts an FMA as two); the reduce
+# and transpose probes move bytes no faster than the stream.
+SANITY = {
+    "stream_gbps": (100.0, 1.05 * PEAK["hbm_gbps"]),
+    "fma_tflops": (1.0, 1.05 * PEAK["fp32_tflops"]),
+    "tanh_gops": (1.0, 1.05 * PEAK["fp32_tflops"] * 1e3 / 2),
+    "reduce_gbps": (10.0, 1.05 * PEAK["hbm_gbps"]),
+    "transpose_gbps": (10.0, 1.05 * PEAK["hbm_gbps"]),
+    "bf16_tflops": (10.0, 1.05 * PEAK["bf16_tflops"]),
+}
+
+B, N = 1 << 20, 128           # the distance and calibration shape
+RESIDENT_ROWS = 2048          # csrc RESIDENT_ROWS: the resident twin's tile
+RS, RN, RB = 125, 6, 2048     # production IWAE chunk reparam, sign -1
+DS, DB, DZ, DH, DD = 16, 2048, 8, 400, 784   # the IWAE decode row
+GEMM_M = 4096
+# FMA and tanh chain blocks per word in calibration: 64 FMAs a word at
+# repeat = 1 is 16 FLOP a byte, under the card's FP32 balance point (20);
+# 32 puts the probe 25x past it
+CAL_REPEAT = 32
+ITERS = 20
+
+# the B7b compute price: n subtractions and n FMAs a row, one row
+# reduction, and a tail of ~12 FLOP and 3 transcendentals (log1p, two
+# sqrt), each a low count
+LORENTZ_TAIL_FLOPS = 12
+LORENTZ_TAIL_TRANSCENDENTALS = 3
+# the BCE epilogue of B2 per logit: bias, x * l, softplus (max, abs, exp,
+# log1p, add), the difference and the sum; per hidden unit: bias and ReLU
+BCE_OPS_PER_LOGIT = 9
+HIDDEN_OPS_PER_UNIT = 2
+
+
+class CalibrationError(RuntimeError):
+    pass
+
+
+def _log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _require_cuda(what: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} measures a CUDA card and none is "
+                           f"available; no CPU time stands in for it")
+
+
+# ----------------------------------------------------------------- wrappers
+
+
+_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = {
+    "probe_triad_launch": [_VP, _VP, _VP, _LL],
+    "probe_fma_launch": [_VP, _VP, _LL, _INT],
+    "probe_tanh_launch": [_VP, _VP, _LL, _INT],
+    "probe_reduce_launch": [_VP, _VP, _LL, _INT],
+    "probe_transpose_launch": [_VP, _VP, _LL, _INT],
+    "skel_dist_launch": [_VP, _VP, _VP, _LL, _INT, _INT],
+    "twin_stereo_launch": [_VP, _VP, _VP, _LL, _INT, _INT],
+    "skel_reparam_launch": [_VP, _LL] + [_VP] * 5 + [_INT] + [_VP] * 2
+                           + [_INT] * 4,
+    "twin_reparam_launch": [_VP, _LL] + [_VP] * 5 + [_INT] + [_VP] * 2
+                           + [_INT] * 4,
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    fn = getattr(_build.load("roofline_probes"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[name] + [_VP]
+    return fn
+
+
+def _launch(name: str, device, *args) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _build.check(_entry(name)(*args, stream), name)
+
+
+def _launched(wrapper, *outs) -> None:
+    """Count a launch; with the NaN guard on, check the kernel's outputs
+    (ctypes bypasses the dispatcher the guard watches)."""
+    wrapper.launches += 1
+    check_outputs(wrapper.__name__, *outs)
+
+
+def _on_card(what: str, *tensors) -> bool:
+    """False for CPU tensors (the plain version runs), True for float32
+    CUDA tensors on one card (the kernel runs); raises otherwise, and on a
+    machine without a card."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: operands on different devices")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: a CUDA tensor on a machine without a "
+                           f"CUDA card")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"{what}: operands must be float32")
+    return True
+
+
+def _rows(what: str, x, min_cols: int = 1):
+    if x.dim() != 2 or x.shape[1] < min_cols:
+        raise ValueError(f"{what}: x must be (rows, >= {min_cols} cols), got "
+                         f"{tuple(x.shape)}")
+    return x.shape
+
+
+def _f32(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def _fma(a, c, b):
+    """a * c + b rounded once, as the kernels' ``fmaf`` (and XLA, which
+    contracts the reference probes' a * c + b on the CPU). The product of
+    two float32 values is exact in float64; the sum is rounded to float64,
+    then to float32, which differs from one rounding only at a float32 tie.
+    Python-number operands are float32 constants."""
+    c = _f32(c) if isinstance(c, float) else c.double()
+    b = _f32(b) if isinstance(b, float) else b.double()
+    return (a.double() * c + b).to(a.dtype)
+
+
+def _chain_sum(accs):
+    out = accs[0]
+    for a in accs[1:]:
+        out = out + a
+    return out
+
+
+def _tree8(a):
+    return ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]))
+
+
+def probe_triad_ref(x, y):
+    """Plain version of the triad: o = x + y."""
+    return x + y
+
+
+def probe_triad(x, y):
+    """HBM stream probe o = x + y (B8b); 16-byte loads, grid-stride."""
+    if x.shape != y.shape:
+        raise ValueError("x and y must have one shape")
+    if not _on_card("probe_triad", x, y):
+        return probe_triad_ref(x, y)
+    x, y = x.contiguous(), y.contiguous()
+    o = torch.empty_like(x)
+    _launch("probe_triad_launch", x.device, x.data_ptr(), y.data_ptr(),
+            o.data_ptr(), x.numel())
+    _launched(probe_triad, o)
+    return o
+
+
+def probe_fma_ref(x, repeat: int = 1):
+    """Plain version of the FMA probe: 8 chains a = fma(a, 1.0000001, x)
+    from a = x + j, 8 * repeat steps each, summed in order (the TPU probe
+    at repeat = 1)."""
+    accs = [x + float(j) for j in range(8)]
+    for _ in range(8 * repeat):
+        accs = [_fma(a, 1.0000001, x) for a in accs]
+    return _chain_sum(accs)
+
+
+def probe_fma(x, repeat: int = 1):
+    """FP32 FMA-rate probe (B8a), one ``fmaf`` per chain step."""
+    if repeat < 1:
+        raise ValueError("repeat must be >= 1")
+    if not _on_card("probe_fma", x):
+        return probe_fma_ref(x, repeat)
+    x = x.contiguous()
+    o = torch.empty_like(x)
+    _launch("probe_fma_launch", x.device, x.data_ptr(), o.data_ptr(),
+            x.numel(), repeat)
+    _launched(probe_fma, o)
+    return o
+
+
+def probe_tanh_ref(x, repeat: int = 1):
+    """Plain version of the tanh probe: 4 chains of 4 * repeat tanh from
+    x + j, summed in order."""
+    accs = [x + float(j) for j in range(4)]
+    for _ in range(4 * repeat):
+        accs = [torch.tanh(a) for a in accs]
+    return _chain_sum(accs)
+
+
+def probe_tanh(x, repeat: int = 1):
+    """Transcendental-rate probe (B8a): the accurate ``tanhf``."""
+    if repeat < 1:
+        raise ValueError("repeat must be >= 1")
+    if not _on_card("probe_tanh", x):
+        return probe_tanh_ref(x, repeat)
+    x = x.contiguous()
+    o = torch.empty_like(x)
+    _launch("probe_tanh_launch", x.device, x.data_ptr(), o.data_ptr(),
+            x.numel(), repeat)
+    _launched(probe_tanh, o)
+    return o
+
+
+def probe_reduce_ref(x):
+    """Plain version of the reduce probe: 8 row sums of x + i, tree-added,
+    broadcast over the row."""
+    s = [torch.sum(x + float(i), dim=1, keepdim=True) for i in range(8)]
+    return _tree8(s).expand(x.shape).contiguous()
+
+
+def probe_reduce(x):
+    """Row-reduction probe (B8a): one warp per row, xor-shuffle sums."""
+    rows, cols = _rows("probe_reduce", x, 4)
+    if not _on_card("probe_reduce", x):
+        return probe_reduce_ref(x)
+    if cols % 4:
+        raise ValueError("probe_reduce takes cols % 4 == 0")
+    x = x.contiguous()
+    o = torch.empty_like(x)
+    _launch("probe_reduce_launch", x.device, x.data_ptr(), o.data_ptr(),
+            rows, cols)
+    _launched(probe_reduce, o)
+    return o
+
+
+def probe_transpose_ref(x):
+    """Plain version of the relayout probe: every element of row r is
+    sum_c sum_i (x[r, c] + i) over the first 8 columns."""
+    p = x[:, 0:8]
+    acc = _tree8([p + float(i) for i in range(8)])
+    return acc.sum(dim=1, keepdim=True).expand(x.shape).contiguous()
+
+
+def probe_transpose(x):
+    """Relayout probe (B8a): eight (256, 8) tiles through shared memory."""
+    rows, cols = _rows("probe_transpose", x, 8)
+    if not _on_card("probe_transpose", x):
+        return probe_transpose_ref(x)
+    if cols % 4:
+        raise ValueError("probe_transpose takes cols % 4 == 0")
+    x = x.contiguous()
+    o = torch.empty_like(x)
+    _launch("probe_transpose_launch", x.device, x.data_ptr(), o.data_ptr(),
+            rows, cols)
+    _launched(probe_transpose, o)
+    return o
+
+
+_SKEL_VARIANTS = {"rowstore": 0, "block": 1}
+
+
+def skel_dist_ref(x, y, variant: str = "rowstore"):
+    """Plain version of the distance skeleton: each row's words summed; the
+    "block" variant adds x[r, 0] and y[r, 0] once more."""
+    s = x.sum(dim=1) + y.sum(dim=1)
+    if variant == "block":
+        s = (s + x[:, 0]) + y[:, 0]
+    return s
+
+
+def skel_dist(x, y, variant: str = "rowstore"):
+    """Bytes floor of the distance kernels (B8c): "rowstore" prices
+    ``stereo_dist_kernel``, "block" ``lorentz_dist_kernel``: the same
+    launch, reads and one store a row, each word folded with one add."""
+    if variant not in _SKEL_VARIANTS:
+        raise ValueError(f"variant must be one of {sorted(_SKEL_VARIANTS)}")
+    rows, n = _rows("skel_dist", x)
+    if x.shape != y.shape:
+        raise ValueError("x and y must have one shape")
+    if not _on_card("skel_dist", x, y):
+        return skel_dist_ref(x, y, variant)
+    x, y = x.contiguous(), y.contiguous()
+    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    _launch("skel_dist_launch", x.device, x.data_ptr(), y.data_ptr(),
+            out.data_ptr(), rows, n, _SKEL_VARIANTS[variant])
+    _launched(skel_dist, out)
+    return out
+
+
+# _STWIN_PREFIX_OPS, _STWIN_CHAIN_OPS, _STWIN_MERGE_OPS of the reference
+STWIN_PREFIX_OPS, STWIN_CHAIN_OPS, STWIN_MERGE_OPS = 9, 18, 4
+
+
+def _twin_stereo_rows(x, y):
+    r1 = torch.sum(x * x, dim=1)
+    r2 = torch.sum(y * y, dim=1)
+    r3 = torch.sum(x * y, dim=1)
+    t = _fma(r2, 1.0000001, r1) + r3
+    for _ in range(STWIN_PREFIX_OPS):
+        t = _fma(t, 1.0000001, 0.1)
+    ta, tb, tc = t, t + 1.0, t + 2.0
+    for j in range(STWIN_CHAIN_OPS):
+        if j == 5:
+            ta = torch.sqrt(torch.abs(ta) + 1e-6)
+            tb = torch.sqrt(torch.abs(tb) + 1e-6)
+            tc = torch.sqrt(torch.abs(tc) + 1e-6)
+        elif j == 12:
+            ta = 1.0 / (torch.abs(ta) + 1.0)
+            tb = torch.exp(-torch.abs(tb) * 1e-3)
+            tc = 1.0 / (torch.abs(tc) + 1.0)
+        else:
+            ta = _fma(ta, 1.0000001, 0.1)
+            tb = _fma(tb, 1.0000002, 0.1)
+            tc = _fma(tc, 1.0000003, 0.1)
+    t = _fma(tb, tc, ta)
+    for _ in range(STWIN_MERGE_OPS):
+        t = _fma(t, 1.0000001, 0.1)
+    return t
+
+
+def twin_stereo_ref(x, y, resident: bool = False):
+    """Plain version of the stereographic twin: per row the three Gram sums
+    and the reference's lower-bound tail; ``resident`` reads row
+    r mod 2048 for output row r."""
+    if not resident:
+        return _twin_stereo_rows(x, y)
+    rows = x.shape[0]
+    tile = min(rows, RESIDENT_ROWS)
+    t = _twin_stereo_rows(x[:tile], y[:tile])
+    return t[torch.arange(rows, device=x.device) % tile]
+
+
+def twin_stereo(x, y, resident: bool = False):
+    """Compute floor of ``stereo_dist_kernel`` (B8e), at its launch shape;
+    ``resident=True`` keeps the input tile in L2 so the time is the
+    arithmetic alone."""
+    rows, n = _rows("twin_stereo", x)
+    if x.shape != y.shape:
+        raise ValueError("x and y must have one shape")
+    if not _on_card("twin_stereo", x, y):
+        return twin_stereo_ref(x, y, resident)
+    x, y = x.contiguous(), y.contiguous()
+    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    _launch("twin_stereo_launch", x.device, x.data_ptr(), y.data_ptr(),
+            out.data_ptr(), rows, n, int(resident))
+    _launched(twin_stereo, out)
+    return out
+
+
+# _TWIN_FULL_OPS, _TWIN_PREFIX_OPS, _TWIN_CHAIN_OPS, _TWIN_TRANSC_EVERY
+TWIN_FULL_OPS, TWIN_PREFIX_OPS, TWIN_CHAIN_OPS, TWIN_TRANSC_EVERY = \
+    9, 40, 40, 12
+
+
+def reparam_scalars(mu, sigma):
+    """The reparam probes' hoisted per-example inputs, one (3, B) array:
+    sum log sigma, min sigma, |mu|^2 (the reference's ``ls``, ``smin``,
+    ``x2``), computed once per example as the reference does, outside the
+    probe."""
+    return torch.stack([torch.log(sigma).sum(dim=1), sigma.min(dim=1).values,
+                        (mu * mu).sum(dim=1)])
+
+
+def skel_reparam_ref(eps, mu, sigma, k, scalars=None):
+    """Plain version of the reparam skeleton: eps (S, B, n) copied to zt
+    (S, n, B); log q = log p = mu_0 + sigma_0 + ... + mu_{n-1} +
+    sigma_{n-1} + sum log sigma + min sigma + |mu|^2 + k per example (the
+    TPU skeleton adds mu_0 + sigma_0 alone: nvcc drops an unused load)."""
+    S, Bb, n = eps.shape
+    ls, smin, x2 = reparam_scalars(mu, sigma) if scalars is None else scalars
+    acc = torch.zeros_like(mu[:, 0])
+    for j in range(n):
+        acc = (acc + mu[:, j]) + sigma[:, j]
+    c = (((acc + ls) + smin) + x2) + k.reshape(())
+    lq = c.expand(S, Bb).contiguous()
+    return eps.transpose(1, 2).contiguous(), lq, lq.clone()
+
+
+def twin_reparam_ref(eps, mu, sigma, k, scalars=None):
+    """Plain version of the reparam twin: 9 full-width passes
+    z = fma(z, c, eps), then per (sample, example) a 40-op prefix and two
+    40-op chains of fused multiply-adds with an exp every 12th op."""
+    z = eps
+    for _ in range(TWIN_FULL_OPS):
+        z = _fma(z, 1.0000001, eps)
+    ls, smin, x2 = reparam_scalars(mu, sigma) if scalars is None else scalars
+    r = ((ls + smin) + x2) + k.reshape(())
+    t = (z[..., 0] + mu[:, 0]) + sigma[:, 0]
+    last = TWIN_TRANSC_EVERY - 1
+    for i in range(TWIN_PREFIX_OPS):
+        t = (torch.exp(-torch.abs(t) * 1e-3) if i % TWIN_TRANSC_EVERY == last
+             else _fma(t, 1.0000001, r))
+    tq, tp = t, t + 1.0
+    for i in range(TWIN_CHAIN_OPS):
+        if i % TWIN_TRANSC_EVERY == last:
+            tq = torch.exp(-torch.abs(tq) * 1e-3)
+            tp = torch.exp(-torch.abs(tp) * 1e-3)
+        else:
+            tq = _fma(tq, 1.0000001, r)
+            tp = _fma(tp, 1.0000002, r)
+    return z.transpose(1, 2).contiguous(), tq, tp
+
+
+def _reparam_probe(wrapper, entry, ref, eps, mu, sigma, k, scalars, out,
+                   z_off):
+    """The reparam probes' interface, as ``wrapped_reparam_stereo_t``'s:
+    eps (S, B, n) (a view with unit stride along n is read in place), mu
+    and sigma (B, n), k one value; ``scalars`` the (3, B) hoisted inputs
+    (``reparam_scalars(mu, sigma)`` when None: pass them to keep their
+    computation out of a timed call); with ``out`` (S, Z, B) z goes to its
+    rows z_off .. z_off + n. Returns (zt, lq, lp)."""
+    if eps.dim() != 3:
+        raise ValueError(f"eps must be (S, B, n), got {tuple(eps.shape)}")
+    S, Bb, n = eps.shape
+    k = torch.as_tensor(k)
+    if tuple(mu.shape) != (Bb, n) or tuple(sigma.shape) != (Bb, n):
+        raise ValueError(f"mu and sigma must be ({Bb}, {n})")
+    if k.numel() != 1 or not 1 <= n <= 32:
+        raise ValueError("k must be one value and 1 <= n <= 32")
+    if scalars is None:
+        scalars = reparam_scalars(mu, sigma)
+    if tuple(scalars.shape) != (3, Bb):
+        raise ValueError(f"scalars must be (3, {Bb})")
+    on_card = _on_card(wrapper.__name__, eps, mu, sigma, scalars, k)
+    if out is None:
+        out = torch.empty((S, n, Bb), dtype=eps.dtype, device=eps.device)
+        z_off = 0
+    Z = out.shape[1] if out.dim() == 3 else -1
+    if (tuple(out.shape) != (S, Z, Bb) or not 0 <= z_off <= Z - n
+            or not out.is_contiguous() or out.device != eps.device):
+        raise ValueError(f"out must be a contiguous ({S}, Z, {Bb}) buffer "
+                         f"with Z >= z_off + {n}, on eps's device")
+    zt = out[:, z_off:z_off + n]
+    if not on_card:
+        z, lq, lp = ref(eps, mu, sigma, k, scalars)
+        zt.copy_(z)
+        return zt, lq, lp
+    if eps.stride(2) != 1 or eps.stride(0) != Bb * eps.stride(1):
+        eps = eps.contiguous()
+    mu, sigma = mu.contiguous(), sigma.contiguous()
+    scalars = scalars.contiguous()
+    k1 = k.reshape(1)
+    lq = torch.empty((S, Bb), dtype=torch.float32, device=eps.device)
+    lp = torch.empty((S, Bb), dtype=torch.float32, device=eps.device)
+    _launch(entry, eps.device, eps.data_ptr(), eps.stride(1), mu.data_ptr(),
+            sigma.data_ptr(), scalars.data_ptr(), k1.data_ptr(),
+            out.data_ptr(), z_off,
+            lq.data_ptr(), lp.data_ptr(), S, Bb, n, Z)
+    _launched(wrapper, zt, lq, lp)
+    return zt, lq, lp
+
+
+def skel_reparam(eps, mu, sigma, k, scalars=None, out=None, z_off: int = 0):
+    """Bytes floor of ``reparam_stereo_kernel`` (B8d), at its launch shape
+    and layout: z = eps, log q = log p = a per-example sum that reads every
+    word of mu and sigma the kernel reads, and the hoisted scalars."""
+    return _reparam_probe(skel_reparam, "skel_reparam_launch",
+                          skel_reparam_ref, eps, mu, sigma, k, scalars, out,
+                          z_off)
+
+
+def twin_reparam(eps, mu, sigma, k, scalars=None, out=None, z_off: int = 0):
+    """Compute floor of ``reparam_stereo_kernel`` (B8f): the reference's
+    counted op volume in generic multiply-adds, at its launch shape, on the
+    reference's hoisted per-example scalars."""
+    return _reparam_probe(twin_reparam, "twin_reparam_launch",
+                          twin_reparam_ref, eps, mu, sigma, k, scalars, out,
+                          z_off)
+
+
+PROBES = (probe_triad, probe_fma, probe_tanh, probe_reduce, probe_transpose,
+          skel_dist, skel_reparam, twin_stereo, twin_reparam)
+for _p in PROBES:
+    _p.launches = 0
+# every counted wrapper ``measure`` may capture into a CUDA graph
+COUNTED = PROBES + (manifold_kernels.stereo_distance,
+                    manifold_kernels.lorentz_distance,
+                    manifold_kernels.wrapped_reparam_stereo_t,
+                    decoder_kernels.fused_decode_bce_t)
+
+
+# ---------------------------------------------------------------- arithmetic
+
+
+def dist_bytes(rows: int, n: int) -> int:
+    """Bytes a distance kernel must move: x and y read, k, one float out."""
+    return 4 * (2 * rows * n + 1 + rows)
+
+
+def reparam_bytes(S: int, Bb: int, n: int) -> int:
+    """Bytes of the chunk reparam: eps in, z out, log q and log p out, mu
+    and sigma once, k."""
+    return 4 * (2 * S * Bb * n + 2 * S * Bb + 2 * Bb * n + 1)
+
+
+def decode_bytes(S: int, Bb: int, Z: int, H: int, D: int) -> int:
+    """Bytes of the IWAE decode: z, x, the weights and biases in, (S, B)
+    out."""
+    return 4 * (S * Z * Bb + D * Bb + Z * H + H + H * D + D + S * Bb)
+
+
+def decode_flops(S: int, Bb: int, Z: int, H: int, D: int) -> dict:
+    """FP32 operations of the port's B2: the two products 2 S B (Z H + H D)
+    and the elementwise epilogue (bias + ReLU, the BCE)."""
+    gemm = 2 * S * Bb * (Z * H + H * D)
+    elem = S * Bb * (HIDDEN_OPS_PER_UNIT * H + BCE_OPS_PER_LOGIT * D)
+    return {"gemm": gemm, "elementwise": elem, "total": gemm + elem}
+
+
+def lorentz_compute_us(rows: int, n: int, cal: dict) -> float:
+    """The B7b compute price from the calibrated rates: per row 3 n FLOP
+    (n subtractions, n FMAs) and the tail's FLOP over ``fma_tflops``, one
+    ``reduce_us``, the tail's transcendentals over ``tanh_gops``."""
+    flops = 3 * n + LORENTZ_TAIL_FLOPS
+    return rows * (flops / (cal["fma_tflops"] * 1e6) + cal["reduce_us"]
+                   + LORENTZ_TAIL_TRANSCENDENTALS / (cal["tanh_gops"] * 1e3))
+
+
+def rates(times_us: dict, repeat: int) -> dict:
+    """Calibrated rates from the probes' device times (us per launch) at
+    (B, N): the stream rate counts 3 words a triad element, the FMA
+    rate 128 * repeat FLOP a word, the tanh rate 16 * repeat a word;
+    ``reduce_us`` is one row's reduction (8 a row), ``transpose_us`` one
+    (2048, 8) relayout (8 per 2048 rows); ``*_gbps`` the bytes the reduce
+    and transpose probes move."""
+    rows, words = B, B * N
+    t = {k: v * 1e-6 for k, v in times_us.items()}
+    out = {
+        "stream_gbps": 3 * 4 * words / t["triad"] / 1e9,
+        "fma_tflops": words * 64 * 2 * repeat / t["fma"] / 1e12,
+        "tanh_gops": words * 16 * repeat / t["tanh"] / 1e9,
+        "reduce_us": times_us["reduce"] / (rows * 8),
+        "reduce_gbps": 2 * 4 * words / t["reduce"] / 1e9,
+        "transpose_us": times_us["transpose"] / (rows / 2048 * 8),
+        "transpose_gbps": 4 * (rows * 8 + words) / t["transpose"] / 1e9,
+    }
+    if "gemm" in t:
+        out["bf16_tflops"] = 4 * 2 * GEMM_M ** 3 / t["gemm"] / 1e12
+    return out
+
+
+def out_of_window(cal: dict) -> list[str]:
+    """The calibrated rates outside their ``SANITY`` window."""
+    return [k for k, (lo, hi) in SANITY.items()
+            if k in cal and not lo <= cal[k] <= hi]
+
+
+def peak_share(us: float, nbytes: int = 0, flops: int = 0) -> dict:
+    """Achieved rates and the share of the data-sheet peaks."""
+    s = us * 1e-6
+    out = {}
+    if nbytes:
+        out["gbps"] = nbytes / s / 1e9
+        out["pct_of_hbm_peak"] = 100.0 * out["gbps"] / PEAK["hbm_gbps"]
+    if flops:
+        out["tflops"] = flops / s / 1e12
+        out["pct_of_fp32_peak"] = 100.0 * out["tflops"] / PEAK["fp32_tflops"]
+    return out
+
+
+def binding(us: float, floors: dict) -> dict:
+    """The binding floor: the largest of the floors (us per launch, each a
+    whole-launch time), which one binds, and the kernel's share of it."""
+    name = max(floors, key=floors.get)
+    return {"floors_us": dict(floors), "binding_floor_us": floors[name],
+            "bound_by": name, "pct_of_binding": 100.0 * floors[name] / us}
+
+
+def buffer_sets(nbytes: int, l2_bytes: int) -> int:
+    """Rotating buffer sets that put twice the L2 between two uses of one
+    set (1 when a set alone is that large)."""
+    return max(1, math.ceil(2 * l2_bytes / max(nbytes, 1)))
+
+
+def max_rel_err(got, ref) -> float:
+    """Max |got - ref| / (|ref| + 1e-2 max |ref|): relative, with a floor
+    of 1% of the reference's scale (the reference's ``_accuracy``)."""
+    ref = ref.double()
+    scale = 1e-2 * float(ref.abs().max())
+    return float(((got.double() - ref).abs() / (ref.abs() + scale)).max())
+
+
+# -------------------------------------------------------------- measurement
+
+
+@dataclasses.dataclass
+class Timing:
+    """Time per call: for a kernel (``source`` "graph"), its device time per
+    launch from CUDA events around one replay of a CUDA graph of ``iters``
+    launches (no host time between them), with ``trace_us`` the median of
+    the ``traced`` launches the CUPTI trace of another replay holds, the
+    cross-check; for a composition of library kernels (``source``
+    "events"), CUDA events around ``iters`` calls as the host issues them
+    (``trace_us`` None)."""
+    us: float
+    trace_us: float | None
+    traced: int
+    iters: int
+    source: str
+
+
+def _events_us(run, calls: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
+
+
+def captured_launches(record) -> dict:
+    """Run ``record``, which captures wrapper calls into a CUDA graph, and
+    return each ``COUNTED`` wrapper's calls in it. Nothing runs on the card
+    during a capture, so those calls are taken back off the counts; each
+    replay of the graph adds them (``count_replays``)."""
+    before = {f: f.launches for f in COUNTED}
+    record()
+    per_replay = {f: f.launches - n for f, n in before.items()
+                  if f.launches != n}
+    for f in per_replay:
+        f.launches = before[f]
+    return per_replay
+
+
+def count_replays(per_replay: dict, replays: int) -> None:
+    for f, n in per_replay.items():
+        f.launches += n * replays
+
+
+def measure(calls, kernel: str | None = None, iters: int = ITERS) -> Timing:
+    """Time ``calls`` (a zero-argument callable, or a list of them cycled
+    through: rotating buffer sets) on the card. With ``kernel`` (the name
+    of the device kernel each call launches once) the calls are captured
+    in a CUDA graph and timed by replay; without, by an events loop. The
+    wrappers' launch counts end up counting what ran on the card: the
+    warm-up calls and ``iters`` launches for each of the graph's three
+    replays.
+
+    Why not the CUPTI trace alone: on the H100 machine the trace's kernel
+    durations were off by a factor that changes from one profiling session
+    to the next (-5% to +5% for one 343 us kernel in three sessions, and
+    -13% and -49% in another run, where it put a kernel at 107% of the HBM
+    peak), while CUDA events agreed within 1%; the graph keeps the host's
+    launch cost out of the events of short kernels."""
+    if callable(calls):
+        calls = [calls]
+
+    def loop():
+        for i in range(iters):
+            calls[i % len(calls)]()
+
+    for c in calls:           # warm-up: one call of every buffer set
+        c()
+    if kernel is None:
+        us = _events_us(loop, iters)
+        return Timing(us, None, 0, iters, "events")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+
+    def record():
+        with torch.cuda.graph(graph):
+            loop()
+
+    per_replay = captured_launches(record)
+    graph.replay()
+    us = _events_us(graph.replay, iters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    durations = sorted(ev.time_range.elapsed_us() for ev in prof.events()
+                       if kernel in ev.name)
+    trace_us = durations[len(durations) // 2] if durations else None
+    count_replays(per_replay, 3)
+    return Timing(us, trace_us, len(durations), iters, "graph")
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[torch.cuda.current_device()]
+
+
+def _l2_bytes() -> int:
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).L2_cache_size
+
+
+def _normal(shape, seed, scale=1.0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return scale * torch.randn(shape, generator=gen, device="cuda")
+
+
+def _gemm_chain(x, w):
+    """Four chained bf16 products with f32 accumulation, each fed the
+    previous one's whole output (w ~ N(0, 1 / M) keeps the scale)."""
+    for _ in range(4):
+        x = torch.matmul(x, w)
+    return x
+
+
+def _calibrate_once() -> dict:
+    x = _normal((B, N), 0, 0.05)
+    y = _normal((B, N), 1, 0.05)
+    tm = {
+        "triad": measure(lambda: probe_triad(x, y), "probe_triad_kernel"),
+        "fma": measure(lambda: probe_fma(x, CAL_REPEAT), "probe_fma_kernel"),
+        "tanh": measure(lambda: probe_tanh(x, CAL_REPEAT),
+                        "probe_tanh_kernel"),
+        "reduce": measure(lambda: probe_reduce(x), "probe_reduce_kernel"),
+        "transpose": measure(lambda: probe_transpose(x),
+                             "probe_transpose_kernel"),
+    }
+    del x, y
+    a = _normal((GEMM_M, GEMM_M), 2).to(torch.bfloat16)
+    w = _normal((GEMM_M, GEMM_M), 3, GEMM_M ** -0.5).to(torch.bfloat16)
+    tm["gemm"] = measure(lambda: _gemm_chain(a, w))
+    cal = rates({k: v.us for k, v in tm.items()}, CAL_REPEAT)
+    cal["repeat"] = CAL_REPEAT
+    cal["timings"] = {k: dataclasses.asdict(v) for k, v in tm.items()}
+    return cal
+
+
+def calibrate(retries: int = 1) -> dict:
+    """Measure the card's rates (``rates``; FMA and tanh at repeat
+    ``CAL_REPEAT``); a rate outside its ``SANITY`` window is measured again
+    ``retries`` times, then raises ``CalibrationError``."""
+    _require_cuda("calibrate()")
+    cal = _calibrate_once()
+    for _ in range(retries):
+        bad = out_of_window(cal)
+        if not bad:
+            break
+        _log(f"  calibration outside its windows ({bad}); measuring again")
+        cal = _calibrate_once()
+    bad = out_of_window(cal)
+    if bad:
+        raise CalibrationError(
+            "calibrated rates outside their windows: "
+            + ", ".join(f"{k} = {cal[k]:.4g} not in {SANITY[k]}"
+                        for k in bad))
+    return cal
+
+
+# ------------------------------------------------------------------- rows
+
+
+def _timing(t: Timing) -> dict:
+    return dataclasses.asdict(t)
+
+
+# The rows' inputs, made from fixed seeds on the card, so that a caller can
+# hold the kernels to their plain versions on what the rows timed
+
+
+def stereo_inputs():
+    """B7a's row: x, y (B, N) ~ N(0, 0.05^2), inside the K = -1 ball."""
+    return _normal((B, N), 0, 0.05), _normal((B, N), 1, 0.05)
+
+
+def lorentz_inputs():
+    """B7b's row: x, y on the K = -1 hyperboloid, (B, N)."""
+    k = torch.tensor(-1.0, device="cuda")
+    scale = 0.7 / (N - 1) ** 0.5
+    return (lorentz.exp_map_mu0(_normal((B, N - 1), 4, scale), k),
+            lorentz.exp_map_mu0(_normal((B, N - 1), 5, scale), k))
+
+
+def reparam_sets(n_sets: int) -> list[tuple]:
+    """B5's row: ``n_sets`` buffer sets (eps (RS, RB, RN), mu, sigma, out
+    (RS, RN, RB), the hoisted scalars) at K = -1."""
+    k = torch.tensor(-1.0, device="cuda")
+    sets = []
+    for i in range(n_sets):
+        eps = _normal((RS, RB, RN), 10 + 3 * i)
+        mu = stereographic.exp_map_mu0(
+            _normal((RB, RN), 11 + 3 * i, 0.4), k)
+        gen = torch.Generator(device="cuda").manual_seed(12 + 3 * i)
+        sig = 0.5 + 0.7 * torch.rand((RB, RN), generator=gen, device="cuda")
+        out = torch.empty((RS, RN, RB), device="cuda")
+        sets.append((eps, mu, sig, out, reparam_scalars(mu, sig)))
+    return sets
+
+
+def decode_sets(n_sets: int) -> list[tuple]:
+    """B2's row: ``n_sets`` argument sets (zt, xt, w1, b1, w2, b2) of
+    ``fused_decode_bce_t`` at (DS, DB, DZ, DH, DD)."""
+    sets = []
+    for i in range(n_sets):
+        s = 20 + 7 * i
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        xt = (torch.rand((DD, DB), generator=gen, device="cuda")
+              < 0.3).float()
+        sets.append((_normal((DS, DZ, DB), s + 1), xt,
+                     _normal((DZ, DH), s + 2, 0.3),
+                     _normal((DH,), s + 3, 0.05),
+                     _normal((DH, DD), s + 4, 0.08),
+                     _normal((DD,), s + 5, 0.05)))
+    return sets
+
+
+def _row_stereo(cal, x, y):
+    k = torch.tensor(-1.0, device="cuda")
+    t = measure(lambda: manifold_kernels.stereo_distance(x, y, k),
+                "stereo_dist_kernel")
+    plain = measure(lambda: manifold_kernels.stereo_distance_ref(x, y, k),
+                    iters=3)
+    skel = measure(lambda: skel_dist(x, y, "rowstore"), "skel_dist_kernel")
+    twin_c = measure(lambda: twin_stereo(x, y, resident=True),
+                     "twin_stereo_kernel")
+    twin_s = measure(lambda: twin_stereo(x, y), "twin_stereo_kernel")
+    m = 1 << 16
+    err = max_rel_err(
+        manifold_kernels.stereo_distance(x[:m], y[:m], k),
+        manifold_kernels.stereo_distance_ref(x[:m].double(), y[:m].double(),
+                                             k.double()))
+    return {"kernel": "B7a stereo_dist", "shape": f"({B}, {N}), K = -1",
+            "us": t.us, **peak_share(t.us, dist_bytes(B, N)),
+            **binding(t.us, {"skeleton": skel.us, "twin_resident": twin_c.us}),
+            "twin_streaming_us": twin_s.us, "plain_us": plain.us,
+            "max_rel_err_vs_f64": err, "l2": "none: 1.08 GB a launch",
+            "timings": {"kernel": _timing(t), "skeleton": _timing(skel),
+                        "twin_resident": _timing(twin_c),
+                        "twin_streaming": _timing(twin_s),
+                        "plain": _timing(plain)}}
+
+
+def _row_lorentz(cal, xl, yl):
+    k = torch.tensor(-1.0, device="cuda")
+    t = measure(lambda: manifold_kernels.lorentz_distance(xl, yl, k),
+                "lorentz_dist_kernel")
+    plain = measure(lambda: manifold_kernels.lorentz_distance_ref(xl, yl, k),
+                    iters=3)
+    skel = measure(lambda: skel_dist(xl, yl, "block"), "skel_dist_kernel")
+    m = 1 << 16
+    err = max_rel_err(
+        manifold_kernels.lorentz_distance(xl[:m], yl[:m], k),
+        manifold_kernels.lorentz_distance_ref(xl[:m].double(),
+                                              yl[:m].double(), k.double()))
+    model = lorentz_compute_us(B, N, cal)
+    return {"kernel": "B7b lorentz_dist", "shape": f"({B}, {N}), K = -1",
+            "us": t.us, **peak_share(t.us, dist_bytes(B, N)),
+            **binding(t.us, {"skeleton": skel.us, "compute_model": model}),
+            "compute_model": "no twin in the reference: per row 3 n FLOP + "
+                             f"{LORENTZ_TAIL_FLOPS} over fma_tflops, one "
+                             f"reduce_us, {LORENTZ_TAIL_TRANSCENDENTALS} "
+                             "transcendentals over tanh_gops",
+            "plain_us": plain.us, "max_rel_err_vs_f64": err,
+            "l2": "none: 1.08 GB a launch",
+            "timings": {"kernel": _timing(t), "skeleton": _timing(skel),
+                        "plain": _timing(plain)}}
+
+
+def _row_reparam(cal):
+    k = torch.tensor(-1.0, device="cuda")
+    nbytes = reparam_bytes(RS, RB, RN)
+    n_sets = buffer_sets(nbytes, _l2_bytes())
+    sets = reparam_sets(n_sets)
+
+    t = measure([functools.partial(manifold_kernels.wrapped_reparam_stereo_t,
+                                   e, m, s, k, out=o, sign=-1)
+                 for e, m, s, o, _ in sets], "reparam_stereo_kernel")
+    # the probes get the hoisted scalars made once per example, as the
+    # reference's do: only what B5 cannot avoid stays in their floors
+    skel = measure([functools.partial(skel_reparam, e, m, s, k, c, out=o)
+                    for e, m, s, o, c in sets], "skel_reparam_kernel")
+    twin = measure([functools.partial(twin_reparam, e, m, s, k, c, out=o)
+                    for e, m, s, o, c in sets], "twin_reparam_kernel")
+    eps, mu, sig, _, _ = sets[0]
+    plain = measure(lambda: manifold_kernels.wrapped_reparam_stereo_ref(
+        eps, mu, sig, k, sign=-1), iters=3)
+    got = manifold_kernels.wrapped_reparam_stereo_t(eps, mu, sig, k, sign=-1)
+    ref = manifold_kernels.wrapped_reparam_stereo_ref(
+        eps.double(), mu.double(), sig.double(), k.double(), sign=-1)
+    err = max(max_rel_err(a, b) for a, b in zip(got, ref))
+    return {"kernel": "B5 reparam_stereo",
+            "shape": f"S={RS} n={RN} B={RB}, sign -1, K = -1 "
+                     "(production IWAE chunk)",
+            "us": t.us, **peak_share(t.us, nbytes),
+            **binding(t.us, {"skeleton": skel.us, "twin": twin.us}),
+            "plain_us": plain.us, "max_rel_err_vs_f64": err,
+            "l2": f"rotating {n_sets} buffer sets of {nbytes} B",
+            "timings": {"kernel": _timing(t), "skeleton": _timing(skel),
+                        "twin": _timing(twin), "plain": _timing(plain)}}
+
+
+@contextlib.contextmanager
+def _tf32(on: bool):
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _two_gemm_decode(zt, xt, w1, b1, w2, b2):
+    """The decode as two library products and the BCE (the yardstick; in
+    full FP32 or TF32 as the caller sets ``allow_tf32``)."""
+    h = torch.relu(torch.matmul(zt.transpose(1, 2), w1) + b1)
+    logits = torch.matmul(h, w2) + b2
+    return torch.sum(xt.T * logits - stable.softplus(logits), dim=-1)
+
+
+def _row_decode(cal):
+    S, Bb, Z, H, D = DS, DB, DZ, DH, DD
+    nbytes = decode_bytes(S, Bb, Z, H, D)
+    sets = decode_sets(buffer_sets(nbytes, _l2_bytes()))
+    n_sets = len(sets)
+    t = measure([functools.partial(decoder_kernels.fused_decode_bce_t, *a)
+                 for a in sets], "decode_bce_kernel")
+    with _tf32(False):
+        fp32 = measure([functools.partial(_two_gemm_decode, *a)
+                        for a in sets])
+        ref = _two_gemm_decode(*sets[0])
+        ref64 = _two_gemm_decode(*[a.double() for a in sets[0]])
+        got = decoder_kernels.fused_decode_bce_t(*sets[0])
+    with _tf32(True):
+        tf32 = measure([functools.partial(_two_gemm_decode, *a)
+                        for a in sets])
+        ll_tf32 = _two_gemm_decode(*sets[0])
+    fl = decode_flops(S, Bb, Z, H, D)
+    floors = {"fp32_calibrated": fl["total"] / (cal["fma_tflops"] * 1e6),
+              "bytes_stream": nbytes / (cal["stream_gbps"] * 1e3)}
+    return {"kernel": "B2 decode_bce", "shape": f"S={S} B={Bb} Z={Z} H={H} "
+                                               f"D={D}",
+            "us": t.us, **peak_share(t.us, flops=fl["total"]),
+            **binding(t.us, floors),
+            "fp32_peak_us": fl["total"] / (PEAK["fp32_tflops"] * 1e6),
+            "flops": fl, "plain_us": fp32.us,
+            "two_sgemm_fp32_us": fp32.us, "two_gemm_tf32_us": tf32.us,
+            "max_abs_err_nats_vs_fp32": float((got - ref).abs().max()),
+            "tf32_max_abs_err_nats_vs_fp32": float((ll_tf32 - ref).abs().max()),
+            "fp32_max_abs_err_nats_vs_f64": float((ref - ref64).abs().max()),
+            "l2": f"rotating {n_sets} buffer sets of {nbytes} B",
+            "timings": {"kernel": _timing(t), "two_sgemm_fp32": _timing(fp32),
+                        "two_gemm_tf32": _timing(tf32)}}
+
+
+def main(out_path: str | None = None) -> dict:
+    """Calibrate the card, then the binding rows of B7a, B7b, B5 and B2 at
+    the reference's shapes; returns them with every probe's timing
+    (``probes``), and writes them to ``out_path`` as JSON."""
+    _require_cuda("roofline.main()")
+    name = card()
+    _log(f"card: {name}; data sheet {PEAK}")
+    cal = calibrate()
+    _log("calibration: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in cal.items() if isinstance(v, float)))
+    rows = [_row_stereo(cal, *stereo_inputs())]
+    rows.append(_row_lorentz(cal, *lorentz_inputs()))
+    rows.append(_row_reparam(cal))
+    rows.append(_row_decode(cal))
+    for r in rows:
+        _log(f"{r['kernel']:20s} {r['us']:10.3f} us; binding floor "
+             f"{r['binding_floor_us']:10.3f} us ({r['bound_by']}) -> "
+             f"{r['pct_of_binding']:5.1f}%; plain {r['plain_us']:10.3f} us")
+    stereo, lor, rep = (r["timings"] for r in rows[:3])
+    probes = {f"probe_{k}": cal["timings"][k]
+              for k in ("triad", "fma", "tanh", "reduce", "transpose")}
+    probes.update(skel_dist_rowstore=stereo["skeleton"],
+                  skel_dist_block=lor["skeleton"],
+                  twin_stereo_resident=stereo["twin_resident"],
+                  twin_stereo_streaming=stereo["twin_streaming"],
+                  skel_reparam=rep["skeleton"], twin_reparam=rep["twin"])
+    result = {"card": name, "device": torch.cuda.get_device_name(0),
+              "peak": PEAK, "calibration": cal, "rows": rows,
+              "probes": probes}
+    if out_path:
+        with open(out_path, "w") as f:
+            f.write(json.dumps(result) + "\n")
+        _log(f"wrote {out_path}")
+    return result
+
+
+if __name__ == "__main__":
+    print(json.dumps(main(sys.argv[1] if len(sys.argv) > 1 else None)))

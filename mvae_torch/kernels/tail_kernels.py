@@ -38,6 +38,7 @@ import torch
 from ..components.component import cap_sigma_positive_k
 from ..components.component import draw_noise as _component_noise
 from ..ops import stable
+from ..utils.profiling import check_outputs
 from . import _build
 
 _LOG_2PI = 1.8378770664093453
@@ -561,6 +562,7 @@ def tail_forward(comps, raw, eps, k):
                         z.data_ptr(), aux.data_ptr(), B, W, E, Z, nc,
                         _table(comps), stream), "tail_fwd_launch")
     tail_forward.launches += 1
+    check_outputs("tail_fwd", z, aux)
     return z, aux
 
 
@@ -632,6 +634,7 @@ def tail_backward(comps, raw, eps, k, dz, daux):
                             dk_rows.data_ptr(), B, W, E, Z, nc,
                             _table(comps), stream), "tail_bwd_launch")
     tail_backward.launches += 1
+    check_outputs("tail_bwd", draw, dk_rows)
     return draw, dk_rows
 
 

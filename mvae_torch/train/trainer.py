@@ -26,6 +26,7 @@ Differences from the reference:
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import time
@@ -36,6 +37,7 @@ import torch
 from ..data.base import (ArrayDataset, binarize_batch, binarize_rows,
                          to_device_dataset)
 from ..models import vae
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .metrics import MetricsLogger
 from .stats import EpochStats
@@ -242,36 +244,45 @@ class Trainer:
         raise NonFiniteError(epoch, train_stats, last_step)
 
     def fit(self, verbose: bool = True, ll_max_examples: int | None = None,
-            ll_repeats: int = 1) -> dict:
+            profile_epochs: int = 0, ll_repeats: int = 1) -> dict:
         """``tc.epochs`` epochs, each followed by the test ELBO; then the
         IWAE-n test log-likelihood and a final checkpoint. Records go to
         ``metrics.jsonl``; ``train_steps_per_sec`` counts the training
         epochs' wall time only (ended by a device sync). Both rates count
         the steps this call takes, not those of a run it resumed (the
-        reference divides the global step count)."""
+        reference divides the global step count). With ``profile_epochs``
+        N, the training of epochs 0 .. N-1 is traced into
+        ``<run_dir>/profile`` (``utils.profiling.trace``)."""
         t0 = time.time()
         train_wall = 0.0
         step0 = self.step
-        for epoch in range(self.tc.epochs):
-            state_before = self._guard_state()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            te0 = time.time()
-            train_stats = self.train_one_epoch(epoch)
-            train_wall += time.time() - te0
-            self._check_finite(epoch, train_stats, state_before)
-            rec = {f"train/{k}": v for k, v in train_stats.items()}
-            test_stats = self.evaluate_elbo("test")
-            rec.update({f"test/{k}": v for k, v in test_stats.items()})
-            rec["epoch"] = epoch
-            self.logger.log(self.step, rec)
-            self.history.append(rec)
-            if verbose:
-                print(f"epoch {epoch + 1}/{self.tc.epochs} "
-                      f"train[{_fmt(train_stats)}] test[{_fmt(test_stats)}]")
-            if (self.tc.checkpoint_every
-                    and (epoch + 1) % self.tc.checkpoint_every == 0):
-                self.save_checkpoint()
+        with contextlib.ExitStack() as tracing:
+            for epoch in range(self.tc.epochs):
+                if profile_epochs and epoch == 0:
+                    tracing.enter_context(profiling.trace(
+                        f"{self.run_dir}/profile", self.device))
+                state_before = self._guard_state()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                te0 = time.time()
+                train_stats = self.train_one_epoch(epoch)
+                train_wall += time.time() - te0
+                if epoch + 1 == profile_epochs:
+                    tracing.close()
+                self._check_finite(epoch, train_stats, state_before)
+                rec = {f"train/{k}": v for k, v in train_stats.items()}
+                test_stats = self.evaluate_elbo("test")
+                rec.update({f"test/{k}": v for k, v in test_stats.items()})
+                rec["epoch"] = epoch
+                self.logger.log(self.step, rec)
+                self.history.append(rec)
+                if verbose:
+                    print(f"epoch {epoch + 1}/{self.tc.epochs} "
+                          f"train[{_fmt(train_stats)}] "
+                          f"test[{_fmt(test_stats)}]")
+                if (self.tc.checkpoint_every
+                        and (epoch + 1) % self.tc.checkpoint_every == 0):
+                    self.save_checkpoint()
         ll = self.evaluate_log_likelihood("test", max_examples=ll_max_examples,
                                           repeats=ll_repeats)
         wall = time.time() - t0
