@@ -14,8 +14,11 @@ Phases:
     flagship product h2,s2,e2, B = 512 and B = 1000 (ragged), random heads
     with large-|mu| rows and curvatures that put rows on both sides of the
     series window;
- 4. the IWAE decode kernel (decode_bce.cu) against ``decode_bce_ref`` at
-    (S=125, Z=8, B=512, H=400, D=784);
+ 4. the IWAE decode kernel (decode_bce.cu: 3xTF32 on the tensor cores)
+    against ``decode_bce_ref`` and float64 at (S=125, Z=8, B=512, H=400,
+    D=784) and at B = 272 (the test split's last batch), then its time and
+    the two cuBLAS FP32 SGEMMs' by graph replay in turns (kernel, library,
+    library, kernel), and their factor;
  5. the slice end to end: ``Trainer.evaluate_elbo`` and
     ``Trainer.evaluate_log_likelihood`` (IWAE-500) of the h2,s2,e2 MLP VAE
     at h_dim 400 over the 10,000-example MNIST test split (the synthetic
@@ -84,8 +87,10 @@ Phases:
     reparam skeleton and twin at (S, B, n) = (125, 2048, 6), each against its
     plain version; then ``roofline.main()`` with the probes' launch counts
     read around it: the calibrated rates (each within its window: at most
-    105% of the data sheet) and the rows of B7a, B7b, B5 and B2 at the
-    reference's shapes, none above 105% of its binding floor or its peak;
+    105% of the data sheet, TF32 among them) and the rows of B7a, B7b, B5
+    and B2 at the reference's shapes, none above 105% of its binding floor
+    or its peak (B2's: its 3xTF32 products at the calibrated TF32 rate, its
+    FP32 part, its bytes; its share of the TF32 peak);
     then each row's kernel held to its plain version on the row's own
     inputs (B7a, B7b and B5 at the tolerances of phases 17 and 13, float64
     beside them; B2 within 1e-3 nats per row as in phase 4). The launch
@@ -111,10 +116,13 @@ sweep by 1e4 and more) no float32 backward can be held to that contract
 against another; there the kernel must be finite and no farther from the
 float64 backward than ten times the float32 plain version is.
 
-A kernel's ``ms`` is its device time per launch from the CUPTI trace of
-``torch.profiler`` (CUDA events around a loop of launches when the trace
-shows none); the events time, which includes the host's launch cost, is
-printed beside it.
+A kernel's ``ms`` is its device time per call by ``roofline.measure``:
+CUDA events around the replay of a CUDA graph of its calls, so no host
+launch cost is in it (a wrapper that launches two kernels, B6, is timed as
+the whole graph per call); the CUPTI trace median of its main kernel in
+another replay is printed beside it as the cross-check. ``library_ms`` is
+timed the same way. The plain versions and the host-side walls are timed
+by CUDA events around a loop of calls (``time_ms``).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -137,13 +145,15 @@ from torch.profiler import ProfilerActivity, profile
 from mvae_torch import TrainConfig, Trainer, VAEConfig, parse_components
 from mvae_torch.data import load_mnist
 from mvae_torch.kernels import (_build, decoder_kernels, manifold_kernels,
-                                tail_kernels)
+                                roofline, tail_kernels)
 from mvae_torch.models import vae
 from mvae_torch.train.trainer import _leaves
 
-# NVIDIA H100 SXM data sheet (dense, 700 W): HBM rate and FP32 FMA peak
+# NVIDIA H100 SXM data sheet (dense, 700 W): HBM rate, FP32 FMA and TF32
+# tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 SPEC = "h2,s2,e2"
 STEREO_SPEC = "d2,p2,e2"
@@ -186,32 +196,21 @@ def time_ms(fn, iters: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int, *kernels: str):
-    """(device ms per call of ``fn`` spent in the named kernels, each of
-    which it launches once, from the profiler trace, or None when the trace
-    has none; ms per call by CUDA events). A kernel's time is the mean over
-    the launches the trace holds: the trace may drop records (it held 15 of
-    20 launches of a 350 us kernel once), so the sum over ``iters`` calls
-    would understate it."""
-    per_call = time_ms(fn, iters)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = {k: 0.0 for k in kernels}
-    count = {k: 0 for k in kernels}
-    for ev in prof.key_averages():
-        for k in kernels:
-            if k in ev.key:
-                total[k] += ev.device_time_total
-                count[k] += ev.count
-                break
-    if not all(count.values()):
-        return None, per_call
-    if any(c != iters for c in count.values()):
-        print(f"[profile] the trace holds {count} of {iters} launches each; "
-              f"times are means over those")
-    return sum(total[k] / count[k] for k in kernels) / 1e3, per_call
+def kernel_ms(fn, kernel: str, iters: int = 50) -> tuple[float, str]:
+    """(device ms per call of ``fn``, its CUPTI cross-check as text) by
+    ``roofline.measure``: CUDA events around the replay of a CUDA graph of
+    ``iters`` calls, and the trace median of ``kernel`` (the main device
+    kernel ``fn`` launches) in another replay."""
+    t = roofline.measure(fn, kernel, iters)
+    trace = ("no trace records" if t.trace_us is None
+             else f"CUPTI trace median {t.trace_us:.2f} us")
+    return t.us / 1e3, trace
+
+
+def library_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of a library composition, by CUDA-graph replay
+    as ``kernel_ms``."""
+    return roofline.measure(fn, iters=iters, graph=True).us / 1e3
 
 
 # Training-step layers by device kernel name (first match wins); the GEMMs
@@ -370,10 +369,9 @@ def phase_tail(comps, gen) -> dict:
     raw = torch.randn(B, W, generator=gen, device="cuda")
     eps = tail_kernels.draw_noise(comps, (B,), raw, gen)
     k = torch.tensor((-1.0, 1.0, 0.0), device="cuda")
-    dev_ms, call_ms = kernel_ms(
-        lambda: tail_kernels.tail_forward(comps, raw, eps, k), 500,
-        "tail_fwd_kernel")
-    ms = call_ms if dev_ms is None else dev_ms
+    ms, trace = kernel_ms(
+        lambda: tail_kernels.tail_forward(comps, raw, eps, k),
+        "tail_fwd_kernel", 100)
     plain_ms = time_ms(
         lambda: tail_kernels.tail_forward_ref(comps, raw, eps, k), 50)
     Z = z.shape[1]
@@ -381,9 +379,8 @@ def phase_tail(comps, gen) -> dict:
     ops = B * _tail_ops(comps)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-    print(f"[tail_fwd] max err {worst:.3g}; B=512: kernel device "
-          f"{'not measured' if dev_ms is None else f'{dev_ms * 1e3:.2f} us'}, "
-          f"per call (events) {call_ms * 1e3:.2f} us, "
+    print(f"[tail_fwd] max err {worst:.3g}; B=512: kernel {ms * 1e3:.2f} us "
+          f"(graph events; {trace}), "
           f"plain {plain_ms * 1e3:.1f} us, bytes bound "
           f"{bytes_ms * 1e3:.4f} us ({nbytes} B), ops bound "
           f"{ops_ms * 1e3:.4f} us")
@@ -396,8 +393,7 @@ def phase_tail(comps, gen) -> dict:
             "library_ms": None}
 
 
-def phase_decode(gen) -> dict:
-    S, Z, B, H, D = 125, 8, 512, 400, 784
+def _decode_inputs(S, Z, B, H, D, gen):
     dev = "cuda"
     zt = torch.randn(S, Z, B, generator=gen, device=dev)
     xt = (torch.rand(D, B, generator=gen, device=dev) < 0.3).float()
@@ -405,37 +401,75 @@ def phase_decode(gen) -> dict:
     b1 = 0.1 * torch.randn(H, generator=gen, device=dev)
     w2 = math.sqrt(2.0 / H) * torch.randn(H, D, generator=gen, device=dev)
     b2 = 0.1 * torch.randn(D, generator=gen, device=dev)
-    out = decoder_kernels.fused_decode_bce_t(zt, xt, w1, b1, w2, b2)
-    ref = decoder_kernels.decode_bce_ref(zt, xt, w1, b1, w2, b2)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out).all()), "decode kernel finite")
-    err = (out - ref).abs().max().item()
-    check(err <= 1e-3, f"decode within 1e-3 nats per row: {err:.3g}")
-    dev_ms, call_ms = kernel_ms(
-        lambda: decoder_kernels.fused_decode_bce_t(zt, xt, w1, b1, w2, b2),
-        20, "decode_bce_kernel")
-    ms = call_ms if dev_ms is None else dev_ms
+    return zt, xt, w1, b1, w2, b2
+
+
+def phase_decode(gen) -> dict:
+    """B2 against its plain version (1e-3 nats per row) and float64 at the
+    production IWAE chunk and at the test split's last batch, then its time
+    and the two cuBLAS FP32 SGEMMs' in turns, by graph replay."""
+    S, Z, B, H, D = 125, 8, 512, 400, 784
+    err = 0.0
+    # the production chunk draws from ``gen`` alone, so that the phases
+    # after this one see the same inputs whatever else this phase checks
+    ragged = _decode_inputs(S, Z, 272, H, D,
+                            torch.Generator(device="cuda").manual_seed(272))
+    full = _decode_inputs(S, Z, B, H, D, gen)
+    for b, args in ((272, ragged), (B, full)):
+        out = decoder_kernels.fused_decode_bce_t(*args)
+        ref = decoder_kernels.decode_bce_ref(*args)
+        ref64 = decoder_kernels.decode_bce_ref(*[a.double() for a in args])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"decode kernel finite, B={b}")
+        e = (out - ref).abs().max().item()
+        check(e <= 1e-3, f"decode within 1e-3 nats per row at B={b}: {e:.3g}")
+        err = max(err, e)
+        print(f"[decode_bce] B={b}: max |err| {e:.3g} nats per row against "
+              f"the FP32 plain version; kernel vs f64 "
+              f"{(out - ref64).abs().max().item():.3g}, FP32 plain vs f64 "
+              f"{(ref - ref64).abs().max().item():.3g}")
+    zt, xt, w1, b1, w2, b2 = args
+    lib_args = roofline.two_sgemm_operands(zt, w1, b1, w2)
+
+    def kern():
+        return roofline.measure(
+            lambda: decoder_kernels.fused_decode_bce_t(zt, xt, w1, b1, w2, b2),
+            "decode_bce_kernel", 20)
+
+    def lib():
+        return roofline.measure(lambda: roofline.two_sgemms(*lib_args),
+                                iters=20, graph=True)
+
+    turns = [kern(), lib(), lib(), kern()]
+    t = roofline.mean_timing(turns[0], turns[3])
+    ms, lib_ms = t.us / 1e3, roofline.mean_timing(turns[1], turns[2]).us / 1e3
     plain_ms = time_ms(
         lambda: decoder_kernels.decode_bce_ref(zt, xt, w1, b1, w2, b2), 10)
-    zf = zt.transpose(1, 2).reshape(S * B, Z).contiguous()
-    hf = torch.relu(zf @ w1 + b1)
-    lib_ms = time_ms(lambda: (torch.mm(zf, w1), torch.mm(hf, w2)), 10)
-    flops = 2.0 * S * B * (Z * H + H * D)
-    nbytes = 4 * (zt.numel() + xt.numel() + w1.numel() + H + w2.numel() + D
-                  + S * B)
-    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    fl = roofline.decode_flops(S, B, Z, H, D)
+    nbytes = roofline.decode_bytes(S, B, Z, H, D)
+    ops_ms = fl["tensor_3xtf32"] / TF32_FLOPS_PER_S * 1e3
+    fp32_ms = (fl["fp32_part"] + fl["transcendentals"]) / FP32_FLOPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[decode_bce] max err {err:.3g} nats/row; kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s; events {call_ms:.3f} ms), "
-          f"plain {plain_ms:.3f} ms, two cuBLAS SGEMMs {lib_ms:.3f} ms, "
-          f"FP32 bound {ops_ms:.3f} ms "
-          f"({flops / 1e9:.1f} GFLOP), bytes bound {bytes_ms * 1e3:.2f} us")
+    bound_ms = max(ops_ms, fp32_ms, bytes_ms)
+    print(f"[decode_bce] (S, Z, B, H, D) = {(S, Z, B, H, D)}, in turns "
+          f"kernel / SGEMMs / SGEMMs / kernel: "
+          f"{', '.join(f'{x.us:.1f}' for x in turns)} us (graph events); "
+          f"kernel {ms:.4f} ms (CUPTI trace median "
+          f"{t.trace_us if t.trace_us is None else round(t.trace_us, 1)} "
+          f"us), two cuBLAS FP32 SGEMMs {lib_ms:.4f} ms: the kernel "
+          f"{lib_ms / ms:.2f}x faster; {fl['tensor_3xtf32'] / ms / 1e9:.1f} "
+          f"TFLOP/s of 3xTF32 products ({fl['gemm'] / ms / 1e9:.1f} TFLOP/s "
+          f"of the FP32 work); plain {plain_ms:.3f} ms; bounds: 3xTF32 "
+          f"{ops_ms:.4f} ms ({fl['tensor_3xtf32'] / 1e9:.1f} GFLOP at 495 "
+          f"TFLOP/s), FP32 part {fp32_ms * 1e3:.1f} us, bytes "
+          f"{bytes_ms * 1e3:.2f} us; the FP32 SIMT floor it replaces "
+          f"{fl['total'] / FP32_FLOPS_PER_S * 1e3:.4f} ms")
     return {"name": "decode_bce", "route": "cuda",
             "source": "mvae_torch/kernels/csrc/decode_bce.cu",
             "replaces": "mvae_tpu/kernels/decoder_kernels.py:154",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= bound_ms else "operations",
             "library_ms": lib_ms}
 
 
@@ -596,10 +630,9 @@ def phase_tail_bwd(comps, gen) -> dict:
                   f"|err| {(draw - pr).abs().max().item():.3g}")
     B = 128
     args = _bwd_inputs(comps, B, (-1.0, 1.0, 0.0), gen)
-    dev_ms, call_ms = kernel_ms(
-        lambda: tail_kernels.tail_backward(comps, *args), 500,
-        "tail_bwd_kernel")
-    ms = call_ms if dev_ms is None else dev_ms
+    ms, trace = kernel_ms(
+        lambda: tail_kernels.tail_backward(comps, *args), "tail_bwd_kernel",
+        100)
     plain_ms = time_ms(lambda: tail_kernels.tail_backward_ref(comps, *args),
                        50)
     W, E, Z = tail_kernels._dims(comps)
@@ -609,9 +642,7 @@ def phase_tail_bwd(comps, gen) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     print(f"[tail_bwd] max err {worst:.3g} ({worst_ratio:.3g} of tol); "
-          f"B=128: kernel device "
-          f"{'not measured' if dev_ms is None else f'{dev_ms * 1e3:.2f} us'}, "
-          f"per call (events) {call_ms * 1e3:.2f} us, plain "
+          f"B=128: kernel {ms * 1e3:.2f} us (graph events; {trace}), plain "
           f"{plain_ms * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.4f} us "
           f"({nbytes} B), ops bound {ops_ms * 1e3:.4f} us")
     return {"name": "tail_bwd", "route": "cuda",
@@ -653,21 +684,23 @@ def phase_train_decode(gen) -> dict:
     B = 128
     z = torch.randn(B, Z, generator=gen, device=dev)
     x = (torch.rand(B, D, generator=gen, device=dev) < 0.3).float()
-    dev_ms, call_ms = kernel_ms(
-        lambda: decoder_kernels.train_decode_fwd(z, x, w1, b1, w2, b2), 200,
-        "train_decode_kernel", "ll_reduce_kernel")
-    ms = call_ms if dev_ms is None else dev_ms
+    # the wrapper launches the tile kernel and the row sum: the graph times
+    # both per call; the trace cross-checks the tile kernel
+    ms, trace = kernel_ms(
+        lambda: decoder_kernels.train_decode_fwd(z, x, w1, b1, w2, b2),
+        "train_decode_kernel", 100)
     plain_ms = time_ms(
         lambda: decoder_kernels.train_decode_ref(z, x, w1, b1, w2, b2), 100)
     h = torch.relu(z @ w1 + b1)
-    lib_ms = time_ms(lambda: (torch.mm(z, w1), torch.mm(h, w2)), 100)
+    lib_ms = library_ms(lambda: (torch.mm(z, w1), torch.mm(h, w2)), 100)
     flops = 2.0 * B * (Z * H + H * D)
     nbytes = 4 * (B * Z + B * D + Z * H + H + H * D + D + B + B * H + B * D)
     ops_ms = flops / FP32_FLOPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[train_decode] B=128: kernel {ms * 1e3:.2f} us (events "
-          f"{call_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, two "
-          f"cuBLAS SGEMMs {lib_ms * 1e3:.2f} us, FP32 bound "
+    print(f"[train_decode] B=128: kernel {ms * 1e3:.2f} us (graph events, "
+          f"both launches; {trace}), plain {plain_ms * 1e3:.2f} us, two "
+          f"cuBLAS SGEMMs {lib_ms * 1e3:.2f} us (graph events; the kernel "
+          f"{ms / lib_ms:.2f}x of it), FP32 bound "
           f"{ops_ms * 1e3:.3f} us ({flops / 1e6:.1f} MFLOP), bytes bound "
           f"{bytes_ms * 1e3:.3f} us ({nbytes} B)")
     return {"name": "train_decode", "route": "cuda",
@@ -965,27 +998,26 @@ def _tile_times(tag: str, spec: str, comps, f, b, prefix: str, line: int,
     ``prefix``_bwd, replacing the TPU tile at ``line``)."""
     W, E, Z = tail_kernels._dims(comps)
     nc = len(comps)
-    fwd_dev, fwd_call = kernel_ms(
-        lambda: tail_kernels.tail_forward(comps, *f[:3]), 500,
-        "tail_fwd_kernel")
-    bwd_dev, bwd_call = kernel_ms(
-        lambda: tail_kernels.tail_backward(comps, *b), 500, "tail_bwd_kernel")
+    fwd_ms, fwd_trace = kernel_ms(
+        lambda: tail_kernels.tail_forward(comps, *f[:3]), "tail_fwd_kernel",
+        100)
+    bwd_ms, bwd_trace = kernel_ms(
+        lambda: tail_kernels.tail_backward(comps, *b), "tail_bwd_kernel", 100)
     fwd_plain = time_ms(
         lambda: tail_kernels.tail_forward_ref(comps, *f[:3]), 20)
     bwd_plain = time_ms(lambda: tail_kernels.tail_backward_ref(comps, *b), 10)
     rows = []
-    for name, B, dev, call, plain, nbytes, ops, err in (
-            (f"{prefix}_fwd", 512, fwd_dev, fwd_call, fwd_plain,
+    for name, B, ms, trace, plain, nbytes, ops, err in (
+            (f"{prefix}_fwd", 512, fwd_ms, fwd_trace, fwd_plain,
              4 * (512 * (W + E + Z + nc + 2) + nc), 512 * _tail_ops(comps),
              err_f),
-            (f"{prefix}_bwd", 128, bwd_dev, bwd_call, bwd_plain,
+            (f"{prefix}_bwd", 128, bwd_ms, bwd_trace, bwd_plain,
              4 * (128 * (W + E + Z + nc + 2) + nc + 128 * (W + nc)),
              3 * 128 * _tail_ops(comps), err_b)):
-        ms = call if dev is None else dev
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-        print(f"[{tag}] {spec} {name} at B={B}: kernel device "
-              f"{ms * 1e3:.2f} us (events {call * 1e3:.2f} us), plain "
+        print(f"[{tag}] {spec} {name} at B={B}: kernel {ms * 1e3:.2f} us "
+              f"(graph events; {trace}), plain "
               f"{plain * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.4f} us "
               f"({nbytes} B), ops bound {ops_ms * 1e3:.4f} us")
         rows.append({
@@ -1106,11 +1138,10 @@ def phase_reparam(gen) -> dict:
           f"{err:.3g}")
     eps, mu, sig, k, out = keep
     n = 2
-    dev_ms, call_ms = kernel_ms(
+    ms, trace = kernel_ms(
         lambda: manifold_kernels.wrapped_reparam_stereo_t(
-            eps, mu, sig, k, wraps=1, sign=1, out=out, z_off=1), 500,
-        "reparam_stereo_kernel")
-    ms = call_ms if dev_ms is None else dev_ms
+            eps, mu, sig, k, wraps=1, sign=1, out=out, z_off=1),
+        "reparam_stereo_kernel", 100)
     plain_ms = time_ms(lambda: manifold_kernels.wrapped_reparam_stereo_ref(
         eps, mu, sig, k, wraps=1, sign=1), 20)
     for sign, kval, nn in ((-1, -1.0, 2), (0, 0.5, 6)):
@@ -1118,19 +1149,18 @@ def phase_reparam(gen) -> dict:
         e2 = torch.randn(S, B, nn, generator=gen, device="cuda")
         m2 = _stereo_mu(B, nn, kk, kval, gen)
         s2 = 0.2 + torch.rand(B, nn, generator=gen, device="cuda")
-        d2, c2 = kernel_ms(
+        m2_ms, tr2 = kernel_ms(
             lambda: manifold_kernels.wrapped_reparam_stereo_t(
-                e2, m2, s2, kk, wraps=1, sign=sign), 200,
-            "reparam_stereo_kernel")
-        print(f"[reparam_stereo] n={nn} sign={sign}: kernel device "
-              f"{(c2 if d2 is None else d2) * 1e3:.2f} us (events "
-              f"{c2 * 1e3:.2f} us)")
+                e2, m2, s2, kk, wraps=1, sign=sign),
+            "reparam_stereo_kernel", 100)
+        print(f"[reparam_stereo] n={nn} sign={sign}: kernel "
+              f"{m2_ms * 1e3:.2f} us (graph events; {tr2})")
     nbytes = 4 * (2 * S * B * n + 2 * B * n + 1 + 2 * S * B)
     ops = S * B * _TAIL_OPS["stereo"](n)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     print(f"[reparam_stereo] (S, B, n) = (125, 512, 2), sign +1, wraps 1: "
-          f"kernel device {ms * 1e3:.2f} us (events {call_ms * 1e3:.2f} us), "
+          f"kernel {ms * 1e3:.2f} us (graph events; {trace}), "
           f"plain {plain_ms * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.3f} "
           f"us ({nbytes} B), ops bound {ops_ms * 1e3:.3f} us")
     return {"name": "reparam_stereo", "route": "cuda",
@@ -1403,16 +1433,15 @@ def _lorentz_points(B, n, kval, gen):
 def _dist_row(name, line, fn, ref, x, y, k, err, kernel_name):
     """Times of one distance kernel at (x, y, k) beside its bytes bound."""
     B, n = x.shape
-    dev_ms, call_ms = kernel_ms(lambda: fn(x, y, k), 20, kernel_name)
-    ms = call_ms if dev_ms is None else dev_ms
+    ms, trace = kernel_ms(lambda: fn(x, y, k), kernel_name, 20)
     plain_ms = time_ms(lambda: ref(x, y, k), 5)
     nbytes = 4 * (2 * B * n + 1 + B)
     ops = B * (6 * n + 40)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     print(f"[dist] {name} at (B, n) = ({B}, {n}), K = {float(k):g}: kernel "
-          f"device {ms * 1e3:.2f} us ({nbytes / ms / 1e6:.1f} GB/s; events "
-          f"{call_ms * 1e3:.2f} us), plain composition {plain_ms * 1e3:.1f} "
+          f"{ms * 1e3:.2f} us ({nbytes / ms / 1e6:.1f} GB/s; graph events; "
+          f"{trace}), plain composition {plain_ms * 1e3:.1f} "
           f"us, bytes bound {bytes_ms * 1e3:.2f} us ({nbytes} B), ops bound "
           f"{ops_ms * 1e3:.2f} us")
     return {"name": name, "route": "cuda",
@@ -1507,10 +1536,9 @@ def phase_dist(gen) -> tuple[list[dict], dict]:
              "stereo_dist_kernel"),
             ("lorentz_dist", manifold_kernels.lorentz_distance, xl, yl,
              "lorentz_dist_kernel")):
-        dev_ms, call_ms = kernel_ms(lambda: fn(a, b, k), 200, kern)
-        print(f"[dist] {name} at (1000, 6): kernel device "
-              f"{(call_ms if dev_ms is None else dev_ms) * 1e3:.2f} us "
-              f"(events {call_ms * 1e3:.2f} us)")
+        small_ms, small_trace = kernel_ms(lambda: fn(a, b, k), kern, 100)
+        print(f"[dist] {name} at (1000, 6): kernel {small_ms * 1e3:.2f} us "
+              f"(graph events; {small_trace})")
 
     # the distance entry points as a user calls them: the package's exports
     # on (B, n) point sets, the big shape forward and the small one with the
@@ -1799,8 +1827,8 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
              1e-4 * (ref.abs() + 1e-2 * ref.abs().max()))
     timed("twin_reparam", lambda: rl.twin_reparam_ref(eps, mu, sig, k, hoist))
     o = torch.empty_like(x)
-    library = {"probe_triad": time_ms(lambda: torch.add(x, y, out=o), 20),
-               "probe_reduce": time_ms(lambda: x.sum(1), 20)}
+    library = {"probe_triad": library_ms(lambda: torch.add(x, y, out=o)),
+               "probe_reduce": library_ms(lambda: x.sum(1))}
     print(f"[roofline] 9 probes held to their plain versions: largest "
           f"errors {', '.join(f'{k} {v:.3g}' for k, v in err.items())}")
     del x, y, o, ref
@@ -1825,7 +1853,8 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
           f"row reduction, transpose_us = {cal['transpose_us']:.6g} per "
           f"(2048, 8) relayout; fma and tanh at repeat {cal['repeat']}")
     for row in result["rows"]:
-        peak = row.get("pct_of_hbm_peak", row.get("pct_of_fp32_peak"))
+        peak = next(v for k, v in row.items()
+                    if k.startswith("pct_of_") and k.endswith("_peak"))
         trace = row["timings"]["kernel"]["trace_us"]
         errs = {k: v for k, v in row.items() if "err" in k}
         print(f"[roofline] {row['kernel']} at {row['shape']}: "
@@ -1841,11 +1870,21 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
         check(row["pct_of_binding"] <= 105.0 and peak <= 105.0,
               f"{row['kernel']} within 105% of its floor and its peak")
     dec = result["rows"][3]
-    print(f"[roofline] B2 yardsticks: two SGEMMs FP32 "
-          f"{dec['two_sgemm_fp32_us']:.1f} us, TF32 "
-          f"{dec['two_gemm_tf32_us']:.1f} us; error vs FP32: kernel "
-          f"{dec['max_abs_err_nats_vs_fp32']:.3g}, TF32 "
-          f"{dec['tf32_max_abs_err_nats_vs_fp32']:.3g} nats")
+    print(f"[roofline] B2 (3xTF32): {dec['us']:.1f} us, "
+          f"{dec['pct_of_tf32_peak']:.1f}% of the TF32 peak ("
+          f"{dec['tflops']:.1f} TFLOP/s of 3xTF32 products); floors "
+          f"{ {k: round(v, 3) for k, v in dec['floors_us'].items()} } us; "
+          f"the FP32 floor (not binding) {dec['fp32_calibrated_floor_us']:.1f}"
+          f" us calibrated, {dec['fp32_peak_us']:.1f} us at 67 TFLOP/s")
+    print(f"[roofline] B2 yardsticks in turns (kernel, library, library, "
+          f"kernel: {', '.join(f'{u:.1f}' for u in dec['turns_us'])} us): "
+          f"two cuBLAS FP32 SGEMMs {dec['two_sgemm_fp32_us']:.1f} us, the "
+          f"kernel {dec['two_sgemm_fp32_us'] / dec['us']:.2f}x faster; the "
+          f"composition with TF32 {dec['two_gemm_tf32_us']:.1f} us; error "
+          f"vs FP32: kernel {dec['max_abs_err_nats_vs_fp32']:.3g}, TF32 "
+          f"{dec['tf32_max_abs_err_nats_vs_fp32']:.3g} nats; vs f64: kernel "
+          f"{dec['max_abs_err_nats_vs_f64']:.3g}, FP32 "
+          f"{dec['fp32_max_abs_err_nats_vs_f64']:.3g} nats")
     check(all(v > 0 for v in launches.values()),
           f"every B8 probe launched by roofline.main(): {launches}")
     _roofline_rows_held(rl)

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from ..ops.stable import acc_dtype
+
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -30,10 +32,12 @@ def sample(mu, sigma, noise=None, generator=None):
 
 
 def log_prob(x, mu, sigma):
-    """Summed (over last axis) diagonal Gaussian log-density."""
+    """Summed (over last axis) diagonal Gaussian log-density (float32
+    accumulation under bfloat16 inputs)."""
     sigma = torch.broadcast_to(sigma, x.shape)
     z = (x - mu) / sigma
-    return torch.sum(-0.5 * (z * z + _LOG_2PI) - torch.log(sigma), dim=-1)
+    return torch.sum(-0.5 * (z * z + _LOG_2PI) - torch.log(sigma), dim=-1,
+                     dtype=acc_dtype(x.dtype))
 
 
 def kl_std(mu, sigma):

@@ -80,9 +80,10 @@ def _log_prob_from_principal(man, v, sigma, k, wraps: int):
     sig_b = torch.clamp(torch.broadcast_to(sigma, v.shape), min=tin)
     sig_min = torch.min(sig_b, dim=-1, keepdim=True).values
     # every branch shares the direction v_hat, so the Gaussian term is
-    # scalar math in the branch radius
-    quad = torch.sum((v_hat / sig_b) ** 2, dim=-1, keepdim=True)
-    const = (-torch.sum(torch.log(sig_b), dim=-1)
+    # scalar math in the branch radius (sums in float32 under bfloat16)
+    acc = stable.acc_dtype(dtype)
+    quad = torch.sum((v_hat / sig_b) ** 2, dim=-1, keepdim=True, dtype=acc)
+    const = (-torch.sum(torch.log(sig_b), dim=-1, dtype=acc)
              - 0.5 * n * math.log(2.0 * math.pi))
     branches = [r]
     for m in range(1, wraps + 1):
@@ -124,8 +125,9 @@ def _sample_log_prob_drawn(man, v, sigma, k, wraps: int):
     tin = stable.tiny(v.dtype)
     sig_b = torch.clamp(torch.broadcast_to(sigma, v.shape), min=tin)
     eps_z = v / sig_b
-    s2 = torch.sum(eps_z * eps_z, dim=-1)
-    const = (-torch.sum(torch.log(sig_b), dim=-1)
+    acc = stable.acc_dtype(v.dtype)
+    s2 = torch.sum(eps_z * eps_z, dim=-1, dtype=acc)
+    const = (-torch.sum(torch.log(sig_b), dim=-1, dtype=acc)
              - 0.5 * n * math.log(2.0 * math.pi))
     vsq = torch.sum(v * v, dim=-1) + tin
     if _never_wraps(man):

@@ -9,9 +9,12 @@ for importance samples zt (S, Z, B) against targets xt (D, B), batch
 contiguous -- the reference entry's public layout. ``fused_decode_bce_t``
 runs it in one launch of the CUDA kernel ``csrc/decode_bce.cu`` (replaces
 the TPU kernel ``decoder_kernels.fused_decode_bce_t``): the hidden layer
-and the logits stay in shared memory and registers, and the FP32 FMA
-GEMMs meet the reference's contract of <= 2e-3 nats per 784-pixel row
-against an f32 oracle.
+stays in shared memory and the logits in registers, and the product with
+W2 runs on Hopper's tensor cores (warpgroup ``wgmma``) as three TF32
+products (3xTF32: each float32 operand split into a TF32 pair,
+``tf32_split_ref``), which keeps FP32-grade products (<= 1e-3 nats per
+784-pixel row against the full-f32 plain version) where one TF32 pass
+would not.
 
 ``decode_bce_ref`` is the plain PyTorch version (two full-f32 matmuls and
 the stable BCE sum): the CPU path and the card check's reference.
@@ -38,22 +41,64 @@ from ..ops import stable
 from ..utils.profiling import check_outputs
 from . import _build
 
-# The tiling of csrc/decode_bce.cu and csrc/train_decode.cu (one layout):
-# batch rows per block, W2 pixel tile and hidden stage, the 16 threads
-# along one side of a block, and the per-block shared-memory ceiling.
+# The tiling of csrc/train_decode.cu: batch rows per block, W2 pixel tile
+# and hidden stage, the 16 threads along one side of a block, and the
+# per-block shared-memory ceiling.
 _COLS, _TD, _KC, _TY = 64, 64, 16, 16
 _SMEM_LIMIT = 232448
+# The tiling of csrc/decode_bce.cu: examples per block, W2 column tile,
+# hidden stage, warpgroups per block, W2 stages in shared memory.
+_DEC_BM, _DEC_BN, _DEC_BK, _DEC_WG, _DEC_NBUF = 64, 112, 32, 2, 2
 
 
 def smem_bytes(Z: int, H: int) -> int:
-    """Dynamic shared memory either decode kernel needs for latent width Z
-    and hidden width H (``smem_bytes`` of both sources)."""
+    """Dynamic shared memory the training decode kernel needs for latent
+    width Z and hidden width H (``smem_bytes`` of train_decode.cu)."""
     return 4 * (H * _COLS + Z * _COLS + _KC * _TD + _TY * _COLS)
 
 
 def shape_supported(Z: int, H: int) -> bool:
-    """Whether the kernels' hidden tile fits one block's shared memory."""
+    """Whether the training kernel's hidden tile fits one block's shared
+    memory."""
     return smem_bytes(Z, H) <= _SMEM_LIMIT
+
+
+def decode_smem_bytes(Z: int, H: int) -> int:
+    """Dynamic shared memory the IWAE decode kernel needs (``smem_bytes``
+    of decode_bce.cu): two W2 stages, each split into a hi and a lo
+    tile (14 groups of 8 columns, 4 words of padding a group), h for
+    64 examples (H rounded up to the stage depth, plus 4 words a row), the
+    z tile and the row partials of the two warpgroups."""
+    hp = -(-H // _DEC_BK) * _DEC_BK
+    split = _DEC_BN // 8 * (8 * _DEC_BK + 4)
+    return 4 * (_DEC_NBUF * 2 * split + _DEC_BM * (hp + 4) + Z * _DEC_BM
+                + _DEC_WG * _DEC_BM)
+
+
+def decode_shape_supported(Z: int, H: int) -> bool:
+    """Whether the IWAE decode kernel's resident h fits one block."""
+    return decode_smem_bytes(Z, H) <= _SMEM_LIMIT
+
+
+def tf32_trunc_ref(a):
+    """What the tensor core reads of a float32 operand: its top 19 bits
+    (sign, exponent, 10 mantissa bits), the low 13 cleared."""
+    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_rna_ref(a):
+    """float32 rounded to TF32 to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: half of the 13 dropped bits added to the
+    float's bits, then cleared."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split_ref(a):
+    """The (hi, lo) pair of ``csrc/tf32.cuh``: hi = a rounded to TF32, lo =
+    a - hi (exact in float32; the tensor core reads ``tf32_trunc_ref(lo)``)."""
+    hi = tf32_rna_ref(a)
+    return hi, a - hi
 
 
 def decode_bce_ref(zt, xt, w1, b1, w2, b2):
@@ -99,7 +144,7 @@ def fused_decode_bce_t(zt, xt, w1, b1, w2, b2):
     for t in args:
         if t.dtype != torch.float32 or t.device != zt.device:
             raise ValueError(f"all operands must be float32 on {zt.device}")
-    if not shape_supported(Z, H):
+    if not decode_shape_supported(Z, H):
         raise ValueError(f"(Z={Z}, H={H}) exceeds the kernel's shared memory")
     args = [t.contiguous() for t in args]
     out = torch.empty((S, B), dtype=torch.float32, device=zt.device)

@@ -9,8 +9,9 @@ Counterpart of ``mvae_tpu/kernels/roofline.py``. Two pieces, as there:
    times), the accurate-tanh rate (``probe_tanh``), the cost of one row
    reduction (``probe_reduce``: a warp per row, shuffles) and of one (2048,
    8) relayout through shared memory (``probe_transpose``), and the bf16
-   tensor-core rate of four chained 4096^3 ``torch.matmul`` (a plain large
-   product, which the JAX package left to XLA as well). A rate above 105%
+   and TF32 tensor-core rates of four chained 4096^3 ``torch.matmul`` (a
+   plain large product, which the JAX package left to XLA as well; TF32 is
+   float32 operands with ``allow_tf32`` on for the call). A rate above 105%
    of the H100 SXM data sheet's peak (``PEAK``; ``SANITY``) means the
    measurement broke: it is measured once more and then raises
    ``CalibrationError``. There is no nominal fallback.
@@ -24,7 +25,10 @@ Counterpart of ``mvae_tpu/kernels/roofline.py``. Two pieces, as there:
    is the larger of the two whole-launch times: blocks run in parallel on
    132 SMs, so the TPU's per-block cost times the number of blocks does not
    apply. Where the reference has no twin, the floor is priced from the
-   calibrated rates and says so.
+   calibrated rates and says so: B2's is the largest of its 3xTF32 tensor
+   products at the calibrated TF32 rate, its FP32 part (the h product and
+   the epilogue at the FMA rate, two transcendentals a logit at the tanh
+   rate) and its bytes at the stream rate.
 
 The probes are one CUDA source, ``csrc/roofline_probes.cu`` (replaces the
 TPU kernels ``_elementwise_call`` with ``_fma_kernel``, ``_tanh_kernel``,
@@ -34,13 +38,14 @@ Each wrapper launches its kernel for CUDA tensors, runs its plain PyTorch
 version (``*_ref``, beside it) for CPU tensors and raises otherwise, and
 counts its launches. Bound and design of each are in the source's note.
 
-``measure`` gives a kernel's device time per launch from CUDA events
-around the replay of a CUDA graph of its launches, with the median of the
-``torch.profiler`` (CUPTI) trace's records of another replay beside it as
-the cross-check (on the card the trace's durations drift from session to
-session; see ``measure``). Shapes whose bytes fit in the 50 MB L2 are
-timed over rotating buffer sets, so that every launch reads from device
-memory as the real caller's would.
+``measure`` gives a kernel's (or a library composition's) device time per
+call from CUDA events around the replay of a CUDA graph of its calls, with
+the median of the ``torch.profiler`` (CUPTI) trace's records of the named
+kernel in another replay beside it as the cross-check (on the card the
+trace's durations drift from session to session; see ``measure``).
+Shapes whose bytes fit in the 50 MB L2 are timed over rotating buffer
+sets, so that every launch reads from device memory as the real caller's
+would.
 
 Run on the card:  python -m mvae_torch.kernels.roofline [out.json]
 """
@@ -63,7 +68,8 @@ from ..utils.profiling import check_outputs
 from . import _build, decoder_kernels, manifold_kernels
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
-PEAK = {"hbm_gbps": 3350.0, "fp32_tflops": 67.0, "bf16_tflops": 989.0}
+PEAK = {"hbm_gbps": 3350.0, "fp32_tflops": 67.0, "bf16_tflops": 989.0,
+        "tf32_tflops": 495.0}
 # A rate outside its window proves the measurement broke. A tanh costs at
 # least one FP32 instruction (67 TFLOP/s counts an FMA as two); the reduce
 # and transpose probes move bytes no faster than the stream.
@@ -74,6 +80,7 @@ SANITY = {
     "reduce_gbps": (10.0, 1.05 * PEAK["hbm_gbps"]),
     "transpose_gbps": (10.0, 1.05 * PEAK["hbm_gbps"]),
     "bf16_tflops": (10.0, 1.05 * PEAK["bf16_tflops"]),
+    "tf32_tflops": (10.0, 1.05 * PEAK["tf32_tflops"]),
 }
 
 B, N = 1 << 20, 128           # the distance and calibration shape
@@ -93,8 +100,10 @@ ITERS = 20
 LORENTZ_TAIL_FLOPS = 12
 LORENTZ_TAIL_TRANSCENDENTALS = 3
 # the BCE epilogue of B2 per logit: bias, x * l, softplus (max, abs, exp,
-# log1p, add), the difference and the sum; per hidden unit: bias and ReLU
+# log1p, add), the difference and the sum, two of them transcendental; per
+# hidden unit: bias and ReLU
 BCE_OPS_PER_LOGIT = 9
+BCE_TRANSCENDENTALS_PER_LOGIT = 2
 HIDDEN_OPS_PER_UNIT = 2
 
 
@@ -558,11 +567,20 @@ def decode_bytes(S: int, Bb: int, Z: int, H: int, D: int) -> int:
 
 
 def decode_flops(S: int, Bb: int, Z: int, H: int, D: int) -> dict:
-    """FP32 operations of the port's B2: the two products 2 S B (Z H + H D)
-    and the elementwise epilogue (bias + ReLU, the BCE)."""
+    """Operations of B2. ``gemm``: the two products 2 S B (Z H + H D) as
+    float32 work, with ``elementwise`` (bias + ReLU, the BCE) and their
+    ``total``: the FP32 SIMT count. The kernel runs the second product on
+    the tensor cores as three TF32 products (a_lo b_hi + a_hi b_lo + a_hi
+    b_hi): ``tensor_3xtf32`` = 3 x 2 S B H D. What stays on the FP32 pipe
+    (``fp32_part``) is the first product 2 S B Z H and the elementwise work
+    less the ``transcendentals`` (exp and log1p, two a logit)."""
     gemm = 2 * S * Bb * (Z * H + H * D)
     elem = S * Bb * (HIDDEN_OPS_PER_UNIT * H + BCE_OPS_PER_LOGIT * D)
-    return {"gemm": gemm, "elementwise": elem, "total": gemm + elem}
+    trans = S * Bb * D * BCE_TRANSCENDENTALS_PER_LOGIT
+    return {"gemm": gemm, "elementwise": elem, "total": gemm + elem,
+            "tensor_3xtf32": 3 * 2 * S * Bb * H * D,
+            "fp32_part": 2 * S * Bb * Z * H + elem - trans,
+            "transcendentals": trans}
 
 
 def lorentz_compute_us(rows: int, n: int, cal: dict) -> float:
@@ -594,6 +612,8 @@ def rates(times_us: dict, repeat: int) -> dict:
     }
     if "gemm" in t:
         out["bf16_tflops"] = 4 * 2 * GEMM_M ** 3 / t["gemm"] / 1e12
+    if "gemm_tf32" in t:
+        out["tf32_tflops"] = 4 * 2 * GEMM_M ** 3 / t["gemm_tf32"] / 1e12
     return out
 
 
@@ -603,8 +623,10 @@ def out_of_window(cal: dict) -> list[str]:
             if k in cal and not lo <= cal[k] <= hi]
 
 
-def peak_share(us: float, nbytes: int = 0, flops: int = 0) -> dict:
-    """Achieved rates and the share of the data-sheet peaks."""
+def peak_share(us: float, nbytes: int = 0, flops: int = 0,
+               pipe: str = "fp32") -> dict:
+    """Achieved rates and the share of the data-sheet peaks; ``flops`` run
+    on ``pipe`` ("fp32" or "tf32": ``pct_of_<pipe>_peak``)."""
     s = us * 1e-6
     out = {}
     if nbytes:
@@ -612,7 +634,8 @@ def peak_share(us: float, nbytes: int = 0, flops: int = 0) -> dict:
         out["pct_of_hbm_peak"] = 100.0 * out["gbps"] / PEAK["hbm_gbps"]
     if flops:
         out["tflops"] = flops / s / 1e12
-        out["pct_of_fp32_peak"] = 100.0 * out["tflops"] / PEAK["fp32_tflops"]
+        out[f"pct_of_{pipe}_peak"] = (100.0 * out["tflops"]
+                                      / PEAK[f"{pipe}_tflops"])
     return out
 
 
@@ -643,13 +666,13 @@ def max_rel_err(got, ref) -> float:
 
 @dataclasses.dataclass
 class Timing:
-    """Time per call: for a kernel (``source`` "graph"), its device time per
-    launch from CUDA events around one replay of a CUDA graph of ``iters``
-    launches (no host time between them), with ``trace_us`` the median of
-    the ``traced`` launches the CUPTI trace of another replay holds, the
-    cross-check; for a composition of library kernels (``source``
-    "events"), CUDA events around ``iters`` calls as the host issues them
-    (``trace_us`` None)."""
+    """Time per call. ``source`` "graph": device time per call from CUDA
+    events around one replay of a CUDA graph of ``iters`` calls (no host
+    time between them), with ``trace_us`` the median of the ``traced``
+    records of the named kernel that the CUPTI trace of another replay
+    holds, the cross-check (None when no kernel is named: a library
+    composition). ``source`` "events": CUDA events around ``iters`` calls
+    as the host issues them (the plain versions; ``trace_us`` None)."""
     us: float
     trace_us: float | None
     traced: int
@@ -687,14 +710,16 @@ def count_replays(per_replay: dict, replays: int) -> None:
         f.launches += n * replays
 
 
-def measure(calls, kernel: str | None = None, iters: int = ITERS) -> Timing:
+def measure(calls, kernel: str | None = None, iters: int = ITERS,
+            graph: bool = False) -> Timing:
     """Time ``calls`` (a zero-argument callable, or a list of them cycled
     through: rotating buffer sets) on the card. With ``kernel`` (the name
-    of the device kernel each call launches once) the calls are captured
-    in a CUDA graph and timed by replay; without, by an events loop. The
-    wrappers' launch counts end up counting what ran on the card: the
-    warm-up calls and ``iters`` launches for each of the graph's three
-    replays.
+    of the main device kernel each call launches once) or ``graph`` the
+    calls are captured in a CUDA graph and timed by replay, the whole graph
+    per call (a wrapper that launches two kernels, or a library
+    composition, counts both); otherwise by an events loop. The wrappers'
+    launch counts end up counting what ran on the card: the warm-up calls
+    and ``iters`` launches for each of the graph's three replays.
 
     Why not the CUPTI trace alone: on the H100 machine the trace's kernel
     durations were off by a factor that changes from one profiling session
@@ -711,24 +736,29 @@ def measure(calls, kernel: str | None = None, iters: int = ITERS) -> Timing:
 
     for c in calls:           # warm-up: one call of every buffer set
         c()
-    if kernel is None:
+    if kernel is None and not graph:
         us = _events_us(loop, iters)
         return Timing(us, None, 0, iters, "events")
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+    g = torch.cuda.CUDAGraph()
 
     def record():
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(g):
             loop()
 
     per_replay = captured_launches(record)
-    graph.replay()
-    us = _events_us(graph.replay, iters)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        graph.replay()
+    g.replay()
+    us = _events_us(g.replay, iters)
+    durations = []
+    if kernel is not None:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            g.replay()
+            torch.cuda.synchronize()
+        durations = sorted(ev.time_range.elapsed_us() for ev in prof.events()
+                           if kernel in ev.name)
+    else:
+        g.replay()
         torch.cuda.synchronize()
-    durations = sorted(ev.time_range.elapsed_us() for ev in prof.events()
-                       if kernel in ev.name)
     trace_us = durations[len(durations) // 2] if durations else None
     count_replays(per_replay, 3)
     return Timing(us, trace_us, len(durations), iters, "graph")
@@ -753,8 +783,9 @@ def _normal(shape, seed, scale=1.0):
 
 
 def _gemm_chain(x, w):
-    """Four chained bf16 products with f32 accumulation, each fed the
-    previous one's whole output (w ~ N(0, 1 / M) keeps the scale)."""
+    """Four chained products (bf16, or float32 with TF32 on) with f32
+    accumulation, each fed the previous one's whole output (w ~ N(0, 1 / M)
+    keeps the scale)."""
     for _ in range(4):
         x = torch.matmul(x, w)
     return x
@@ -773,9 +804,12 @@ def _calibrate_once() -> dict:
                              "probe_transpose_kernel"),
     }
     del x, y
-    a = _normal((GEMM_M, GEMM_M), 2).to(torch.bfloat16)
-    w = _normal((GEMM_M, GEMM_M), 3, GEMM_M ** -0.5).to(torch.bfloat16)
-    tm["gemm"] = measure(lambda: _gemm_chain(a, w))
+    a = _normal((GEMM_M, GEMM_M), 2)
+    w = _normal((GEMM_M, GEMM_M), 3, GEMM_M ** -0.5)
+    with _tf32(True):
+        tm["gemm_tf32"] = measure(lambda: _gemm_chain(a, w), graph=True)
+    a, w = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    tm["gemm"] = measure(lambda: _gemm_chain(a, w), graph=True)
     cal = rates({k: v.us for k, v in tm.items()}, CAL_REPEAT)
     cal["repeat"] = CAL_REPEAT
     cal["timings"] = {k: dataclasses.asdict(v) for k, v in tm.items()}
@@ -955,12 +989,48 @@ def _tf32(on: bool):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def mean_timing(a: Timing, b: Timing) -> Timing:
+    """Two timings of one thing, taken in turns with another: their mean
+    (the trace medians averaged where both have one)."""
+    tr = (None if a.trace_us is None or b.trace_us is None
+          else (a.trace_us + b.trace_us) / 2)
+    return Timing((a.us + b.us) / 2, tr, a.traced + b.traced,
+                  a.iters + b.iters, a.source)
+
+
 def _two_gemm_decode(zt, xt, w1, b1, w2, b2):
-    """The decode as two library products and the BCE (the yardstick; in
-    full FP32 or TF32 as the caller sets ``allow_tf32``)."""
+    """The decode as two library products and the BCE, in full FP32 or
+    TF32 as the caller sets ``allow_tf32``."""
     h = torch.relu(torch.matmul(zt.transpose(1, 2), w1) + b1)
     logits = torch.matmul(h, w2) + b2
     return torch.sum(xt.T * logits - stable.softplus(logits), dim=-1)
+
+
+def two_sgemm_operands(zt, w1, b1, w2):
+    """The operands of B2's library yardstick: z as (S B, Z) rows and
+    h = relu(z W1 + b1), made outside the timed calls."""
+    zf = zt.transpose(1, 2).reshape(-1, zt.shape[1]).contiguous()
+    return zf, w1, torch.relu(zf @ w1 + b1), w2
+
+
+def two_sgemms(zf, w1, hf, w2):
+    """B2's library yardstick: the decoder's two products alone, one
+    cuBLAS FP32 SGEMM each (no bias, ReLU or BCE)."""
+    return torch.mm(zf, w1), torch.mm(hf, w2)
+
+
+def decode_floors(S: int, Bb: int, Z: int, H: int, D: int, cal: dict) -> dict:
+    """B2's floors (us per launch) from the calibrated rates: its 3xTF32
+    tensor products at ``tf32_tflops``; its FP32 part at ``fma_tflops``
+    with the transcendentals at ``tanh_gops`` (the two pipes run side by
+    side with the tensor cores, so the largest binds); its bytes at
+    ``stream_gbps``."""
+    fl = decode_flops(S, Bb, Z, H, D)
+    return {"tensor_3xtf32": fl["tensor_3xtf32"] / (cal["tf32_tflops"] * 1e6),
+            "fp32_part": (fl["fp32_part"] / (cal["fma_tflops"] * 1e6)
+                          + fl["transcendentals"] / (cal["tanh_gops"] * 1e3)),
+            "bytes_stream": decode_bytes(S, Bb, Z, H, D)
+                            / (cal["stream_gbps"] * 1e3)}
 
 
 def _row_decode(cal):
@@ -968,34 +1038,53 @@ def _row_decode(cal):
     nbytes = decode_bytes(S, Bb, Z, H, D)
     sets = decode_sets(buffer_sets(nbytes, _l2_bytes()))
     n_sets = len(sets)
-    t = measure([functools.partial(decoder_kernels.fused_decode_bce_t, *a)
-                 for a in sets], "decode_bce_kernel")
+    lib_sets = [two_sgemm_operands(zt, w1, b1, w2)
+                for zt, _, w1, b1, w2, _ in sets]
+
+    def kernel():
+        return measure([functools.partial(decoder_kernels.fused_decode_bce_t,
+                                          *a) for a in sets],
+                       "decode_bce_kernel")
+
+    def library():
+        with _tf32(False):
+            return measure([functools.partial(two_sgemms, *a)
+                            for a in lib_sets], graph=True)
+
+    # in turns on one card: kernel, library, library, kernel
+    turns = [kernel(), library(), library(), kernel()]
+    t, lib = mean_timing(turns[0], turns[3]), mean_timing(turns[1], turns[2])
+    del lib_sets
     with _tf32(False):
-        fp32 = measure([functools.partial(_two_gemm_decode, *a)
-                        for a in sets])
+        plain = measure(functools.partial(decoder_kernels.decode_bce_ref,
+                                          *sets[0]), iters=3)
         ref = _two_gemm_decode(*sets[0])
         ref64 = _two_gemm_decode(*[a.double() for a in sets[0]])
         got = decoder_kernels.fused_decode_bce_t(*sets[0])
     with _tf32(True):
         tf32 = measure([functools.partial(_two_gemm_decode, *a)
-                        for a in sets])
+                        for a in sets], graph=True)
         ll_tf32 = _two_gemm_decode(*sets[0])
     fl = decode_flops(S, Bb, Z, H, D)
-    floors = {"fp32_calibrated": fl["total"] / (cal["fma_tflops"] * 1e6),
-              "bytes_stream": nbytes / (cal["stream_gbps"] * 1e3)}
     return {"kernel": "B2 decode_bce", "shape": f"S={S} B={Bb} Z={Z} H={H} "
                                                f"D={D}",
-            "us": t.us, **peak_share(t.us, flops=fl["total"]),
-            **binding(t.us, floors),
+            "us": t.us, **peak_share(t.us, flops=fl["tensor_3xtf32"],
+                                     pipe="tf32"),
+            **binding(t.us, decode_floors(S, Bb, Z, H, D, cal)),
+            "fp32_calibrated_floor_us": fl["total"] / (cal["fma_tflops"]
+                                                       * 1e6),
             "fp32_peak_us": fl["total"] / (PEAK["fp32_tflops"] * 1e6),
-            "flops": fl, "plain_us": fp32.us,
-            "two_sgemm_fp32_us": fp32.us, "two_gemm_tf32_us": tf32.us,
+            "flops": fl, "plain_us": plain.us,
+            "two_sgemm_fp32_us": lib.us, "two_gemm_tf32_us": tf32.us,
+            "turns_us": [x.us for x in turns],
             "max_abs_err_nats_vs_fp32": float((got - ref).abs().max()),
             "tf32_max_abs_err_nats_vs_fp32": float((ll_tf32 - ref).abs().max()),
             "fp32_max_abs_err_nats_vs_f64": float((ref - ref64).abs().max()),
+            "max_abs_err_nats_vs_f64": float((got - ref64).abs().max()),
             "l2": f"rotating {n_sets} buffer sets of {nbytes} B",
-            "timings": {"kernel": _timing(t), "two_sgemm_fp32": _timing(fp32),
-                        "two_gemm_tf32": _timing(tf32)}}
+            "timings": {"kernel": _timing(t), "two_sgemm_fp32": _timing(lib),
+                        "two_gemm_tf32": _timing(tf32),
+                        "plain": _timing(plain)}}
 
 
 def main(out_path: str | None = None) -> dict:

@@ -30,7 +30,7 @@ import torch
 from ..components import (Component, reparametrize, sample_prior,
                           total_ambient_dim)
 from ..kernels import decoder_kernels, manifold_kernels, tail_kernels
-from ..ops.stable import softplus
+from ..ops.stable import acc_dtype, softplus
 from . import nets
 
 
@@ -101,7 +101,11 @@ def bernoulli_log_prob(logits, x):
 
 
 def _sum_data_axes(a, n_data_axes: int):
-    return torch.sum(a, dim=tuple(range(a.dim() - n_data_axes, a.dim())))
+    """Sum over the data axes, in float32 under bfloat16: a 784-element
+    bfloat16 sum quantizes to whole numbers (4-nat steps near -700), which
+    is what an IWAE estimate cannot survive."""
+    return torch.sum(a, dim=tuple(range(a.dim() - n_data_axes, a.dim())),
+                     dtype=acc_dtype(a.dtype))
 
 
 class Forward:
@@ -266,7 +270,7 @@ def _fused_decoder_eligible(cfg: VAEConfig, params) -> bool:
         return False
     if params["decoder"]["out"]["w"].dtype != torch.float32:
         return False
-    return decoder_kernels.shape_supported(cfg.z_dim, cfg.h_dim)
+    return decoder_kernels.decode_shape_supported(cfg.z_dim, cfg.h_dim)
 
 
 def _fused_reparam_eligible(comp, comp_params) -> bool:
@@ -342,9 +346,11 @@ def _log_weights(cfg: VAEConfig, params, x, n_samples: int,
                 dec["out"]["w"], dec["out"]["b"])
         else:
             logits = nets.mlp_decoder_apply(dec, zt.transpose(1, 2))
-            ll = torch.sum(bernoulli_log_prob(logits, xf), dim=-1)
+            ll = _sum_data_axes(bernoulli_log_prob(logits, xf), 1)
         out.append(ll + log_p - log_q)
-    return torch.cat(out, dim=0)
+    # the log-weights in >= float32 (never a float64 oracle downgraded)
+    log_w = torch.cat(out, dim=0)
+    return log_w.to(acc_dtype(log_w.dtype))
 
 
 def log_likelihood(cfg: VAEConfig, params, x, n_samples: int = 500,

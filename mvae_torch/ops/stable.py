@@ -44,6 +44,14 @@ def eps(dtype) -> float:
     return 1e-3  # bfloat16 / float16
 
 
+def acc_dtype(dtype):
+    """The type a sum of ``dtype`` values accumulates in: float32 under
+    bfloat16 (a 784-term bfloat16 sum quantizes to whole numbers), the
+    type itself otherwise (float64 is never downgraded), as the
+    reference's ``acc = jnp.float32 if dtype == jnp.bfloat16 else dtype``."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def tiny(dtype) -> float:
     """Additive guard for sqrt/log arguments (value-preserving to ~eps**2)."""
     if dtype == torch.float64:

@@ -11,7 +11,10 @@ forward tiles, the hand-derived backward and the IWAE chunk reparam are held
 against their plain PyTorch versions on the same inputs. The distance
 kernels sum a row across a warp by shuffles, which a host loop cannot
 stand in for, so of them the scalar tails (from a row's Gram values to the
-distance) are compiled and held here, and the reductions on the card.
+distance) are compiled and held here, and the reductions on the card. Of
+the IWAE decode, which runs on the tensor cores, the TF32 split of its
+operands (``csrc/tf32.cuh``) is compiled and held to ``tf32_split_ref``
+bit for bit.
 
 This checks the expressions and the reverse sweep, not the build for the
 card or the launch: those are ``chip_smoke.py``'s and the ``-m cuda`` tests'.
@@ -33,6 +36,7 @@ import pytest
 import torch
 
 from mvae_torch.components import parse_components
+from mvae_torch.kernels import decoder_kernels as tdk
 from mvae_torch.kernels import manifold_kernels as tmk
 from mvae_torch.kernels import tail_kernels as ttk
 
@@ -43,6 +47,7 @@ _STUB = r"""
 #include <math.h>
 #include <stddef.h>
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __noinline__
@@ -95,6 +100,11 @@ extern "C" void host_run(const float* eps, long long stride, const float* mu,
   }
 }
 """,
+    "tf32": r"""
+extern "C" void host_run(const float* a, unsigned* hi, unsigned* lo, int n) {
+  for (int i = 0; i < n; ++i) tf32_split(a[i], hi[i], lo[i]);
+}
+""",
     "manifold_dist": r"""
 extern "C" void host_run(int lorentz, const float* k, const float* a,
                          const float* b, const float* c, float* out, int B) {
@@ -118,7 +128,9 @@ def host_libs(tmp_path_factory):
         shutil.copy(header, work / header.name)
     libs = {}
     for name, harness in _HARNESS.items():
-        body = (CSRC / f"{name}.cu").read_text().split('extern "C"')[0]
+        source = CSRC / f"{name}.cu"
+        body = (source.read_text().split('extern "C"')[0] if source.exists()
+                else f'#include "{name}.cuh"\n')
         src = work / f"{name}.cpp"
         src.write_text(body + harness)
         out = work / f"{name}.so"
@@ -453,3 +465,22 @@ def test_lorentz_distance_tail_matches_plain_version(host_libs, kval):
     ref = tmk.lorentz_distance_ref(x, y, k)
     assert bool(torch.isfinite(out).all())
     assert bool(((out - ref).abs() <= 1e-5 * (1 + ref.abs())).all())
+
+
+def test_tf32_split_source_matches_emulation(host_libs):
+    """``csrc/tf32.cuh``'s split (the code the card runs), compiled for the
+    host, against ``tf32_split_ref`` bit for bit: random magnitudes, floats
+    whose 13 dropped bits are exactly half (both signs), signed zeros."""
+    g = torch.Generator().manual_seed(5)
+    a = (torch.randn(4096, generator=g, dtype=torch.float64)
+         * 10.0 ** torch.randint(-20, 20, (4096,), generator=g)).float()
+    ties = ((torch.arange(1, 65, dtype=torch.int32) << 13)
+            | 0x3F801000).view(torch.float32)
+    a = torch.cat([a, ties, -ties, torch.tensor([0.0, -0.0, 1.0, 1.9999999,
+                                                 -3.0e38])])
+    hi = torch.empty(a.shape, dtype=torch.int32)
+    lo = torch.empty(a.shape, dtype=torch.int32)
+    host_libs["tf32"](_ptr(a), _ptr(hi), _ptr(lo), len(a))
+    hi_ref, lo_ref = tdk.tf32_split_ref(a)
+    assert torch.equal(hi, hi_ref.view(torch.int32))
+    assert torch.equal(lo, lo_ref.view(torch.int32))

@@ -148,6 +148,91 @@ def test_fused_path_report_names_the_port_kernels():
     assert not rep["iwae_decoder"]["active"]
 
 
+def _bf16_models(spec="h2,e2"):
+    """The JAX package's bfloat16 weights, and the same values in the port
+    (through float32: numpy has no bfloat16 torch reads), with x."""
+    jcfg = jvae.VAEConfig(j_parse(spec, fixed_curvature=False), (D,), h_dim=H)
+    tcfg = tvae.VAEConfig(parse_components(spec, fixed_curvature=False),
+                          (D,), h_dim=H)
+    jparams = jvae.init_params(jax.random.key(0), jcfg, dtype=jnp.bfloat16)
+    tparams = jax.tree.map(
+        lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            torch.bfloat16), jparams)
+    x = (np.random.default_rng(0).random((B, D)) < 0.3).astype(np.float32)
+    return jcfg, tcfg, jparams, tparams, x
+
+
+def _bf16_noise(key, comps):
+    """JAX's bfloat16 draws, through float32, as bfloat16 tensors."""
+    return torch.from_numpy(np.asarray(draw_noise_t(
+        key, comps, B, jnp.bfloat16).astype(jnp.float32)).T.copy()).to(
+            torch.bfloat16)
+
+
+def _not_on_bf16_grid(v):
+    """A float32 result that a bfloat16 sum would have quantized (at a
+    magnitude of 50-150 bfloat16 steps are 0.25-1 nat) has entries that
+    bfloat16 cannot hold."""
+    return bool((v.to(torch.bfloat16).float() != v).any())
+
+
+def test_bf16_elbo_accumulates_in_float32():
+    """Under --dtype bfloat16 the per-pixel terms, the Gaussian and wrapped
+    sums accumulate in float32, as the reference's: log p(x|z), log q,
+    log p and the ELBO come back float32 and equal the JAX package's at
+    bfloat16 on the same weights and noise. Both frameworks round each
+    bfloat16 op of the same sequence here; the tolerance, 1e-3 nats, is
+    far under the 0.25-nat bfloat16 step a bfloat16 sum would leave."""
+    jcfg, tcfg, jparams, tparams, x = _bf16_models()
+    key = jax.random.key(11)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    fj = jvae.forward(key, jcfg, jparams, xj)
+    val_j, _ = jvae.elbo(key, jcfg, jparams, xj)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    noise = _bf16_noise(key, jcfg.components)
+    ft = tvae.forward(tcfg, tparams, xt, noise=noise)
+    val_t, _ = tvae.elbo(tcfg, tparams, xt, noise=noise)
+    for ours, theirs in ((ft.log_px_z, fj.log_px_z), (ft.log_q, fj.log_q),
+                         (ft.log_p, fj.log_p), (val_t, val_j)):
+        assert ours.dtype == torch.float32 and theirs.dtype == jnp.float32
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs),
+                                   rtol=0, atol=1e-3)
+    assert _not_on_bf16_grid(ft.log_px_z) and _not_on_bf16_grid(val_t)
+
+
+def test_bf16_iwae_accumulates_in_float32():
+    """IWAE-40 under bfloat16: the log-weights come back float32, each equal
+    to the JAX package's forward of that importance sample on the same
+    weights and noise (1e-3 nats, as the ELBO), and the estimate within
+    0.05 nats of ``jvae.log_likelihood``: XLA rounds the reference's
+    vmapped bfloat16 samples otherwise than one sample at a time (its
+    log-weights move up to ~0.5 nats between the two on these weights,
+    its estimate ~0.02), while a bfloat16 log-weight sum moves the
+    estimate by 0.25-0.35 nats."""
+    jcfg, tcfg, jparams, tparams, x = _bf16_models()
+    key = jax.random.key(12)
+    n, chunk = 40, 20
+    xj = jnp.asarray(x, jnp.bfloat16)
+    feats = jvae.encode(jcfg, jparams, xj)
+    noise, lw_j = [], []
+    for ck in jax.random.split(key, n // chunk):
+        for sk in jax.random.split(ck, chunk):
+            noise.append(_bf16_noise(sk, jcfg.components))
+            f = jvae.forward_from_features(sk, jcfg, jparams, xj, feats)
+            lw_j.append(np.asarray(f.log_px_z + f.log_p - f.log_q))
+    noise = torch.stack(noise)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    lw_t = tvae._log_weights(tcfg, tparams, xt, n, chunk, noise=noise)
+    assert lw_t.dtype == torch.float32
+    np.testing.assert_allclose(lw_t.numpy(), np.stack(lw_j), rtol=0,
+                               atol=1e-3)
+    ll_t = tvae.log_likelihood(tcfg, tparams, xt, n, chunk, noise=noise)
+    ll_j = jvae.log_likelihood(key, jcfg, jparams, xj, n, chunk)
+    assert ll_t.dtype == torch.float32 and _not_on_bf16_grid(ll_t)
+    np.testing.assert_allclose(ll_t.numpy(), np.asarray(ll_j), rtol=0,
+                               atol=0.05)
+
+
 def _dataset(n_test=40):
     rng = np.random.default_rng(3)
     return ArrayDataset("toy", rng.random((32, 8, 8), dtype=np.float32),
