@@ -19,7 +19,8 @@ Phases:
     D=784) and at B = 272 (the test split's last batch), then its time and
     the two cuBLAS FP32 SGEMMs' by graph replay in turns (kernel, library,
     library, kernel), and their factor;
- 5. the slice end to end: ``Trainer.evaluate_elbo`` and
+ 5. the slice end to end: ``Trainer.evaluate_elbo`` (its decode through
+    B6, on by default on the card) and
     ``Trainer.evaluate_log_likelihood`` (IWAE-500) of the h2,s2,e2 MLP VAE
     at h_dim 400 over the 10,000-example MNIST test split (the synthetic
     stand-in when no data is present), launch counts read right after,
@@ -29,14 +30,23 @@ Phases:
  6. the tail backward kernel (tail_bwd.cu) against ``tail_backward_ref``
     (autograd through the plain forward) at B = 128, 1024 and 1000, the
     curvature sets and large-|mu| rows of phase 3, random cotangents;
- 7. the training decode kernel (train_decode.cu) against
-    ``train_decode_ref`` at (B = 128, 1024, 1000; Z = 8, H = 400, D = 784);
+ 7. the training decode kernel (train_decode.cu: 3xTF32 on the tensor
+    cores, W2 by the Tensor Memory Accelerator) against
+    ``train_decode_ref`` at B = 1, 127, 128, 512, 1000, 1024 and (Z, H, D)
+    = (8, 400, 784), (2, 33, 98), (16, 600, 784), (8, 1200, 784), two
+    calls and ten CUDA-graph replays bit for bit; then at the flagship's
+    widths and B = 128, 512, 1024 its time and the two cuBLAS FP32 SGEMMs'
+    in turns, its plain version, and its floors from the card's calibrated
+    rates (``roofline.train_decode_floors``) with its share of them;
  8. training end to end: ``Trainer.fit`` of the flagship for 2 epochs of
-    468 steps at batch 128 (burn-in 1), a test ELBO per epoch and IWAE-500
-    at the end, launch counts read right after; then the step rate in
-    turns with the training decode kernel off and on, and a profile of one
-    epoch each way;
- 9. the same training with ``MVAE_FUSED_TRAIN_DECODER=1`` (one epoch);
+    468 steps at batch 128 (burn-in 1), B1, B3 and B6 every step (B6 is on
+    by default for CUDA parameters), a test ELBO per epoch and IWAE-500 at
+    the end, launch counts read right after; then the step rate in turns
+    with B6 off and on (off, on, on, off), each turn's steps/s and device
+    busy share on one line with the verdict that sets the switch's
+    default on the card;
+ 9. the same training with ``MVAE_FUSED_TRAIN_DECODER=0`` (one epoch, the
+    plain decode, B6 never launched);
 10. a plain replay of training: one step's gradients, and 50 steps'
     losses each from the same state, through the kernels against the plain
     versions, on the same weights and generator seed (and the gap of two
@@ -118,7 +128,7 @@ float64 backward than ten times the float32 plain version is.
 
 A kernel's ``ms`` is its device time per call by ``roofline.measure``:
 CUDA events around the replay of a CUDA graph of its calls, so no host
-launch cost is in it (a wrapper that launches two kernels, B6, is timed as
+launch cost is in it (a wrapper that launches several kernels is timed as
 the whole graph per call); the CUPTI trace median of its main kernel in
 another replay is printed beside it as the cross-check. ``library_ms`` is
 timed the same way. The plain versions and the host-side walls are timed
@@ -218,7 +228,7 @@ def library_ms(fn, iters: int = 20) -> float:
 # go to cuBLAS and are one row.
 _LAYERS = (("B1 tail_fwd", ("tail_fwd_kernel",)),
            ("B3 tail_bwd", ("tail_bwd_kernel",)),
-           ("B6 train_decode", ("train_decode_kernel", "ll_reduce_kernel")),
+           ("B6 train_decode", ("train_decode_kernel",)),
            ("GEMMs (cuBLAS, fwd + bwd)", ("gemm", "gemv", "xmma", "cutlass")),
            ("Adam (foreach)", ("multi_tensor_apply",)),
            ("random draws (binarize, noise, perm)", ("distribution", "philox",
@@ -531,7 +541,8 @@ def phase_end_to_end(spec: str = SPEC) -> dict:
 
     counted = {"tail_fwd": tail_kernels.tail_forward,
                "decode_bce": decoder_kernels.fused_decode_bce_t,
-               "reparam_stereo": manifold_kernels.wrapped_reparam_stereo_t}
+               "reparam_stereo": manifold_kernels.wrapped_reparam_stereo_t,
+               "train_decode": decoder_kernels.train_decode_bce}
     for fn in counted.values():
         fn.launches = 0
     elbo, ll, t_elbo, t_ll = _evaluate(trainer, tc.seed)
@@ -544,6 +555,8 @@ def phase_end_to_end(spec: str = SPEC) -> dict:
     check(math.isfinite(elbo) and math.isfinite(ll), "finite ELBO and LL")
     check(launches["tail_fwd"] >= 20, "tail kernel launched >= 20 times")
     check(launches["decode_bce"] >= 80, "decode kernel launched >= 80 times")
+    check(launches["train_decode"] >= 20, "the ELBO pass's decode through B6 "
+          "(on by default on the card) >= 20 times")
     check(launches["reparam_stereo"] == 80 * n_reparam,
           f"chunk reparam kernel launched {80 * n_reparam} times "
           "(20 batches x 4 chunks x its components)")
@@ -654,62 +667,144 @@ def phase_tail_bwd(comps, gen) -> dict:
             "library_ms": None}
 
 
-def phase_train_decode(gen) -> dict:
-    Z, H, D = 8, 400, 784
+# B6's shapes (tests/test_torch_decoder_kernels.py): the flagship's widths;
+# a narrow ragged D (4-byte copies, scalar h and gl stores); a wide H; an
+# H whose W2 slice streams through the ring
+TRAIN_DECODE_SHAPES = ((8, 400, 784), (2, 33, 98), (16, 600, 784),
+                       (8, 1200, 784))
+TRAIN_DECODE_BATCHES = (1, 127, 128, 512, 1000, 1024)
+
+
+def _train_decode_weights(Z, H, D, gen):
     dev = "cuda"
-    w1 = math.sqrt(2.0 / Z) * torch.randn(Z, H, generator=gen, device=dev)
-    b1 = 0.1 * torch.randn(H, generator=gen, device=dev)
-    w2 = math.sqrt(2.0 / H) * torch.randn(H, D, generator=gen, device=dev)
-    b2 = 0.1 * torch.randn(D, generator=gen, device=dev)
+    return (math.sqrt(2.0 / Z) * torch.randn(Z, H, generator=gen, device=dev),
+            0.1 * torch.randn(H, generator=gen, device=dev),
+            math.sqrt(2.0 / H) * torch.randn(H, D, generator=gen, device=dev),
+            0.1 * torch.randn(D, generator=gen, device=dev))
+
+
+def _train_decode_batch(B, Z, D, gen):
+    return (torch.randn(B, Z, generator=gen, device="cuda"),
+            (torch.rand(B, D, generator=gen, device="cuda") < 0.3).float())
+
+
+def _train_decode_held(Z, H, D, gen) -> float:
+    """B6 against ``train_decode_ref`` at every batch of
+    ``TRAIN_DECODE_BATCHES`` (ll within 1e-3 nats per row, h and gl within
+    1e-5 (1 + |ref|)), two calls bit for bit, and ten replays of a CUDA
+    graph of it bit for bit against a direct call (its row-tile counters
+    are back at 0 after every launch). Returns the largest ll error."""
+    w = _train_decode_weights(Z, H, D, gen)
     worst = 0.0
-    for B in (128, 1024, 1000):
-        z = torch.randn(B, Z, generator=gen, device=dev)
-        x = (torch.rand(B, D, generator=gen, device=dev) < 0.3).float()
-        ll, h, gl = decoder_kernels.train_decode_fwd(z, x, w1, b1, w2, b2)
-        llr, hr, glr = decoder_kernels.train_decode_ref(z, x, w1, b1, w2, b2)
+    for B in TRAIN_DECODE_BATCHES:
+        z, x = _train_decode_batch(B, Z, D, gen)
+        out = decoder_kernels.train_decode_fwd(z, x, *w)
+        again = decoder_kernels.train_decode_fwd(z, x, *w)
+        llr, hr, glr = decoder_kernels.train_decode_ref(z, x, *w)
         torch.cuda.synchronize()
+        ll, h, gl = out
+        what = f"B6 at (B, Z, H, D) = {(B, Z, H, D)}"
         check(bool(torch.isfinite(ll).all() and torch.isfinite(gl).all()),
-              f"train decode finite at B={B}")
+              f"{what} finite")
         e_ll = (ll - llr).abs().max().item()
         e_h = ((h - hr).abs() / (1 + hr.abs())).max().item()
         e_gl = ((gl - glr).abs() / (1 + glr.abs())).max().item()
-        check(e_ll <= 1e-3, f"B6 ll within 1e-3 nats per row at B={B}: "
-                            f"{e_ll:.3g}")
+        check(e_ll <= 1e-3, f"{what}: ll within 1e-3 nats per row: {e_ll:.3g}")
         check(e_h <= 1e-5 and e_gl <= 1e-5,
-              f"B6 h and gl within 1e-5 (1+|ref|) at B={B}: {e_h:.3g}, "
-              f"{e_gl:.3g}")
+              f"{what}: h and gl within 1e-5 (1+|ref|): {e_h:.3g}, {e_gl:.3g}")
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"{what}: two calls bit for bit")
         worst = max(worst, e_ll)
-        print(f"[train_decode] B={B}: max |dll| {e_ll:.3g} nats, h "
-              f"{e_h:.3g}, gl {e_gl:.3g} (relative to 1+|ref|)")
-    B = 128
-    z = torch.randn(B, Z, generator=gen, device=dev)
-    x = (torch.rand(B, D, generator=gen, device=dev) < 0.3).float()
-    # the wrapper launches the tile kernel and the row sum: the graph times
-    # both per call; the trace cross-checks the tile kernel
-    ms, trace = kernel_ms(
-        lambda: decoder_kernels.train_decode_fwd(z, x, w1, b1, w2, b2),
-        "train_decode_kernel", 100)
-    plain_ms = time_ms(
-        lambda: decoder_kernels.train_decode_ref(z, x, w1, b1, w2, b2), 100)
-    h = torch.relu(z @ w1 + b1)
-    lib_ms = library_ms(lambda: (torch.mm(z, w1), torch.mm(h, w2)), 100)
-    flops = 2.0 * B * (Z * H + H * D)
-    nbytes = 4 * (B * Z + B * D + Z * H + H + H * D + D + B + B * H + B * D)
-    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[train_decode] B=128: kernel {ms * 1e3:.2f} us (graph events, "
-          f"both launches; {trace}), plain {plain_ms * 1e3:.2f} us, two "
-          f"cuBLAS SGEMMs {lib_ms * 1e3:.2f} us (graph events; the kernel "
-          f"{ms / lib_ms:.2f}x of it), FP32 bound "
-          f"{ops_ms * 1e3:.3f} us ({flops / 1e6:.1f} MFLOP), bytes bound "
-          f"{bytes_ms * 1e3:.3f} us ({nbytes} B)")
-    return {"name": "train_decode", "route": "cuda",
-            "source": "mvae_torch/kernels/csrc/train_decode.cu",
-            "replaces": "mvae_tpu/kernels/decoder_kernels.py:254",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": lib_ms}
+        print(f"[train_decode] {(B, Z, H, D)}: max |dll| {e_ll:.3g} nats, h "
+              f"{e_h:.3g}, gl {e_gl:.3g} (relative to 1+|ref|); two calls "
+              f"equal")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        cap = decoder_kernels.train_decode_fwd(z, x, *w)
+    for _ in range(10):
+        for t in cap:
+            t.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(cap, out)),
+              f"B6 graph replay at {(B, Z, H, D)} bit for bit")
+    print(f"[train_decode] {(B, Z, H, D)}: 10 graph replays equal a direct "
+          f"call bit for bit")
+    return worst
+
+
+def phase_train_decode(gen) -> dict:
+    """B6 (train_decode.cu) held to its plain version at
+    ``TRAIN_DECODE_SHAPES`` x ``TRAIN_DECODE_BATCHES`` with the determinism
+    checks; then at the flagship's widths and B = 128, 512 and 1024 its time
+    and the two cuBLAS FP32 SGEMMs' in turns (kernel, SGEMMs, SGEMMs,
+    kernel) by ``roofline.measure``, its plain version, its data-sheet
+    bound and its floors from the card's calibrated rates."""
+    worst = max(_train_decode_held(Z, H, D, gen)
+                for Z, H, D in TRAIN_DECODE_SHAPES)
+    cal = roofline.calibrate()
+    print(f"[train_decode] calibrated: FMA {cal['fma_tflops']:.2f} TFLOP/s, "
+          f"triad {cal['stream_gbps']:.0f} GB/s, TF32 "
+          f"{cal['tf32_tflops']:.1f} TFLOP/s, tanh {cal['tanh_gops']:.0f} "
+          f"Gop/s")
+    Z, H, D = TRAIN_DECODE_SHAPES[0]
+    w1, b1, w2, b2 = _train_decode_weights(Z, H, D, gen)
+    row = {}
+    for B in (128, 512, 1024):
+        z, x = _train_decode_batch(B, Z, D, gen)
+        h = torch.relu(z @ w1 + b1)
+
+        def kern():
+            return roofline.measure(
+                lambda: decoder_kernels.train_decode_fwd(z, x, w1, b1, w2,
+                                                         b2),
+                "train_decode_kernel", 100)
+
+        def lib():
+            return roofline.measure(lambda: (torch.mm(z, w1), torch.mm(h, w2)),
+                                    iters=100, graph=True)
+
+        turns = [kern(), lib(), lib(), kern()]
+        t = roofline.mean_timing(turns[0], turns[3])
+        lib_us = roofline.mean_timing(turns[1], turns[2]).us
+        plain_ms = time_ms(
+            lambda: decoder_kernels.train_decode_ref(z, x, w1, b1, w2, b2),
+            100)
+        fl = roofline.train_decode_flops(B, Z, H, D)
+        nbytes = roofline.train_decode_bytes(B, Z, H, D)
+        floors = roofline.train_decode_floors(B, Z, H, D, cal)
+        fp32_floor = max(floors["fp32"], floors["bytes_stream"])
+        built = roofline.binding(t.us, {k: floors[k] for k in (
+            "tensor_3xtf32", "fp32_part", "bytes_stream")})
+        ops_ms = max(fl["tensor_3xtf32"] / TF32_FLOPS_PER_S,
+                     (fl["fp32_part"] + fl["transcendentals"])
+                     / FP32_FLOPS_PER_S) * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"[train_decode] B={B}: in turns kernel / SGEMMs / SGEMMs / "
+              f"kernel: {', '.join(f'{u.us:.2f}' for u in turns)} us (graph "
+              f"events); kernel {t.us:.2f} us (CUPTI trace median "
+              f"{t.trace_us if t.trace_us is None else round(t.trace_us, 2)}"
+              f" us), two cuBLAS FP32 SGEMMs {lib_us:.2f} us: the kernel "
+              f"{lib_us / t.us:.2f}x faster; plain {plain_ms * 1e3:.1f} us; "
+              f"floors from the calibrated rates: FP32 (2 B (Z H + H D) = "
+              f"{fl['gemm'] / 1e6:.1f} MFLOP at the FMA rate) "
+              f"{floors['fp32']:.3f} us, bytes ({nbytes} B at the triad rate) "
+              f"{floors['bytes_stream']:.3f} us -> binding {fp32_floor:.3f} us"
+              f", {100.0 * fp32_floor / t.us:.1f}% of binding; as built "
+              f"(3xTF32 {floors['tensor_3xtf32']:.3f} us, FP32 part "
+              f"{floors['fp32_part']:.3f} us, bytes) "
+              f"{built['binding_floor_us']:.3f} us ({built['bound_by']}), "
+              f"{built['pct_of_binding']:.1f}%; data sheet: operations "
+              f"{ops_ms * 1e3:.3f} us, bytes {bytes_ms * 1e3:.3f} us")
+        if B == 128:
+            row = {"name": "train_decode", "route": "cuda",
+                   "source": "mvae_torch/kernels/csrc/train_decode.cu",
+                   "replaces": "mvae_tpu/kernels/decoder_kernels.py:254",
+                   "max_abs_err": worst, "ms": t.us / 1e3,
+                   "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+                   "bound_by": "operations" if ops_ms >= bytes_ms
+                   else "bytes", "library_ms": lib_us / 1e3}
+    return row
 
 
 def _flagship(ds, run_dir, spec=SPEC, **tc) -> Trainer:
@@ -719,17 +814,25 @@ def _flagship(ds, run_dir, spec=SPEC, **tc) -> Trainer:
     return Trainer(cfg, ds, TrainConfig(**tc), run_dir)
 
 
-def _epoch_rate(trainer, epoch: int) -> float:
+def _epoch_rate(trainer, epoch: int, epochs: int = 1) -> float:
+    """Steps/s over the wall of ``epochs`` epochs from ``epoch``, ended by
+    a device sync."""
     torch.cuda.synchronize()
     t0 = time.time()
-    trainer.train_one_epoch(epoch)
+    for e in range(epoch, epoch + epochs):
+        trainer.train_one_epoch(e)
     torch.cuda.synchronize()
-    return trainer.steps_per_epoch / (time.time() - t0)
+    return epochs * trainer.steps_per_epoch / (time.time() - t0)
 
 
 def phase_train(ds, tmp) -> tuple[dict, Trainer]:
-    """Flagship training end to end (B1 + B3 every step), then the step
-    rate with B6 off and on in turns, and a profile of one epoch each."""
+    """Flagship training end to end (B1 + B3 + B6 every step: B6 is on by
+    default for CUDA parameters), then the step rate with B6 off and on in
+    turns (off, on, on, off; each of two epochs, after a warm-up epoch of
+    each trainer right before): the turns back to back unprofiled
+    (steps/s), then one epoch each profiled (device busy share), and the
+    verdict that sets the switch's default on the card: B6 on faster than
+    off in both turns."""
     trainer = _flagship(ds, f"{tmp}/train", seed=0, epochs=2,
                         burnin_epochs=1)
     with torch.no_grad():
@@ -739,8 +842,9 @@ def phase_train(ds, tmp) -> tuple[dict, Trainer]:
             trainer.component_names, trainer.model_cfg.components,
             trainer.params["components"])}
     check(trainer.fused_paths["train_tail"]["active"]
-          and not trainer.fused_paths["train_decoder"]["active"],
-          f"training routed through B1/B3, B6 off: {trainer.fused_paths}")
+          and trainer.fused_paths["train_decoder"]["active"],
+          f"training routed through B1/B3 and B6 (on by default on the "
+          f"card): {trainer.fused_paths}")
     for fn in (tail_kernels.tail_forward, tail_kernels.tail_backward,
                decoder_kernels.train_decode_bce):
         fn.launches = 0
@@ -774,33 +878,51 @@ def phase_train(ds, tmp) -> tuple[dict, Trainer]:
           f"c_param {c0} -> {c1}")
     check(launches["tail_bwd"] == steps, "B3 launched once per step")
     check(launches["tail_fwd"] >= steps, "B1 launched at least once a step")
-    check(launches["train_decode"] == 0, "B6 off by default")
+    check(launches["train_decode"] >= steps,
+          "B6 on by default on the card: launched every step")
 
     other = _flagship(ds, f"{tmp}/rate", seed=0, burnin_epochs=0)
+    order = ((trainer, False), (other, True), (other, True), (trainer, False))
+    for tr, on in order[:2]:              # an epoch of each first: warm-up
+        with train_decoder(on):
+            _epoch_rate(tr, 8)
     rates = []
-    for turn, (tr, on) in enumerate(((trainer, False), (other, True),
-                                     (other, True), (trainer, False))):
+    for turn, (tr, on) in enumerate(order):
         with train_decoder(on):
-            rates.append((on, _epoch_rate(tr, 10 + turn)))
-    print("[train] steps/s by epoch, B6 off/on in turns: "
-          + ", ".join(f"{'on' if on else 'off'} {r:.1f}" for on, r in rates))
-    for on, tr in ((False, trainer), (True, other)):
+            rates.append(_epoch_rate(tr, 10 + 2 * turn, epochs=2))
+    busy = []
+    for turn, (tr, on) in enumerate(order):
         with train_decoder(on):
-            profile_pass(
-                f"train epoch ({trainer.steps_per_epoch} steps), B6 "
-                f"{'on' if on else 'off'}",
-                lambda: tr.train_one_epoch(20), layers=True)
+            busy.append(profile_pass(
+                f"train epoch ({trainer.steps_per_epoch} steps), turn "
+                f"{turn + 1}, B6 {'on' if on else 'off'}",
+                lambda: tr.train_one_epoch(30 + turn), layers=turn < 2))
+    on_rates = [r for (_, on), r in zip(order, rates) if on]
+    off_rates = [r for (_, on), r in zip(order, rates) if not on]
+    faster = min(on_rates) > max(off_rates)
+    default = decoder_kernels.use_fused_train_decoder("cuda")
+    print("[train] B6 off/on in turns, steps/s (two unprofiled epochs a "
+          "turn, back to back) and device busy share (an epoch a turn, "
+          "profiled): "
+          + "; ".join(f"turn {i + 1} B6 {'on' if on else 'off'} {r:.1f} "
+                      f"steps/s, busy {100.0 * b:.1f}%"
+                      for i, ((_, on), r, b) in enumerate(zip(order, rates,
+                                                              busy)))
+          + f" -> B6 on faster than off in both turns: "
+            f"{'yes' if faster else 'no'}; 'auto' on CUDA is "
+            f"{'on' if default else 'off'}")
     return launches, trainer
 
 
-def phase_train_b6(ds, tmp) -> dict:
-    """One epoch of flagship training with MVAE_FUSED_TRAIN_DECODER=1 set
-    before the Trainer is built: B6 launched every step."""
-    with train_decoder(True):
-        trainer = _flagship(ds, f"{tmp}/b6", seed=0, epochs=1,
+def phase_train_plain_decoder(ds, tmp) -> None:
+    """One epoch of flagship training with MVAE_FUSED_TRAIN_DECODER=0 set
+    before the Trainer is built: the plain decode, B6 never launched."""
+    with train_decoder(False):
+        trainer = _flagship(ds, f"{tmp}/plain_dec", seed=0, epochs=1,
                             burnin_epochs=1)
-        check(trainer.fused_paths["train_decoder"]["active"],
-              f"B6 routed: {trainer.fused_paths['train_decoder']}")
+        check(not trainer.fused_paths["train_decoder"]["active"],
+              f"B6 off with the switch at 0: "
+              f"{trainer.fused_paths['train_decoder']}")
         for fn in (tail_kernels.tail_backward,
                    decoder_kernels.train_decode_bce):
             fn.launches = 0
@@ -808,14 +930,14 @@ def phase_train_b6(ds, tmp) -> dict:
         launches = {"tail_bwd": tail_kernels.tail_backward.launches,
                     "train_decode": decoder_kernels.train_decode_bce.launches}
     steps = trainer.step
-    print(f"[train+B6] {steps} steps: {result['train_steps_per_sec']:.1f} "
-          f"train steps/s (first epoch, warm-up included); launches "
-          f"{launches}; train ELBO {result['history'][0]['train/elbo']:.4f}")
-    check(launches["train_decode"] >= steps, "B6 launched every step")
+    print(f"[train, B6 off] {steps} steps: "
+          f"{result['train_steps_per_sec']:.1f} train steps/s (first epoch, "
+          f"warm-up included); launches {launches}; train ELBO "
+          f"{result['history'][0]['train/elbo']:.4f}")
+    check(launches["train_decode"] == 0, "B6 not launched with the switch off")
     check(launches["tail_bwd"] == steps, "B3 launched once per step")
     check(all(math.isfinite(v) for v in result["history"][0].values()),
-          "finite statistics with B6")
-    return launches
+          "finite statistics with the plain decode")
 
 
 def _grads(trainer, x, noise):
@@ -1827,8 +1949,11 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
              1e-4 * (ref.abs() + 1e-2 * ref.abs().max()))
     timed("twin_reparam", lambda: rl.twin_reparam_ref(eps, mu, sig, k, hoist))
     o = torch.empty_like(x)
-    library = {"probe_triad": library_ms(lambda: torch.add(x, y, out=o)),
-               "probe_reduce": library_ms(lambda: x.sum(1))}
+    library = {"probe_triad": library_ms(lambda: torch.add(x, y, out=o))}
+    # x.sum(1) writes (rows,) where the reduce probe writes the full matrix
+    # of its tree sums: not the probe's function, so no library_ms
+    print(f"[roofline] x.sum(1) at {(B, N)} (not the reduce probe's "
+          f"function): {library_ms(lambda: x.sum(1)) * 1e3:.1f} us")
     print(f"[roofline] 9 probes held to their plain versions: largest "
           f"errors {', '.join(f'{k} {v:.3g}' for k, v in err.items())}")
     del x, y, o, ref
@@ -1906,7 +2031,7 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
                    err["probe_tanh"], 8 * words, words * (16 * R + 7)),
         _probe_row("probe_reduce", 204, p["probe_reduce"],
                    plain["probe_reduce"], err["probe_reduce"], 8 * words,
-                   16 * words, library["probe_reduce"]),
+                   16 * words),
         _probe_row("probe_transpose", 204, p["probe_transpose"],
                    plain["probe_transpose"], err["probe_transpose"],
                    4 * (8 * B + words), 128 * B),
@@ -1968,7 +2093,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         train_launches, trainer = phase_train(ds, tmp)
-        b6_launches = phase_train_b6(ds, tmp)
+        phase_train_plain_decoder(ds, tmp)
         phase_replay(ds, tmp)
         phase_checkpoint(trainer, ds, tmp)
         kernels += phase_stereo_tail(gen)
@@ -1991,7 +2116,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]
-    launches["train_decode"] = b6_launches["train_decode"]
+    launches["train_decode"] = train_launches["train_decode"]
     # the stereographic tile runs inside B1 and B3: its counts are theirs
     # on the d2,p2,e2 path (evaluation, then the training epoch)
     launches["stereo_tile_fwd"] = stereo_eval["tail_fwd"]

@@ -28,7 +28,9 @@ Counterpart of ``mvae_tpu/kernels/roofline.py``. Two pieces, as there:
    calibrated rates and says so: B2's is the largest of its 3xTF32 tensor
    products at the calibrated TF32 rate, its FP32 part (the h product and
    the epilogue at the FMA rate, two transcendentals a logit at the tanh
-   rate) and its bytes at the stream rate.
+   rate) and its bytes at the stream rate; B6's (``train_decode_floors``)
+   the larger of its two products at the FMA rate and its bytes, and the
+   same three floors as B2's for the kernel as built.
 
 The probes are one CUDA source, ``csrc/roofline_probes.cu`` (replaces the
 TPU kernels ``_elementwise_call`` with ``_fma_kernel``, ``_tanh_kernel``,
@@ -105,6 +107,10 @@ LORENTZ_TAIL_TRANSCENDENTALS = 3
 BCE_OPS_PER_LOGIT = 9
 BCE_TRANSCENDENTALS_PER_LOGIT = 2
 HIDDEN_OPS_PER_UNIT = 2
+# B6's epilogue also forms gl = x - sigmoid(l): one more exp, an add, a
+# division and a subtraction a logit
+TRAIN_OPS_PER_LOGIT = BCE_OPS_PER_LOGIT + 4
+TRAIN_TRANSCENDENTALS_PER_LOGIT = BCE_TRANSCENDENTALS_PER_LOGIT + 1
 
 
 class CalibrationError(RuntimeError):
@@ -543,7 +549,8 @@ for _p in PROBES:
 COUNTED = PROBES + (manifold_kernels.stereo_distance,
                     manifold_kernels.lorentz_distance,
                     manifold_kernels.wrapped_reparam_stereo_t,
-                    decoder_kernels.fused_decode_bce_t)
+                    decoder_kernels.fused_decode_bce_t,
+                    decoder_kernels.train_decode_bce)
 
 
 # ---------------------------------------------------------------- arithmetic
@@ -581,6 +588,47 @@ def decode_flops(S: int, Bb: int, Z: int, H: int, D: int) -> dict:
             "tensor_3xtf32": 3 * 2 * S * Bb * H * D,
             "fp32_part": 2 * S * Bb * Z * H + elem - trans,
             "transcendentals": trans}
+
+
+def train_decode_bytes(Bb: int, Z: int, H: int, D: int) -> int:
+    """Bytes of the training decode (B6): z, x, the weights and biases in,
+    ll, h and gl out, each once."""
+    return 4 * (Bb * Z + Bb * D + Z * H + H + H * D + D + Bb + Bb * H
+                + Bb * D)
+
+
+def train_decode_flops(Bb: int, Z: int, H: int, D: int) -> dict:
+    """Operations of B6, in ``decode_flops``' terms: ``gemm`` the two
+    products 2 B (Z H + H D) as float32 work, ``total`` with the
+    elementwise work; the kernel runs h W2 as three TF32 products
+    (``tensor_3xtf32`` = 3 x 2 B H D) and keeps z W1 and the epilogue on the
+    FP32 pipe (``fp32_part``, less the ``transcendentals``: three a logit)."""
+    gemm = 2 * Bb * (Z * H + H * D)
+    elem = Bb * (HIDDEN_OPS_PER_UNIT * H + TRAIN_OPS_PER_LOGIT * D)
+    trans = Bb * D * TRAIN_TRANSCENDENTALS_PER_LOGIT
+    return {"gemm": gemm, "elementwise": elem, "total": gemm + elem,
+            "tensor_3xtf32": 3 * 2 * Bb * H * D,
+            "fp32_part": 2 * Bb * Z * H + elem - trans,
+            "transcendentals": trans}
+
+
+def train_decode_floors(Bb: int, Z: int, H: int, D: int, cal: dict) -> dict:
+    """B6's floors (us per launch) from the calibrated rates. ``fp32``: its
+    two products 2 B (Z H + H D) at ``fma_tflops``, the floor of the same
+    function on the FP32 pipe; ``bytes_stream``: its bytes at
+    ``stream_gbps``; and, as B2's (``decode_floors``), the kernel as built:
+    ``tensor_3xtf32`` at ``tf32_tflops`` and ``fp32_part`` at
+    ``fma_tflops`` with the transcendentals at ``tanh_gops``. The binding
+    floor of the FP32 function is the larger of ``fp32`` and
+    ``bytes_stream``; of the kernel as built, the largest of the other
+    three."""
+    fl = train_decode_flops(Bb, Z, H, D)
+    return {"fp32": fl["gemm"] / (cal["fma_tflops"] * 1e6),
+            "bytes_stream": train_decode_bytes(Bb, Z, H, D)
+                            / (cal["stream_gbps"] * 1e3),
+            "tensor_3xtf32": fl["tensor_3xtf32"] / (cal["tf32_tflops"] * 1e6),
+            "fp32_part": (fl["fp32_part"] / (cal["fma_tflops"] * 1e6)
+                          + fl["transcendentals"] / (cal["tanh_gops"] * 1e3))}
 
 
 def lorentz_compute_us(rows: int, n: int, cal: dict) -> float:

@@ -6,7 +6,8 @@ Counterpart of ``mvae_tpu/models/vae.py`` (MLP VAE):
             component -> the product-latent tail (the CUDA tail kernels,
             forward and backward, when the product is in their family) ->
             z; decoder(z) -> Bernoulli log-likelihood (the CUDA training
-            decode kernel when ``MVAE_FUSED_TRAIN_DECODER=1``);
+            decode kernel for CUDA parameters: ``MVAE_FUSED_TRAIN_DECODER``
+            "auto", as the H100 measured it, or "1");
             ELBO = log p(x|z) - sum_c KL_c; ``loss_fn`` = -mean ELBO.
   log_likelihood: IWAE-n estimate logsumexp_n[log p(x|z_i) + log p(z_i)
             - log q(z_i|x)] - log n, encoding once and drawing the
@@ -190,22 +191,27 @@ def _reparam_components(cfg: VAEConfig, params, feats, noise=None,
 
 def _fused_train_decoder_gate(cfg: VAEConfig, params) -> tuple[bool, str]:
     """The gate for the training decode kernel (decoder_kernels.
-    train_decode_bce): the reference's env switch on, a depth-1 f32 MLP
-    decoder, and a hidden tile within the kernel's shared memory. Returns
-    (eligible, reason); the router and ``fused_path_report`` both call
-    it."""
-    if not decoder_kernels.use_fused_train_decoder():
-        return False, ("MVAE_FUSED_TRAIN_DECODER off (default) -> plain "
-                       "PyTorch decode")
+    train_decode_bce): the reference's env switch for the decoder weights'
+    device (``use_fused_train_decoder``: "auto" is on for CUDA weights, the
+    H100's own in-turns measurement, PERF.md section 6, and off for
+    CPU weights), a depth-1 f32 MLP decoder, and a plan within the kernel's
+    shared memory. Returns (eligible, reason); the router and
+    ``fused_path_report`` both call it."""
+    w = params.get("decoder", {}).get("out", {}).get("w")
+    if not decoder_kernels.use_fused_train_decoder(getattr(w, "device",
+                                                           None)):
+        return False, ("MVAE_FUSED_TRAIN_DECODER off, or 'auto' on CPU "
+                       "parameters -> plain PyTorch decode")
     if not (cfg.arch == "mlp" and cfg.decoder_depth == 1):
         return False, "decoder not a depth-1 MLP -> plain PyTorch decode"
-    if params["decoder"]["out"]["w"].dtype != torch.float32:
+    if w.dtype != torch.float32:
         return False, "non-f32 decoder -> plain PyTorch decode"
     if not decoder_kernels.shape_supported(cfg.z_dim, cfg.h_dim):
         return False, ("hidden tile beyond the kernel's shared memory -> "
                        "plain PyTorch decode")
     return True, ("kernel csrc/train_decode.cu (plain train_decode_ref on "
-                  "CPU tensors)")
+                  "CPU tensors; 'auto' is on for CUDA parameters by the "
+                  "H100 measurement of PERF.md section 6)")
 
 
 def _fused_train_decoder_eligible(cfg: VAEConfig, params) -> bool:
@@ -405,4 +411,6 @@ def fused_path_report(cfg: VAEConfig, params) -> dict:
     return {"train_tail": entry(*_fused_tail_gate(cfg, params)),
             "train_decoder": entry(*_fused_train_decoder_gate(cfg, params)),
             "iwae_decoder": idec, "iwae_reparam": reparam,
-            "routing_policy": "capability-only (no TPU-measured routing)"}
+            "routing_policy": ("capability, and the H100's own measurement "
+                               "for the training decoder's 'auto' (no "
+                               "TPU-measured routing)")}

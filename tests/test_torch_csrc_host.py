@@ -14,7 +14,8 @@ stand in for, so of them the scalar tails (from a row's Gram values to the
 distance) are compiled and held here, and the reductions on the card. Of
 the IWAE decode, which runs on the tensor cores, the TF32 split of its
 operands (``csrc/tf32.cuh``) is compiled and held to ``tf32_split_ref``
-bit for bit.
+bit for bit; of the training decode, its tile plan and h shares
+(``csrc/train_decode_plan.cuh``), against ``train_tile_plan``.
 
 This checks the expressions and the reverse sweep, not the build for the
 card or the launch: those are ``chip_smoke.py``'s and the ``-m cuda`` tests'.
@@ -103,6 +104,21 @@ extern "C" void host_run(const float* eps, long long stride, const float* mu,
     "tf32": r"""
 extern "C" void host_run(const float* a, unsigned* hi, unsigned* lo, int n) {
   for (int i = 0; i < n; ++i) tf32_split(a[i], hi[i], lo[i]);
+}
+""",
+    "train_decode_plan": r"""
+extern "C" void host_run(const int* shape, long long* plan, int* share) {
+  TdPlan p;
+  plan[0] = td_plan(shape[0], shape[1], shape[2], shape[3], &p);
+  if (!plan[0]) return;
+  const long long v[8] = {p.row_tiles, p.pixel_tiles, p.stages, p.slots,
+                          p.hp,        p.fetch,       (long long)p.smem,
+                          (long long)p.part};
+  for (int i = 0; i < 8; ++i) plan[1 + i] = v[i];
+  const int rows = shape[0] < TD_BM ? shape[0] : TD_BM;
+  for (int pt = 0; pt < p.pixel_tiles; ++pt)
+    td_share(rows, shape[2], p.pixel_tiles, pt, share + 2 * pt,
+             share + 2 * pt + 1);
 }
 """,
     "manifold_dist": r"""
@@ -484,3 +500,35 @@ def test_tf32_split_source_matches_emulation(host_libs):
     hi_ref, lo_ref = tdk.tf32_split_ref(a)
     assert torch.equal(hi, hi_ref.view(torch.int32))
     assert torch.equal(lo, lo_ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("B,Z,H,D", [
+    (128, 8, 400, 784), (1, 8, 400, 784), (127, 8, 400, 784),
+    (1000, 8, 400, 784), (1024, 16, 600, 784), (5, 2, 33, 98),
+    (128, 8, 976, 784), (128, 8, 977, 784), (128, 8, 3296, 784),
+    (128, 8, 3297, 784), (40, 8, 400, 784), (0, 8, 400, 784)])
+def test_train_decode_plan_source_matches_python(host_libs, B, Z, H, D):
+    """``csrc/train_decode_plan.cuh`` (the plan the launcher and the kernel
+    use), compiled for the host, against ``train_tile_plan``: the same
+    grid, stages, resident slots, h stride, fetch, shared memory and
+    partials, and the same refusal. Its h shares (``td_share``: what each
+    pixel tile of the first row tile stores of the tile's contiguous block
+    of h) cover the block once, each in whole float4 words."""
+    want = tdk.train_tile_plan(B, Z, H, D)
+    shape = torch.tensor([B, Z, H, D], dtype=torch.int32)
+    plan = torch.zeros(9, dtype=torch.int64)
+    share = torch.zeros(2 * -(-D // 32), dtype=torch.int32)
+    host_libs["train_decode_plan"](_ptr(shape), _ptr(plan), _ptr(share))
+    assert bool(plan[0]) is (want is not None)
+    if want is None:
+        return
+    keys = ("row_tiles", "pixel_tiles", "stages", "slots", "hp", "fetch",
+            "smem", "part")
+    fetch = {"tma": 0, "copy": 1, "ring": 2}
+    assert plan[1:].tolist() == [fetch[want[k]] if k == "fetch" else want[k]
+                                 for k in keys]
+    covered = []
+    for lo, hi in share.view(-1, 2).tolist():
+        assert lo % 4 == 0 or lo == hi
+        covered += range(lo, hi)
+    assert covered == list(range(min(B, 16) * H))

@@ -33,8 +33,14 @@ training kernel ``train_decode_bce`` in interpret mode, 2e-3 relative on
 ll (that kernel rounds both products' operands to bf16, 2^-9 relative
 each, by design: ~4e-4 of |ll| measured); ``train_decode_bce``'s
 gradients against autograd of the plain decode, 1e-10 in float64 and
-1e-5 relative in float32. On the card, ll within 1e-3 nats per 784-pixel
-row and h, gl within 1e-5 (1 + |ref|).
+1e-5 relative in float32. The training kernel's tile plan
+(``train_tile_plan``: a block per 16 rows x 32 pixels, W2 resident or in a
+ring, the h shares) and the switch's device rule, without a card; its
+3xTF32 product emulated with truncating adds, against the float64 oracle
+(1e-3 nats per row) and the FP32 plain version (gl within 1e-5 (1 +
+|ref|)). On the card, at four (Z, H, D) and batches 1 to 1024, ll within
+1e-3 nats per row and h, gl within 1e-5 (1 + |ref|), two calls and ten
+CUDA-graph replays bit for bit.
 
 The JAX package is imported inside the CPU tests only, so the card tests
 also run where JAX is not installed:
@@ -128,10 +134,88 @@ def test_shared_memory_gate(kernel):
         assert not tdk.decode_shape_supported(8, 641)
         assert not tdk.decode_shape_supported(8, 1024)
     else:
+        # B6: h for 16 rows at a stride of 101 float4 words (400 units in
+        # 25 stages of 16, made odd), the z tile, all 25 W2 stages of 16
+        # rows of 40 words (32 pixels and 8 of padding), and the 4 warps'
+        # 16 x 40 partial tiles
         assert tdk.shape_supported(8, 400)
-        assert tdk.smem_bytes(8, 400) == 4 * (400 * 64 + 8 * 64 + 16 * 64
-                                              + 16 * 64)
-        assert not tdk.shape_supported(8, 1024)
+        assert tdk.smem_bytes(8, 400) == 4 * (
+            16 * 404 + 8 * 16 + 25 * 16 * 40 + 4 * 16 * 40) == 100_608
+        # past 976 units W2 streams through a ring of 4 stages
+        assert tdk.train_tile_plan(128, 8, 976, 784)["slots"] == 61
+        assert tdk.train_tile_plan(128, 8, 977, 784)["slots"] == 4
+        assert tdk.smem_bytes(8, 977) == 4 * (
+            16 * 996 + 8 * 16 + 4 * 16 * 40 + 4 * 16 * 40)
+        assert tdk.shape_supported(8, 3296)
+        assert not tdk.shape_supported(8, 3297)
+        assert not tdk.shape_supported(8, 4096)
+
+
+@pytest.mark.parametrize("B,Z,H,D", [
+    (128, 8, 400, 784), (1, 8, 400, 784), (127, 8, 400, 784),
+    (512, 8, 400, 784), (1000, 8, 400, 784), (1024, 8, 400, 784),
+    (128, 2, 33, 98), (1000, 2, 33, 98), (127, 16, 600, 784),
+    (1024, 32, 400, 784), (128, 8, 2000, 784), (1, 1, 1, 1)])
+def test_train_tile_plan(B, Z, H, D):
+    """The training kernel's launch: a block per 16 rows x 32 pixels (at
+    least one block per SM of the 132 at the flagship's B = 128) and a
+    counter per row tile, W2 in 16-unit stages, all resident when they fit
+    (by the Tensor Memory Accelerator where its rows are whole 16-byte
+    words, D % 4 == 0, else by cp.async) and a ring of 4 otherwise, one
+    row partial per (row, pixel tile)."""
+    p = tdk.train_tile_plan(B, Z, H, D)
+    assert p["row_tiles"] == -(-B // 16) and p["pixel_tiles"] == -(-D // 32)
+    blocks = p["row_tiles"] * p["pixel_tiles"]
+    assert p["part"] == 16 * blocks
+    if (B, D) == (128, 784):
+        assert blocks == 200 >= 132
+    assert p["stages"] * 16 >= H > (p["stages"] - 1) * 16
+    assert p["slots"] == (4 if H == 2000 else p["stages"])
+    assert p["fetch"] == ("ring" if H == 2000 else "copy" if D % 4
+                          else "tma")
+    assert p["hp"] % 4 == 0 and (p["hp"] // 4) % 2 == 1
+    assert p["hp"] >= p["stages"] * 16
+    assert p["smem"] == tdk.smem_bytes(Z, H) <= 232_448 - 128
+    assert tdk.shape_supported(Z, H)
+
+
+def test_train_tile_plan_refuses_what_it_cannot_hold():
+    assert tdk.train_tile_plan(128, 8, 4096, 784) is None
+    assert tdk.train_tile_plan(128, 0, 400, 784) is None
+    assert tdk.train_tile_plan(128, 8, 400, 0) is None
+    assert not tdk.shape_supported(0, 400)
+    assert tdk.train_tile_plan(0, 8, 400, 784)["row_tiles"] == 0
+
+
+@pytest.mark.parametrize("value,cpu,cuda", [("auto", False, True),
+                                            ("1", True, True),
+                                            ("0", False, False)])
+def test_train_decoder_switch_follows_the_device(monkeypatch, value, cpu,
+                                                 cuda):
+    """The switch's device rule, without a card: "auto" turns the training
+    decode kernel on for CUDA parameters (the H100's measurement) and
+    leaves CPU ones on the plain decode; "1" and "0" hold on both. The
+    router's gate reads the decoder weights' device."""
+    from mvae_torch.components import parse_components
+    from mvae_torch.models import vae as tvae
+    monkeypatch.setenv("MVAE_FUSED_TRAIN_DECODER", value)
+    assert tdk.use_fused_train_decoder(torch.device("cpu")) is cpu
+    assert tdk.use_fused_train_decoder(torch.device("cuda")) is cuda
+    assert tdk.use_fused_train_decoder("cuda:0") is cuda
+    assert tdk.use_fused_train_decoder() is (value == "1")
+
+    class Weight:
+        dtype = torch.float32
+
+        def __init__(self, device):
+            self.device = torch.device(device)
+
+    cfg = tvae.VAEConfig(parse_components("h2,s2,e2"), (784,), h_dim=400)
+    for device, on in (("cpu", cpu), ("cuda", cuda)):
+        params = {"decoder": {"out": {"w": Weight(device)}}}
+        active, why = tvae._fused_train_decoder_gate(cfg, params)
+        assert active is on
+        assert ("train_decode.cu" in why) is on
 
 
 def test_decode_gate_refuses_what_the_kernel_cannot_hold(monkeypatch):
@@ -367,19 +451,100 @@ def test_train_decode_wrapper_on_cpu_is_the_plain_version(monkeypatch):
         assert tdk.use_fused_train_decoder() is on
 
 
+# the flagship's widths; a narrow ragged D (4-byte copies, scalar h and gl
+# stores); a wide H; an H whose W2 slice streams through the ring
+@pytest.mark.parametrize("scheme,shape,holds", [
+    ("restart", dict(Z=8, H=400, D=784), True),
+    ("restart", dict(Z=16, H=600, D=784), True),
+    ("accumulate", dict(Z=16, H=600, D=784), False)])
+def test_train_decode_3xtf32_scheme_under_truncating_adds(scheme, shape,
+                                                          holds):
+    """B6's product emulated on the CPU: h W2 as three TF32 products in
+    8-deep mma steps, warp w taking the steps k with k % 4 == w, each add
+    into the tensor core's float32 accumulator truncated (the exact sum
+    rounded toward zero), the 4 warps' tiles added in order. With the large
+    product accumulated over a warp's steps ("accumulate") the bias misses
+    1e-3 nats a row at logits near 26; restarted from zero every step and
+    added into a rounded float32 sum ("restart", the kernel's scheme) it
+    holds, with gl within 1e-5 (1 + |ref|) of the FP32 plain version."""
+    z, x, w1, b1, w2, b2 = _torch(_train_inputs(B=1024, **shape))
+    ll_r, h_r, gl_r = tdk.train_decode_ref(z, x, w1, b1, w2, b2)
+    ll64 = tdk.train_decode_ref(*[a.double() for a in (z, x, w1, b1, w2,
+                                                       b2)])[0]
+    H, D = w2.shape
+    pad = -(-H // 16) * 16 - H
+    h = torch.nn.functional.pad(h_r, (0, pad))
+    (hh, hl), (wh, wl) = tdk.tf32_split_ref(h), tdk.tf32_split_ref(
+        torch.nn.functional.pad(w2, (0, 0, 0, pad)))
+    hl, wl = tdk.tf32_trunc_ref(hl), tdk.tf32_trunc_ref(wl)
+    d = torch.float64
+
+    def mma(c, a, b, k):
+        return _rz(c.double() + a[:, 8 * k:8 * k + 8].to(d)
+                   @ b[8 * k:8 * k + 8].to(d))
+
+    tiles = []
+    for w in range(4):
+        small, big, total = (torch.zeros(h.shape[0], D) for _ in range(3))
+        for k in range(w, h.shape[1] // 8, 4):
+            small = mma(mma(small, hl, wh, k), hh, wl, k)
+            if scheme == "restart":
+                total = total + mma(torch.zeros_like(total), hh, wh, k)
+            else:
+                big = mma(big, hh, wh, k)
+        tiles.append((total if scheme == "restart" else big) + small)
+    logits = ((tiles[0] + tiles[1]) + tiles[2]) + tiles[3] + b2
+    ll = (x * logits - torch.nn.functional.softplus(logits)).sum(-1)
+    err = (ll.double() - ll64).abs().max().item()
+    assert (err <= 1e-3) == holds, err
+    if holds:
+        gl = x - torch.sigmoid(logits)
+        assert bool(((gl - gl_r).abs() <= 1e-5 * (1 + gl_r.abs())).all())
+
+
+_TRAIN_SHAPES = [dict(Z=8, H=400, D=784), dict(Z=2, H=33, D=98),
+                 dict(Z=16, H=600, D=784), dict(Z=8, H=1200, D=784)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [128, 1000])
-def test_train_kernel_matches_plain_version_on_card(cuda_device, batch):
+@pytest.mark.parametrize("shape", _TRAIN_SHAPES)
+@pytest.mark.parametrize("batch", [1, 127, 128, 512, 1000, 1024])
+def test_train_kernel_matches_plain_version_on_card(cuda_device, batch,
+                                                    shape):
+    """B6 against its plain version at ``_TRAIN_SHAPES``, over ragged and
+    full row tiles; two calls give the same bits."""
     args = [t.to(cuda_device) for t in _torch(_train_inputs(
-        B=batch, Z=8, H=400, D=784))]
+        B=batch, **shape))]
     before = tdk.train_decode_bce.launches
     ll, h, gl = tdk.train_decode_fwd(*args)
     ll_r, h_r, gl_r = tdk.train_decode_ref(*args)
+    again = tdk.train_decode_fwd(*args)
     torch.cuda.synchronize()
-    assert tdk.train_decode_bce.launches == before + 1
+    assert tdk.train_decode_bce.launches == before + 2
     assert float((ll - ll_r).abs().max()) <= 1e-3
     assert bool(((h - h_r).abs() <= 1e-5 * (1 + h_r.abs())).all())
     assert bool(((gl - gl_r).abs() <= 1e-5 * (1 + gl_r.abs())).all())
+    assert all(torch.equal(a, b) for a, b in zip((ll, h, gl), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _TRAIN_SHAPES)
+def test_train_kernel_graph_replays_match_a_direct_call(cuda_device, shape):
+    """Ten replays of a CUDA graph of B6 give a direct call's bits: the
+    last block of each row tile sets its counter back to 0."""
+    args = [t.to(cuda_device) for t in _torch(_train_inputs(
+        B=1000, **shape))]
+    want = tdk.train_decode_fwd(*args)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = tdk.train_decode_fwd(*args)
+    for _ in range(10):
+        for t in out:
+            t.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert torch.equal(tdk.train_decode_fwd(*args)[0], want[0])
 
 
 @pytest.mark.cuda
