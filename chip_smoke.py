@@ -9,11 +9,13 @@ Phases:
  2. build every kernel of ``mvae_torch/kernels/csrc`` with nvcc (parallel:
     B1 tail_fwd, B2 decode_bce, B3 tail_bwd, B6 train_decode,
     B5 reparam_stereo, B7 manifold_dist, B8 roofline_probes; B4a and B4b
-    live in the header B1 and B3 share);
+    live in the header B1 and B3 share), printing ptxas's registers,
+    stack frame and spills of each kernel instantiation;
  3. the tail kernel (tail_fwd.cu) against ``tail_forward_ref`` at the
     flagship product h2,s2,e2, B = 512 and B = 1000 (ragged), random heads
     with large-|mu| rows and curvatures that put rows on both sides of the
-    series window;
+    series window; then its time at B = 128 (the training call) and 512
+    beside the row-per-thread kernels' (``_ROWWISE_US``);
  4. the IWAE decode kernel (decode_bce.cu: 3xTF32 on the tensor cores)
     against ``decode_bce_ref`` and float64 at (S=125, Z=8, B=512, H=400,
     D=784) and at B = 272 (the test split's last batch), then its time and
@@ -29,7 +31,8 @@ Phases:
     pass spends the device's time;
  6. the tail backward kernel (tail_bwd.cu) against ``tail_backward_ref``
     (autograd through the plain forward) at B = 128, 1024 and 1000, the
-    curvature sets and large-|mu| rows of phase 3, random cotangents;
+    curvature sets and large-|mu| rows of phase 3, random cotangents; its
+    time at B = 128 beside the row-per-thread kernel's recorded one;
  7. the training decode kernel (train_decode.cu: 3xTF32 on the tensor
     cores, W2 by the Tensor Memory Accelerator) against
     ``train_decode_ref`` at B = 1, 127, 128, 512, 1000, 1024 and (Z, H, D)
@@ -41,7 +44,9 @@ Phases:
  8. training end to end: ``Trainer.fit`` of the flagship for 2 epochs of
     468 steps at batch 128 (burn-in 1), B1, B3 and B6 every step (B6 is on
     by default for CUDA parameters), a test ELBO per epoch and IWAE-500 at
-    the end, launch counts read right after; then the step rate in turns
+    the end, launch counts read right after, and one backward of the
+    tail under autograd at the training batch: one B3 launch and no sum
+    op (B3 folds the curvature gradient); then the step rate in turns
     with B6 off and on (off, on, on, off), each turn's steps/s and device
     busy share on one line with the verdict that sets the switch's
     default on the card;
@@ -55,7 +60,9 @@ Phases:
 12. the stereographic tile (B4a) inside B1 and B3 against the plain
     versions for the tables of d2,p2,e2, u6 and p6 at B = 512 and B = 128:
     curvatures +-1 and +-1e-3 (for u also 0), rows with a saturated sigma
-    cap, with mu_tan = 0 and eps = 0, and a point at the ball's rim;
+    cap, with mu_tan = 0 and eps = 0, and a point at the ball's rim; then
+    B1 at B = 128 and 512 and B3 at B = 128 timed for d2,p2,e2 and u6
+    beside the row-per-thread kernels' times;
 13. the IWAE chunk reparam kernel (reparam_stereo.cu, B5) against
     ``wrapped_reparam_stereo_ref`` at (S, B, n) = (125, 512, 2) and
     (125, 512, 6), signs -1, 0, +1, wraps 0 and 1;
@@ -75,7 +82,8 @@ Phases:
     and B = 128: curvatures 1, 1e-3, 4, rows with a saturated sigma cap,
     with mu_tan = 0 and eps = 0, with the mean at the antipode of mu0; then
     the rows where the tile's K-dependent floors are taken, held to the
-    float32 plain version directly;
+    float32 plain version directly; then B1 at B = 128 and 512 and B3 at
+    B = 128 timed for s6:wrapped beside the row-per-thread kernels';
 17. the distance kernels (manifold_dist.cu, B7a and B7b) against their
     plain versions at (B, n) = (1,048,576, 128) and (1000, 6), K in
     {-1, -1e-3, 0, 1e-3, 1} for B7a, with device time, bytes bound and the
@@ -94,13 +102,17 @@ Phases:
     ``roofline_probes.cu``): the triad, FMA and tanh (repeat 1 and 32),
     reduce and transpose probes at (1,048,576, 128), both distance
     skeletons and the stereographic twin (resident and streaming) there, the
-    reparam skeleton and twin at (S, B, n) = (125, 2048, 6), each against its
-    plain version; then ``roofline.main()`` with the probes' launch counts
-    read around it: the calibrated rates (each within its window: at most
-    105% of the data sheet, TF32 among them) and the rows of B7a, B7b, B5
-    and B2 at the reference's shapes, none above 105% of its binding floor
-    or its peak (B2's: its 3xTF32 products at the calibrated TF32 rate, its
-    FP32 part, its bytes; its share of the TF32 peak);
+    reparam skeleton and twin at (S, B, n) = (125, 2048, 6), the tail's
+    I/O skeleton (both grids) for h2,s2,e2, d2,p2,e2, u6 and s6:wrapped at
+    B = 128, 512 and 1000, each against its plain version; then
+    ``roofline.main()`` with the probes' launch counts read around it: the
+    calibrated rates (each within its window: at most 105% of the data
+    sheet, TF32 among them) and the rows of B7a, B7b, B5 and B2 at the
+    reference's shapes and of B1 (B = 128, 512) and B3 (B = 128) for those
+    four products, none above 105% of its binding floor or its peak (B2's:
+    its 3xTF32 products at the calibrated TF32 rate, its FP32 part, its
+    bytes; its share of the TF32 peak; B1's and B3's: the tail skeleton
+    or the plain version's operations at the calibrated FMA rate);
     then each row's kernel held to its plain version on the row's own
     inputs (B7a, B7b and B5 at the tolerances of phases 17 and 13, float64
     beside them; B2 within 1e-3 nats per row as in phase 4). The launch
@@ -167,22 +179,24 @@ TF32_FLOPS_PER_S = 495e12
 
 SPEC = "h2,s2,e2"
 STEREO_SPEC = "d2,p2,e2"
-# rough per-row arithmetic of the tail tiles (transcendentals count one op)
-_TAIL_OPS = {"normal": lambda n: 12 * n, "wrapped": lambda n: 30 * n + 80,
-             "vmf": lambda n: 120, "stereo": lambda n: 40 * n + 500,
-             "sphere": lambda n: 60 * n + 520}
 SPHERE_SPEC = "s6:wrapped"
 
+# The device times of the previous, row-per-thread tail kernels, us per
+# call (PERF.md section 6: NVIDIA H100 80GB HBM3, 700.00 W; CUDA-graph
+# replay), printed beside this run's: (kernel, spec, batch) -> us. B1 at
+# the training batch has no recorded time.
+_ROWWISE_US = {("tail_fwd", SPEC, 512): 5.65, ("tail_bwd", SPEC, 128): 9.30,
+           ("tail_fwd", STEREO_SPEC, 512): 12.77,
+           ("tail_bwd", STEREO_SPEC, 128): 36.79,
+           ("tail_fwd", "u6", 512): 11.69, ("tail_bwd", "u6", 128): 33.63,
+           ("tail_fwd", SPHERE_SPEC, 512): 11.31,
+           ("tail_bwd", SPHERE_SPEC, 128): 34.72}
 
-def _tail_ops(comps) -> int:
-    """Rough arithmetic of one row of the product's tail."""
-    def tile(c):
-        if c.posterior == "wrapped" and c.manifold.kind in "dpu":
-            return "stereo"
-        if c.posterior == "wrapped" and c.manifold.kind == "s":
-            return "sphere"
-        return c.posterior
-    return sum(_TAIL_OPS[tile(c)](c.dim) for c in comps)
+
+def _rowwise(kernel: str, spec: str, B: int) -> str:
+    us = _ROWWISE_US.get((kernel, spec, B))
+    return ("row-per-thread: not recorded" if us is None
+            else f"row-per-thread: {us:.2f} us")
 
 
 def check(cond: bool, what: str) -> None:
@@ -340,7 +354,8 @@ def phase_build() -> None:
     print(f"[build] {len(reports)} kernels in {time.time() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -375,29 +390,46 @@ def phase_tail(comps, gen) -> dict:
             check(da <= 1e-4, f"tail aux within 1e-4 at B={B}, k={kset}: "
                               f"{da:.3g}")
             worst = max(worst, dz.max().item(), da)
-    B = 512
-    raw = torch.randn(B, W, generator=gen, device="cuda")
-    eps = tail_kernels.draw_noise(comps, (B,), raw, gen)
     k = torch.tensor((-1.0, 1.0, 0.0), device="cuda")
-    ms, trace = kernel_ms(
-        lambda: tail_kernels.tail_forward(comps, raw, eps, k),
-        "tail_fwd_kernel", 100)
-    plain_ms = time_ms(
-        lambda: tail_kernels.tail_forward_ref(comps, raw, eps, k), 50)
-    Z = z.shape[1]
-    nbytes = 4 * (raw.numel() + eps.numel() + nc + B * Z + B * (nc + 2))
-    ops = B * _tail_ops(comps)
+    rows = {}
+    for B in (128, 512):
+        raw = torch.randn(B, W, generator=gen, device="cuda")
+        eps = tail_kernels.draw_noise(comps, (B,), raw, gen)
+        rows[B] = _tail_time("tail_fwd", SPEC, comps, (raw, eps, k), worst)
+    return rows[512]
+
+
+def _tail_time(name: str, spec: str, comps, args, err: float,
+               source: str = "mvae_torch/kernels/csrc/tail_fwd.cu",
+               line: int = 704) -> dict:
+    """Time B1 (``args`` = raw, eps, k) or B3 (``args`` with dz, daux) on
+    ``args`` beside its plain version, its bounds from this run's inputs
+    (bytes over the data sheet's HBM rate; the plain version's operations,
+    ``roofline.tail_ops``, over its FP32 rate) and the row-per-thread
+    kernel's time: one row
+    of the kernels line."""
+    bwd = len(args) == 5
+    fn = tail_kernels.tail_backward if bwd else tail_kernels.tail_forward
+    ref = (tail_kernels.tail_backward_ref if bwd
+           else tail_kernels.tail_forward_ref)
+    B = args[0].shape[0]
+    ms, trace = kernel_ms(lambda: fn(comps, *args),
+                          "tail_bwd_kernel" if bwd else "tail_fwd_kernel",
+                          100)
+    plain_ms = time_ms(lambda: ref(comps, *args), 10 if bwd else 20)
+    nbytes = roofline.tail_bytes(comps, B, bwd)
+    ops = roofline.tail_ops(comps, *args)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-    print(f"[tail_fwd] max err {worst:.3g}; B=512: kernel {ms * 1e3:.2f} us "
-          f"(graph events; {trace}), "
-          f"plain {plain_ms * 1e3:.1f} us, bytes bound "
+    kern = "tail_bwd" if bwd else "tail_fwd"
+    print(f"[{name}] {spec} {'B3' if bwd else 'B1'} at B={B}: kernel "
+          f"{ms * 1e3:.2f} us ({_rowwise(kern, spec, B)}; graph events; "
+          f"{trace}), plain {plain_ms * 1e3:.1f} us, bytes bound "
           f"{bytes_ms * 1e3:.4f} us ({nbytes} B), ops bound "
-          f"{ops_ms * 1e3:.4f} us")
-    return {"name": "tail_fwd", "route": "cuda",
-            "source": "mvae_torch/kernels/csrc/tail_fwd.cu",
-            "replaces": "mvae_tpu/kernels/tail_kernels.py:704",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+          f"{ops_ms * 1e3:.4f} us ({ops} operations)")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": f"mvae_tpu/kernels/tail_kernels.py:{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
@@ -604,9 +636,9 @@ def phase_tail_bwd(comps, gen) -> dict:
     for B in (128, 1024, 1000):
         for kset in ((-1.0, 1.0, 0.0), (-1e-2, 1e-2, 0.0), (-0.25, 4.0, 0.0)):
             args = _bwd_inputs(comps, B, kset, gen)
-            draw, dk = tail_kernels.tail_backward(comps, *args)
-            pr, pk = tail_kernels.tail_backward_ref(comps, *args)
-            p64, pk64 = tail_kernels.tail_backward_ref(
+            draw, dk, _ = tail_kernels.tail_backward(comps, *args)
+            pr, pk, _ = tail_kernels.tail_backward_ref(comps, *args)
+            p64, pk64, _ = tail_kernels.tail_backward_ref(
                 comps, *[t.double() for t in args])
             torch.cuda.synchronize()
             what = f"B={B}, k={kset}"
@@ -641,30 +673,11 @@ def phase_tail_bwd(comps, gen) -> dict:
                   f" max |err| {err:.3g} ({rr:.3g} of tol), curvature "
                   f"{kr:.3g} of tol; other rows {rest:.3g}, all rows max "
                   f"|err| {(draw - pr).abs().max().item():.3g}")
-    B = 128
-    args = _bwd_inputs(comps, B, (-1.0, 1.0, 0.0), gen)
-    ms, trace = kernel_ms(
-        lambda: tail_kernels.tail_backward(comps, *args), "tail_bwd_kernel",
-        100)
-    plain_ms = time_ms(lambda: tail_kernels.tail_backward_ref(comps, *args),
-                       50)
-    W, E, Z = tail_kernels._dims(comps)
-    nc = len(comps)
-    nbytes = 4 * (B * (W + E + Z + nc + 2) + nc + B * (W + nc))
-    ops = 3 * B * _tail_ops(comps)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-    print(f"[tail_bwd] max err {worst:.3g} ({worst_ratio:.3g} of tol); "
-          f"B=128: kernel {ms * 1e3:.2f} us (graph events; {trace}), plain "
-          f"{plain_ms * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.4f} us "
-          f"({nbytes} B), ops bound {ops_ms * 1e3:.4f} us")
-    return {"name": "tail_bwd", "route": "cuda",
-            "source": "mvae_torch/kernels/csrc/tail_bwd.cu",
-            "replaces": "mvae_tpu/kernels/tail_kernels.py:735",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+    print(f"[tail_bwd] max err {worst:.3g} ({worst_ratio:.3g} of tol)")
+    args = _bwd_inputs(comps, 128, (-1.0, 1.0, 0.0), gen)
+    row = _tail_time("tail_bwd", SPEC, comps, args, worst,
+                     "mvae_torch/kernels/csrc/tail_bwd.cu", 735)
+    return row
 
 
 # B6's shapes (tests/test_torch_decoder_kernels.py): the flagship's widths;
@@ -880,6 +893,7 @@ def phase_train(ds, tmp) -> tuple[dict, Trainer]:
     check(launches["tail_fwd"] >= steps, "B1 launched at least once a step")
     check(launches["train_decode"] >= steps,
           "B6 on by default on the card: launched every step")
+    _tail_fn_backward_ops(trainer.model_cfg.components)
 
     other = _flagship(ds, f"{tmp}/rate", seed=0, burnin_epochs=0)
     order = ((trainer, False), (other, True), (other, True), (trainer, False))
@@ -912,6 +926,38 @@ def phase_train(ds, tmp) -> tuple[dict, Trainer]:
             f"{'yes' if faster else 'no'}; 'auto' on CUDA is "
             f"{'on' if default else 'off'}")
     return launches, trainer
+
+
+def _tail_fn_backward_ops(comps) -> None:
+    """One backward of ``_TailFn`` (the tail under autograd) at the training
+    batch: the aten ops it issues, recorded by a dispatch mode, hold no sum
+    (B3 folds the curvature gradient in its one launch)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        names: list = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Ops.names.append(func._schema.name)
+            return func(*args, **(kwargs or {}))
+
+    comps = tuple(comps)
+    raw, eps, k, dz, daux = _bwd_inputs(comps, 128, (-1.0, 1.0, 0.0),
+                                        torch.Generator(device="cuda")
+                                        .manual_seed(5))
+    raw.requires_grad_(True)
+    k.requires_grad_(True)
+    z, aux = tail_kernels._TailFn.apply(comps, raw, eps, k)
+    before = tail_kernels.tail_backward.launches
+    with Ops():
+        torch.autograd.backward((z, aux), (dz, daux))
+    torch.cuda.synchronize()
+    sums = [n for n in Ops.names if "sum" in n]
+    b3 = tail_kernels.tail_backward.launches - before
+    print(f"[train] one backward of _TailFn at B=128: {b3} B3 launch, "
+          f"{len(sums)} sum ops, ops issued {sorted(set(Ops.names))}")
+    check(b3 == 1 and not sums and Ops.names,
+          "the tail's backward is one B3 launch with no sum after it")
 
 
 def phase_train_plain_decoder(ds, tmp) -> None:
@@ -1081,9 +1127,9 @@ def _tile_case(tag: str, comps, args, what: str):
     z, aux = tail_kernels.tail_forward(comps, *args[:3])
     z_r, aux_r = tail_kernels.tail_forward_ref(comps, *args[:3])
     z64, aux64 = tail_kernels.tail_forward_ref(comps, *a64[:3])
-    draw, dk = tail_kernels.tail_backward(comps, *args)
-    pr, pk = tail_kernels.tail_backward_ref(comps, *args)
-    p64, pk64 = tail_kernels.tail_backward_ref(comps, *a64)
+    draw, dk, _ = tail_kernels.tail_backward(comps, *args)
+    pr, pk, _ = tail_kernels.tail_backward_ref(comps, *args)
+    p64, pk64, _ = tail_kernels.tail_backward_ref(comps, *a64)
     torch.cuda.synchronize()
     rz, ez = held(z, z_r, z64, 1e-5 * (1 + z_r.abs()), f"{tag} z at {what}")
     ra, ea = held(aux, aux_r, aux64, 1e-4 * (1 + 1e-2 * aux_r.abs()),
@@ -1114,44 +1160,17 @@ def _tile_case(tag: str, comps, args, what: str):
 
 def _tile_times(tag: str, spec: str, comps, f, b, prefix: str, line: int,
                 err_f: float, err_b: float) -> list[dict]:
-    """Times of B1 (inputs ``f``, B = 512) and B3 (inputs ``b``, B = 128)
-    over a product with a wrapped tile, beside their bounds and the plain
-    versions: the tile's two rows of the kernels line (``prefix``_fwd and
+    """Times of B1 (inputs ``f``, B = 512; and at the training batch on
+    ``b``'s heads) and B3 (inputs ``b``, B = 128) over a product with a
+    wrapped tile, beside their bounds, the plain versions and the
+    row-per-thread kernels' times:
+    the tile's two rows of the kernels line (``prefix``_fwd and
     ``prefix``_bwd, replacing the TPU tile at ``line``)."""
-    W, E, Z = tail_kernels._dims(comps)
-    nc = len(comps)
-    fwd_ms, fwd_trace = kernel_ms(
-        lambda: tail_kernels.tail_forward(comps, *f[:3]), "tail_fwd_kernel",
-        100)
-    bwd_ms, bwd_trace = kernel_ms(
-        lambda: tail_kernels.tail_backward(comps, *b), "tail_bwd_kernel", 100)
-    fwd_plain = time_ms(
-        lambda: tail_kernels.tail_forward_ref(comps, *f[:3]), 20)
-    bwd_plain = time_ms(lambda: tail_kernels.tail_backward_ref(comps, *b), 10)
-    rows = []
-    for name, B, ms, trace, plain, nbytes, ops, err in (
-            (f"{prefix}_fwd", 512, fwd_ms, fwd_trace, fwd_plain,
-             4 * (512 * (W + E + Z + nc + 2) + nc), 512 * _tail_ops(comps),
-             err_f),
-            (f"{prefix}_bwd", 128, bwd_ms, bwd_trace, bwd_plain,
-             4 * (128 * (W + E + Z + nc + 2) + nc + 128 * (W + nc)),
-             3 * 128 * _tail_ops(comps), err_b)):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-        print(f"[{tag}] {spec} {name} at B={B}: kernel {ms * 1e3:.2f} us "
-              f"(graph events; {trace}), plain "
-              f"{plain * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.4f} us "
-              f"({nbytes} B), ops bound {ops_ms * 1e3:.4f} us")
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "mvae_torch/kernels/csrc/tail_tiles.cuh"
-            if name.endswith("fwd") else "mvae_torch/kernels/csrc/tail_bwd.cu",
-            "replaces": f"mvae_tpu/kernels/tail_kernels.py:{line}",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None})
-    return rows
+    _tail_time(tag, spec, comps, b[:3], err_f)
+    return [_tail_time(f"{prefix}_fwd", spec, comps, f[:3], err_f,
+                       "mvae_torch/kernels/csrc/tail_tiles.cuh", line),
+            _tail_time(f"{prefix}_bwd", spec, comps, b, err_b,
+                       "mvae_torch/kernels/csrc/tail_bwd.cu", line)]
 
 
 def _stereo_inputs(comps, B, kset, gen):
@@ -1278,7 +1297,8 @@ def phase_reparam(gen) -> dict:
         print(f"[reparam_stereo] n={nn} sign={sign}: kernel "
               f"{m2_ms * 1e3:.2f} us (graph events; {tr2})")
     nbytes = 4 * (2 * S * B * n + 2 * B * n + 1 + 2 * S * B)
-    ops = S * B * _TAIL_OPS["stereo"](n)
+    # a rough per-row tally of the draw (a transcendental counts one op)
+    ops = S * B * (40 * n + 500)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     print(f"[reparam_stereo] (S, B, n) = (125, 512, 2), sign +1, wraps 1: "
@@ -1462,8 +1482,8 @@ def _sphere_floor_rows(spec, kval, gen, **opts):
     eps[4] = 0.0
     z, aux = tail_kernels.tail_forward(comps, raw, eps, k)
     z_r, aux_r = tail_kernels.tail_forward_ref(comps, raw, eps, k)
-    draw, dk = tail_kernels.tail_backward(comps, raw, eps, k, dz, daux)
-    pr, pk = tail_kernels.tail_backward_ref(comps, raw, eps, k, dz, daux)
+    draw, dk, _ = tail_kernels.tail_backward(comps, raw, eps, k, dz, daux)
+    pr, pk, _ = tail_kernels.tail_backward_ref(comps, raw, eps, k, dz, daux)
     torch.cuda.synchronize()
     what = f"B4b floor rows of {spec} {opts or ''} at K={kval}"
     half = ((z_r[:, 0] - 1.0 / kval ** 0.5) ** 2
@@ -1834,8 +1854,10 @@ def _probe_row(name, line, t, plain_ms, err, nbytes, ops, library_ms=None):
 
 
 def _roofline_rows_held(rl) -> None:
-    """B7a, B7b, B5 and B2 held to their plain versions on the inputs of
-    ``roofline.main()``'s rows, at the tolerances of the earlier phases."""
+    """B7a, B7b, B5, B2, B1 and B3 held to their plain versions on the
+    inputs of ``roofline.main()``'s rows, at the tolerances of the earlier
+    phases (B1 and B3: phases 3 and 6, every row: heads of training
+    size)."""
     k = torch.tensor(-1.0, device="cuda")
     errs = {}
     for tag, inputs, fn, ref in (
@@ -1871,6 +1893,32 @@ def _roofline_rows_held(rl) -> None:
     errs["B2"] = (out - ref).abs().max().item()
     check(errs["B2"] <= 1e-3, f"B2 within 1e-3 nats per row of its plain "
                               f"version on its roofline row's inputs")
+    for spec, kset, kern, B in rl.TAIL_ROWS:
+        comps, *args = rl.tail_inputs(spec, kset, B)
+        what = f"{kern} {spec} on its roofline row's inputs (B={B})"
+        if kern == "B1":
+            z, aux = tail_kernels.tail_forward(comps, *args[:3])
+            z_r, aux_r = tail_kernels.tail_forward_ref(comps, *args[:3])
+            torch.cuda.synchronize()
+            check(bool(((z - z_r).abs() <= 1e-5 * (1 + z_r.abs())).all()
+                       and ((aux - aux_r).abs()
+                            <= 1e-4 * (1 + 1e-2 * aux_r.abs())).all()),
+                  f"{what}: B1 within its contract")
+            errs[f"{kern} {spec} {B}"] = max(
+                (z - z_r).abs().max().item(), (aux - aux_r).abs().max().item())
+            if not (torch.equal(z, z_r) and torch.equal(aux, aux_r)):
+                print(f"[roofline] {what}: B1 not bit-equal to its plain "
+                      f"version")
+        else:
+            draw, _, dk = tail_kernels.tail_backward(comps, *args)
+            draw_r, _, dk_r = tail_kernels.tail_backward_ref(comps, *args)
+            torch.cuda.synchronize()
+            check(bool(((draw - draw_r).abs()
+                        <= 1e-3 * draw_r.abs() + 5e-4).all()
+                       and ((dk - dk_r).abs()
+                            <= 2e-3 * dk_r.abs() + 5e-4).all()),
+                  f"{what}: B3 within the float32 backward contract")
+            errs[f"{kern} {spec} {B}"] = (draw - draw_r).abs().max().item()
     print("[roofline] rows' kernels against their plain versions on the "
           "rows' inputs, largest error on resolved entries: "
           + ", ".join(f"{t} {e:.3g}" for t, e in errs.items())
@@ -1948,13 +1996,24 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
         close("twin_reparam", got, ref,
              1e-4 * (ref.abs() + 1e-2 * ref.abs().max()))
     timed("twin_reparam", lambda: rl.twin_reparam_ref(eps, mu, sig, k, hoist))
+    for spec, kset in rl.TAIL_SPECS:
+        for B in (128, 512, 1000):
+            comps, *args = rl.tail_inputs(spec, kset, B)
+            for got, ref in ((rl.skel_tail(comps, *args[:3]),
+                              rl.skel_tail_ref(comps, *args[:3])),
+                             (rl.skel_tail(comps, *args),
+                              rl.skel_tail_ref(comps, *args))):
+                for g, r in zip(got, ref):
+                    close("skel_tail", g, r, 0.0)
+    comps, *args = rl.tail_inputs(SPEC, (-1.0, 1.0, 0.0), 128)
+    timed("skel_tail", lambda: rl.skel_tail_ref(comps, *args))
     o = torch.empty_like(x)
     library = {"probe_triad": library_ms(lambda: torch.add(x, y, out=o))}
     # x.sum(1) writes (rows,) where the reduce probe writes the full matrix
     # of its tree sums: not the probe's function, so no library_ms
     print(f"[roofline] x.sum(1) at {(B, N)} (not the reduce probe's "
           f"function): {library_ms(lambda: x.sum(1)) * 1e3:.1f} us")
-    print(f"[roofline] 9 probes held to their plain versions: largest "
+    print(f"[roofline] 10 probes held to their plain versions: largest "
           f"errors {', '.join(f'{k} {v:.3g}' for k, v in err.items())}")
     del x, y, o, ref
 
@@ -2050,6 +2109,26 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
                    plain["twin_reparam"], err["twin_reparam"], twin_bytes,
                    sb * (18 * rl.RN + 2 * 120 + 4)),
     ]
+    # the tail skeleton has no TPU counterpart: its row is the one at the
+    # flagship's B3 (B = 128), the floor it prices
+    tail = next(r for r in result["rows"]
+                if r["kernel"] == f"B3 tail_bwd {SPEC}")
+    comps = tuple(parse_components(SPEC, fixed_curvature=False))
+    skel = _probe_row("skel_tail", 0, tail["timings"]["skeleton"],
+                      plain["skel_tail"], err["skel_tail"],
+                      rl.tail_bytes(comps, 128, True),
+                      rl.tail_bytes(comps, 128, True) // 4)
+    skel["replaces"] = "mvae_tpu/kernels/tail_kernels.py:735"
+    rows.append(skel)
+    for (spec, _, kern, B), r in zip(rl.TAIL_ROWS, result["rows"][4:]):
+        name = "tail_bwd" if kern == "B3" else "tail_fwd"
+        print(f"[roofline] {r['kernel']} at {r['shape']}: {r['us']:.3f} us "
+              f"({_rowwise(name, spec, B)}); skeleton "
+              f"{r['floors_us']['skeleton']:.3f} us, operations "
+              f"{r['ops']} at the calibrated FMA rate "
+              f"{r['floors_us']['operations']:.4f} us -> binding "
+              f"{r['binding_floor_us']:.3f} us ({r['bound_by']}), "
+              f"{r['pct_of_binding']:.1f}% of it")
     return rows, launches
 
 

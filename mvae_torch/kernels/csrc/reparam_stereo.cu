@@ -59,9 +59,9 @@ reparam_stereo_kernel(const float* __restrict__ eps, long long eps_stride,
     sg[j] = sigma[(size_t)b * n + j];
     e[j] = ep[j];
   }
-  StereoSaved sv;
+  StereoSaved<0> sv;
   float q, p;
-  stereo_draw(n, sign, wraps, kptr[0], m, sg, e, &q, &p, sv);
+  stereo_draw<0>(n, sign, wraps, kptr[0], m, sg, e, &q, &p, sv);
   float* zr = zt + ((size_t)s * Z + z_off) * B + b;
   for (int j = 0; j < n; ++j) zr[(size_t)j * B] = sv.z[j];
   lq[idx] = q;

@@ -11,6 +11,9 @@
 //   skel_reparam_kernel     _skel_reparam                           B8d
 //   twin_stereo_kernel      _twin_stereo (resident or streaming)    B8e
 //   twin_reparam_kernel     _twin_reparam                           B8f
+// and one probe the TPU harness has no counterpart of:
+//   skel_tail_fwd_kernel    the tail's I/O skeleton, the floor of B1
+//   skel_tail_bwd_kernel    the same for B3
 // Each computes what its TPU probe computes, with two deliberate
 // differences. The FMA and tanh probes take an integer `repeat` that runs
 // their chain block `repeat` times before the store: at repeat = 1 (the TPU
@@ -38,7 +41,10 @@
 // and twin. The transpose probe stages a (256, 8) tile of each block's rows
 // through shared memory, padded to 9 columns so that the transposed reads
 // hit 32 different banks, eight times (one relayout for each of the TPU
-// probe's eight). Built without --fmad=false: the FMA probe times FFMA.
+// probe's eight). The tail skeleton takes the tail kernels' grid and their
+// scalar loads and stores (tail_grid.cuh), so it is timed with the same
+// launch, the same rows per block and the same fold. Built without
+// --fmad=false: the FMA probe times FFMA.
 //
 // Entry points (plain C, loaded with ctypes; each returns cudaGetLastError()
 // after its launch, or cudaErrorInvalidValue for a shape it does not take):
@@ -52,11 +58,18 @@
 //   int skel_reparam_launch(eps, eps_stride, mu, sigma, hoist (3, B), k, zt,
 //                           z_off, lq, lp, S, B, n, Z, stream)
 //   int twin_reparam_launch(the same arguments)
+//   int skel_tail_launch(raw, eps, kvec, dz, daux, out, out_c, dk, part,
+//                        counter, B, W, E, Z, nc, bwd, table, stream):
+//     with bwd = 0 the arguments of tail_fwd_launch (out = z, out_c = aux;
+//     dz, daux, dk, part and counter unused), with bwd = 1 those of
+//     tail_bwd_launch (out = draw, out_c = dk_rows)
 // Row probes take cols % 4 == 0 (and cols >= 8 for transpose) with 16-byte
 // aligned bases; the distance skeleton and twin read rows of any width.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "tail_grid.cuh"
 
 #define ELEM_THREADS 256
 #define ELEM_BLOCKS_PER_SM 8
@@ -428,6 +441,194 @@ twin_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
   lp[idx] = tp;
 }
 
+// --- the tail's I/O skeleton ------------------------------------------------
+
+// The bytes floor of the tail kernels (tail_fwd.cu, tail_bwd.cu) at their
+// grids (tail_grid.cuh): thread (row, component i) reads every word of its
+// component's slices (k, the head, the noise; in the backward also dz and
+// daux) and folds them into s: k, then each slice's 8-word chunks (zeros
+// past its end) summed by halves and added in order, then daux[:, i],
+// daux[:, nc], daux[:, nc + 1]; it writes s to every word of its outputs.
+// The forward (B1's grid: 32 rows a block, a warp a component) writes z and
+// aux[:, i] and, by the block's first warp, aux[:, nc] = aux[:, nc + 1] = the row's s summed over the
+// components in order; the backward (B3's grid: up to 8 warps of 32 rows
+// of one component a block) writes draw and dk_rows[:, i] and folds
+// dk_rows over the batch into dk as tail_bwd.cu does.
+// Widths of component i's slices of raw, eps and z (from the next offset)
+__device__ __forceinline__ void tail_widths(const TailTable& t, int i, int W,
+                                            int E, int Z, int* rw, int* ew,
+                                            int* zw) {
+  const bool last = i + 1 == t.nc;
+  *rw = (last ? W : t.raw_off[i + 1]) - t.raw_off[i];
+  *ew = (last ? E : t.eps_off[i + 1]) - t.eps_off[i];
+  *zw = (last ? Z : t.z_off[i + 1]) - t.z_off[i];
+}
+
+// Up to SKEL_CHUNK words of p from word j0 on (j0 + j < w), 0 past w
+#define SKEL_CHUNK 8
+__device__ __forceinline__ void skel_load(const float* __restrict__ p, int w,
+                                          int j0, float* v) {
+  #pragma unroll
+  for (int j = 0; j < SKEL_CHUNK; ++j) v[j] = j0 + j < w ? p[j0 + j] : 0.f;
+}
+
+// The sum of a chunk by halves: v[j] + v[j + 4], then + 2, then + 1
+__device__ __forceinline__ float skel_tree(const float* v) {
+  const float a0 = v[0] + v[4], a1 = v[1] + v[5], a2 = v[2] + v[6],
+              a3 = v[3] + v[7];
+  return (a0 + a2) + (a1 + a3);
+}
+
+// s plus the chunk sums of the w words of p in order: the first two chunks
+// already in v, the rest loaded a chunk at a time
+__device__ __forceinline__ float skel_add(const float* __restrict__ p, int w,
+                                          const float* v, float s) {
+  s = s + skel_tree(v);
+  if (w > SKEL_CHUNK) s = s + skel_tree(v + SKEL_CHUNK);
+  for (int j0 = 2 * SKEL_CHUNK; j0 < w; j0 += SKEL_CHUNK) {
+    float u[SKEL_CHUNK];
+    skel_load(p, w, j0, u);
+    s = s + skel_tree(u);
+  }
+  return s;
+}
+
+// The loads of a row's first two chunks of every slice are all issued
+// before the first add, so a component of up to 16 words a slice waits on
+// memory once, and the chunk sums keep the chain of adds short
+__device__ __forceinline__ float skel_tail_sum(
+    const float* __restrict__ raw, const float* __restrict__ eps,
+    const float* __restrict__ kvec, const float* __restrict__ dz,
+    const float* __restrict__ daux, int W, int E, int Z, int bwd,
+    const TailTable& t, int row, int i, int* rw, int* zw) {
+  int ew;
+  tail_widths(t, i, W, E, Z, rw, &ew, zw);
+  const int nc = t.nc;
+  const float* r = raw + (size_t)row * W + t.raw_off[i];
+  const float* e = eps + (size_t)row * E + t.eps_off[i];
+  const float* g = dz + (size_t)row * Z + t.z_off[i];
+  const float* ga = daux + (size_t)row * (nc + 2);
+  float vr[2 * SKEL_CHUNK], ve[2 * SKEL_CHUNK], vg[2 * SKEL_CHUNK];
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  const float k = kvec[i];
+  for (int c = 0; c < 2; ++c) {
+    skel_load(r, *rw, c * SKEL_CHUNK, vr + c * SKEL_CHUNK);
+    skel_load(e, ew, c * SKEL_CHUNK, ve + c * SKEL_CHUNK);
+  }
+  if (bwd) {
+    skel_load(g, *zw, 0, vg);
+    skel_load(g, *zw, SKEL_CHUNK, vg + SKEL_CHUNK);
+    a0 = ga[i];
+    a1 = ga[nc];
+    a2 = ga[nc + 1];
+  }
+  float s = skel_add(r, *rw, vr, k);
+  s = skel_add(e, ew, ve, s);
+  if (bwd) {
+    s = skel_add(g, *zw, vg, s);
+    s = s + a0;
+    s = s + a1;
+    s = s + a2;
+  }
+  return s;
+}
+
+// B1's grid, phase 1: z and aux[:, i] of the thread's row and components
+__device__ __forceinline__ void skel_tail_fwd_rows(
+    const float* __restrict__ raw, const float* __restrict__ eps,
+    const float* __restrict__ kvec, float* __restrict__ z,
+    float* __restrict__ aux, int B, int W, int E, int Z, const TailTable& t,
+    int block, int tid, float* sh) {
+  const int lane = tid % TAIL_ROWS, row = block * TAIL_ROWS + lane;
+  if (row >= B) return;
+  const int nc = t.nc, warps = tail_warps(nc);
+  for (int i = tid / TAIL_ROWS; i < nc; i += warps) {
+    int rw, zw;
+    const float s = skel_tail_sum(raw, eps, kvec, raw, raw, W, E, Z, 0, t,
+                                  row, i, &rw, &zw);
+    float* o = z + (size_t)row * Z + t.z_off[i];
+    for (int j = 0; j < zw; ++j) o[j] = s;
+    aux[(size_t)row * (nc + 2) + i] = s;
+    sh[i * TAIL_ROWS + lane] = s;
+  }
+}
+
+// B1's grid, phase 2: the row's sum over the components in order
+__device__ __forceinline__ void skel_tail_fwd_sums(float* __restrict__ aux,
+                                                   int B, int nc, int block,
+                                                   int tid, const float* sh) {
+  const int row = block * TAIL_ROWS + tid;
+  if (tid >= TAIL_ROWS || row >= B) return;
+  float s = 0.f;
+  for (int i = 0; i < nc; ++i) s = s + sh[i * TAIL_ROWS + tid];
+  aux[(size_t)row * (nc + 2) + nc] = s;
+  aux[(size_t)row * (nc + 2) + nc + 1] = s;
+}
+
+// B3's grid, phase 1: draw and dk_rows[:, c] of the thread's row
+__device__ __forceinline__ void skel_tail_bwd_rows(
+    const float* __restrict__ raw, const float* __restrict__ eps,
+    const float* __restrict__ kvec, const float* __restrict__ dz,
+    const float* __restrict__ daux, float* __restrict__ draw,
+    float* __restrict__ dk_rows, int B, int W, int E, int Z,
+    const TailTable& t, int c, int bx, int tid, float* sh) {
+  const int w = tid / TAIL_ROWS, lane = tid % TAIL_ROWS;
+  const int row = (bx * TAIL_GROUPS + w) * TAIL_ROWS + lane;
+  if (row >= B) return;
+  int rw, zw;
+  const float s = skel_tail_sum(raw, eps, kvec, dz, daux, W, E, Z, 1, t, row,
+                                c, &rw, &zw);
+  float* o = draw + (size_t)row * W + t.raw_off[c];
+  for (int j = 0; j < rw; ++j) o[j] = s;
+  dk_rows[(size_t)row * t.nc + c] = s;
+  sh[w * TAIL_ROWS + lane] = s;
+}
+
+__global__ void __launch_bounds__(TAIL_THREADS)
+skel_tail_fwd_kernel(const float* __restrict__ raw,
+                     const float* __restrict__ eps,
+                     const float* __restrict__ kvec, float* __restrict__ z,
+                     float* __restrict__ aux, int B, int W, int E, int Z,
+                     TailTable t) {
+  __shared__ float sh[MAX_COMPS * TAIL_ROWS];
+  skel_tail_fwd_rows(raw, eps, kvec, z, aux, B, W, E, Z, t, blockIdx.x,
+                     threadIdx.x, sh);
+  __syncthreads();
+  skel_tail_fwd_sums(aux, B, t.nc, blockIdx.x, threadIdx.x, sh);
+}
+
+__global__ void __launch_bounds__(TAIL_THREADS)
+skel_tail_bwd_kernel(const float* __restrict__ raw,
+                     const float* __restrict__ eps,
+                     const float* __restrict__ kvec,
+                     const float* __restrict__ dz,
+                     const float* __restrict__ daux, float* __restrict__ draw,
+                     float* __restrict__ dk_rows, float* __restrict__ dk,
+                     float* __restrict__ part, unsigned* __restrict__ counter,
+                     int B, int W, int E, int Z, TailTable t) {
+  __shared__ float sh[TAIL_GROUPS * TAIL_ROWS];
+  __shared__ float gs[TAIL_GROUPS];
+  __shared__ bool last;
+  const int bx = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
+  skel_tail_bwd_rows(raw, eps, kvec, dz, daux, draw, dk_rows, B, W, E, Z, t,
+                     c, bx, tid, sh);
+  __syncthreads();
+  tail_fold_groups(B, bx, tid, sh, gs);
+  __syncthreads();
+  if (gridDim.x == 1) {
+    tail_fold_direct(B, c, tid, gs, dk);
+    return;
+  }
+  tail_fold_publish(B, t.nc, c, bx, tid, gs, part);
+  __syncthreads();
+  if (tid == 0) last = tail_fold_ticket(counter + c, gridDim.x);
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    tail_fold_last(B, t.nc, c, tid, part, dk, counter);
+  }
+}
+
 // --- launchers ------------------------------------------------------------
 
 // A grid of ELEM_BLOCKS_PER_SM blocks per SM (a full SM's 2048 threads),
@@ -588,5 +789,25 @@ extern "C" int twin_reparam_launch(const float* eps, long long eps_stride,
   if ((long long)S * B > 0)
     twin_reparam_kernel<<<blocks, REP_THREADS, 0, (cudaStream_t)stream>>>(
         eps, eps_stride, mu, sigma, hoist, k, zt, z_off, lq, lp, S, B, n, Z);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int skel_tail_launch(const float* raw, const float* eps,
+                                const float* kvec, const float* dz,
+                                const float* daux, float* out, float* out_c,
+                                float* dk, float* part, unsigned* counter,
+                                int B, int W, int E, int Z, int nc, int bwd,
+                                const int* table, void* stream) {
+  TailTable t;
+  if (!tail_table_from(table, nc, &t) || B < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B > 0 && bwd)
+    skel_tail_bwd_kernel<<<dim3(tail_bwd_blocks(B), nc), tail_bwd_threads(B),
+                           0, s>>>(raw, eps, kvec, dz, daux, out, out_c, dk,
+                                   part, counter, B, W, E, Z, t);
+  else if (B > 0)
+    skel_tail_fwd_kernel<<<tail_blocks(B), TAIL_ROWS * tail_warps(nc), 0,
+                           s>>>(raw, eps, kvec, out, out_c, B, W, E, Z, t);
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,12 @@
 // curvatures, from the cotangents of z and of aux = [KL per component,
 // sum log q, sum log p]. The noise gets no gradient.
 //
-// Replaces the TPU kernel mvae_tpu/kernels/tail_kernels.py::_bwd_pallas,
-// which recomputes the tile under jax.vjp inside the kernel. CUDA has no
-// autodiff, so the reverse sweep of each tile (_tile_normal,
-// _tile_wrapped_lorentz, _tile_vmf, _tile_wrapped_stereo,
-// _tile_wrapped_sphere) is derived here by hand, following the conventions
+// Replaces the TPU kernel mvae_tpu/kernels/tail_kernels.py::_bwd_pallas
+// (:735), which recomputes the tiles of _tail_tile (:646) under jax.vjp
+// inside the kernel. CUDA has no autodiff, so the reverse sweep of each tile
+// (_tile_normal :232, _tile_wrapped_lorentz :245, _tile_wrapped_sphere :301,
+// _tile_vmf :386, _tile_wrapped_stereo :462 with :540 and :610) is derived
+// here by hand, following the conventions
 // of the plain version, torch.autograd through
 // tail_kernels.tail_forward_ref:
 //  - a clamp passes the whole gradient when its input equals the bound
@@ -30,30 +31,46 @@
 //    chord's cap (1 - eps) R gate likewise; where the cap is taken the
 //    gradient goes to the curvature through the cap, not to the chord.
 //
-// Bound: bytes. Per row it reads W + E + Z + nc + 2 floats and writes
-// W + nc (45 floats at the h2,s2,e2 flagship, ~23 KB at batch 128) and does
-// a few hundred flops (a few thousand with a stereographic component at
-// wraps = 1); the launch dominates.
+// Bound: neither bytes nor operations. Per row it reads W + E + Z + nc + 2
+// floats and writes W + nc (45 floats at the h2,s2,e2 flagship, ~23 KB at
+// batch 128) and does a few hundred operations (a few thousand with a d/p/u
+// or s tile): the card's I/O skeleton of the tail at this grid
+// (roofline_probes.cu, skel_tail_*_kernel) is the launch and one fenced fold.
+// What is left is latency: per row and component, one dependent chain
+// through the tile's forward and back through its reverse sweep.
 //
-// Design: one thread per batch row. The row's forward is recomputed in
-// registers and local memory by the forward tiles of tail_tiles.cuh (the
+// Design (launch geometry in tail_grid.cuh): a block holds up to 8 warps of
+// one component, a warp 32 rows, so a row's components run side by side in
+// blocks of their own and the row's chain is its longest tile (at the
+// training batch of 128: nc blocks of 4 warps). The tiles and their
+// reverse sweeps are templates on the component dimension (2, 3, 6 with
+// every vector in registers; 0 the generic instantiation, n <= 32 in local
+// memory), instantiated per dimension class of the product as in
+// tail_fwd.cu. Each
+// row's forward is recomputed by the forward tiles of tail_tiles.cuh (the
 // same expressions as tail_fwd.cu, compiled with the same --fmad=false and
 // no fast math, so the recomputed intermediates equal the forward kernel's
-// bit for bit), then the reverse sweep runs in local memory (vectors of at
-// most 32 entries). The per-row curvature gradients are written out as
-// (B, nc); the sum over the batch is left to the caller, as the TPU kernel
-// leaves it to XLA. No atomics: results are deterministic.
+// bit for bit), then the reverse sweep runs on them; at wraps = 1 the
+// reverse sweep of the drawn-radius sum reuses the 9 branches the forward
+// kept instead of evaluating them again, and every branch shares one sine
+// and one cosine. The per-row curvature gradients are written out as
+// (B, nc) and folded over the batch in the same launch, in a fixed order
+// (32-row groups in row order, then the groups in order): at B <= 256
+// inside the component's one block; above, as B6 folds (each block
+// publishes its groups' sums, fences and takes a ticket on its component's
+// counter; the last block sums them in order and resets the counter). So
+// graph replays are bit-equal, the caller needs no sum, and no atomics
+// touch the sums' values.
 //
 // Entry point (plain C, loaded with ctypes):
 //   int tail_bwd_launch(raw (B, W), eps (B, E), kvec (nc,), dz (B, Z),
 //                       daux (B, nc + 2), draw (B, W), dk_rows (B, nc),
-//                       B, W, E, Z, nc, table, stream)
-// `table` as for tail_fwd_launch. Returns cudaGetLastError() after the
-// launch.
+//                       dk (nc,), part (ceil(B / 32), nc), counter (nc
+//                       unsigned, zero), B, W, E, Z, nc, table, stream)
+// `table` as for tail_fwd_launch; `part` is scratch, `counter` is left at
+// zero. Returns cudaGetLastError() after the launch.
 
-#include "tail_tiles.cuh"
-
-#define THREADS 128
+#include "tail_grid.cuh"
 
 // --- derivatives of the scalar helpers -----------------------------------------
 
@@ -174,15 +191,16 @@ __device__ float d_arctandiv_u(float w, int sign) {
   return -gsw / (2.f * sw);
 }
 
-// Gradients of log_abs_sin_soft(x, taper) with respect to x and taper
-__device__ __forceinline__ void d_log_abs_sin_soft(float x, float taper,
-                                                   float* gx, float* gtaper) {
-  const float sn = sinf(x);
+// Gradients of log_abs_sin_soft(x, taper) with respect to x and taper, from
+// sn = sin x and cs = cos x
+__device__ __forceinline__ void d_log_abs_sin_soft_at(float sn, float cs,
+                                                      float taper, float* gx,
+                                                      float* gtaper) {
   const float tt = taper * F(1.0 / PI);
   const float t = fminf(tt, 1.f);
   const float d = SHELL_DELTA * t * t * t;
   const float gS = 0.5f / (sn * sn + d * d);
-  *gx = gS * 2.f * sn * cosf(x);
+  *gx = gS * 2.f * sn * cs;
   const float gt = gS * 2.f * d * SHELL_DELTA * 3.f * t * t;
   *gtaper = (tt <= 1.f) ? gt * F(1.0 / PI) : 0.f;
 }
@@ -193,7 +211,7 @@ __device__ float d_log_sindiv_u_soft(float u, int sign) {
     return d_log_sindiv_u_neg(u);
   const float su = sqrtf(fabsf(u));
   float gx, gtaper;
-  d_log_abs_sin_soft(su, su, &gx, &gtaper);
+  d_log_abs_sin_soft_at(sinf(su), cosf(su), su, &gx, &gtaper);
   float gsu = gx + gtaper;
   if (su >= EPS) gsu = gsu - 1.f / su;
   return gsu * sgn_f(u) / (2.f * su);
@@ -232,9 +250,11 @@ __device__ __forceinline__ float sigma_cap_bwd(float gsig, float capr,
 // --- per-tile reverse sweeps ----------------------------------------------------
 
 // _tile_normal: writes the tile's head gradients into draw[0 : n + ns]
-__device__ void tile_normal_bwd(const float* raw, const float* eps, int n,
-                                int ns, const float* dz, float gkl, float glq,
-                                float glp, float* draw) {
+__device__ __forceinline__ void tile_normal_bwd(const float* raw,
+                                                const float* eps, int n, int ns,
+                                                const float* dz, float gkl,
+                                                float glq, float glp,
+                                                float* draw) {
   float gsum = 0.f;  // scalar scale head: gradients summed over the dims
   for (int j = 0; j < n; ++j) {
     const int si = n + (ns == 1 ? 0 : j);
@@ -255,17 +275,19 @@ __device__ void tile_normal_bwd(const float* raw, const float* eps, int n,
 }
 
 // _tile_wrapped_lorentz: draw[0 : n + ns] and the returned dL/dk
-__device__ float tile_wrapped_h_bwd(const float* raw, const float* eps, int n,
-                                    int ns, float k, const float* dz,
-                                    float gkl, float glq, float glp,
-                                    float* draw) {
-  HSaved s;
-  float zbuf[MAX_DIM + 1], kl, q, p;
-  tile_wrapped_h(raw, eps, n, ns, k, zbuf, &kl, &q, &p, s);
+template <int N>
+__device__ __forceinline__ float tile_wrapped_h_bwd(
+    const float* raw, const float* eps, int n, int ns, float k, const float* dz,
+    float gkl, float glq, float glp, float* draw) {
+  const int nn = TAIL_DIM(N, n);
+  HSaved<N> s;
+  float zbuf[TAIL_ARR(N) + 1], kl, q, p;
+  tile_wrapped_h<N>(raw, eps, n, ns, k, zbuf, &kl, &q, &p, s);
   const float c = s.c, isc = s.inv_sqrt_c;
-  const float nm1 = F(n - 1.0);
+  const float nm1 = F(nn - 1.0);
 
-  float gmsp[MAX_DIM], gusp[MAX_DIM], gv[MAX_DIM], gsig[MAX_DIM];
+  float gmsp[TAIL_ARR(N)], gusp[TAIL_ARR(N)], gv[TAIL_ARR(N)],
+      gsig[TAIL_ARR(N)];
   const float gq = glq + gkl;  // kl = lq - lp
   const float gp = glp - gkl;
   float gk = 0.f, gc = 0.f, gisc = 0.f, ginv_c = 0.f;
@@ -291,7 +313,8 @@ __device__ float tile_wrapped_h_bwd(const float* raw, const float* eps, int n,
   const float ga2 = -nm1 * gq * d_log_sindiv_u_neg(a2);
   gk += ga2 * s.rv2;
   const float grv2 = ga2 * k;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     gsig[j] = -gq / s.sig[j];
     gv[j] = grv2 * 2.f * s.v[j];
   }
@@ -301,7 +324,8 @@ __device__ float tile_wrapped_h_bwd(const float* raw, const float* eps, int n,
   ginv_c += gq2;
   gzsp2 += gq2;
   float gcu = 0.f, gsd = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     const float gzj = dz[1 + j] + gzsp2 * 2.f * s.z_sp[j];
     gcu += gzj * s.mu_sp[j];
     gsd += gzj * s.u_sp[j];
@@ -316,7 +340,8 @@ __device__ float tile_wrapped_h_bwd(const float* raw, const float* eps, int n,
 
   // u_sp = v + coef mu_sp; u_t = coef (1 / sqrt c + mu_t)
   float gcoef = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     gusp[j] += gusq_in * 2.f * s.u_sp[j];
     gv[j] += gusp[j];
     gcoef += gusp[j] * s.mu_sp[j];
@@ -338,7 +363,8 @@ __device__ float tile_wrapped_h_bwd(const float* raw, const float* eps, int n,
   const float gdt = -2.f * gea_in * c * s.d_t;
   gmu_t += gdt;
   gisc -= gdt;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     gmsp[j] += gsv * s.v[j];
     gv[j] += gsv * s.mu_sp[j];
     gsig[j] += gv[j] * eps[j];
@@ -349,7 +375,8 @@ __device__ float tile_wrapped_h_bwd(const float* raw, const float* eps, int n,
   ginv_c += gq1;
   gsp2 += gq1;
   float gsdm = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     gmsp[j] += gsp2 * 2.f * s.mu_sp[j];
     gsdm += gmsp[j] * raw[j];
   }
@@ -358,7 +385,8 @@ __device__ float tile_wrapped_h_bwd(const float* raw, const float* eps, int n,
   gk += ga1 * s.r2m;
   const float gr2m = ga1 * k;
   float gsum = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     draw[j] = gmsp[j] * s.sdm + gr2m * 2.f * raw[j];
     if (ns == 1) {
       gsum = (j == 0) ? gsig[j] : gsum + gsig[j];
@@ -376,9 +404,11 @@ __device__ float tile_wrapped_h_bwd(const float* raw, const float* eps, int n,
 }
 
 // _tile_vmf (m = 3): draw[0 : 3] and the returned dL/dk
-__device__ float tile_vmf_s2_bwd(const float* raw, const float* eps, float k,
-                                 const float* dz, float gkl, float glq,
-                                 float glp, float* draw) {
+__device__ __forceinline__ float tile_vmf_s2_bwd(const float* raw,
+                                                 const float* eps, float k,
+                                                 const float* dz, float gkl,
+                                                 float glq, float glp,
+                                                 float* draw) {
   VmfSaved s;
   float zbuf[3], kl, q, p;
   tile_vmf_s2(raw, eps, k, zbuf, &kl, &q, &p, s);
@@ -494,12 +524,54 @@ __device__ __forceinline__ void ball_scale_bwd(float k, float smax, float xn2,
   if (xn2 >= TINY) *gxn2 += gs * smax * (-0.5f * rs / q);
 }
 
+// The gradients the branches of the drawn-radius sum accumulate
+struct LqGrads {
+  float rp, quad, period, sqk, kpos, xred, vsq_g, ls, k;
+};
+
+// Reverse of branch m (live, at radius rb) of the drawn-radius sum, whose
+// cotangent is gt; cs = cos x_red
+__device__ __forceinline__ void lq_term_bwd(int n, int sign, float k,
+                                            const LqCommon& c, float cs, int m,
+                                            float rb, float gt, LqGrads& a) {
+  const float nm1 = F(n - 1.0);
+  float grb = -gt * rb * c.quad;
+  a.quad += -0.5f * gt * rb * rb;
+  a.ls -= gt;
+  if (m == 0) {
+    const float gu0 = -gt * nm1 * d_log_sindiv_u_soft(c.u0, sign);
+    if (c.pos) {
+      a.kpos += gu0 * c.rp * c.rp;
+      a.rp += gu0 * c.kpos * 2.f * c.rp;
+    } else {
+      a.k += gu0 * c.vsq_g;
+      a.vsq_g += gu0 * k;
+    }
+  } else {
+    const float gsph = -gt * nm1;
+    const float arb = fabsf(rb);
+    const float xb = c.sqk * arb;
+    float gx, gtaper;
+    d_log_abs_sin_soft_at(c.sn, cs, xb, &gx, &gtaper);
+    a.xred += gsph * gx;
+    float gxb = gsph * gtaper;
+    if (xb >= TINY) gxb -= gsph / xb;
+    a.sqk += gxb * arb;
+    grb += gxb * c.sqk * sgn_f(rb);
+    a.period += grb * (float)m;
+  }
+  a.rp += grb;
+}
+
 // Reverse of logq_drawn: from glq, adds to the gradients of vsq, ls and k.
 // Each live branch of the sum gets its softmax weight; a dead branch none.
-__device__ void logq_drawn_bwd(int n, int wraps, int sign, float k, float vsq,
-                               float s2, float ls, const LqCommon& c,
-                               float mx, float acc, float g, float* gvsq,
-                               float* gls, float* gk) {
+// At wraps = 1 the branches are the ones the forward kept (LqCommon.t).
+__device__ __forceinline__ void logq_drawn_bwd(int n, int wraps, int sign,
+                                               float k, float vsq, float s2,
+                                               float ls, const LqCommon& c,
+                                               float mx, float acc, float g,
+                                               float* gvsq, float* gls,
+                                               float* gk) {
   const float nm1 = F(n - 1.0);
   if (sign < 0) {
     const float vsq_g = vsq + TINY;
@@ -509,43 +581,31 @@ __device__ void logq_drawn_bwd(int n, int wraps, int sign, float k, float vsq,
     *gk += gu * vsq_g;
     return;
   }
-  const int M = (wraps == 0) ? 0 : wraps + 3;
-  float grp = 0.f, gquad = 0.f, gperiod = 0.f, gsqk = 0.f, gkpos = 0.f,
-        gxred = 0.f, gvsq_g = 0.f, gr = 0.f;
-  for (int m = -M; m <= M; ++m) {
-    float rb, t;
-    if (!lq_term(n, sign, ls, c, m, &rb, &t)) continue;
-    const float gt = (M == 0) ? g : g * (expf(t - mx) / acc);
-    float grb = -gt * rb * c.quad;
-    gquad += -0.5f * gt * rb * rb;
-    *gls -= gt;
-    if (m == 0) {
-      const float gu0 = -gt * nm1 * d_log_sindiv_u_soft(c.u0, sign);
-      if (c.pos) {
-        gkpos += gu0 * c.rp * c.rp;
-        grp += gu0 * c.kpos * 2.f * c.rp;
-      } else {
-        *gk += gu0 * c.vsq_g;
-        gvsq_g += gu0 * k;
-      }
-    } else {
-      const float gsph = -gt * nm1;
-      const float arb = fabsf(rb);
-      const float xb = c.sqk * arb;
-      float gx, gtaper;
-      d_log_abs_sin_soft(c.x_red, xb, &gx, &gtaper);
-      gxred += gsph * gx;
-      float gxb = gsph * gtaper;
-      if (xb >= TINY) gxb -= gsph / xb;
-      gsqk += gxb * arb;
-      grb += gxb * c.sqk * sgn_f(rb);
-      gperiod += grb * (float)m;
+  LqGrads a = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const float cs = wraps > 0 ? cosf(c.x_red) : 0.f;
+  if (wraps == 1) {
+#pragma unroll
+    for (int i = 0; i < LQ_BRANCHES; ++i) {
+      if (!((c.live >> i) & 1)) continue;
+      const int m = i - 4;
+      lq_term_bwd(n, sign, k, c, cs, m, c.rp + (float)m * c.period,
+                  g * (expf(c.t[i] - mx) / acc), a);
     }
-    grp += grb;
+  } else {
+    const int M = (wraps == 0) ? 0 : wraps + 3;
+    for (int m = -M; m <= M; ++m) {
+      float rb, t;
+      if (!lq_term(n, sign, ls, c, m, &rb, &t)) continue;
+      lq_term_bwd(n, sign, k, c, cs, m, rb,
+                  (M == 0) ? g : g * (expf(t - mx) / acc), a);
+    }
   }
+  *gls += a.ls;
+  *gk += a.k;
+  float gsqk = a.sqk, grp = a.rp, gperiod = a.period, gr = 0.f;
   // x_red = sqk rp; rp = |r - period floor(r / period + 1/2)| or r
-  gsqk += gxred * c.rp;
-  grp += gxred * c.sqk;
+  gsqk += a.xred * c.rp;
+  grp += a.xred * c.sqk;
   if (c.pos) {
     const float gd = grp * sgn_f(c.d);
     gr += gd;
@@ -555,18 +615,20 @@ __device__ void logq_drawn_bwd(int n, int wraps, int sign, float k, float vsq,
   }
   // period = 2 pi / sqk, sqk = sqrt(kpos), kpos = max(k, 1e-20)
   gsqk -= gperiod * c.period / c.sqk;
-  gkpos += gsqk / (2.f * c.sqk);
+  const float gkpos = a.kpos + gsqk / (2.f * c.sqk);
   if (k >= 1e-20f) *gk += gkpos;
   // quad = s2 / vsq_g, r = sqrt(vsq_g), vsq_g = vsq + tiny
-  gvsq_g -= gquad * c.quad / c.vsq_g;
+  float gvsq_g = a.vsq_g;
+  gvsq_g -= a.quad * c.quad / c.vsq_g;
   gvsq_g += gr / (2.f * c.r);
   *gvsq += gvsq_g;
 }
 
 // Reverse of logp_prior: from glp, returns the gradient of r0 and adds to
 // the gradient of k
-__device__ float logp_prior_bwd(int n, int sign, float k, float r0,
-                                const LpSaved& s, float g, float* gk) {
+__device__ __forceinline__ float logp_prior_bwd(int n, int sign, float k,
+                                                float r0, const LpSaved& s,
+                                                float g, float* gk) {
   const float nm1 = F(n - 1.0);
   const float g0 = s.wrapped ? g * (expf(s.t[0] - s.mx) / s.acc) : g;
   const float gup = -g0 * nm1 * d_log_sindiv_u_soft(s.up, sign);
@@ -575,7 +637,7 @@ __device__ float logp_prior_bwd(int n, int sign, float k, float r0,
   float gr0 = gr02 * 2.f * r0;
   if (!s.wrapped) return gr0;
   float gsqk0 = 0.f, gperiod = 0.f;
-  const float x0 = s.sqk0 * r0;
+  const float x0 = s.sqk0 * r0, sn0 = sinf(x0), cs0 = cosf(x0);
   for (int i = 1; i <= 2; ++i) {
     if (!s.live[i]) continue;
     const float gt = g * (expf(s.t[i] - s.mx) / s.acc);
@@ -586,7 +648,7 @@ __device__ float logp_prior_bwd(int n, int sign, float k, float r0,
     gsqk0 -= glsk / s.sqk0;
     const float xb = s.sqk0 * arb;
     float gx, gtaper;
-    d_log_abs_sin_soft(x0, xb, &gx, &gtaper);
+    d_log_abs_sin_soft_at(sn0, cs0, xb, &gx, &gtaper);
     gsqk0 += glsk * gx * r0;
     gr0 += glsk * gx * s.sqk0;
     gsqk0 += glsk * gtaper * arb;
@@ -601,11 +663,16 @@ __device__ float logp_prior_bwd(int n, int sign, float k, float r0,
 
 // Reverse of stereo_draw: from dz and the cotangents of log q and log p,
 // the gradients of mu and sig, the gradient of k added to *gk
-__device__ void stereo_draw_bwd(int n, int sign, int wraps, float k,
-                                const float* mu, const float* sig,
-                                const float* eps, const StereoSaved& s,
-                                const float* dz, float gq, float gp,
-                                float* gmu, float* gsig, float* gk) {
+template <int N>
+__device__ __forceinline__ void stereo_draw_bwd(int n, int sign, int wraps,
+                                                float k, const float* mu,
+                                                const float* sig,
+                                                const float* eps,
+                                                const StereoSaved<N>& s,
+                                                const float* dz, float gq,
+                                                float gp, float* gmu,
+                                                float* gsig, float* gk) {
+  const int nn = TAIL_DIM(N, n);
   float gsmax = 0.f;
   // lp from r0 = 2 sqrt(zn2 + tiny) arctandiv(k zn2)
   const float gr0 = logp_prior_bwd(n, sign, k, s.r0, s.lp, gp, gk);
@@ -615,26 +682,29 @@ __device__ void stereo_draw_bwd(int n, int sign, int wraps, float k,
   const float gzn2 = gw * k + gsq / (2.f * s.sq);
 
   // the final ball clamp: z = zpre bsz, zn2 = max(zn2pre bsz^2, 0)
-  float gzpre[MAX_DIM];
+  float gzpre[TAIL_ARR(N)];
   float gzn2pre;
   if (sign <= 0) {
     const float gm = (s.zn2m >= 0.f) ? gzn2 : 0.f;
     gzn2pre = gm * s.bsz * s.bsz;
     float gbsz = gm * 2.f * s.zn2pre * s.bsz;
-    for (int j = 0; j < n; ++j) {
+    #pragma unroll
+    for (int j = 0; j < nn; ++j) {
       gbsz += dz[j] * s.zpre[j];
       gzpre[j] = dz[j] * s.bsz;
     }
     ball_scale_bwd(k, s.smax, s.zn2pre, gbsz, &gsmax, &gzn2pre);
   } else {
     gzn2pre = gzn2;
-    for (int j = 0; j < n; ++j) gzpre[j] = dz[j];
+    #pragma unroll
+    for (int j = 0; j < nn; ++j) gzpre[j] = dz[j];
   }
 
   // zpre = p mu + q v with p = a / den, q = b / den
   float gpp = 0.f, gqq = 0.f;
-  float gv[MAX_DIM];
-  for (int j = 0; j < n; ++j) {
+  float gv[TAIL_ARR(N)];
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     gzpre[j] += gzn2pre * 2.f * s.zpre[j];
     gpp += gzpre[j] * mu[j];
     gqq += gzpre[j] * s.v[j];
@@ -673,7 +743,9 @@ __device__ void stereo_draw_bwd(int n, int sign, int wraps, float k,
   logq_drawn_bwd(n, wraps, sign, k, s.vsq, s.s2, s.ls, s.lqc, s.lq_mx,
                  s.lq_acc, gq, &gvsq, &gls, gk);
 
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+
+  for (int j = 0; j < nn; ++j) {
     gv[j] += gvsq * 2.f * s.v[j] + gxv * mu[j];
     gmu[j] += gxv * s.v[j] + gx2 * 2.f * mu[j];
     gsig[j] = gv[j] * eps[j];
@@ -683,19 +755,18 @@ __device__ void stereo_draw_bwd(int n, int sign, int wraps, float k,
   if (k <= -TINY) *gk += gsmax * 0.5f * s.smax / (-k);
 }
 
-// _tile_wrapped_stereo: draw[0 : n + ns] and the returned dL/dk. Kept out
-// of line so that products without a stereographic component run the code
-// they ran before this tile existed.
-__device__ __noinline__ float tile_wrapped_stereo_bwd(const float* raw, const float* eps,
-                                         int n, int ns, int sign, int wraps,
-                                         float k, const float* dz, float gkl,
-                                         float glq, float glp, float* draw) {
-  StereoHead h;
-  StereoSaved s;
-  float zbuf[MAX_DIM], kl, q, p;
-  tile_wrapped_stereo(raw, eps, n, ns, sign, wraps, k, zbuf, &kl, &q, &p, h,
+// _tile_wrapped_stereo: draw[0 : n + ns] and the returned dL/dk
+template <int N>
+__device__ __forceinline__ float tile_wrapped_stereo_bwd(
+    const float* raw, const float* eps, int n, int ns, int sign, int wraps,
+    float k, const float* dz, float gkl, float glq, float glp, float* draw) {
+  const int nn = TAIL_DIM(N, n);
+  StereoHead<N> h;
+  StereoSaved<N> s;
+  float zbuf[TAIL_ARR(N)], kl, q, p;
+  tile_wrapped_stereo<N>(raw, eps, n, ns, sign, wraps, k, zbuf, &kl, &q, &p, h,
                       s);
-  float gmu[MAX_DIM], gsig[MAX_DIM];
+  float gmu[TAIL_ARR(N)], gsig[TAIL_ARR(N)];
   float gk = 0.f;
   stereo_draw_bwd(n, sign, wraps, k, h.mu, h.sig, eps, s, dz, glq + gkl,
                   glp - gkl, gmu, gsig, &gk);
@@ -704,7 +775,8 @@ __device__ __noinline__ float tile_wrapped_stereo_bwd(const float* raw, const fl
   float ggm = 0.f, gr2m = 0.f, gsmax = 0.f;
   if (sign <= 0) {
     float gbs = 0.f;
-    for (int j = 0; j < n; ++j) {
+    #pragma unroll
+    for (int j = 0; j < nn; ++j) {
       gbs += gmu[j] * h.mu0[j];
       gmu[j] = gmu[j] * h.bsm;
     }
@@ -714,16 +786,19 @@ __device__ __noinline__ float tile_wrapped_stereo_bwd(const float* raw, const fl
     gr2m += gxn2 * h.gm * h.gm;
     if (k <= -TINY) gk += gsmax * 0.5f * h.smax / (-k);
   }
-  for (int j = 0; j < n; ++j) ggm += gmu[j] * raw[j];
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) ggm += gmu[j] * raw[j];
   const float gum = 0.5f * ggm * d_tandiv_u(h.um, sign);
   gk += gum * h.r2m / 4.f;
   gr2m += gum * k / 4.f;
-  for (int j = 0; j < n; ++j) draw[j] = gmu[j] * h.gm + gr2m * 2.f * raw[j];
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) draw[j] = gmu[j] * h.gm + gr2m * 2.f * raw[j];
 
   // sig = capr tc (1 + tc^6)^(-1/6), tc = min(sig0 / capr, 8),
   // capr = pi rsqrt(max(k, 1e-12)); sig0 = softplus(raw)
   float gcapr = 0.f, gsum = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     float gs0 = gsig[j];
     if (sign >= 0)
       gs0 = sigma_cap_bwd(gsig[j], h.capr, h.tq[j], h.tc[j], h.w6[j], h.pw[j],
@@ -740,17 +815,20 @@ __device__ __noinline__ float tile_wrapped_stereo_bwd(const float* raw, const fl
 }
 
 // _tile_wrapped_sphere: draw[0 : n + ns] and the returned dL/dk; dz has
-// n + 1 entries. Out of line like the stereographic sweep.
-__device__ __noinline__ float tile_wrapped_sphere_bwd(
+// n + 1 entries.
+template <int N>
+__device__ __forceinline__ float tile_wrapped_sphere_bwd(
     const float* raw, const float* eps, int n, int ns, int wraps, float k,
     const float* dz, float gkl, float glq, float glp, float* draw) {
-  SphSaved s;
-  float zbuf[MAX_DIM + 1], kl, q, p;
-  tile_wrapped_sphere(raw, eps, n, ns, wraps, k, zbuf, &kl, &q, &p, s);
+  const int nn = TAIL_DIM(N, n);
+  SphSaved<N> s;
+  float zbuf[TAIL_ARR(N) + 1], kl, q, p;
+  tile_wrapped_sphere<N>(raw, eps, n, ns, wraps, k, zbuf, &kl, &q, &p, s);
   const float gq = glq + gkl;  // kl = lq - lp
   const float gp = glp - gkl;
   float gkk = 0.f, gsqk = 0.f, gr = 0.f;
-  float gmsp[MAX_DIM], gusp[MAX_DIM], gv[MAX_DIM], gwsp[MAX_DIM];
+  float gmsp[TAIL_ARR(N)], gusp[TAIL_ARR(N)], gv[TAIL_ARR(N)],
+      gwsp[TAIL_ARR(N)];
 
   // lp from r0 = 2 half arcsindiv(kk half^2), half = min(sqrt(chord0 + tiny)
   // / 2, (1 - eps) r), chord0 = (z_t - r)^2 + |z_sp|^2
@@ -777,7 +855,8 @@ __device__ __noinline__ float tile_wrapped_sphere_bwd(
   // z = z0 zsc, zsc = r / zn, zn = sqrt(zt0^2 + |zs0|^2 + tiny);
   // z0 = cu mu + sd u
   float gzsc = gz_t * s.zt0;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     const float gzj = dz[1 + j] + gchord0 * 2.f * s.z_sp[j];
     gzsc += gzj * s.zs0[j];
     gusp[j] = gzj * s.zsc;  // the gradient of zs0, for now
@@ -788,7 +867,8 @@ __device__ __noinline__ float tile_wrapped_sphere_bwd(
   float gcu = gzt0 * s.mu_t, gsd = gzt0 * s.u_t;
   float gmu_t = gzt0 * s.cu;
   float gu_t = gzt0 * s.sd;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     const float gz0 = gusp[j] + gzn2 * 2.f * s.zs0[j];
     gcu += gz0 * s.mu_sp[j];
     gsd += gz0 * s.u_sp[j];
@@ -805,7 +885,8 @@ __device__ __noinline__ float tile_wrapped_sphere_bwd(
   // nw = sqrt(w_t^2 + |w_sp|^2 + tiny)
   float gpin = gu_t * s.w_t;
   float gw_t = gu_t * s.pin;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     gusp[j] += gusq * 2.f * s.u_sp[j];
     gpin += gusp[j] * s.w_sp[j];
     gwsp[j] = gusp[j] * s.pin;
@@ -818,7 +899,8 @@ __device__ __noinline__ float tile_wrapped_sphere_bwd(
   float gcoef = -gw_t * (s.r + s.mu_t);
   gr -= gw_t * s.coef;
   gmu_t -= gw_t * s.coef;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     gwsp[j] += gnw2 * 2.f * s.w_sp[j];
     gcoef -= gwsp[j] * s.mu_sp[j];
     gv[j] = gwsp[j];
@@ -839,7 +921,8 @@ __device__ __noinline__ float tile_wrapped_sphere_bwd(
   // v = sig eps; mu = m sc with sc = r / mnorm, sp2 = sp2_m sc^2
   float gsc = gmu_t * s.m_t + gchord2 * s.sp2_m * 2.f * s.sc;
   float gsp2_m = gchord2 * s.sc * s.sc;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     gmsp[j] += gsmv * s.v[j];
     gv[j] += gsmv * s.mu_sp[j] + gvsq * 2.f * s.v[j];
     gsc += gmsp[j] * s.m_sp[j];
@@ -851,7 +934,8 @@ __device__ __noinline__ float tile_wrapped_sphere_bwd(
   gsp2_m += gmn2;
   // m_t = cos_u(t_m) r; m_sp = sindiv(t_m) mu_tan; t_m = kk r2m
   float gsdm = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     gmsp[j] += gsp2_m * 2.f * s.m_sp[j];
     gsdm += gmsp[j] * raw[j];
   }
@@ -860,12 +944,14 @@ __device__ __noinline__ float tile_wrapped_sphere_bwd(
                     + gsdm * d_sindiv_u(s.t_m);
   gkk += gtm * s.r2m;
   const float gr2m = gtm * s.kk;
-  for (int j = 0; j < n; ++j)
+  #pragma unroll
+  for (int j = 0; j < nn; ++j)
     draw[j] = gmsp[j] * s.sdm + gr2m * 2.f * raw[j];
 
   // sig = sigma_cap(softplus(raw), capr), capr = pi rsqrt(max(k, 1e-12))
   float gcapr = 0.f, gsum = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     float gsig = gv[j] * eps[j];
     if (s.sig[j] >= TINY) gsig += gls / s.sig[j];
     const float gs0 = sigma_cap_bwd(gsig, s.capr, s.tq[j], s.tc[j], s.w6[j],
@@ -886,59 +972,117 @@ __device__ __noinline__ float tile_wrapped_sphere_bwd(
   return gk;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// One component's backward tile for one row, by the table's kind: the
+// tile's head gradients into draw and the returned dL/dk
+template <int D>
+__device__ __forceinline__ float bwd_tile(const TailTable& t, int i,
+                                          const float* r, const float* e,
+                                          float k, const float* gz, float gkl,
+                                          float glq, float glp, float* dr) {
+  const int n = t.dim[i], ns = t.nscale[i];
+  switch (t.kind[i]) {
+    case KIND_NORMAL:
+      tile_normal_bwd(r, e, n, ns, gz, gkl, glq, glp, dr);
+      return 0.f;
+    case KIND_WRAPPED_H:
+      return tile_wrapped_h_bwd<D>(r, e, n, ns, k, gz, gkl, glq, glp, dr);
+    case KIND_VMF_S2:
+      return tile_vmf_s2_bwd(r, e, k, gz, gkl, glq, glp, dr);
+    case KIND_WRAPPED_STEREO:
+      return tile_wrapped_stereo_bwd<D>(r, e, n, ns, t.sign[i], t.wraps[i], k,
+                                        gz, gkl, glq, glp, dr);
+    default:
+      return tile_wrapped_sphere_bwd<D>(r, e, n, ns, t.wraps[i], k, gz, gkl,
+                                        glq, glp, dr);
+  }
+}
+
+// Phase 1, thread `tid` of block (bx, c): the backward tile of component c
+// for its row; dL/dk into dk_rows and into sh (TAIL_GROUPS, TAIL_ROWS)
+template <int D>
+__device__ __forceinline__ void bwd_rows(
+    const float* __restrict__ raw, const float* __restrict__ eps,
+    const float* __restrict__ kvec, const float* __restrict__ dz,
+    const float* __restrict__ daux, float* __restrict__ draw,
+    float* __restrict__ dk_rows, int B, int W, int E, int Z,
+    const TailTable& t, int c, int bx, int tid, float* sh) {
+  const int w = tid / TAIL_ROWS, lane = tid % TAIL_ROWS;
+  const int row = (bx * TAIL_GROUPS + w) * TAIL_ROWS + lane;
+  if (row >= B) return;
+  const int nc = t.nc;
+  const float* ga = daux + (size_t)row * (nc + 2);
+  const float dk = bwd_tile<D>(
+      t, c, raw + (size_t)row * W + t.raw_off[c],
+      eps + (size_t)row * E + t.eps_off[c], kvec[c],
+      dz + (size_t)row * Z + t.z_off[c], ga[c], ga[nc], ga[nc + 1],
+      draw + (size_t)row * W + t.raw_off[c]);
+  dk_rows[(size_t)row * nc + c] = dk;
+  sh[w * TAIL_ROWS + lane] = dk;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TAIL_THREADS, 1)
 tail_bwd_kernel(const float* __restrict__ raw, const float* __restrict__ eps,
                 const float* __restrict__ kvec, const float* __restrict__ dz,
                 const float* __restrict__ daux, float* __restrict__ draw,
-                float* __restrict__ dk_rows, int B, int W, int E, int Z,
-                TailTable t) {
-  const int row = blockIdx.x * THREADS + threadIdx.x;
-  if (row >= B) return;
-  const int nc = t.nc;
-  const float* r = raw + (size_t)row * W;
-  const float* e = eps + (size_t)row * E;
-  const float* gz = dz + (size_t)row * Z;
-  const float* ga = daux + (size_t)row * (nc + 2);
-  float* dr = draw + (size_t)row * W;
-  float* dk = dk_rows + (size_t)row * nc;
-  const float glq = ga[nc], glp = ga[nc + 1];
-  for (int i = 0; i < nc; ++i) {
-    const float* ri = r + t.raw_off[i];
-    const float* ei = e + t.eps_off[i];
-    const float* gzi = gz + t.z_off[i];
-    float* dri = dr + t.raw_off[i];
-    if (t.kind[i] == KIND_NORMAL) {
-      tile_normal_bwd(ri, ei, t.dim[i], t.nscale[i], gzi, ga[i], glq, glp,
-                      dri);
-      dk[i] = 0.f;
-    } else if (t.kind[i] == KIND_WRAPPED_H) {
-      dk[i] = tile_wrapped_h_bwd(ri, ei, t.dim[i], t.nscale[i], kvec[i], gzi,
-                                 ga[i], glq, glp, dri);
-    } else if (t.kind[i] == KIND_VMF_S2) {
-      dk[i] = tile_vmf_s2_bwd(ri, ei, kvec[i], gzi, ga[i], glq, glp, dri);
-    } else if (t.kind[i] == KIND_WRAPPED_STEREO) {
-      dk[i] = tile_wrapped_stereo_bwd(ri, ei, t.dim[i], t.nscale[i],
-                                      t.sign[i], t.wraps[i], kvec[i], gzi,
-                                      ga[i], glq, glp, dri);
-    } else {
-      dk[i] = tile_wrapped_sphere_bwd(ri, ei, t.dim[i], t.nscale[i],
-                                      t.wraps[i], kvec[i], gzi, ga[i], glq,
-                                      glp, dri);
-    }
+                float* __restrict__ dk_rows, float* __restrict__ dk,
+                float* __restrict__ part, unsigned* __restrict__ counter,
+                int B, int W, int E, int Z, TailTable t) {
+  __shared__ float sh[TAIL_GROUPS * TAIL_ROWS];
+  __shared__ float gs[TAIL_GROUPS];
+  __shared__ bool last;
+  const int bx = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
+  bwd_rows<D>(raw, eps, kvec, dz, daux, draw, dk_rows, B, W, E, Z, t, c, bx,
+              tid, sh);
+  __syncthreads();
+  tail_fold_groups(B, bx, tid, sh, gs);
+  __syncthreads();
+  if (gridDim.x == 1) {
+    tail_fold_direct(B, c, tid, gs, dk);
+    return;
+  }
+  tail_fold_publish(B, t.nc, c, bx, tid, gs, part);
+  __syncthreads();
+  if (tid == 0) last = tail_fold_ticket(counter + c, gridDim.x);
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    tail_fold_last(B, t.nc, c, tid, part, dk, counter);
   }
 }
 
 extern "C" int tail_bwd_launch(const float* raw, const float* eps,
                                const float* kvec, const float* dz,
                                const float* daux, float* draw, float* dk_rows,
+                               float* dk, float* part, unsigned* counter,
                                int B, int W, int E, int Z, int nc,
                                const int* table, void* stream) {
   TailTable t;
   if (!tail_table_from(table, nc, &t)) return (int)cudaErrorInvalidValue;
   if (B > 0) {
-    const int blocks = (B + THREADS - 1) / THREADS;
-    tail_bwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        raw, eps, kvec, dz, daux, draw, dk_rows, B, W, E, Z, t);
+    const dim3 grid(tail_bwd_blocks(B), nc), block(tail_bwd_threads(B));
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (tail_dim_class(t)) {
+      case 2:
+        tail_bwd_kernel<2><<<grid, block, 0, s>>>(
+            raw, eps, kvec, dz, daux, draw, dk_rows, dk, part, counter, B, W,
+            E, Z, t);
+        break;
+      case 3:
+        tail_bwd_kernel<3><<<grid, block, 0, s>>>(
+            raw, eps, kvec, dz, daux, draw, dk_rows, dk, part, counter, B, W,
+            E, Z, t);
+        break;
+      case 6:
+        tail_bwd_kernel<6><<<grid, block, 0, s>>>(
+            raw, eps, kvec, dz, daux, draw, dk_rows, dk, part, counter, B, W,
+            E, Z, t);
+        break;
+      default:
+        tail_bwd_kernel<0><<<grid, block, 0, s>>>(
+            raw, eps, kvec, dz, daux, draw, dk_rows, dk, part, counter, B, W,
+            E, Z, t);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -2,10 +2,10 @@
 // and the backward kernel (tail_bwd.cu), which recomputes each row's
 // forward with these same expressions before its reverse sweep.
 //
-// Port of the tiles of mvae_tpu/kernels/tail_kernels.py (_tile_normal,
-// _tile_wrapped_lorentz, _tile_vmf, _tile_wrapped_stereo and
-// _tile_wrapped_sphere with _logq_drawn_rows, _logp_prior_rows and
-// _arcsindiv_u_pos) in the order of the plain version
+// Port of the tiles of mvae_tpu/kernels/tail_kernels.py (_tile_normal :232,
+// _tile_wrapped_lorentz :245, _tile_vmf :386, _tile_wrapped_stereo :462 with
+// _logq_drawn_rows :540 and _logp_prior_rows :610, _tile_wrapped_sphere
+// :301) in the order of the plain version
 // mvae_torch/kernels/tail_kernels.py::tail_forward_ref: the exp-based
 // cosh/sinh clipped at 85, the series window at |u| < 1e-2, the vMF cosine
 // clip, the Householder degeneracy guard, and reductions over a row's
@@ -13,6 +13,13 @@
 // math and with --fmad=false, so they round like the plain version's
 // separate PyTorch ops and the backward's recomputed intermediates equal the
 // forward kernel's bit for bit.
+//
+// Register-resident tiles: every tile that holds a row's vectors is a
+// template on the component dimension N. For N > 0 (the kernels instantiate
+// 2, 3 and 6, the dimensions of the supported specs) the coordinate loops
+// unroll fully and every vector lives in registers; N = 0 is the generic
+// instantiation, the dimension n taken at run time up to MAX_DIM and the
+// vectors in local memory. The normal and vMF tiles hold no vectors.
 //
 // The wrapped and vMF tiles record their intermediates in a struct (HSaved,
 // VmfSaved, StereoSaved, SphSaved) for the backward; the forward kernel
@@ -22,7 +29,11 @@
 // curvature sign (-1, +1, or 0 for the universal kind, whose branch follows
 // the run-time sign of K per row) and its count of wrap-image pairs from the
 // table. Its draw, stereo_draw, is also the body of the IWAE chunk reparam
-// kernel (reparam_stereo.cu), so both evaluate the same expressions.
+// kernel (reparam_stereo.cu, the generic instantiation), so both evaluate
+// the same expressions. At wraps = 1 (the default) the drawn-radius sum
+// evaluates its 9 branches once, unrolled and independent of one another,
+// and keeps them (LqCommon.t) for the log-sum-exp and the reverse sweep;
+// at other wraps it loops over them as the plain version does.
 //
 // The embedded-sphere tile (kind s, K > 0 pinned) shares the sigma cap, the
 // drawn-radius sum logq_drawn and the prior pair logp_prior with the
@@ -46,6 +57,11 @@ enum {
   KIND_WRAPPED_S = 4
 };
 #define TABLE_COLS 8
+
+// The vectors of a tile instantiated on N: N entries, or MAX_DIM for the
+// generic instantiation (N = 0), whose dimension is the run-time n
+#define TAIL_ARR(N) ((N) > 0 ? (N) : MAX_DIM)
+#define TAIL_DIM(N, n) ((N) > 0 ? (N) : (n))
 
 struct TailTable {
   int nc;
@@ -150,8 +166,9 @@ __device__ __forceinline__ float acosh_1p(float u) {
 }
 
 // tail_kernels._tile_normal
-__device__ void tile_normal(const float* raw, const float* eps, int n, int ns,
-                            float* z, float* kl, float* lq, float* lp) {
+__device__ __forceinline__ void tile_normal(const float* raw, const float* eps,
+                                            int n, int ns, float* z, float* kl,
+                                            float* lq, float* lp) {
   float q = 0.f, p = 0.f, k2 = 0.f;
   for (int j = 0; j < n; ++j) {
     float mu = raw[j];
@@ -174,31 +191,38 @@ __device__ void tile_normal(const float* raw, const float* eps, int n, int ns,
 
 // Intermediates of one row of the hyperboloid tile (names as in the plain
 // version; *_in is a clamp's input)
+template <int N>
 struct HSaved {
   float c, inv_sqrt_c, inv_c, r2m, sdm, sp2, mu_t, sv, rv2, d_t, ea_in, e_a,
       coef, u_t, usp2, usq_in, usq, tt, cu, sd, zsp2, z_t, dz_t, e0_in, e0,
       r0a, r0, r02;
-  float mu_sp[MAX_DIM], sig[MAX_DIM], v[MAX_DIM], u_sp[MAX_DIM],
-      z_sp[MAX_DIM];
+  float mu_sp[TAIL_ARR(N)], sig[TAIL_ARR(N)], v[TAIL_ARR(N)],
+      u_sp[TAIL_ARR(N)], z_sp[TAIL_ARR(N)];
 };
 
 // tail_kernels._tile_wrapped_lorentz: wrapped normal on the hyperboloid
 // (K < 0 pinned); log q at the drawn tangent, log p at the acosh_1p radius
-__device__ void tile_wrapped_h(const float* raw, const float* eps, int n,
-                               int ns, float k, float* z, float* kl, float* lq,
-                               float* lp, HSaved& s) {
+template <int N>
+__device__ __forceinline__ void tile_wrapped_h(const float* raw,
+                                               const float* eps, int n, int ns,
+                                               float k, float* z, float* kl,
+                                               float* lq, float* lp,
+                                               HSaved<N>& s) {
+  const int nn = TAIL_DIM(N, n);
   s.c = fmaxf(-k, TINY);
   s.inv_sqrt_c = rsqrtf(s.c);
 
   float r2m = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     float t = raw[j] * raw[j];
     r2m = (j == 0) ? t : r2m + t;
   }
   s.r2m = r2m;
   s.sdm = sindiv_u(k * r2m);
   float sp2 = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     s.mu_sp[j] = s.sdm * raw[j];
     float t = s.mu_sp[j] * s.mu_sp[j];
     sp2 = (j == 0) ? t : sp2 + t;
@@ -208,7 +232,8 @@ __device__ void tile_wrapped_h(const float* raw, const float* eps, int n,
   s.mu_t = sqrtf(s.inv_c + sp2);
 
   float sv = 0.f, rv2 = 0.f, lqs = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     float sig = softplus_f(raw[n + (ns == 1 ? 0 : j)]);
     float e = eps[j];
     s.sig[j] = sig;
@@ -229,7 +254,8 @@ __device__ void tile_wrapped_h(const float* raw, const float* eps, int n,
   s.coef = s.c * sv / (2.f + s.e_a);
   s.u_t = s.coef * (s.inv_sqrt_c + s.mu_t);
   float usp2 = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     s.u_sp[j] = s.v[j] + s.coef * s.mu_sp[j];
     float t = s.u_sp[j] * s.u_sp[j];
     usp2 = (j == 0) ? t : usp2 + t;
@@ -242,7 +268,8 @@ __device__ void tile_wrapped_h(const float* raw, const float* eps, int n,
   s.cu = cos_u_sgn(s.tt, -1);
   s.sd = sindiv_u(s.tt);
   float zsp2 = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     float zj = s.cu * s.mu_sp[j] + s.sd * s.u_sp[j];
     s.z_sp[j] = zj;
     z[1 + j] = zj;
@@ -253,15 +280,15 @@ __device__ void tile_wrapped_h(const float* raw, const float* eps, int n,
   s.z_t = sqrtf(1.f / s.c + zsp2);
   z[0] = s.z_t;
 
-  const float q = lqs - F(n - 1.0) * log_sindiv_u_neg(k * rv2);
+  const float q = lqs - F(nn - 1.0) * log_sindiv_u_neg(k * rv2);
   s.dz_t = s.z_t - s.inv_sqrt_c;
   s.e0_in = s.c * (zsp2 - s.dz_t * s.dz_t);
   s.e0 = fmaxf(s.e0_in, 0.f) / 2.f + TINY;
   s.r0a = acosh_1p(s.e0);
   s.r0 = s.r0a * s.inv_sqrt_c;
   s.r02 = s.r0 * s.r0;
-  const float p = -0.5f * s.r02 - F(0.5 * n * LOG_2PI)
-                  - F(n - 1.0) * log_sindiv_u_neg(k * s.r02);
+  const float p = -0.5f * s.r02 - F(0.5 * nn * LOG_2PI)
+                  - F(nn - 1.0) * log_sindiv_u_neg(k * s.r02);
   *lq = q;
   *lp = p;
   *kl = q - p;
@@ -277,9 +304,9 @@ struct VmfSaved {
 
 // tail_kernels._tile_vmf: vMF on S^2 (m = 3): inverse-CDF cosine,
 // Householder reflection to mu, closed-form log C_3 and A_3
-__device__ void tile_vmf_s2(const float* raw, const float* eps, float k,
-                            float* z, float* kl, float* lq, float* lp,
-                            VmfSaved& s) {
+__device__ __forceinline__ void tile_vmf_s2(const float* raw, const float* eps,
+                                            float k, float* z, float* kl,
+                                            float* lq, float* lp, VmfSaved& s) {
   const float m = 3.f;
   s.kk = fmaxf(k, TINY);
   s.sqrt_k = sqrtf(s.kk);
@@ -406,12 +433,17 @@ __device__ float arctandiv_u(float w, int sign) {
 }
 
 // stable.log_abs_sin_soft: log|sin x| floored near the zeros of sin at
-// m pi, m >= 1, by d = delta min(taper / pi, 1)^3
-__device__ __forceinline__ float log_abs_sin_soft(float x, float taper) {
-  const float sn = sinf(x);
+// m pi, m >= 1, by d = delta min(taper / pi, 1)^3, from sn = sin x (the
+// wrap branches share x and take sin x once)
+__device__ __forceinline__ float log_abs_sin_soft_at(float sn, float taper) {
   const float t = fminf(taper * F(1.0 / PI), 1.f);
   const float d = SHELL_DELTA * t * t * t;
   return 0.5f * logf(sn * sn + d * d);
+}
+
+// the same from x itself (sn = sin x)
+__device__ __forceinline__ float log_abs_sin_soft(float x, float taper) {
+  return log_abs_sin_soft_at(sinf(x), taper);
 }
 
 // stable._log_sindiv_u_sgn_soft
@@ -433,10 +465,16 @@ __device__ __forceinline__ float ball_scale(float k, float smax, float xn2) {
   return fminf(smax * rsqrtf(fmaxf(xn2, TINY)), 1.f);
 }
 
-// The scalars every branch of the drawn-radius sum shares
+// The branches of the drawn-radius sum kept at wraps = 1: m = -4 .. 4
+#define LQ_BRANCHES 9
+
+// The scalars every branch of the drawn-radius sum shares (sn = sin x_red,
+// which every wrap branch takes) and, at wraps = 1, the branches themselves
 struct LqCommon {
-  float vsq_g, r, quad, c0, kpos, sqk, period, fl, d, rp, u0, x_red;
-  bool pos;  // the positive-curvature branch is taken (static or K > 0)
+  float vsq_g, r, quad, c0, kpos, sqk, period, fl, d, rp, u0, x_red, sn;
+  int pos;   // the positive-curvature branch is taken (static or K > 0)
+  float t[LQ_BRANCHES];  // branch m at m + 4 (wraps = 1)
+  int live;              // bit m + 4 set where branch m is live (wraps = 1)
 };
 
 __device__ __forceinline__ void lq_common(int n, int sign, float k, float vsq,
@@ -459,8 +497,9 @@ __device__ __forceinline__ void lq_common(int n, int sign, float k, float vsq,
 // Branch m of the drawn-radius sum: log N(rb v_hat; 0, sigma) - logdet(rb)
 // at rb = rp + m T; false (and DEAD_TERM) for a wrap image that carries no
 // mass (K <= 0, or a z-score that would overflow)
-__device__ bool lq_term(int n, int sign, float ls, const LqCommon& c, int m,
-                        float* rb_out, float* t_out) {
+__device__ __forceinline__ bool lq_term(int n, int sign, float ls,
+                                        const LqCommon& c, int m, float* rb_out,
+                                        float* t_out) {
   const float nm1 = F(n - 1.0);
   float rb = c.rp + (float)m * c.period;
   float logdet;
@@ -474,7 +513,7 @@ __device__ bool lq_term(int n, int sign, float ls, const LqCommon& c, int m,
       return false;
     }
     const float xb = c.sqk * fabsf(rb);
-    logdet = nm1 * (log_abs_sin_soft(c.x_red, xb) - logf(fmaxf(xb, TINY)));
+    logdet = nm1 * (log_abs_sin_soft_at(c.sn, xb) - logf(fmaxf(xb, TINY)));
   }
   *rb_out = rb;
   *t_out = -0.5f * rb * rb * c.quad - ls - c.c0 - logdet;
@@ -483,9 +522,10 @@ __device__ bool lq_term(int n, int sign, float ls, const LqCommon& c, int m,
 
 // tail_kernels._logq_drawn_rows; `mx` and `acc` are the shift and the sum of
 // the log-sum-exp (1 term: mx is the term and acc 1)
-__device__ float logq_drawn(int n, int wraps, int sign, float k, float vsq,
-                            float s2, float ls, LqCommon& c, float* mx_out,
-                            float* acc_out) {
+__device__ __forceinline__ float logq_drawn(int n, int wraps, int sign, float k,
+                                            float vsq, float s2, float ls,
+                                            LqCommon& c, float* mx_out,
+                                            float* acc_out) {
   *mx_out = 0.f;
   *acc_out = 1.f;
   if (sign < 0)  // pinned negative curvature never wraps
@@ -498,8 +538,23 @@ __device__ float logq_drawn(int n, int wraps, int sign, float k, float vsq,
     *mx_out = t;
     return t;
   }
-  const int M = wraps + 3;
+  c.sn = sinf(c.x_red);
   float mx = 0.f;
+  if (wraps == 1) {  // 9 independent branches, each evaluated once, kept
+    c.live = 0;
+#pragma unroll
+    for (int i = 0; i < LQ_BRANCHES; ++i) {
+      if (lq_term(n, sign, ls, c, i - 4, &rb, &c.t[i])) c.live |= 1 << i;
+      mx = (i == 0) ? c.t[i] : fmaxf(mx, c.t[i]);
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < LQ_BRANCHES; ++i) acc = acc + expf(c.t[i] - mx);
+    *mx_out = mx;
+    *acc_out = acc;
+    return mx + logf(acc);
+  }
+  const int M = wraps + 3;
   for (int m = -M; m <= M; ++m) {
     lq_term(n, sign, ls, c, m, &rb, &t);
     mx = (m == -M) ? t : fmaxf(mx, t);
@@ -517,12 +572,12 @@ __device__ float logq_drawn(int n, int wraps, int sign, float k, float vsq,
 // The prior's branches: the principal one and the nearest wrap-image pair
 struct LpSaved {
   float r02, up, kp, sqk0, period, t[3], rb[3], mx, acc;
-  bool live[3], wrapped;
+  int live[3], wrapped;
 };
 
 // tail_kernels._logp_prior_rows
-__device__ float logp_prior(int n, int wraps, int sign, float k, float r0,
-                            LpSaved& s) {
+__device__ __forceinline__ float logp_prior(int n, int wraps, int sign, float k,
+                                            float r0, LpSaved& s) {
   const float nm1 = F(n - 1.0);
   const float c0 = F(0.5 * n * LOG_2PI);
   s.r02 = r0 * r0;
@@ -533,42 +588,49 @@ __device__ float logp_prior(int n, int wraps, int sign, float k, float r0,
   s.kp = fmaxf(k, 1e-20f);
   s.sqk0 = sqrtf(s.kp);
   s.period = F(2.0 * PI) / s.sqk0;
+  const float sn0 = sinf(s.sqk0 * r0);
+#pragma unroll
   for (int i = 1; i <= 2; ++i) {
     const float rb_raw = r0 + (i == 1 ? 1.f : -1.f) * s.period;
     s.live[i] = k > 0.f && fabsf(rb_raw) < 1e15f;
     s.rb[i] = s.live[i] ? rb_raw : r0;
     const float rb = s.rb[i];
     const float logn = -0.5f * rb * rb - c0;
-    const float lsk = log_abs_sin_soft(s.sqk0 * r0, s.sqk0 * fabsf(rb))
+    const float lsk = log_abs_sin_soft_at(sn0, s.sqk0 * fabsf(rb))
                       - logf(s.sqk0);
     const float logd = nm1 * (lsk - logf(fmaxf(fabsf(rb), TINY)));
     s.t[i] = s.live[i] ? logn - logd : DEAD_TERM;
   }
   s.mx = fmaxf(fmaxf(s.t[0], s.t[1]), s.t[2]);
   s.acc = 0.f;
+#pragma unroll
   for (int i = 0; i < 3; ++i) s.acc = s.acc + expf(s.t[i] - s.mx);
   return s.mx + logf(s.acc);
 }
 
 // Intermediates of one stereographic draw (names as in the plain version;
 // *0 is a value before its ball clamp or guard)
+template <int N>
 struct StereoSaved {
   float smax, x2, ls, vsq, xv, s2, ug, g0, bsg, g, gxv, g2v, a, b, den0, inv,
       p, q, zn2pre, bsz, zn2m, zn2, sq, w, ad, r0, lq_mx, lq_acc;
   LqCommon lqc;
   LpSaved lp;
-  float v[MAX_DIM], zpre[MAX_DIM], z[MAX_DIM];
+  float v[TAIL_ARR(N)], zpre[TAIL_ARR(N)], z[TAIL_ARR(N)];
 };
 
 // tail_kernels._stereo_draw: z = mu (+)_K exp_0(sig eps) by per-row Gram
 // coefficients, log q by the drawn-radius branch sum, the prior's log p
-__device__ void stereo_draw(int n, int sign, int wraps, float k,
+template <int N>
+__device__ __forceinline__ void stereo_draw(int n, int sign, int wraps, float k,
                             const float* mu, const float* sig,
                             const float* eps, float* lq, float* lp,
-                            StereoSaved& s) {
+                            StereoSaved<N>& s) {
+  const int nn = TAIL_DIM(N, n);
   s.smax = ball_smax(k);
   float x2 = 0.f, ls = 0.f, vsq = 0.f, xv = 0.f, s2 = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     const float vj = sig[j] * eps[j];
     s.v[j] = vj;
     const float t0 = mu[j] * mu[j], t1 = logf(fmaxf(sig[j], TINY)),
@@ -599,7 +661,8 @@ __device__ void stereo_draw(int n, int sign, int wraps, float k,
   s.p = s.a * s.inv;
   s.q = s.b * s.inv;
   float zn2 = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     s.zpre[j] = s.p * mu[j] + s.q * s.v[j];
     const float t = s.zpre[j] * s.zpre[j];
     zn2 = (j == 0) ? t : zn2 + t;
@@ -607,12 +670,14 @@ __device__ void stereo_draw(int n, int sign, int wraps, float k,
   s.zn2pre = zn2;
   if (sign <= 0) {
     s.bsz = ball_scale(k, s.smax, zn2);
-    for (int j = 0; j < n; ++j) s.z[j] = s.zpre[j] * s.bsz;
+    #pragma unroll
+    for (int j = 0; j < nn; ++j) s.z[j] = s.zpre[j] * s.bsz;
     s.zn2m = zn2 * s.bsz * s.bsz;
     s.zn2 = fmaxf(s.zn2m, 0.f);
   } else {
     s.bsz = 1.f;
-    for (int j = 0; j < n; ++j) s.z[j] = s.zpre[j];
+    #pragma unroll
+    for (int j = 0; j < nn; ++j) s.z[j] = s.zpre[j];
     s.zn2m = zn2;
     s.zn2 = zn2;
   }
@@ -640,22 +705,27 @@ __device__ __forceinline__ float sigma_cap(float sig0, float capr, float* tq,
 }
 
 // The head of the stereographic tile: the scale with its cap and the mean
+template <int N>
 struct StereoHead {
   float kc, capr, r2m, um, gm, bsm, smax;
-  float sig0[MAX_DIM], tq[MAX_DIM], tc[MAX_DIM], w6[MAX_DIM], pw[MAX_DIM],
-      sig[MAX_DIM], mu0[MAX_DIM], mu[MAX_DIM];
+  float sig0[TAIL_ARR(N)], tq[TAIL_ARR(N)], tc[TAIL_ARR(N)],
+      w6[TAIL_ARR(N)], pw[TAIL_ARR(N)], sig[TAIL_ARR(N)], mu0[TAIL_ARR(N)],
+      mu[TAIL_ARR(N)];
 };
 
 // tail_kernels._tile_wrapped_stereo: wrapped normal on d/p/u
-__device__ void tile_wrapped_stereo(const float* raw, const float* eps, int n,
-                                    int ns, int sign, int wraps, float k,
-                                    float* z, float* kl, float* lq, float* lp,
-                                    StereoHead& h, StereoSaved& s) {
+template <int N>
+__device__ __forceinline__ void tile_wrapped_stereo(
+    const float* raw, const float* eps, int n, int ns, int sign, int wraps,
+    float k, float* z, float* kl, float* lq, float* lp, StereoHead<N>& h,
+    StereoSaved<N>& s) {
+  const int nn = TAIL_DIM(N, n);
   // sigma saturates at the positive-K injectivity radius pi / sqrt(K)
   // (components.cap_sigma_positive_k)
   h.kc = fmaxf(k, 1e-12f);
   h.capr = F(PI) * rsqrtf(h.kc);
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     h.sig0[j] = softplus_f(raw[n + (ns == 1 ? 0 : j)]);
     if (sign >= 0) {
       h.sig[j] = sigma_cap(h.sig0[j], h.capr, &h.tq[j], &h.tc[j], &h.w6[j],
@@ -666,7 +736,8 @@ __device__ void tile_wrapped_stereo(const float* raw, const float* eps, int n,
   }
   // mu = exp_map_mu0(mu_tan) = project(0.5 tandiv mu_tan)
   float r2m = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     const float t = raw[j] * raw[j];
     r2m = (j == 0) ? t : r2m + t;
   }
@@ -675,13 +746,15 @@ __device__ void tile_wrapped_stereo(const float* raw, const float* eps, int n,
   h.gm = 0.5f * tandiv_u(h.um, sign);
   h.smax = ball_smax(k);
   h.bsm = (sign <= 0) ? ball_scale(k, h.smax, h.gm * h.gm * r2m) : 1.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     h.mu0[j] = h.gm * raw[j];
     h.mu[j] = (sign <= 0) ? h.mu0[j] * h.bsm : h.mu0[j];
   }
   float q, p;
   stereo_draw(n, sign, wraps, k, h.mu, h.sig, eps, &q, &p, s);
-  for (int j = 0; j < n; ++j) z[j] = s.z[j];
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) z[j] = s.z[j];
   *lq = q;
   *lp = p;
   *kl = q - p;
@@ -702,6 +775,7 @@ __device__ float arcsindiv_u_pos(float w) {
 
 // Intermediates of one row of the embedded-sphere tile (names as in the plain
 // version; *_in is a clamp's input, *0 a value before its renormalization)
+template <int N>
 struct SphSaved {
   float kk, sqrt_k, r, kc, capr, r2m, t_m, cm, sdm, m_t, sp2_m, mnorm, sc,
       mu_t, sp2, vsq, s2, ls, smv, d_t, chord2, alpha, den_in, den, coef, w_t,
@@ -709,9 +783,10 @@ struct SphSaved {
       half_in, hcap, half, wa, asd, r0, lq_mx, lq_acc;
   LqCommon lqc;
   LpSaved lp;
-  float sig0[MAX_DIM], tq[MAX_DIM], tc[MAX_DIM], w6[MAX_DIM], pw[MAX_DIM],
-      sig[MAX_DIM], m_sp[MAX_DIM], mu_sp[MAX_DIM], v[MAX_DIM], w_sp[MAX_DIM],
-      u_sp[MAX_DIM], zs0[MAX_DIM], z_sp[MAX_DIM];
+  float sig0[TAIL_ARR(N)], tq[TAIL_ARR(N)], tc[TAIL_ARR(N)],
+      w6[TAIL_ARR(N)], pw[TAIL_ARR(N)], sig[TAIL_ARR(N)], m_sp[TAIL_ARR(N)],
+      mu_sp[TAIL_ARR(N)], v[TAIL_ARR(N)], w_sp[TAIL_ARR(N)],
+      u_sp[TAIL_ARR(N)], zs0[TAIL_ARR(N)], z_sp[TAIL_ARR(N)];
 };
 
 // tail_kernels._tile_wrapped_sphere: wrapped normal on the embedded sphere
@@ -719,10 +794,11 @@ struct SphSaved {
 // parallel transport mu0 -> mu with its norm pinned to |v|, exp at mu with
 // the renormalizing projection; log q by the drawn-radius sum, log p at the
 // chord-form arcsin distance from mu0. z has n + 1 coordinates.
-__device__ void tile_wrapped_sphere(const float* raw, const float* eps, int n,
-                                    int ns, int wraps, float k, float* z,
-                                    float* kl, float* lq, float* lp,
-                                    SphSaved& s) {
+template <int N>
+__device__ __forceinline__ void tile_wrapped_sphere(
+    const float* raw, const float* eps, int n, int ns, int wraps, float k,
+    float* z, float* kl, float* lq, float* lp, SphSaved<N>& s) {
+  const int nn = TAIL_DIM(N, n);
   s.kk = fmaxf(k, TINY);
   s.sqrt_k = sqrtf(s.kk);
   s.r = 1.f / s.sqrt_k;
@@ -731,7 +807,8 @@ __device__ void tile_wrapped_sphere(const float* raw, const float* eps, int n,
 
   // mu = exp_map_mu0(mu_tan); project() renormalizes to radius R
   float r2m = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     const float t = raw[j] * raw[j];
     r2m = (j == 0) ? t : r2m + t;
   }
@@ -741,7 +818,8 @@ __device__ void tile_wrapped_sphere(const float* raw, const float* eps, int n,
   s.m_t = s.cm * s.r;
   s.sdm = sindiv_u(s.t_m);
   float sp2_m = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     s.m_sp[j] = s.sdm * raw[j];
     const float t = s.m_sp[j] * s.m_sp[j];
     sp2_m = (j == 0) ? t : sp2_m + t;
@@ -753,7 +831,8 @@ __device__ void tile_wrapped_sphere(const float* raw, const float* eps, int n,
   s.sp2 = sp2_m * s.sc * s.sc;
 
   float vsq = 0.f, s2 = 0.f, ls = 0.f, smv = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     s.mu_sp[j] = s.m_sp[j] * s.sc;
     s.sig0[j] = softplus_f(raw[n + (ns == 1 ? 0 : j)]);
     s.sig[j] = sigma_cap(s.sig0[j], s.capr, &s.tq[j], &s.tc[j], &s.w6[j],
@@ -780,7 +859,8 @@ __device__ void tile_wrapped_sphere(const float* raw, const float* eps, int n,
   s.coef = s.kk * smv / s.den;
   s.w_t = -s.coef * (s.r + s.mu_t);
   float wsp2 = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     s.w_sp[j] = s.v[j] - s.coef * s.mu_sp[j];
     const float t = s.w_sp[j] * s.w_sp[j];
     wsp2 = (j == 0) ? t : wsp2 + t;
@@ -790,7 +870,8 @@ __device__ void tile_wrapped_sphere(const float* raw, const float* eps, int n,
   s.pin = s.nv / s.nw;
   s.u_t = s.w_t * s.pin;
   float usp2 = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     s.u_sp[j] = s.w_sp[j] * s.pin;
     const float t = s.u_sp[j] * s.u_sp[j];
     usp2 = (j == 0) ? t : usp2 + t;
@@ -803,7 +884,8 @@ __device__ void tile_wrapped_sphere(const float* raw, const float* eps, int n,
   s.sd = sindiv_u(s.tt);
   s.zt0 = s.cu * s.mu_t + s.sd * s.u_t;
   float zs02 = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     s.zs0[j] = s.cu * s.mu_sp[j] + s.sd * s.u_sp[j];
     const float t = s.zs0[j] * s.zs0[j];
     zs02 = (j == 0) ? t : zs02 + t;
@@ -813,7 +895,8 @@ __device__ void tile_wrapped_sphere(const float* raw, const float* eps, int n,
   s.z_t = s.zt0 * s.zsc;
   z[0] = s.z_t;
   float zsp2 = 0.f;
-  for (int j = 0; j < n; ++j) {
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
     s.z_sp[j] = s.zs0[j] * s.zsc;
     z[1 + j] = s.z_sp[j];
     const float t = s.z_sp[j] * s.z_sp[j];

@@ -67,7 +67,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..ops import lorentz, stable, stereographic
 from ..utils.profiling import check_outputs
-from . import _build, decoder_kernels, manifold_kernels
+from ..components import parse_components
+from . import _build, decoder_kernels, manifold_kernels, tail_kernels
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
 PEAK = {"hbm_gbps": 3350.0, "fp32_tflops": 67.0, "bf16_tflops": 989.0,
@@ -143,6 +144,7 @@ _ARGTYPES = {
                            + [_INT] * 4,
     "twin_reparam_launch": [_VP, _LL] + [_VP] * 5 + [_INT] + [_VP] * 2
                            + [_INT] * 4,
+    "skel_tail_launch": [_VP] * 10 + [_INT] * 6 + [_VP],
 }
 
 
@@ -541,12 +543,110 @@ def twin_reparam(eps, mu, sigma, k, scalars=None, out=None, z_off: int = 0):
                           z_off)
 
 
+SKEL_CHUNK = 8   # roofline_probes.cu's
+
+
+def _chunk_sums(x):
+    """(rows, w) -> (rows, ceil(w / 8)): each 8-word chunk of a row (zeros
+    past w) summed by halves, as ``skel_tree`` in roofline_probes.cu."""
+    w = x.shape[1]
+    pad = -w % SKEL_CHUNK
+    v = torch.nn.functional.pad(x, (0, pad)).reshape(x.shape[0], -1,
+                                                     SKEL_CHUNK)
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def skel_tail_ref(comps, raw, eps, k, dz=None, daux=None):
+    """Plain version of the tail's I/O skeleton. Per row and component i,
+    s = k_i, then the component's head and noise slices (and, for the
+    backward's, its dz slice), each as its 8-word chunk sums
+    (``_chunk_sums``) added in order, then (backward) daux[:, i],
+    daux[:, nc] and daux[:, nc + 1]. Forward (``dz`` None):
+    (z, aux), every z word of the component s, aux[:, i] = s, aux[:, nc] =
+    aux[:, nc + 1] = the row's s summed over the components in order.
+    Backward: (draw, dk_rows, dk), every draw word of the component s,
+    dk_rows[:, i] = s, dk their fold (``tail_kernels.fold_rows_ref``)."""
+    comps = tuple(comps)
+    nc = len(comps)
+    bwd = dz is not None
+    cols, outs = [], []
+    ro = eo = zo = 0
+    for i, c in enumerate(comps):
+        s = k[i]
+        slices = [raw[:, ro:ro + c.head_width], eps[:, eo:eo + c.noise_width]]
+        if bwd:
+            slices.append(dz[:, zo:zo + c.ambient_dim])
+        for x in slices:
+            for col in _chunk_sums(x).unbind(1):
+                s = s + col
+        if bwd:
+            for j in (i, nc, nc + 1):
+                s = s + daux[:, j]
+        width = c.head_width if bwd else c.ambient_dim
+        outs.append(s.unsqueeze(1).expand(-1, width))
+        cols.append(s)
+        ro, eo, zo = ro + c.head_width, eo + c.noise_width, zo + c.ambient_dim
+    if bwd:
+        dk_rows = torch.stack(cols, 1)
+        return (torch.cat(outs, 1), dk_rows,
+                tail_kernels.fold_rows_ref(dk_rows))
+    total = torch.zeros_like(cols[0])
+    for col in cols:
+        total = total + col
+    return torch.cat(outs, 1), torch.stack(cols + [total, total], 1)
+
+
+def skel_tail(comps, raw, eps, k, dz=None, daux=None):
+    """Bytes floor of the tail kernels at their own grid (``tail_forward``'s
+    without ``dz``, ``tail_backward``'s with ``dz`` and ``daux``): reads
+    every input word and writes every output word of the tail, the
+    backward's fold included, and about one add a word read. Same arguments
+    and result shapes as the kernel it prices; values as ``skel_tail_ref``."""
+    comps = tuple(comps)
+    W, E, Z = tail_kernels._dims(comps)
+    nc, B = len(comps), raw.shape[0]
+    bwd = dz is not None
+    want = {"raw": (raw, (B, W)), "eps": (eps, (B, E)), "k": (k, (nc,))}
+    if bwd:
+        want.update(dz=(dz, (B, Z)), daux=(daux, (B, nc + 2)))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"skel_tail: {name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+    if not 1 <= nc <= tail_kernels.MAX_COMPS:
+        raise ValueError("skel_tail: 1 to 16 components")
+    ins = [t for t, _ in want.values()]
+    if not _on_card("skel_tail", *ins):
+        return skel_tail_ref(comps, raw, eps, k, dz, daux)
+    dev = raw.device
+    ins = [t.contiguous() for t in ins]
+    if not bwd:
+        ins += [ins[0], ins[0]]          # dz, daux: not read
+    out = torch.empty((B, W if bwd else Z), dtype=torch.float32, device=dev)
+    out_c = torch.empty((B, nc if bwd else nc + 2), dtype=torch.float32,
+                        device=dev)
+    dk = torch.empty(nc, dtype=torch.float32, device=dev)
+    part = torch.empty((-(-B // 32), nc), dtype=torch.float32, device=dev)
+    counter = tail_kernels._fold_counter(dev)
+    _launch("skel_tail_launch", dev, *[t.data_ptr() for t in ins],
+            out.data_ptr(), out_c.data_ptr(), dk.data_ptr(), part.data_ptr(),
+            counter.data_ptr(), B, W, E, Z, nc, int(bwd),
+            tail_kernels._table(comps))
+    outs = (out, out_c, dk) if bwd else (out, out_c)
+    _launched(skel_tail, *outs)
+    return outs
+
+
 PROBES = (probe_triad, probe_fma, probe_tanh, probe_reduce, probe_transpose,
-          skel_dist, skel_reparam, twin_stereo, twin_reparam)
+          skel_dist, skel_reparam, twin_stereo, twin_reparam, skel_tail)
 for _p in PROBES:
     _p.launches = 0
 # every counted wrapper ``measure`` may capture into a CUDA graph
-COUNTED = PROBES + (manifold_kernels.stereo_distance,
+COUNTED = PROBES + (tail_kernels.tail_forward, tail_kernels.tail_backward,
+                    manifold_kernels.stereo_distance,
                     manifold_kernels.lorentz_distance,
                     manifold_kernels.wrapped_reparam_stereo_t,
                     decoder_kernels.fused_decode_bce_t,
@@ -629,6 +729,71 @@ def train_decode_floors(Bb: int, Z: int, H: int, D: int, cal: dict) -> dict:
             "tensor_3xtf32": fl["tensor_3xtf32"] / (cal["tf32_tflops"] * 1e6),
             "fp32_part": (fl["fp32_part"] / (cal["fma_tflops"] * 1e6)
                           + fl["transcendentals"] / (cal["tanh_gops"] * 1e3))}
+
+
+# aten ops that move, make or view data and do no arithmetic
+_NO_ARITH = frozenset((
+    "view", "_unsafe_view", "reshape", "expand", "slice", "select", "cat",
+    "stack", "clone", "detach", "alias", "copy_", "empty", "empty_like",
+    "empty_strided", "zeros", "zeros_like", "ones", "ones_like", "full",
+    "full_like", "fill_", "new_zeros", "new_empty", "new_full", "new_ones",
+    "_to_copy", "to", "contiguous", "as_strided", "split", "unbind",
+    "unsqueeze", "squeeze", "t", "transpose", "permute", "lift_fresh",
+    "scalar_tensor", "_local_scalar_dense", "narrow", "slice_backward",
+    "select_backward", "expand_copy", "copy", "split_with_sizes",
+    "detach_", "zero_", "resize_"))
+_REDUCTIONS = frozenset(("sum", "mean", "amax", "amin", "max", "min",
+                         "logsumexp", "prod"))
+
+
+def op_count(fn, *args, **kwargs) -> int:
+    """Operations ``fn(*args, **kwargs)`` runs, as PyTorch runs them: one
+    per element of each arithmetic op's output, one per input element of a
+    reduction, a transcendental one like an add; ops that move, make or
+    view data count none. Exact for the plain versions, which run each
+    expression of a kernel as one op (both sides of a branch where the
+    kernel takes one)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func._schema.name.split("::")[-1]
+            if name in _REDUCTIONS:
+                src = args[0]
+                _Count.ops += src.numel() if torch.is_tensor(src) else 0
+            elif name not in _NO_ARITH:
+                res = out[0] if isinstance(out, (tuple, list)) else out
+                if torch.is_tensor(res):
+                    _Count.ops += res.numel()
+            return out
+
+    with _Count():
+        fn(*args, **kwargs)
+    return _Count.ops
+
+
+def tail_ops(comps, raw, eps, k, dz=None, daux=None) -> int:
+    """Operations of the tail at these inputs: ``op_count`` of the plain
+    forward (``tail_forward_ref``) or, with the cotangents, of the plain
+    backward (``tail_backward_ref``: autograd through the forward, which
+    the kernel recomputes as well), counted on CPU copies."""
+    cpu = [t.detach().cpu() for t in (raw, eps, k)]
+    if dz is None:
+        return op_count(tail_kernels.tail_forward_ref, comps, *cpu)
+    return op_count(tail_kernels.tail_backward_ref, comps, *cpu,
+                    dz.detach().cpu(), daux.detach().cpu())
+
+
+def tail_floors(skel_us: float, ops: int, cal: dict) -> dict:
+    """The tail kernels' floors (us per launch): ``skeleton``, the I/O
+    skeleton's measured time at the kernel's grid (``skel_tail``), and
+    ``operations``, ``tail_ops`` at the calibrated FMA rate (every
+    operation priced as an FMA, transcendentals too: a lower bound)."""
+    return {"skeleton": skel_us,
+            "operations": ops / (cal["fma_tflops"] * 1e6)}
 
 
 def lorentz_compute_us(rows: int, n: int, cal: dict) -> float:
@@ -1027,6 +1192,67 @@ def _row_reparam(cal):
                         "twin": _timing(twin), "plain": _timing(plain)}}
 
 
+# The tail rows: the main path's products, B1 at the training batch and the
+# eval batch, B3 at the training batch
+TAIL_SPECS = (("h2,s2,e2", (-1.0, 1.0, 0.0)), ("d2,p2,e2", (-1.0, 1.0, 0.0)),
+              ("u6", (0.5,)), ("s6:wrapped", (1.0,)))
+TAIL_ROWS = tuple((spec, kset, kern, B) for spec, kset in TAIL_SPECS
+                  for kern, B in (("B1", 128), ("B1", 512), ("B3", 128)))
+
+
+def tail_inputs(spec, kset, B):
+    """Heads of the size training produces (0.5 N(0, 1)), their noise, the
+    curvatures and random cotangents, on the card from a fixed seed:
+    (comps, raw, eps, k, dz, daux)."""
+    comps = tuple(parse_components(spec, fixed_curvature=False))
+    W, _, Z = tail_kernels._dims(comps)
+    g = torch.Generator(device="cuda").manual_seed(B + len(spec))
+    raw = 0.5 * torch.randn(B, W, generator=g, device="cuda")
+    eps = tail_kernels.draw_noise(comps, (B,), raw, g)
+    k = torch.tensor(kset, device="cuda")
+    dz = torch.randn(B, Z, generator=g, device="cuda")
+    daux = torch.randn(B, len(comps) + 2, generator=g, device="cuda")
+    return comps, raw, eps, k, dz, daux
+
+
+def tail_bytes(comps, B: int, backward: bool) -> int:
+    """Bytes a tail kernel must move: its inputs read once, its outputs
+    written once (B3's folded dk included)."""
+    W, E, Z = tail_kernels._dims(comps)
+    nc = len(comps)
+    if backward:
+        return 4 * (B * (W + E + Z + nc + 2) + nc + B * (W + nc) + nc)
+    return 4 * (B * (W + E) + nc + B * (Z + nc + 2))
+
+
+def _row_tail(cal, spec, kset, kern, B):
+    comps, raw, eps, k, dz, daux = tail_inputs(spec, kset, B)
+    bwd = kern == "B3"
+    cot = (dz, daux) if bwd else ()
+    fn = tail_kernels.tail_backward if bwd else tail_kernels.tail_forward
+    ref = (tail_kernels.tail_backward_ref if bwd
+           else tail_kernels.tail_forward_ref)
+    # 100 calls a graph, as chip_smoke's kernel_ms: on the H100 a replay's
+    # fixed cost spread over 20 calls added ~1-3 us to a call of these
+    # few-us kernels
+    t = measure(lambda: fn(comps, raw, eps, k, *cot),
+                "tail_bwd_kernel" if bwd else "tail_fwd_kernel", iters=100)
+    skel = measure(lambda: skel_tail(comps, raw, eps, k, *cot),
+                   "skel_tail_bwd_kernel" if bwd else "skel_tail_fwd_kernel",
+                   iters=100)
+    plain = measure(lambda: ref(comps, raw, eps, k, *cot), iters=3)
+    ops = tail_ops(comps, raw, eps, k, *cot)
+    nbytes = tail_bytes(comps, B, bwd)
+    return {"kernel": f"{kern} tail_{'bwd' if bwd else 'fwd'} {spec}",
+            "shape": f"B={B}, K={kset}", "us": t.us,
+            **peak_share(t.us, nbytes, ops),
+            **binding(t.us, tail_floors(skel.us, ops, cal)),
+            "plain_us": plain.us, "ops": ops, "bytes": nbytes,
+            "l2": "one buffer set (the caller's heads come from L2)",
+            "timings": {"kernel": _timing(t), "skeleton": _timing(skel),
+                        "plain": _timing(plain)}}
+
+
 @contextlib.contextmanager
 def _tf32(on: bool):
     old = torch.backends.cuda.matmul.allow_tf32
@@ -1137,8 +1363,11 @@ def _row_decode(cal):
 
 def main(out_path: str | None = None) -> dict:
     """Calibrate the card, then the binding rows of B7a, B7b, B5 and B2 at
-    the reference's shapes; returns them with every probe's timing
-    (``probes``), and writes them to ``out_path`` as JSON."""
+    the reference's shapes and of B1 and B3 on the main path's products
+    (``TAIL_ROWS``: floor the larger of the tail's I/O skeleton and its
+    operations at the calibrated FMA rate); returns them with every
+    probe's timing (``probes``), and writes them to ``out_path`` as
+    JSON."""
     _require_cuda("roofline.main()")
     name = card()
     _log(f"card: {name}; data sheet {PEAK}")
@@ -1149,6 +1378,7 @@ def main(out_path: str | None = None) -> dict:
     rows.append(_row_lorentz(cal, *lorentz_inputs()))
     rows.append(_row_reparam(cal))
     rows.append(_row_decode(cal))
+    rows += [_row_tail(cal, *r) for r in TAIL_ROWS]
     for r in rows:
         _log(f"{r['kernel']:20s} {r['us']:10.3f} us; binding floor "
              f"{r['binding_floor_us']:10.3f} us ({r['bound_by']}) -> "
@@ -1161,6 +1391,9 @@ def main(out_path: str | None = None) -> dict:
                   twin_stereo_resident=stereo["twin_resident"],
                   twin_stereo_streaming=stereo["twin_streaming"],
                   skel_reparam=rep["skeleton"], twin_reparam=rep["twin"])
+    for r in rows[4:]:
+        probes[f"skel_tail {r['kernel']} {r['shape']}"] = \
+            r["timings"]["skeleton"]
     result = {"card": name, "device": torch.cuda.get_device_name(0),
               "peak": PEAK, "calibration": cal, "rows": rows,
               "probes": probes}

@@ -572,12 +572,31 @@ tail_forward.launches = 0
 # --- the backward ---------------------------------------------------------------
 
 
+def fold_rows_ref(dk_rows):
+    """The backward kernel's fold of per-row values over the batch, in its
+    order: each block of 32 rows summed in row order, then the blocks'
+    sums in block order (``tail_backward_ref`` sums in PyTorch's)."""
+    parts = []
+    for b in range(0, dk_rows.shape[0], 32):
+        s = dk_rows[b]
+        for r in range(b + 1, min(b + 32, dk_rows.shape[0])):
+            s = s + dk_rows[r]
+        parts.append(s)
+    if not parts:
+        return torch.zeros_like(dk_rows[0:1].sum(0))
+    out = parts[0]
+    for s in parts[1:]:
+        out = out + s
+    return out
+
+
 def tail_backward_ref(comps, raw, eps, k, dz, daux):
     """Plain PyTorch backward of the tail: the vector-Jacobian product of
     ``tail_forward_ref`` at (raw, eps, k) with cotangents dz (B, Z) and
     daux (B, nc + 2), by ``torch.autograd.grad`` with eps held constant.
-    Returns (draw (B, W), dk_rows (B, nc)): the curvature gradient of each
-    row before the sum over the batch."""
+    Returns (draw (B, W), dk_rows (B, nc), dk (nc,)): the curvature
+    gradient of each row, and its sum over the batch (the transpose of the
+    curvature's broadcast to the rows)."""
     comps = tuple(comps)
     B = raw.shape[0]
     with torch.enable_grad():
@@ -589,23 +608,41 @@ def tail_backward_ref(comps, raw, eps, k, dz, daux):
                                             (dz, daux), allow_unused=True)
     if dk_rows is None:
         dk_rows = torch.zeros_like(kx)
-    return draw, dk_rows
+    return draw, dk_rows, dk_rows.sum(0)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib_bwd():
     fn = _build.load("tail_bwd").tail_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p, ctypes.c_void_p])
     return fn
 
 
+_FOLD_COUNTERS: dict = {}
+
+
+def _fold_counter(device):
+    """The backward kernel's fold counters on ``device``, one a component:
+    zeroed once, cached, and left at zero by every launch (a component's
+    last block resets its own), so calls and CUDA-graph replays reuse
+    them."""
+    buf = _FOLD_COUNTERS.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("tail_backward: call it once on this device "
+                               "before capturing a CUDA graph")
+        buf = torch.zeros(MAX_COMPS, dtype=torch.int32, device=device)
+        _FOLD_COUNTERS[device] = buf
+    return buf
+
+
 def tail_backward(comps, raw, eps, k, dz, daux):
     """The tail's backward: on a CUDA tensor one launch of
-    ``csrc/tail_bwd.cu``; on a CPU tensor its plain version
-    ``tail_backward_ref``. Same arguments and results as
-    ``tail_backward_ref``."""
+    ``csrc/tail_bwd.cu``, which also folds the per-row curvature gradients
+    over the batch; on a CPU tensor its plain version ``tail_backward_ref``.
+    Same arguments and results as ``tail_backward_ref``."""
     comps = tuple(comps)
     W, E, Z = _dims(comps)
     nc = len(comps)
@@ -627,15 +664,22 @@ def tail_backward(comps, raw, eps, k, dz, daux):
     if nc > MAX_COMPS:
         raise ValueError(f"at most {MAX_COMPS} components")
     args = [t.detach().contiguous() for t in (raw, eps, k, dz, daux)]
-    draw = torch.empty((B, W), dtype=torch.float32, device=raw.device)
-    dk_rows = torch.empty((B, nc), dtype=torch.float32, device=raw.device)
-    stream = torch.cuda.current_stream(raw.device).cuda_stream
+    dev = raw.device
+    draw = torch.empty((B, W), dtype=torch.float32, device=dev)
+    dk_rows = torch.empty((B, nc), dtype=torch.float32, device=dev)
+    dk = torch.empty(nc, dtype=torch.float32, device=dev)
+    part = torch.empty((-(-B // 32), nc), dtype=torch.float32, device=dev)
+    counter = _fold_counter(dev)
+    if B == 0:
+        dk.zero_()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(_lib_bwd()(*[t.data_ptr() for t in args], draw.data_ptr(),
-                            dk_rows.data_ptr(), B, W, E, Z, nc,
-                            _table(comps), stream), "tail_bwd_launch")
+                            dk_rows.data_ptr(), dk.data_ptr(),
+                            part.data_ptr(), counter.data_ptr(), B, W, E, Z,
+                            nc, _table(comps), stream), "tail_bwd_launch")
     tail_backward.launches += 1
-    check_outputs("tail_bwd", draw, dk_rows)
-    return draw, dk_rows
+    check_outputs("tail_bwd", draw, dk_rows, dk)
+    return draw, dk_rows, dk
 
 
 tail_backward.launches = 0
@@ -643,9 +687,9 @@ tail_backward.launches = 0
 
 class _TailFn(torch.autograd.Function):
     """The fused tail under autograd: forward ``tail_forward``, backward
-    ``tail_backward`` with the per-row curvature gradients summed over the
-    batch (the transpose of the curvature's broadcast to the rows). The
-    noise is a constant."""
+    ``tail_backward``, whose curvature gradient comes summed over the batch
+    (on the card inside the kernel's one launch). The noise is a
+    constant."""
 
     @staticmethod
     def forward(ctx, comps, raw, eps, k):
@@ -656,10 +700,9 @@ class _TailFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz, daux):
         raw, eps, k = ctx.saved_tensors
-        draw, dk_rows = tail_backward(ctx.comps, raw, eps, k,
-                                      dz.contiguous(), daux.contiguous())
-        dk = torch.sum(dk_rows, dim=0) if ctx.needs_input_grad[3] else None
-        return None, draw, None, dk
+        draw, _, dk = tail_backward(ctx.comps, raw, eps, k, dz.contiguous(),
+                                    daux.contiguous())
+        return None, draw, None, dk if ctx.needs_input_grad[3] else None
 
 
 def reparam_all(comps, comp_params, raw_all, noise=None, generator=None):

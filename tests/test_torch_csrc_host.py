@@ -52,39 +52,112 @@ _STUB = r"""
 #define __global__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
-struct HostIdx { int x; };
+#define __launch_bounds__(...)
+struct HostIdx { int x, y; };
 static HostIdx blockIdx, threadIdx;
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 struct float4 { float x, y, z, w; };
 static inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
+#define __shared__ static
+static inline void __syncthreads() {}
+static inline void __threadfence() {}
+static inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p += v;
+  return old;
+}
+static inline float __ldcg(const float* p) { return *p; }
+static inline int min(int a, int b) { return a < b ? a : b; }
+static HostIdx gridDim;
 """
 
 _HARNESS = {
     "tail_fwd": r"""
+template <int D>
+static void run_fwd(const float* raw, const float* eps, const float* k,
+                    float* z, float* aux, int B, int W, int E, int Z,
+                    const TailTable& t) {
+  float sh[2 * MAX_COMPS * TAIL_ROWS];
+  const int threads = TAIL_ROWS * tail_warps(t.nc);
+  for (int b = 0; b < tail_blocks(B); ++b) {
+    for (int tid = 0; tid < threads; ++tid)
+      fwd_rows<D>(raw, eps, k, z, aux, B, W, E, Z, t, b, tid, sh);
+    for (int tid = 0; tid < threads; ++tid) fwd_sums(aux, B, t.nc, b, tid, sh);
+  }
+}
+
+// One block after another, each thread of a block through a phase before
+// any thread starts the next (the kernel's __syncthreads), on the
+// instantiation the launcher picks
 extern "C" void host_run(const float* raw, const float* eps, const float* k,
                          float* z, float* aux, int B, int W, int E, int Z,
                          int nc, const int* table) {
   TailTable t;
   if (!tail_table_from(table, nc, &t)) return;
-  for (int row = 0; row < B; ++row) {
-    blockIdx.x = row / THREADS;
-    threadIdx.x = row % THREADS;
-    tail_fwd_kernel(raw, eps, k, z, aux, B, W, E, Z, t);
+  switch (tail_dim_class(t)) {
+    case 2: run_fwd<2>(raw, eps, k, z, aux, B, W, E, Z, t); break;
+    case 3: run_fwd<3>(raw, eps, k, z, aux, B, W, E, Z, t); break;
+    case 6: run_fwd<6>(raw, eps, k, z, aux, B, W, E, Z, t); break;
+    default: run_fwd<0>(raw, eps, k, z, aux, B, W, E, Z, t);
   }
 }
 """,
     "tail_bwd": r"""
+template <int D>
+static void run_bwd(const float* raw, const float* eps, const float* k,
+                    const float* dz, const float* daux, float* draw,
+                    float* dk_rows, float* dk, float* part,
+                    unsigned* counter, int B, int W, int E, int Z,
+                    const TailTable& t) {
+  float sh[TAIL_GROUPS * TAIL_ROWS], gs[TAIL_GROUPS];
+  const int threads = tail_bwd_threads(B), blocks = tail_bwd_blocks(B);
+  for (int c = 0; c < t.nc; ++c) {
+    for (int bx = 0; bx < blocks; ++bx) {
+      for (int tid = 0; tid < threads; ++tid)
+        bwd_rows<D>(raw, eps, k, dz, daux, draw, dk_rows, B, W, E, Z, t, c,
+                    bx, tid, sh);
+      for (int tid = 0; tid < threads; ++tid)
+        tail_fold_groups(B, bx, tid, sh, gs);
+      if (blocks == 1) {
+        for (int tid = 0; tid < threads; ++tid)
+          tail_fold_direct(B, c, tid, gs, dk);
+        continue;
+      }
+      for (int tid = 0; tid < threads; ++tid)
+        tail_fold_publish(B, t.nc, c, bx, tid, gs, part);
+      if (tail_fold_ticket(counter + c, blocks))
+        for (int tid = 0; tid < threads; ++tid)
+          tail_fold_last(B, t.nc, c, tid, part, dk, counter);
+    }
+  }
+}
+
+// Block (bx, c) after block, each thread of a block through a phase before
+// any thread starts the next (the kernel's __syncthreads), on the
+// instantiation the launcher picks
 extern "C" void host_run(const float* raw, const float* eps, const float* k,
                          const float* dz, const float* daux, float* draw,
-                         float* dk, int B, int W, int E, int Z, int nc,
-                         const int* table) {
+                         float* dk_rows, float* dk, float* part,
+                         unsigned* counter, int B, int W, int E, int Z,
+                         int nc, const int* table) {
   TailTable t;
   if (!tail_table_from(table, nc, &t)) return;
-  for (int row = 0; row < B; ++row) {
-    blockIdx.x = row / THREADS;
-    threadIdx.x = row % THREADS;
-    tail_bwd_kernel(raw, eps, k, dz, daux, draw, dk, B, W, E, Z, t);
+  switch (tail_dim_class(t)) {
+    case 2:
+      run_bwd<2>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                 W, E, Z, t);
+      break;
+    case 3:
+      run_bwd<3>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                 W, E, Z, t);
+      break;
+    case 6:
+      run_bwd<6>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                 W, E, Z, t);
+      break;
+    default:
+      run_bwd<0>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                 W, E, Z, t);
   }
 }
 """,
@@ -215,6 +288,13 @@ CASES = [
     ("s4:wrapped,s2", (2.5, 1.0), {}),
     ("s3:wrapped,h2,e2", (1.0, -1.0, 0.0), {}),
     ("s32:wrapped", (0.25,), {}),
+    # the instantiation for n = 3, the generic one for n = 7 and 12, and
+    # nc = 16 (two components a warp)
+    ("p3,h3,s3:wrapped", (1.0, -1.0, 1.0), {}),
+    ("h7,e12", (-0.7, 0.0), {}),
+    ("h2,s2,e2,d2,p2,u2,h2,e2,d2,p2,u2,h2,s2,e2,s2:wrapped,e2",
+     (-1.0, 1.0, 0.0, -0.5, 0.8, 0.3, -2.0, 0.0, -1e-3, 1e-3, -0.4, -0.3,
+      2.0, 0.0, 1.5, 0.0), {}),
 ]
 
 
@@ -234,6 +314,26 @@ def _held(ours, ref, ref64, tol, min_resolved):
     assert float(ratio.max()) <= 1.0, float(ratio.max())
     far = (ours.double() - ref64).abs() / (plain_err + tol)
     assert float(far.max()) <= 10.0, float(far.max())
+
+
+def _host_bwd(host_libs, comps, raw, eps, k, dz, daux):
+    """The compiled backward source on the host: (draw, dk_rows, dk). The
+    folded dk equals ``fold_rows_ref(dk_rows)`` (the kernel's order) bit for
+    bit and the fold's counters are back at zero."""
+    B = raw.shape[0]
+    W, E, Z = ttk._dims(comps)
+    nc = len(comps)
+    draw = torch.full((B, W), float("nan"))
+    dk_rows = torch.full((B, nc), float("nan"))
+    dk = torch.full((nc,), float("nan"))
+    part = torch.full((-(-B // 32), nc), float("nan"))
+    counter = torch.zeros(nc, dtype=torch.int32)
+    host_libs["tail_bwd"](_ptr(raw), _ptr(eps), _ptr(k), _ptr(dz), _ptr(daux),
+                          _ptr(draw), _ptr(dk_rows), _ptr(dk), _ptr(part),
+                          _ptr(counter), B, W, E, Z, nc, ttk._table(comps))
+    assert not counter.any()
+    assert torch.equal(dk, ttk.fold_rows_ref(dk_rows))
+    return draw, dk_rows, dk
 
 
 def _comps(spec, opts):
@@ -269,13 +369,9 @@ def test_backward_source_matches_plain_version(host_libs, spec, kset, opts,
     W, E, Z = ttk._dims(comps)
     nc = len(comps)
     raw, eps, k, dz, daux = _inputs(comps, B, kset, 1, big_sigma)
-    draw = torch.full((B, W), float("nan"))
-    dk = torch.full((B, nc), float("nan"))
-    host_libs["tail_bwd"](_ptr(raw), _ptr(eps), _ptr(k), _ptr(dz), _ptr(daux),
-                          _ptr(draw), _ptr(dk), B, W, E, Z, nc,
-                          ttk._table(comps))
-    draw_r, dk_r = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
-    d64, k64 = ttk.tail_backward_ref(
+    draw, dk, _ = _host_bwd(host_libs, comps, raw, eps, k, dz, daux)
+    draw_r, dk_r, _ = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
+    d64, k64, _ = ttk.tail_backward_ref(
         comps, *[t.double() for t in (raw, eps, k, dz, daux)])
     assert bool(torch.isfinite(dk).all())
     tol = 1e-3 * draw_r.abs() + 5e-4
@@ -385,8 +481,8 @@ def _check_floor_rows(spec, opts, kval, device, forward, backward):
     assert bool(((aux - aux_r).abs() <= 1e-4 * (1 + 1e-2 * aux_r.abs()))
                 .all())
 
-    draw, dk = backward(comps, raw, eps, k, dz, daux)
-    draw_r, dk_r = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
+    draw, dk, _ = backward(comps, raw, eps, k, dz, daux)
+    draw_r, dk_r, _ = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
     assert bool(torch.isfinite(draw).all() and torch.isfinite(dk).all())
     assert bool(torch.isfinite(draw_r).all() and torch.isfinite(dk_r).all())
     scale = draw_r.abs().amax(1, keepdim=True)
@@ -411,14 +507,7 @@ def test_sphere_tile_floor_rows(host_libs, spec, opts, kval):
         return z, aux
 
     def backward(comps, raw, eps, k, dz, daux):
-        B = raw.shape[0]
-        W, E, Z = ttk._dims(comps)
-        draw = torch.full((B, W), float("nan"))
-        dk = torch.full((B, 1), float("nan"))
-        host_libs["tail_bwd"](_ptr(raw), _ptr(eps), _ptr(k), _ptr(dz),
-                              _ptr(daux), _ptr(draw), _ptr(dk), B, W, E, Z,
-                              1, ttk._table(comps))
-        return draw, dk
+        return _host_bwd(host_libs, comps, raw, eps, k, dz, daux)
 
     _check_floor_rows(spec, opts, kval, "cpu", forward, backward)
 

@@ -201,7 +201,7 @@ def test_tail_backward_matches_jax_grad(spec, scalar_sigma, dtype, rtol,
     # tail_backward_ref at the loss's cotangents; dK/dc = K (K = +-e^c)
     nc = len(tc)
     daux = torch.from_numpy(_loss_cotangents(B, z.shape[1], nc, dtype))
-    draw, dk_rows = ttk.tail_backward_ref(tc, torch.from_numpy(raw), eps,
+    draw, dk_rows, _ = ttk.tail_backward_ref(tc, torch.from_numpy(raw), eps,
                                           kvec.detach(),
                                           2.0 * z.detach() / B, daux)
     np.testing.assert_allclose(draw.numpy(), g_raw_j, rtol=rtol, atol=atol)
@@ -272,9 +272,9 @@ def test_mu_tan_zero_row_has_finite_gradients():
     k = torch.tensor([-1.0, 1.0, 0.0])
     dz = torch.randn(4, 8, generator=g)
     daux = torch.randn(4, 5, generator=g)
-    draw, dk = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
+    draw, dk, _ = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
     assert bool(torch.isfinite(draw).all() and torch.isfinite(dk).all())
-    d64, k64 = ttk.tail_backward_ref(tc, raw.double(), eps.double(),
+    d64, k64, _ = ttk.tail_backward_ref(tc, raw.double(), eps.double(),
                                      k.double(), dz.double(), daux.double())
     np.testing.assert_allclose(draw[1].numpy(), d64[1].numpy(), rtol=1e-3,
                                atol=5e-4)
@@ -432,7 +432,7 @@ def _check_stereo_backward(spec, scalar_sigma, wraps, c_params, dtype, rtol,
         return
     nc = len(tc)
     daux = torch.from_numpy(_loss_cotangents(B, z.shape[1], nc, dtype))
-    draw, dk_rows = ttk.tail_backward_ref(tc, torch.from_numpy(raw), eps,
+    draw, dk_rows, _ = ttk.tail_backward_ref(tc, torch.from_numpy(raw), eps,
                                           kvec.detach(),
                                           2.0 * z.detach() / B, daux)
     np.testing.assert_allclose(draw.numpy(), g_raw_j, rtol=rtol, atol=atol)
@@ -489,9 +489,9 @@ def test_stereo_tie_rows_have_finite_gradients(kset):
     daux = torch.randn(6, 5, generator=g)
     z, aux = ttk.tail_forward_ref(tc, raw, eps, k)
     assert bool(torch.isfinite(z).all() and torch.isfinite(aux).all())
-    draw, dk = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
+    draw, dk, _ = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
     assert bool(torch.isfinite(draw).all() and torch.isfinite(dk).all())
-    d64, k64 = ttk.tail_backward_ref(tc, raw.double(), eps.double(),
+    d64, k64, _ = ttk.tail_backward_ref(tc, raw.double(), eps.double(),
                                      k.double(), dz.double(), daux.double())
     rows = [0, 1, 2, 3, 5]
     np.testing.assert_allclose(draw[rows].numpy(), d64[rows].numpy(),
@@ -609,9 +609,9 @@ def test_sphere_tie_rows_have_finite_gradients(kval):
     # every z on the sphere of radius 1 / sqrt(K)
     np.testing.assert_allclose((z[:, :4] ** 2).sum(1).numpy() * kval, 1.0,
                                rtol=1e-5)
-    draw, dk = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
+    draw, dk, _ = ttk.tail_backward_ref(tc, raw, eps, k, dz, daux)
     assert bool(torch.isfinite(draw).all() and torch.isfinite(dk).all())
-    d64, k64 = ttk.tail_backward_ref(tc, raw.double(), eps.double(),
+    d64, k64, _ = ttk.tail_backward_ref(tc, raw.double(), eps.double(),
                                      k.double(), dz.double(), daux.double())
     rows = [0, 1, 2, 3, 6]
     scale = d64[rows].abs().amax(1, keepdim=True).numpy()
@@ -654,8 +654,8 @@ def test_backward_kernel_matches_plain_version_on_card(cuda_device, batch):
         dz = torch.randn(batch, 8, generator=gen, device=cuda_device)
         daux = torch.randn(batch, 5, generator=gen, device=cuda_device)
         before = ttk.tail_backward.launches
-        draw, dk = ttk.tail_backward(comps, raw, eps, k, dz, daux)
-        draw_r, dk_r = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
+        draw, dk, _ = ttk.tail_backward(comps, raw, eps, k, dz, daux)
+        draw_r, dk_r, _ = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
         torch.cuda.synchronize()
         assert ttk.tail_backward.launches == before + 1
         assert bool(((draw - draw_r).abs()
@@ -700,8 +700,8 @@ def test_stereo_tile_kernels_match_plain_version_on_card(cuda_device, spec,
                                                 cuda_device, 3)
     z, aux = ttk.tail_forward(comps, raw, eps, k)
     z_r, aux_r = ttk.tail_forward_ref(comps, raw, eps, k)
-    draw, dk = ttk.tail_backward(comps, raw, eps, k, dz, daux)
-    draw_r, dk_r = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
+    draw, dk, _ = ttk.tail_backward(comps, raw, eps, k, dz, daux)
+    draw_r, dk_r, _ = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
     torch.cuda.synchronize()
     assert bool(((z - z_r).abs() <= 1e-5 * (1 + z_r.abs())).all())
     assert bool(((aux - aux_r).abs() <= 1e-4 * (1 + 1e-2 * aux_r.abs()))
@@ -710,6 +710,116 @@ def test_stereo_tile_kernels_match_plain_version_on_card(cuda_device, spec,
     assert bool(((draw - draw_r).abs() <= 1e-3 * draw_r.abs() + 5e-4).all())
     dks, dks_r = dk.sum(0), dk_r.sum(0)
     assert bool(((dks - dks_r).abs() <= 2e-3 * dks_r.abs() + 5e-4).all())
+
+
+# The launch geometry (32 rows a block, a warp a component) on ragged
+# batches, for every kind, each instantiation (n = 2, 3, 6 and the generic
+# one) and nc = 16 (two components a warp)
+NC16 = "h2,s2,e2,d2,p2,u2,h2,e2,d2,p2,u2,h2,s2,e2,s2:wrapped,e2"
+GEOMETRY_CARD = [
+    ("h2,s2,e2", (-1.0, 1.0, 0.0)), ("d2,p2,e2", (-1.0, 1.0, 0.0)),
+    ("u6", (0.5,)), ("s6:wrapped", (1.0,)), ("p3,h3,s3:wrapped", (1.0, -1.0,
+                                                                  1.0)),
+    ("h7,e12", (-0.7, 0.0)), ("s3:wrapped,h2,e2", (1.0, -1.0, 0.0)),
+    (NC16, (-1.0, 1.0, 0.0, -0.5, 0.8, 0.3, -2.0, 0.0, -1e-3, 1e-3, -0.4,
+            -0.3, 2.0, 0.0, 1.5, 0.0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 31, 33, 127, 129, 512, 1000])
+@pytest.mark.parametrize("spec,kset", GEOMETRY_CARD)
+def test_kernels_geometry_on_card(cuda_device, spec, kset, batch):
+    """B1 and B3 on ragged batches against the plain versions: z within
+    1e-5 (1 + |z|), the log-densities within 1e-4 (1 + 0.01 |ref|), the
+    raw gradient within the float32 backward contract, the folded
+    curvature gradient equal to the fold of the kernel's rows and held to
+    the plain version's ``dk_rows.sum(0)`` by the batch-summed contract
+    (rtol 2e-3 where float32 resolves the sum), one launch each."""
+    comps = tuple(t_parse(spec, fixed_curvature=False))
+    raw, eps, k, dz, daux = _stereo_card_inputs(comps, batch, kset,
+                                                cuda_device, 5)
+    fwd, bwd = ttk.tail_forward.launches, ttk.tail_backward.launches
+    z, aux = ttk.tail_forward(comps, raw, eps, k)
+    draw, dk_rows, dk = ttk.tail_backward(comps, raw, eps, k, dz, daux)
+    z_r, aux_r = ttk.tail_forward_ref(comps, raw, eps, k)
+    draw_r, dk_rows_r, dk_r = ttk.tail_backward_ref(comps, raw, eps, k, dz,
+                                                    daux)
+    torch.cuda.synchronize()
+    assert (ttk.tail_forward.launches, ttk.tail_backward.launches) == (
+        fwd + 1, bwd + 1)
+    assert bool(((z - z_r).abs() <= 1e-5 * (1 + z_r.abs())).all())
+    assert bool(((aux - aux_r).abs() <= 1e-4 * (1 + 1e-2 * aux_r.abs()))
+                .all())
+    assert bool(torch.isfinite(draw).all() and torch.isfinite(dk_rows).all())
+    assert bool(((draw - draw_r).abs() <= 1e-3 * draw_r.abs() + 5e-4).all())
+    assert torch.equal(dk_r, dk_rows_r.sum(0))
+    # the fold is of the kernel's own rows, in its order
+    assert torch.equal(dk, ttk.fold_rows_ref(dk_rows))
+    # against the plain version's sum: the batch-summed contract (rtol
+    # 2e-3) where the float32 plain sum is within a tenth of it of float64;
+    # where it is not (a sum that cancels terms of size 1 / K), no farther
+    # from float64 than ten times the plain sum
+    dk64 = ttk.tail_backward_ref(
+        comps, *[t.double() for t in (raw, eps, k, dz, daux)])[2]
+    tol = 2e-3 * dk_r.abs() + 5e-4
+    plain_err = (dk_r.double() - dk64).abs()
+    res = plain_err <= 0.1 * tol
+    assert bool(((dk - dk_r).abs() <= tol)[res].all())
+    assert bool(((dk.double() - dk64).abs() <= 10 * (plain_err + tol)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,kset", [("h2,s2,e2", (-1.0, 1.0, 0.0)),
+                                       ("d2,p2,e2", (-1.0, 1.0, 0.0)),
+                                       ("s6:wrapped", (1.0,))])
+def test_backward_graph_replays_bit_equal_on_card(cuda_device, spec, kset):
+    """B3 captured in a CUDA graph and replayed ten times: every output,
+    the folded curvature gradient included, equal bit for bit to the eager
+    call's (the fold's counters are back at zero after every launch)."""
+    comps = tuple(t_parse(spec, fixed_curvature=False))
+    args = _stereo_card_inputs(comps, 128, kset, cuda_device, 6)
+    eager = ttk.tail_backward(comps, *args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ttk.tail_backward(comps, *args)
+    for _ in range(10):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    assert not ttk._fold_counter(args[0].device).any()
+
+
+@pytest.mark.cuda
+def test_tail_fn_backward_issues_no_sum_on_card(cuda_device):
+    """``_TailFn``'s backward on the card takes the folded curvature
+    gradient from the kernel: no sum op after B3."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    comps = tuple(t_parse("h2,s2,e2", fixed_curvature=False))
+    raw, eps, k, dz, daux = _stereo_card_inputs(comps, 128,
+                                                (-1.0, 1.0, 0.0),
+                                                cuda_device, 7)
+    raw.requires_grad_(True)
+    k.requires_grad_(True)
+    z, aux = ttk._TailFn.apply(comps, raw, eps, k)
+    before = ttk.tail_backward.launches
+    with Ops() as ops:
+        torch.autograd.backward((z, aux), (dz, daux))
+    assert ttk.tail_backward.launches == before + 1
+    assert any("empty" in n for n in ops.names), ops.names  # ops recorded
+    assert not [n for n in ops.names if "sum" in n], ops.names
+    dk_r = ttk.tail_backward_ref(comps, raw.detach(), eps, k.detach(), dz,
+                                 daux)[2]
+    assert bool(((k.grad - dk_r).abs() <= 2e-3 * dk_r.abs() + 5e-4).all())
 
 
 @pytest.fixture
