@@ -9,8 +9,14 @@ Phases:
  2. build every kernel of ``mvae_torch/kernels/csrc`` with nvcc (parallel:
     B1 tail_fwd, B2 decode_bce, B3 tail_bwd, B6 train_decode,
     B5 reparam_stereo, B7 manifold_dist, B8 roofline_probes; B4a and B4b
-    live in the header B1 and B3 share), printing ptxas's registers,
-    stack frame and spills of each kernel instantiation;
+    live in the header B1 and B3 share) and, beside them, B5's previous
+    design from the same source by its build knobs (``PREVIOUS_REPARAM``),
+    printing ptxas's registers, stack frame and spills of each kernel
+    instantiation (B5's 24 one by one: n = 2, 3, 6 and generic, one or two
+    samples a thread, each curvature sign; those for n = 2, 3, 6 must spill
+    nothing), and the instructions of one accurate tanhf in the tanh
+    probe's SASS loop (``roofline.tanh_instructions``, cuobjdump), which
+    prices a transcendental in the kernels line's operation bounds;
  3. the tail kernel (tail_fwd.cu) against ``tail_forward_ref`` at the
     flagship product h2,s2,e2, B = 512 and B = 1000 (ragged), random heads
     with large-|mu| rows and curvatures that put rows on both sides of the
@@ -65,7 +71,14 @@ Phases:
     beside the row-per-thread kernels' times;
 13. the IWAE chunk reparam kernel (reparam_stereo.cu, B5) against
     ``wrapped_reparam_stereo_ref`` at (S, B, n) = (125, 512, 2) and
-    (125, 512, 6), signs -1, 0, +1, wraps 0 and 1;
+    (125, 512, 6), signs -1, 0, +1, wraps 0 and 1, and bit for bit
+    against its previous design on each case; then its time in turns with
+    the previous design (kernel, previous, previous, kernel) at (125, 512,
+    2) sign +1 and -1, (125, 512, 6) sign 0 and the production chunk (125,
+    2048, 6) sign -1 over rotating buffer sets, faster on every row; its
+    operation bound is its plain version's operations
+    (``roofline.reparam_ops``), arithmetic at 67 TFLOP/s and each
+    transcendental at phase 2's tanhf instruction count;
 14. the stereographic family end to end, d2,p2,e2 at h_dim 400 with
     learnable curvature: test ELBO and IWAE-500 over the 10,000-example
     test split through B1 (+B4a), B5 and B2 with launch counts (20, 160,
@@ -107,12 +120,17 @@ Phases:
     B = 128, 512 and 1000, each against its plain version; then
     ``roofline.main()`` with the probes' launch counts read around it: the
     calibrated rates (each within its window: at most 105% of the data
-    sheet, TF32 among them) and the rows of B7a, B7b, B5 and B2 at the
+    sheet, TF32 among them; the triad timed in turns with ``torch.add(x, y,
+    out=o)``, their time ratio printed) and the rows of B7a, B7b, B5 and B2
+    at the
     reference's shapes and of B1 (B = 128, 512) and B3 (B = 128) for those
     four products, none above 105% of its binding floor or its peak (B2's:
     its 3xTF32 products at the calibrated TF32 rate, its FP32 part, its
-    bytes; its share of the TF32 peak; B1's and B3's: the tail skeleton
-    or the plain version's operations at the calibrated FMA rate);
+    bytes; its share of the TF32 peak; B5's: its skeleton or its plain
+    version's operations, arithmetic at the calibrated FMA rate and
+    transcendentals at the calibrated tanh rate, its twin beside them;
+    B1's and B3's: the tail skeleton or the plain version's operations at
+    the calibrated FMA rate);
     then each row's kernel held to its plain version on the row's own
     inputs (B7a, B7b and B5 at the tolerances of phases 17 and 13, float64
     beside them; B2 within 1e-3 nats per row as in phase 4). The launch
@@ -150,11 +168,13 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -348,15 +368,91 @@ def phase_card() -> str:
     return card
 
 
-def phase_build() -> None:
+# B5's previous design, built from this checkout's source by its knobs: a
+# thread per (sample, example) through the generic draw, the per-example
+# scalars recomputed for every sample, the sign taken at run time
+PREVIOUS_REPARAM = ["-DREPARAM_SPT=1", "-DREPARAM_HOIST=0",
+                    "-DREPARAM_GENERIC", "-DREPARAM_RUNTIME_SIGN"]
+
+
+def ptxas_entries(report: str) -> dict:
+    """Kernel (mangled name) -> registers, stack frame and spill bytes, from
+    an nvcc -Xptxas -v report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m[1]
+            out[name] = {}
+        elif name and "stack frame" in line:
+            st, so, sl = map(int, re.findall(r"(\d+) bytes", line)[:3])
+            out[name].update(stack=st, spill_stores=so, spill_loads=sl)
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line)[1])
+    return out
+
+
+def reparam_instantiations(report: str) -> dict:
+    """B5's instantiations (N, samples a thread, sign; 2: the sign at run
+    time) -> ptxas's numbers."""
+    out = {}
+    for name, v in ptxas_entries(report).items():
+        m = re.search(r"reparam_stereo_kernelILi(\d+)ELi(\d+)ELin?(\d+)E",
+                      name)
+        if m:
+            sign = int(m[3]) * (-1 if "ELin" in name else 1)
+            out[(int(m[1]), int(m[2]), sign)] = v
+    return out
+
+
+def phase_build() -> dict:
+    """Every kernel source built (one nvcc each, together with B5's previous
+    design); ptxas's report printed; B5's register-resident instantiations
+    (n = 2, 3, 6) checked to spill nothing; the instructions of one
+    accurate tanhf in the tanh probe counted from its SASS."""
     t0 = time.time()
-    reports = _build.build_all()
-    print(f"[build] {len(reports)} kernels in {time.time() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        prev = pool.submit(_build.build_variants, {"reparam_previous": (
+            _build.CSRC / "reparam_stereo.cu",
+            _build.EXTRA_FLAGS["reparam_stereo"] + PREVIOUS_REPARAM)},
+            _build.BUILD_DIR / "previous")
+        reports = _build.build_all()
+        prev_lib, prev_report = prev.result()["reparam_previous"]
+    print(f"[build] {len(reports)} kernels and B5's previous design in "
+          f"{time.time() - t0:.1f} s")
     for name, text in reports.items():
-        for line in text.splitlines():
-            if ("registers" in line or "spill" in line
-                    or "Compiling entry" in line):
-                print(f"[build] {name}: {line.strip()}")
+        for line in _build.ptxas_lines(text):
+            print(f"[build] {name}: {line}")
+    inst = reparam_instantiations(reports["reparam_stereo"])
+    for (n, spt, sign), v in sorted(inst.items()):
+        print(f"[build] reparam_stereo <n={n or 'generic'}, {spt} sample(s) "
+              f"a thread, sign {sign:+d}>: {v['registers']} registers, "
+              f"{v['stack']} bytes stack frame, {v['spill_stores']} / "
+              f"{v['spill_loads']} bytes spilled (stores / loads)")
+    check(len(inst) == 24, f"B5 built in 24 instantiations: {sorted(inst)}")
+    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
+              for (n, _, _), v in inst.items() if n),
+          "B5's instantiations for n = 2, 3, 6 spill nothing")
+    v = reparam_instantiations(prev_report)[(0, 1, 2)]
+    print(f"[build] reparam_stereo, previous design <generic, a sample a "
+          f"thread, sign at run time>: {v['registers']} registers, "
+          f"{v['stack']} bytes stack frame, {v['spill_stores']} / "
+          f"{v['spill_loads']} bytes spilled")
+    tanh = roofline.tanh_instructions()
+    print(f"[build] tanh probe: {tanh['instructions']} instructions in its "
+          f"loop with {tanh['tanh']} tanh, {tanh['per_tanh']:.2f} a tanh "
+          f"(cuobjdump -sass)")
+    return {"previous_reparam": manifold_kernels.bind_reparam(prev_lib),
+            "tanh_per": tanh["per_tanh"]}
+
+
+def ops_ms(ops: dict, per_tanh: float) -> float:
+    """ms of an ``roofline.op_split`` count at the data sheet's FP32 rate:
+    an arithmetic op one FLOP, a transcendental the instructions of one
+    accurate tanhf in SASS, each an FMA's two FLOP."""
+    return ((ops["arithmetic"] + 2 * per_tanh * ops["transcendental"])
+            / FP32_FLOPS_PER_S * 1e3)
 
 
 def phase_tail(comps, gen) -> dict:
@@ -1236,9 +1332,32 @@ def phase_stereo_tail(gen) -> list[dict]:
     return out
 
 
-def phase_reparam(gen) -> dict:
-    """B5 against its plain version, then its time at the IWAE chunk of
-    d2,p2,e2 (one component: S = 125, B = 512, n = 2)."""
+def _reparam_row(S, B, n, kval, gen):
+    """One chunk of B5's timed rows: the noise a view of a wider (S, B,
+    n + 2) block, z into rows 1 .. n of an (S, n + 2, B) buffer."""
+    k = torch.tensor(kval, device="cuda")
+    eps = torch.randn(S, B, n + 2, generator=gen, device="cuda")[..., 1:1 + n]
+    mu = _stereo_mu(B, n, k, kval, gen)
+    sig = 0.2 + torch.rand(B, n, generator=gen, device="cuda")
+    return eps, mu, sig, k, torch.zeros(S, n + 2, B, device="cuda"), 1
+
+
+def _previous_reparam(built, eps, mu, sig, k, out, z_off, sign, wraps=1):
+    """B5's previous design on the wrapper's arguments (not counted)."""
+    lq = torch.empty(eps.shape[:2], device="cuda")
+    lp = torch.empty(eps.shape[:2], device="cuda")
+    manifold_kernels.reparam_launch(built["previous_reparam"], eps, mu, sig,
+                                    k.reshape(1), out, z_off, lq, lp, sign,
+                                    wraps)
+    return out[:, z_off:z_off + eps.shape[2]], lq, lp
+
+
+def phase_reparam(gen, built) -> dict:
+    """B5 against its plain version and, bit for bit, against its previous
+    design; then its time in turns with the previous design on four rows:
+    the IWAE chunk of d2,p2,e2's components (S = 125, B = 512, n = 2) at
+    sign +1 and -1, of u6 (n = 6, sign 0), and the production chunk (125,
+    2048, 6) over rotating buffer sets."""
     S, B = 125, 512
     worst = err = 0.0
     keep = None
@@ -1259,11 +1378,17 @@ def phase_reparam(gen) -> dict:
                 z64, lq64, lp64 = manifold_kernels.wrapped_reparam_stereo_ref(
                     eps.double(), mu.double(), sig.double(), k.double(),
                     wraps=wraps, sign=sign)
+                prev = _previous_reparam(built, eps, mu, sig, k,
+                                         torch.zeros_like(out), 1, sign,
+                                         wraps)
                 torch.cuda.synchronize()
                 what = f"B5 n={n} sign={sign} k={kval} wraps={wraps}"
                 check(bool((out[:, 0] == 0).all()
                            and (out[:, 1 + n:] == 0).all()),
                       f"{what}: writes only its rows of the buffer")
+                check(all(torch.equal(a, b)
+                          for a, b in zip((zt, lq, lp), prev)),
+                      f"{what}: bit-equal to the previous design")
                 for ours, ref, ref64, tol, name in (
                         (zt, z_r, z64, 1e-5 * (1 + z_r.abs()), "z"),
                         (lq, lq_r, lq64, 1e-4 * (1 + 1e-2 * lq_r.abs()),
@@ -1276,41 +1401,65 @@ def phase_reparam(gen) -> dict:
                     keep = (eps, mu, sig, k, out)
     print(f"[reparam_stereo] 32 cases at (S, B) = (125, 512): worst share of "
           f"the tolerance {worst:.3g}, largest error on resolved entries "
-          f"{err:.3g}")
+          f"{err:.3g}; each bit-equal to the previous design")
     eps, mu, sig, k, out = keep
-    n = 2
-    ms, trace = kernel_ms(
-        lambda: manifold_kernels.wrapped_reparam_stereo_t(
-            eps, mu, sig, k, wraps=1, sign=1, out=out, z_off=1),
-        "reparam_stereo_kernel", 100)
+    rl = roofline
+    prod = rl.reparam_sets(rl.buffer_sets(rl.reparam_bytes(rl.RS, rl.RB,
+                                                           rl.RN),
+                                          rl._l2_bytes()))
+    rows = (("(125, 512, 2), sign +1", 1, [(eps, mu, sig, k, out, 1)]),
+            ("(125, 512, 2), sign -1", -1, [_reparam_row(S, B, 2, -1.0, gen)]),
+            ("(125, 512, 6), sign 0", 0, [_reparam_row(S, B, 6, 0.5, gen)]),
+            (f"production ({rl.RS}, {rl.RB}, {rl.RN}), sign -1, "
+             f"{len(prod)} buffer sets", -1,
+             [(e, m, sg, torch.tensor(-1.0, device="cuda"), o, 0)
+              for e, m, sg, o, _ in prod]))
+    ms = None
+    for label, sign, sets in rows:
+        def kernel():
+            return rl.measure([
+                lambda a=a: manifold_kernels.wrapped_reparam_stereo_t(
+                    *a[:4], wraps=1, sign=sign, out=a[4], z_off=a[5])
+                for a in sets], "reparam_stereo_kernel", 100)
+
+        def previous():
+            return rl.measure([
+                lambda a=a: _previous_reparam(built, *a, sign)
+                for a in sets], "reparam_stereo_kernel", 100)
+
+        turns = [kernel(), previous(), previous(), kernel()]
+        t = rl.mean_timing(turns[0], turns[3])
+        p = rl.mean_timing(turns[1], turns[2])
+        e0 = sets[0][0]
+        spt = manifold_kernels.reparam_spt(*e0.shape, sign)
+        print(f"[reparam_stereo] {label}: kernel {t.us:.2f} us ({spt} "
+              f"sample(s) a thread), previous design {p.us:.2f} us in turns "
+              f"(kernel, previous, previous, kernel: "
+              f"{', '.join(f'{x.us:.2f}' for x in turns)} us; CUPTI trace "
+              f"medians {t.trace_us}, {p.trace_us}): {p.us / t.us:.2f}x")
+        check(t.us < p.us, f"B5 at {label} faster than its previous design")
+        if ms is None:
+            ms = t.us / 1e3
     plain_ms = time_ms(lambda: manifold_kernels.wrapped_reparam_stereo_ref(
         eps, mu, sig, k, wraps=1, sign=1), 20)
-    for sign, kval, nn in ((-1, -1.0, 2), (0, 0.5, 6)):
-        kk = torch.tensor(kval, device="cuda")
-        e2 = torch.randn(S, B, nn, generator=gen, device="cuda")
-        m2 = _stereo_mu(B, nn, kk, kval, gen)
-        s2 = 0.2 + torch.rand(B, nn, generator=gen, device="cuda")
-        m2_ms, tr2 = kernel_ms(
-            lambda: manifold_kernels.wrapped_reparam_stereo_t(
-                e2, m2, s2, kk, wraps=1, sign=sign),
-            "reparam_stereo_kernel", 100)
-        print(f"[reparam_stereo] n={nn} sign={sign}: kernel "
-              f"{m2_ms * 1e3:.2f} us (graph events; {tr2})")
-    nbytes = 4 * (2 * S * B * n + 2 * B * n + 1 + 2 * S * B)
-    # a rough per-row tally of the draw (a transcendental counts one op)
-    ops = S * B * (40 * n + 500)
+    n = 2
+    nbytes = rl.reparam_bytes(S, B, n)
+    ops = rl.reparam_ops(S, B, n, 1)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    o_ms = ops_ms(ops, built["tanh_per"])
     print(f"[reparam_stereo] (S, B, n) = (125, 512, 2), sign +1, wraps 1: "
-          f"kernel {ms * 1e3:.2f} us (graph events; {trace}), "
-          f"plain {plain_ms * 1e3:.1f} us, bytes bound {bytes_ms * 1e3:.3f} "
-          f"us ({nbytes} B), ops bound {ops_ms * 1e3:.3f} us")
+          f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, bytes "
+          f"bound {bytes_ms * 1e3:.3f} us ({nbytes} B), operations bound "
+          f"{o_ms * 1e3:.3f} us ({ops['arithmetic']} arithmetic at 67 "
+          f"TFLOP/s, {ops['transcendental']} transcendentals at "
+          f"{built['tanh_per']:.2f} FMAs each: the plain version's ops, "
+          f"both sides of its branches)")
     return {"name": "reparam_stereo", "route": "cuda",
             "source": "mvae_torch/kernels/csrc/reparam_stereo.cu",
             "replaces": "mvae_tpu/kernels/manifold_kernels.py:563",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": max(bytes_ms, o_ms),
+            "bound_by": "bytes" if bytes_ms >= o_ms else "operations",
             "library_ms": None}
 
 
@@ -1925,7 +2074,7 @@ def _roofline_rows_held(rl) -> None:
           + " (B2 in nats per row)")
 
 
-def phase_roofline(gen) -> tuple[list[dict], dict]:
+def phase_roofline(gen, built) -> tuple[list[dict], dict]:
     """B8: every probe kernel against its plain version at the roofline
     shapes, then ``roofline.main()`` (calibration and the B7a, B7b, B5, B2
     rows) with the probes' launch counts read around it; then each row's
@@ -1997,8 +2146,8 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
              1e-4 * (ref.abs() + 1e-2 * ref.abs().max()))
     timed("twin_reparam", lambda: rl.twin_reparam_ref(eps, mu, sig, k, hoist))
     for spec, kset in rl.TAIL_SPECS:
-        for B in (128, 512, 1000):
-            comps, *args = rl.tail_inputs(spec, kset, B)
+        for bt in (128, 512, 1000):
+            comps, *args = rl.tail_inputs(spec, kset, bt)
             for got, ref in ((rl.skel_tail(comps, *args[:3]),
                               rl.skel_tail_ref(comps, *args[:3])),
                              (rl.skel_tail(comps, *args),
@@ -2007,15 +2156,13 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
                     close("skel_tail", g, r, 0.0)
     comps, *args = rl.tail_inputs(SPEC, (-1.0, 1.0, 0.0), 128)
     timed("skel_tail", lambda: rl.skel_tail_ref(comps, *args))
-    o = torch.empty_like(x)
-    library = {"probe_triad": library_ms(lambda: torch.add(x, y, out=o))}
     # x.sum(1) writes (rows,) where the reduce probe writes the full matrix
     # of its tree sums: not the probe's function, so no library_ms
     print(f"[roofline] x.sum(1) at {(B, N)} (not the reduce probe's "
           f"function): {library_ms(lambda: x.sum(1)) * 1e3:.1f} us")
     print(f"[roofline] 10 probes held to their plain versions: largest "
           f"errors {', '.join(f'{k} {v:.3g}' for k, v in err.items())}")
-    del x, y, o, ref
+    del x, y, ref
 
     for fn in rl.PROBES:
         fn.launches = 0
@@ -2033,6 +2180,11 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
           "CUDA-graph replay (CUPTI trace median): " + ", ".join(
               f"{k} {t['us']:.3f} ({t['trace_us']})"
               for k, t in result["probes"].items()))
+    turns = ", ".join(f"{u:.1f}" for u in cal["triad_turns_us"])
+    print(f"[roofline] triad in turns with torch.add(x, y, out=o) (triad, "
+          f"add, add, triad: {turns} us): {cal['stream_gbps']:.1f} against "
+          f"{cal['library_stream_gbps']:.1f} GB/s, time ratio "
+          f"{cal['triad_over_library']:.4f}")
     print(f"[roofline] calibration reduce_us = {cal['reduce_us']:.6g} per "
           f"row reduction, transpose_us = {cal['transpose_us']:.6g} per "
           f"(2048, 8) relayout; fma and tanh at repeat {cal['repeat']}")
@@ -2050,7 +2202,9 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
               f"{row['pct_of_binding']:.1f}% of it; plain "
               f"{row['plain_us']:.1f} us; l2 {row['l2']}; errors {errs}"
               + (f"; streaming twin {row['twin_streaming_us']:.3f} us"
-                 if "twin_streaming_us" in row else ""))
+                 if "twin_streaming_us" in row else "")
+              + (f"; twin {row['twin_us']:.3f} us; operations {row['ops']}"
+                 if "twin_us" in row else ""))
         check(row["pct_of_binding"] <= 105.0 and peak <= 105.0,
               f"{row['kernel']} within 105% of its floor and its peak")
     dec = result["rows"][3]
@@ -2080,14 +2234,22 @@ def phase_roofline(gen) -> tuple[list[dict], dict]:
     # of mu and sigma, the skeleton every word
     skel_bytes = rl.reparam_bytes(rl.RS, rl.RB, rl.RN) + 4 * 3 * rl.RB
     twin_bytes = 4 * (2 * sb * rl.RN + 2 * sb + 5 * rl.RB + 1)
+    # the tanh probe's 16 accurate tanhf a word and repeat, each the
+    # instructions its SASS loop spends on one (phase 2), priced as FMAs
+    tanh_flop = words * (2 * 16 * R * built["tanh_per"] + 7)
+    tanh_us = tanh_flop / FP32_FLOPS_PER_S * 1e6
+    print(f"[roofline] tanh probe's bound: {built['tanh_per']:.2f} "
+          f"instructions a tanhf at the data sheet's FMA rate, "
+          f"{tanh_us / 1e3:.3f} ms against {p['probe_tanh']['us'] / 1e3:.3f} "
+          f"ms ({100 * tanh_us / p['probe_tanh']['us']:.1f}%)")
     rows = [
         _probe_row("probe_triad", 328, p["probe_triad"], plain["probe_triad"],
                    err["probe_triad"], 12 * words, words,
-                   library["probe_triad"]),
+                   cal["timings"]["triad_library"]["us"] / 1e3),
         _probe_row("probe_fma", 204, p["probe_fma"], plain["probe_fma"],
                    err["probe_fma"], 8 * words, words * (128 * R + 15)),
         _probe_row("probe_tanh", 204, p["probe_tanh"], plain["probe_tanh"],
-                   err["probe_tanh"], 8 * words, words * (16 * R + 7)),
+                   err["probe_tanh"], 8 * words, tanh_flop),
         _probe_row("probe_reduce", 204, p["probe_reduce"],
                    plain["probe_reduce"], err["probe_reduce"], 8 * words,
                    16 * words),
@@ -2162,7 +2324,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     card = phase_card()
-    phase_build()
+    built = phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     comps = parse_components(SPEC, fixed_curvature=False)
     kernels = [phase_tail(comps, gen), phase_decode(gen)]
@@ -2176,7 +2338,7 @@ def main() -> int:
         phase_replay(ds, tmp)
         phase_checkpoint(trainer, ds, tmp)
         kernels += phase_stereo_tail(gen)
-        kernels.append(phase_reparam(gen))
+        kernels.append(phase_reparam(gen, built))
         stereo_eval = phase_end_to_end(STEREO_SPEC)
         stereo_train = phase_stereo_train(ds, tmp)
         phase_replay(ds, tmp, STEREO_SPEC, b6=False, free_run=False)
@@ -2189,7 +2351,7 @@ def main() -> int:
         _sample_check(sphere_trainer, SPHERE_SPEC)
         phase_replay(ds, tmp, SPHERE_SPEC, b6=False, free_run=False)
         phase_vmf(ds, tmp)
-        roofline_rows, roofline_launches = phase_roofline(gen)
+        roofline_rows, roofline_launches = phase_roofline(gen, built)
         kernels += roofline_rows
         phase_trace(ds, tmp)
     finally:

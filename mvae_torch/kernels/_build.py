@@ -134,6 +134,39 @@ def build_all() -> dict[str, str]:
     return reports
 
 
+def build_variants(variants: dict, out_dir: Path) -> dict:
+    """Compile variants of kernel sources, to measure them: ``variants``
+    maps a tag to (source path, flags after ``_ARCH`` and ``_COMMON``); each
+    is built into ``out_dir/<tag>.so`` by one nvcc, all started together
+    (the source's directory and ``csrc/`` on the include path), and loaded.
+    Returns tag -> (library, nvcc's report)."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, (src, flags) in variants.items():
+        lib = out_dir / f"{tag}.so"
+        cmd = [nvcc_path(), *_ARCH, *_COMMON, *flags, "-I",
+               str(Path(src).parent), "-I", str(CSRC), "-o", str(lib),
+               str(src)]
+        procs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      lib)
+    built = {}
+    for tag, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {tag}:\n{log}")
+        built[tag] = (ctypes.CDLL(str(lib)), log)
+    return built
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """The lines of an nvcc report that name a kernel or give its
+    registers, stack frame and spills."""
+    return [ln.strip() for ln in report.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built first if needed (process-wide)."""

@@ -30,20 +30,24 @@
 // the reparam twin by operations. Each probe is timed whole: its launch
 // time, not a per-block cost, is the floor it stands for.
 //
-// Design: 16-byte loads throughout. The elementwise probes stride a grid
-// of eight 256-thread blocks per SM over float4 words. The row probes take
-// the launch shape of the kernel they price: the distance kernels'
+// Design: 16-byte loads throughout. The FMA and tanh probes stride a grid of
+// eight 256-thread blocks per SM over float4 words. The triad keeps
+// TRIAD_UNROLL words of each input in flight a thread, with streaming cache
+// hints, a block a tile of 1024 words (the rate must come from bytes in
+// flight: it prices every bytes floor of the port; a grid of 1, 2 or 4 full
+// waves that strides over the tiles reads 2-4% slower on the H100). The row
+// probes take the launch shape of the kernel they price: the distance kernels'
 // (manifold_dist.cu: 256 threads, one warp per row, float4 loads, xor
 // butterfly sums, lane 0 stores) for reduce, the distance skeleton and the
-// stereographic twin; reparam_stereo.cu's (128 threads, one per (sample,
-// example), the example index fastest, z written into rows z_off.. of an
-// (S, Z, B) buffer, the noise read at eps_stride) for the reparam skeleton
-// and twin. The transpose probe stages a (256, 8) tile of each block's rows
-// through shared memory, padded to 9 columns so that the transposed reads
-// hit 32 different banks, eight times (one relayout for each of the TPU
-// probe's eight). The tail skeleton takes the tail kernels' grid and their
-// scalar loads and stores (tail_grid.cuh), so it is timed with the same
-// launch, the same rows per block and the same fold. Built without
+// stereographic twin; reparam_stereo.cu's (128 threads, one per example and 1
+// or 2 samples, the example index fastest, z written into rows z_off.. of an
+// (S, Z, B) buffer, the noise read at eps_stride) for the reparam skeleton and
+// twin. The transpose probe stages a (256, 8) tile of each block's rows
+// through shared memory, padded to 9 columns so that the transposed reads hit
+// 32 different banks, eight times (one relayout for each of the TPU probe's
+// eight). The tail skeleton takes the tail kernels' grid and their scalar
+// loads and stores (tail_grid.cuh), so it is timed with the same launch, the
+// same rows per block and the same fold. Built without
 // --fmad=false: the FMA probe times FFMA.
 //
 // Entry points (plain C, loaded with ctypes; each returns cudaGetLastError()
@@ -56,7 +60,7 @@
 //   int skel_dist_launch(x, y, out (rows,), rows, n, variant, stream)
 //   int twin_stereo_launch(x, y, out (rows,), rows, n, resident, stream)
 //   int skel_reparam_launch(eps, eps_stride, mu, sigma, hoist (3, B), k, zt,
-//                           z_off, lq, lp, S, B, n, Z, stream)
+//                           z_off, lq, lp, S, B, n, Z, spt, stream)
 //   int twin_reparam_launch(the same arguments)
 //   int skel_tail_launch(raw, eps, kvec, dz, daux, out, out_c, dk, part,
 //                        counter, B, W, E, Z, nc, bwd, table, stream):
@@ -75,11 +79,16 @@
 #define ELEM_BLOCKS_PER_SM 8
 #define ROW_THREADS 256
 #define ROW_WARPS (ROW_THREADS / 32)
-#define REP_THREADS 128
+#define REP_THREADS 128   // reparam_stereo.cu's REPARAM_THREADS
 #define REP_MAX_DIM 32
 #define RESIDENT_ROWS 2048
 #define TP_ROWS 256
 #define TP_PAD 9
+
+// Threads of a reparam probe's chunk: one per example and spt samples
+__host__ __device__ inline long long rep_threads(int S, int B, int spt) {
+  return (long long)((S + spt - 1) / spt) * B;
+}
 
 __device__ __forceinline__ float probe_warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -122,21 +131,68 @@ __device__ __forceinline__ float tanh_word(float x, int repeat) {
   return ((a[0] + a[1]) + a[2]) + a[3];
 }
 
+// --- triad (B8b) ---
+// Each thread holds TRIAD_UNROLL 16-byte words of x and of y in flight before
+// its first add: a block takes tiles of ELEM_THREADS * TRIAD_UNROLL words,
+// word u of thread t at t + u * ELEM_THREADS (each load instruction of a warp
+// covers 512 contiguous bytes), grid-stride over the tiles (the launcher gives
+// a block a tile); TRIAD_STREAM reads and writes with the evict-first cache
+// hint (ld.global.cs / st.global.cs: every word is touched once, and the
+// calibration's 1.6 GB rotates through the 50 MB L2 anyway). The knobs exist
+// to measure it (scripts/torch_reparam_phases.py).
+#ifndef TRIAD_UNROLL
+#define TRIAD_UNROLL 4
+#endif
+#ifndef TRIAD_STREAM
+#define TRIAD_STREAM 1
+#endif
+
+__device__ __forceinline__ float4 triad_load(const float4* p) {
+#if TRIAD_STREAM
+  return __ldcs(p);
+#else
+  return *p;
+#endif
+}
+
+__device__ __forceinline__ void triad_store(float4* p, float4 v) {
+#if TRIAD_STREAM
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
 __global__ void __launch_bounds__(ELEM_THREADS)
 probe_triad_kernel(const float4* __restrict__ x, const float4* __restrict__ y,
                    float4* __restrict__ o, long long n4) {
-  const long long step = (long long)gridDim.x * ELEM_THREADS;
-  for (long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
-       i < n4; i += step) {
-    const float4 a = x[i], b = y[i];
-    float4 r;
-    r.x = a.x + b.x;
-    r.y = a.y + b.y;
-    r.z = a.z + b.z;
-    r.w = a.w + b.w;
-    o[i] = r;
+  const long long tile = (long long)ELEM_THREADS * TRIAD_UNROLL;
+  for (long long base = (long long)blockIdx.x * tile + threadIdx.x;
+       base < n4; base += (long long)gridDim.x * tile) {
+    float4 a[TRIAD_UNROLL], b[TRIAD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < TRIAD_UNROLL; ++u) {
+      const long long i = base + (long long)u * ELEM_THREADS;
+      if (i < n4) {
+        a[u] = triad_load(x + i);
+        b[u] = triad_load(y + i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < TRIAD_UNROLL; ++u) {
+      const long long i = base + (long long)u * ELEM_THREADS;
+      if (i < n4) {
+        float4 r;
+        r.x = a[u].x + b[u].x;
+        r.y = a[u].y + b[u].y;
+        r.z = a[u].z + b[u].z;
+        r.w = a[u].w + b[u].w;
+        triad_store(o + i, r);
+      }
+    }
   }
 }
+// --- end triad ---
 
 __global__ void __launch_bounds__(ELEM_THREADS)
 probe_fma_kernel(const float4* __restrict__ x, float4* __restrict__ o,
@@ -368,9 +424,18 @@ twin_stereo_kernel(const float* __restrict__ x, const float* __restrict__ y,
 // (3, B) array `hoist`: sum log sigma, min sigma and |mu|^2, computed once
 // per example by the caller (roofline.reparam_scalars), not once per sample.
 
+// Both take reparam_stereo.cu's launch shape: a thread per example and spt
+// consecutive samples (the caller passes what reparam_stereo_spt gives at
+// the shape), REP_THREADS a block (its REPARAM_THREADS); the per-example
+// words are read once a thread, the last group of a chunk whose S is not a
+// multiple of spt stores nothing for its samples past S - 1.
+
 // The bytes floor of reparam_stereo_kernel: z = eps copied into its rows of
 // the (S, Z, B) buffer, log q = log p = the example's words of mu and sigma
-// folded with one add each, then its hoisted scalars and k
+// folded with one add each, then its hoisted scalars and k. It is a
+// template on the kernel's dimension class N (2, 3, 6: the loops unrolled
+// as the kernel's are; 0: n at run time) and samples a thread SPT
+template <int N, int SPT>
 __global__ void __launch_bounds__(REP_THREADS)
 skel_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
                     const float* __restrict__ mu,
@@ -380,30 +445,40 @@ skel_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
                     int z_off, float* __restrict__ lq,
                     float* __restrict__ lp, int S, int B, int n, int Z) {
   const long long idx = (long long)blockIdx.x * REP_THREADS + threadIdx.x;
-  if (idx >= (long long)S * B) return;
+  if (idx >= rep_threads(S, B, SPT)) return;
+  const int nn = N > 0 ? N : n;
   const int b = (int)(idx % B);
-  const int s = (int)(idx / B);
-  const float* ep = eps + eps_stride * idx;
-  float* zr = zt + ((size_t)s * Z + z_off) * B + b;
-  for (int j = 0; j < n; ++j) zr[(size_t)j * B] = ep[j];
-  const float* m = mu + (size_t)b * n;
-  const float* sg = sigma + (size_t)b * n;
+  const int s0 = (int)(idx / B) * SPT;
+  const float* m = mu + (size_t)b * nn;
+  const float* sg = sigma + (size_t)b * nn;
   float acc = 0.f;
-  for (int j = 0; j < n; ++j) {
+#pragma unroll
+  for (int j = 0; j < nn; ++j) {
     acc += m[j];
     acc += sg[j];
   }
   const float c = (((acc + hoist[b]) + hoist[B + b]) + hoist[2 * B + b])
                   + kptr[0];
-  lq[idx] = c;
-  lp[idx] = c;
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) {
+    const int s = s0 + i;
+    if (s >= S) break;
+    const long long pt = (long long)s * B + b;
+    const float* ep = eps + eps_stride * pt;
+    float* zr = zt + ((size_t)s * Z + z_off) * B + b;
+#pragma unroll
+    for (int j = 0; j < nn; ++j) zr[(size_t)j * B] = ep[j];
+    lq[pt] = c;
+    lp[pt] = c;
+  }
 }
 
 // The compute floor of reparam_stereo_kernel: the TPU probe's counted op
 // volume (_TWIN_FULL_OPS = 9 full-width passes, a _TWIN_PREFIX_OPS = 40
 // prefix, two _TWIN_CHAIN_OPS = 40 chains, an exp every
-// _TWIN_TRANSC_EVERY = 12) in generic multiply-adds; it reads what the TPU
-// twin reads: eps, mu_0, sigma_0, the hoisted scalars and k
+// _TWIN_TRANSC_EVERY = 12) in generic multiply-adds for every sample; it
+// reads what the TPU twin reads: eps, mu_0, sigma_0, the hoisted scalars
+// and k
 __global__ void __launch_bounds__(REP_THREADS)
 twin_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
                     const float* __restrict__ mu,
@@ -411,34 +486,41 @@ twin_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
                     const float* __restrict__ hoist,
                     const float* __restrict__ kptr, float* __restrict__ zt,
                     int z_off, float* __restrict__ lq,
-                    float* __restrict__ lp, int S, int B, int n, int Z) {
+                    float* __restrict__ lp, int S, int B, int n, int Z,
+                    int spt) {
   const long long idx = (long long)blockIdx.x * REP_THREADS + threadIdx.x;
-  if (idx >= (long long)S * B) return;
+  if (idx >= rep_threads(S, B, spt)) return;
   const int b = (int)(idx % B);
-  const int s = (int)(idx / B);
-  const float* ep = eps + eps_stride * idx;
-  float e[REP_MAX_DIM], z[REP_MAX_DIM];
-  for (int j = 0; j < n; ++j) z[j] = e[j] = ep[j];
-  for (int p = 0; p < 9; ++p)
-    for (int j = 0; j < n; ++j) z[j] = z[j] * 1.0000001f + e[j];
-  float* zr = zt + ((size_t)s * Z + z_off) * B + b;
-  for (int j = 0; j < n; ++j) zr[(size_t)j * B] = z[j];
+  const int s0 = (int)(idx / B) * spt;
   const float r = ((hoist[b] + hoist[B + b]) + hoist[2 * B + b]) + kptr[0];
-  float t = (z[0] + mu[(size_t)b * n]) + sigma[(size_t)b * n];
-  for (int i = 0; i < 40; ++i)
-    t = (i % 12 == 11) ? expf(-fabsf(t) * 1e-3f) : t * 1.0000001f + r;
-  float tq = t, tp = t + 1.f;
-  for (int i = 0; i < 40; ++i) {
-    if (i % 12 == 11) {
-      tq = expf(-fabsf(tq) * 1e-3f);
-      tp = expf(-fabsf(tp) * 1e-3f);
-    } else {
-      tq = tq * 1.0000001f + r;
-      tp = tp * 1.0000002f + r;
+  const float m0 = mu[(size_t)b * n], sg0 = sigma[(size_t)b * n];
+  for (int i = 0; i < spt; ++i) {
+    const int s = s0 + i;
+    if (s >= S) break;
+    const long long pt = (long long)s * B + b;
+    const float* ep = eps + eps_stride * pt;
+    float e[REP_MAX_DIM], z[REP_MAX_DIM];
+    for (int j = 0; j < n; ++j) z[j] = e[j] = ep[j];
+    for (int p = 0; p < 9; ++p)
+      for (int j = 0; j < n; ++j) z[j] = z[j] * 1.0000001f + e[j];
+    float* zr = zt + ((size_t)s * Z + z_off) * B + b;
+    for (int j = 0; j < n; ++j) zr[(size_t)j * B] = z[j];
+    float t = (z[0] + m0) + sg0;
+    for (int q = 0; q < 40; ++q)
+      t = (q % 12 == 11) ? expf(-fabsf(t) * 1e-3f) : t * 1.0000001f + r;
+    float tq = t, tp = t + 1.f;
+    for (int q = 0; q < 40; ++q) {
+      if (q % 12 == 11) {
+        tq = expf(-fabsf(tq) * 1e-3f);
+        tp = expf(-fabsf(tp) * 1e-3f);
+      } else {
+        tq = tq * 1.0000001f + r;
+        tp = tp * 1.0000002f + r;
+      }
     }
+    lq[pt] = tq;
+    lp[pt] = tp;
   }
-  lq[idx] = tq;
-  lp[idx] = tp;
 }
 
 // --- the tail's I/O skeleton ------------------------------------------------
@@ -631,16 +713,19 @@ skel_tail_bwd_kernel(const float* __restrict__ raw,
 
 // --- launchers ------------------------------------------------------------
 
-// A grid of ELEM_BLOCKS_PER_SM blocks per SM (a full SM's 2048 threads),
-// fewer when the words run out first
-static inline cudaError_t elem_blocks(long long n4, unsigned* blocks) {
+// A grid of at most per_sm blocks per SM (8: a full SM's 2048 threads), or
+// of one block a tile of `tile` words when per_sm is 0; fewer when the words
+// run out first
+static inline cudaError_t elem_blocks(long long n4, long long tile,
+                                      int per_sm, unsigned* blocks) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long nb = (n4 + ELEM_THREADS - 1) / ELEM_THREADS;
-  const long long cap = (long long)sms * ELEM_BLOCKS_PER_SM;
+  const long long nb = (n4 + tile - 1) / tile;
+  const long long cap = per_sm > 0 ? (long long)sms * per_sm : nb;
+  if (cap > 2147483647LL) return cudaErrorInvalidValue;
   *blocks = (unsigned)(nb < cap ? nb : cap);
   return cudaSuccess;
 }
@@ -662,7 +747,10 @@ extern "C" int probe_triad_launch(const float* x, const float* y, float* o,
   if (n < 0 || n % 4 || !aligned16(x) || !aligned16(y) || !aligned16(o))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const cudaError_t err = elem_blocks(n / 4, &blocks);
+    // a block a tile: on the H100 a capped grid striding over the tiles
+    // read 2-4% slower (scripts/torch_reparam_phases.py)
+    const cudaError_t err = elem_blocks(
+        n / 4, (long long)ELEM_THREADS * TRIAD_UNROLL, 0, &blocks);
     if (err != cudaSuccess) return (int)err;
     probe_triad_kernel<<<blocks, ELEM_THREADS, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(y),
@@ -677,7 +765,8 @@ extern "C" int probe_fma_launch(const float* x, float* o, long long n,
   if (n < 0 || n % 4 || repeat < 1 || !aligned16(x) || !aligned16(o))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const cudaError_t err = elem_blocks(n / 4, &blocks);
+    const cudaError_t err = elem_blocks(n / 4, ELEM_THREADS,
+                                           ELEM_BLOCKS_PER_SM, &blocks);
     if (err != cudaSuccess) return (int)err;
     probe_fma_kernel<<<blocks, ELEM_THREADS, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(o),
@@ -692,7 +781,8 @@ extern "C" int probe_tanh_launch(const float* x, float* o, long long n,
   if (n < 0 || n % 4 || repeat < 1 || !aligned16(x) || !aligned16(o))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const cudaError_t err = elem_blocks(n / 4, &blocks);
+    const cudaError_t err = elem_blocks(n / 4, ELEM_THREADS,
+                                           ELEM_BLOCKS_PER_SM, &blocks);
     if (err != cudaSuccess) return (int)err;
     probe_tanh_kernel<<<blocks, ELEM_THREADS, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(o),
@@ -755,11 +845,11 @@ extern "C" int twin_stereo_launch(const float* x, const float* y, float* out,
 }
 
 static inline bool reparam_grid(int S, int B, int n, int Z, int z_off,
-                                unsigned* blocks) {
+                                int spt, unsigned* blocks) {
   if (S < 0 || B < 0 || n < 1 || n > REP_MAX_DIM || z_off < 0
-      || z_off + n > Z)
+      || z_off + n > Z || spt < 1 || spt > 2)
     return false;
-  return row_grid((long long)S * B, REP_THREADS, blocks);
+  return row_grid(rep_threads(S, B, spt), REP_THREADS, blocks);
 }
 
 extern "C" int skel_reparam_launch(const float* eps, long long eps_stride,
@@ -767,13 +857,24 @@ extern "C" int skel_reparam_launch(const float* eps, long long eps_stride,
                                    const float* hoist, const float* k,
                                    float* zt, int z_off,
                                    float* lq, float* lp, int S, int B, int n,
-                                   int Z, void* stream) {
+                                   int Z, int spt, void* stream) {
   unsigned blocks;
-  if (!reparam_grid(S, B, n, Z, z_off, &blocks))
+  if (!reparam_grid(S, B, n, Z, z_off, spt, &blocks))
     return (int)cudaErrorInvalidValue;
-  if ((long long)S * B > 0)
-    skel_reparam_kernel<<<blocks, REP_THREADS, 0, (cudaStream_t)stream>>>(
-        eps, eps_stride, mu, sigma, hoist, k, zt, z_off, lq, lp, S, B, n, Z);
+  if (rep_threads(S, B, spt) > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+#define SKEL_GO(D)                                                            \
+  (spt == 2 ? skel_reparam_kernel<D, 2> : skel_reparam_kernel<D, 1>)         \
+      <<<blocks, REP_THREADS, 0, st>>>(eps, eps_stride, mu, sigma, hoist, k, \
+                                       zt, z_off, lq, lp, S, B, n, Z)
+    switch (n) {
+      case 2: SKEL_GO(2); break;
+      case 3: SKEL_GO(3); break;
+      case 6: SKEL_GO(6); break;
+      default: SKEL_GO(0);
+    }
+#undef SKEL_GO
+  }
   return (int)cudaGetLastError();
 }
 
@@ -782,13 +883,14 @@ extern "C" int twin_reparam_launch(const float* eps, long long eps_stride,
                                    const float* hoist, const float* k,
                                    float* zt, int z_off,
                                    float* lq, float* lp, int S, int B, int n,
-                                   int Z, void* stream) {
+                                   int Z, int spt, void* stream) {
   unsigned blocks;
-  if (!reparam_grid(S, B, n, Z, z_off, &blocks))
+  if (!reparam_grid(S, B, n, Z, z_off, spt, &blocks))
     return (int)cudaErrorInvalidValue;
-  if ((long long)S * B > 0)
+  if (rep_threads(S, B, spt) > 0)
     twin_reparam_kernel<<<blocks, REP_THREADS, 0, (cudaStream_t)stream>>>(
-        eps, eps_stride, mu, sigma, hoist, k, zt, z_off, lq, lp, S, B, n, Z);
+        eps, eps_stride, mu, sigma, hoist, k, zt, z_off, lq, lp, S, B, n, Z,
+        spt);
   return (int)cudaGetLastError();
 }
 

@@ -28,8 +28,10 @@
 // The stereographic tile (kinds d/p/u) takes the component's static
 // curvature sign (-1, +1, or 0 for the universal kind, whose branch follows
 // the run-time sign of K per row) and its count of wrap-image pairs from the
-// table. Its draw, stereo_draw, is also the body of the IWAE chunk reparam
-// kernel (reparam_stereo.cu, the generic instantiation), so both evaluate
+// table. Its draw, stereo_draw, is stereo_example (the per-example scalars
+// |mu|^2 and sum log sigma) followed by stereo_draw_at (the rest, on those
+// scalars); the IWAE chunk reparam kernel (reparam_stereo.cu) calls the two
+// itself, once per example and once per sample, so tile and kernel evaluate
 // the same expressions. At wraps = 1 (the default) the drawn-radius sum
 // evaluates its 9 branches once, unrolled and independent of one another,
 // and keeps them (LqCommon.t) for the log-sum-exp and the reverse sweep;
@@ -619,30 +621,49 @@ struct StereoSaved {
   float v[TAIL_ARR(N)], zpre[TAIL_ARR(N)], z[TAIL_ARR(N)];
 };
 
-// tail_kernels._stereo_draw: z = mu (+)_K exp_0(sig eps) by per-row Gram
-// coefficients, log q by the drawn-radius branch sum, the prior's log p
+// The per-example scalars of a draw, each summed in coordinate order:
+// |mu|^2 and sum log sigma (tail_kernels._stereo_draw's x2 and ls)
 template <int N>
-__device__ __forceinline__ void stereo_draw(int n, int sign, int wraps, float k,
-                            const float* mu, const float* sig,
-                            const float* eps, float* lq, float* lp,
-                            StereoSaved<N>& s) {
+__device__ __forceinline__ void stereo_example(int n, const float* mu,
+                                               const float* sig, float* x2_out,
+                                               float* ls_out) {
   const int nn = TAIL_DIM(N, n);
-  s.smax = ball_smax(k);
-  float x2 = 0.f, ls = 0.f, vsq = 0.f, xv = 0.f, s2 = 0.f;
+  float x2 = 0.f, ls = 0.f;
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
+    const float t0 = mu[j] * mu[j], t1 = logf(fmaxf(sig[j], TINY));
+    x2 = (j == 0) ? t0 : x2 + t0;
+    ls = (j == 0) ? t1 : ls + t1;
+  }
+  *x2_out = x2;
+  *ls_out = ls;
+}
+
+// tail_kernels._stereo_draw on an example's hoisted scalars: smax =
+// ball_smax(k) and x2, ls from stereo_example, so that a caller drawing
+// several samples of one example computes them once (the IWAE chunk
+// reparam); the same expressions as stereo_draw, bit for bit
+template <int N>
+__device__ __forceinline__ void stereo_draw_at(int n, int sign, int wraps,
+                                               float k, float smax, float x2,
+                                               float ls, const float* mu,
+                                               const float* sig,
+                                               const float* eps, float* lq,
+                                               float* lp, StereoSaved<N>& s) {
+  const int nn = TAIL_DIM(N, n);
+  s.smax = smax;
+  s.x2 = x2;
+  s.ls = ls;
+  float vsq = 0.f, xv = 0.f, s2 = 0.f;
   #pragma unroll
   for (int j = 0; j < nn; ++j) {
     const float vj = sig[j] * eps[j];
     s.v[j] = vj;
-    const float t0 = mu[j] * mu[j], t1 = logf(fmaxf(sig[j], TINY)),
-                t2 = vj * vj, t3 = mu[j] * vj, t4 = eps[j] * eps[j];
-    x2 = (j == 0) ? t0 : x2 + t0;
-    ls = (j == 0) ? t1 : ls + t1;
+    const float t2 = vj * vj, t3 = mu[j] * vj, t4 = eps[j] * eps[j];
     vsq = (j == 0) ? t2 : vsq + t2;
     xv = (j == 0) ? t3 : xv + t3;
     s2 = (j == 0) ? t4 : s2 + t4;
   }
-  s.x2 = x2;
-  s.ls = ls;
   s.vsq = vsq;
   s.xv = xv;
   s.s2 = s2;
@@ -690,6 +711,20 @@ __device__ __forceinline__ void stereo_draw(int n, int sign, int wraps, float k,
   s.ad = arctandiv_u(s.w, sign);
   s.r0 = 2.f * s.sq * s.ad;
   *lp = logp_prior(n, wraps, sign, k, s.r0, s.lp);
+}
+
+// tail_kernels._stereo_draw: z = mu (+)_K exp_0(sig eps) by per-row Gram
+// coefficients, log q by the drawn-radius branch sum, the prior's log p
+template <int N>
+__device__ __forceinline__ void stereo_draw(int n, int sign, int wraps,
+                                            float k, const float* mu,
+                                            const float* sig, const float* eps,
+                                            float* lq, float* lp,
+                                            StereoSaved<N>& s) {
+  float x2, ls;
+  stereo_example<N>(n, mu, sig, &x2, &ls);
+  stereo_draw_at<N>(n, sign, wraps, k, ball_smax(k), x2, ls, mu, sig, eps, lq,
+                    lp, s);
 }
 
 // components.cap_sigma_positive_k for one coordinate: the scale saturating

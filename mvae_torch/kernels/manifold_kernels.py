@@ -4,7 +4,9 @@ distances, each as one kernel launch.
 
 Counterpart of ``mvae_tpu/kernels/manifold_kernels.py``.
 ``wrapped_reparam_stereo_t`` computes, for a whole chunk of importance
-samples of one component,
+samples of one component (a thread per example and one or two samples,
+the example's |mu|^2 and sum log sigma computed once a thread; the vectors
+in registers for n = 2, 3, 6; an instantiation for each curvature sign),
 
     z    = mu (+)_K exp_0(sigma * eps)
     logq = WrappedNormal(mu, sigma).log_prob(z)   (drawn-radius branch sum)
@@ -63,15 +65,47 @@ def wrapped_reparam_stereo_ref(eps, mu, sigma, k, wraps: int = 1,
     return z.transpose(1, 2), lq[..., 0], lp[..., 0]
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    fn = _build.load("reparam_stereo").reparam_stereo_launch
+def bind_reparam(lib):
+    """The ``reparam_stereo_launch`` entry of a built ``reparam_stereo.cu``
+    (the package's, or a variant's), typed for ctypes."""
+    fn = lib.reparam_stereo_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return bind_reparam(_build.load("reparam_stereo"))
+
+
+def reparam_spt(S: int, B: int, n: int, sign: int) -> int:
+    """The samples a thread ``csrc/reparam_stereo.cu`` takes at (S, B, n)
+    and this curvature sign on the current card: 1 while a thread per point
+    fits on the card at once, else 2."""
+    fn = _build.load("reparam_stereo").reparam_stereo_spt
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    spt = fn(S, B, n, sign)
+    if spt < 1:
+        _build.check(-spt, "reparam_stereo_spt")
+    return spt
+
+
+def reparam_launch(fn, eps, mu, sigma, k1, out, z_off, lq, lp, sign, wraps):
+    """One launch of a ``bind_reparam`` entry on CUDA tensors the caller
+    has checked: eps (S, B, n) with unit stride along n and its rows
+    ``eps.stride(1)`` apart, contiguous mu, sigma (B, n), k1 (1,), out
+    (S, Z, B), lq and lp (S, B). No launch count: the wrapper keeps it."""
+    S, B, n = eps.shape
+    stream = torch.cuda.current_stream(eps.device).cuda_stream
+    _build.check(fn(eps.data_ptr(), eps.stride(1), mu.data_ptr(),
+                    sigma.data_ptr(), k1.data_ptr(), out.data_ptr(), z_off,
+                    lq.data_ptr(), lp.data_ptr(), S, B, n, out.shape[1], sign,
+                    wraps, stream), "reparam_stereo_launch")
 
 
 def wrapped_reparam_stereo_t(eps, mu, sigma, k, wraps: int = 1,
@@ -120,11 +154,8 @@ def wrapped_reparam_stereo_t(eps, mu, sigma, k, wraps: int = 1,
     k1 = k.detach().reshape(1)
     lq = torch.empty((S, B), dtype=torch.float32, device=eps.device)
     lp = torch.empty((S, B), dtype=torch.float32, device=eps.device)
-    stream = torch.cuda.current_stream(eps.device).cuda_stream
-    _build.check(_lib()(eps.data_ptr(), eps.stride(1), mu.data_ptr(),
-                        sigma.data_ptr(), k1.data_ptr(), out.data_ptr(),
-                        z_off, lq.data_ptr(), lp.data_ptr(), S, B, n, Z,
-                        sign, wraps, stream), "reparam_stereo_launch")
+    reparam_launch(_lib(), eps, mu, sigma, k1, out, z_off, lq, lp, sign,
+                   wraps)
     wrapped_reparam_stereo_t.launches += 1
     check_outputs("reparam_stereo", zt, lq, lp)
     return zt, lq, lp

@@ -4,7 +4,8 @@ each kernel takes against a floor measured on the same card, not quoted.
 Counterpart of ``mvae_tpu/kernels/roofline.py``. Two pieces, as there:
 
 1. **Calibration** (``calibrate``), measured on the card: the HBM stream
-   rate of a triad ``o = x + y`` (``probe_triad``), the FP32 FMA rate
+   rate of a triad ``o = x + y`` (``probe_triad``, timed in turns with
+   ``torch.add(x, y, out=o)``), the FP32 FMA rate
    (``probe_fma``: 8 independent chains of 8 FMAs a word, run ``repeat``
    times), the accurate-tanh rate (``probe_tanh``), the cost of one row
    reduction (``probe_reduce``: a warp per row, shuffles) and of one (2048,
@@ -16,21 +17,25 @@ Counterpart of ``mvae_tpu/kernels/roofline.py``. Two pieces, as there:
    measurement broke: it is measured once more and then raises
    ``CalibrationError``. There is no nominal fallback.
 
-2. **Binding floors** for the kernels the reference measured (``main``):
-   for each, an I/O skeleton with the kernel's exact launch shape and reads
+2. **Binding floors** for the kernels the reference measured (``main``): for
+   each, an I/O skeleton with the kernel's exact launch shape and reads
    (``skel_dist``, ``skel_reparam``: the bytes floor) and a synthetic twin
    that does a lower bound of its operations (``twin_stereo``,
    ``twin_reparam``: the compute floor; ``resident=True`` keeps the twin's
-   input in L2 so its time is the arithmetic's). A kernel's binding floor
-   is the larger of the two whole-launch times: blocks run in parallel on
-   132 SMs, so the TPU's per-block cost times the number of blocks does not
-   apply. Where the reference has no twin, the floor is priced from the
-   calibrated rates and says so: B2's is the largest of its 3xTF32 tensor
-   products at the calibrated TF32 rate, its FP32 part (the h product and
-   the epilogue at the FMA rate, two transcendentals a logit at the tanh
-   rate) and its bytes at the stream rate; B6's (``train_decode_floors``)
-   the larger of its two products at the FMA rate and its bytes, and the
-   same three floors as B2's for the kernel as built.
+   input in L2 so its time is the arithmetic's). B5's compute floor is its
+   plain version's operations (``reparam_ops``) priced at the calibrated
+   rates, arithmetic at the FMA rate and each transcendental at the tanh
+   rate (``ops_us``); its twin stays in the row as a second reading. A
+   kernel's binding floor is the larger of the two whole-launch times:
+   blocks run in parallel on 132 SMs, so the TPU's per-block cost times the
+   number of blocks does not apply. Where the reference has no twin, the
+   floor is priced from the calibrated rates and says so: B2's is the
+   largest of its 3xTF32 tensor products at the calibrated TF32 rate, its
+   FP32 part (the h product and the epilogue at the FMA rate, two
+   transcendentals a logit at the tanh rate) and its bytes at the stream
+   rate; B6's (``train_decode_floors``) the larger of its two products at
+   the FMA rate and its bytes, and the same three floors as B2's for the
+   kernel as built.
 
 The probes are one CUDA source, ``csrc/roofline_probes.cu`` (replaces the
 TPU kernels ``_elementwise_call`` with ``_fma_kernel``, ``_tanh_kernel``,
@@ -59,8 +64,10 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -141,9 +148,9 @@ _ARGTYPES = {
     "skel_dist_launch": [_VP, _VP, _VP, _LL, _INT, _INT],
     "twin_stereo_launch": [_VP, _VP, _VP, _LL, _INT, _INT],
     "skel_reparam_launch": [_VP, _LL] + [_VP] * 5 + [_INT] + [_VP] * 2
-                           + [_INT] * 4,
+                           + [_INT] * 5,
     "twin_reparam_launch": [_VP, _LL] + [_VP] * 5 + [_INT] + [_VP] * 2
-                           + [_INT] * 4,
+                           + [_INT] * 5,
     "skel_tail_launch": [_VP] * 10 + [_INT] * 6 + [_VP],
 }
 
@@ -225,14 +232,19 @@ def probe_triad_ref(x, y):
     return x + y
 
 
-def probe_triad(x, y):
-    """HBM stream probe o = x + y (B8b); 16-byte loads, grid-stride."""
+def probe_triad(x, y, out=None):
+    """HBM stream probe o = x + y (B8b): several 16-byte words of each input
+    in flight a thread, streaming cache hints; into ``out`` (contiguous, of
+    x's shape) when given, as ``torch.add(x, y, out=o)`` writes o."""
     if x.shape != y.shape:
         raise ValueError("x and y must have one shape")
-    if not _on_card("probe_triad", x, y):
-        return probe_triad_ref(x, y)
+    if out is not None and (out.shape != x.shape or not out.is_contiguous()):
+        raise ValueError("out must be contiguous and of x's shape")
+    if not _on_card("probe_triad", x, y, *(() if out is None else (out,))):
+        o = probe_triad_ref(x, y)
+        return o if out is None else out.copy_(o)
     x, y = x.contiguous(), y.contiguous()
-    o = torch.empty_like(x)
+    o = torch.empty_like(x) if out is None else out
     _launch("probe_triad_launch", x.device, x.data_ptr(), y.data_ptr(),
             o.data_ptr(), x.numel())
     _launched(probe_triad, o)
@@ -483,7 +495,9 @@ def _reparam_probe(wrapper, entry, ref, eps, mu, sigma, k, scalars, out,
     and sigma (B, n), k one value; ``scalars`` the (3, B) hoisted inputs
     (``reparam_scalars(mu, sigma)`` when None: pass them to keep their
     computation out of a timed call); with ``out`` (S, Z, B) z goes to its
-    rows z_off .. z_off + n. Returns (zt, lq, lp)."""
+    rows z_off .. z_off + n. On the card the probe takes the samples a
+    thread B5 takes at the shape and sign -1 (``reparam_spt``; the
+    production chunk's sign). Returns (zt, lq, lp)."""
     if eps.dim() != 3:
         raise ValueError(f"eps must be (S, B, n), got {tuple(eps.shape)}")
     S, Bb, n = eps.shape
@@ -519,8 +533,8 @@ def _reparam_probe(wrapper, entry, ref, eps, mu, sigma, k, scalars, out,
     lp = torch.empty((S, Bb), dtype=torch.float32, device=eps.device)
     _launch(entry, eps.device, eps.data_ptr(), eps.stride(1), mu.data_ptr(),
             sigma.data_ptr(), scalars.data_ptr(), k1.data_ptr(),
-            out.data_ptr(), z_off,
-            lq.data_ptr(), lp.data_ptr(), S, Bb, n, Z)
+            out.data_ptr(), z_off, lq.data_ptr(), lp.data_ptr(), S, Bb, n, Z,
+            manifold_kernels.reparam_spt(S, Bb, n, -1))
     _launched(wrapper, zt, lq, lp)
     return zt, lq, lp
 
@@ -746,33 +760,53 @@ _REDUCTIONS = frozenset(("sum", "mean", "amax", "amin", "max", "min",
                          "logsumexp", "prod"))
 
 
-def op_count(fn, *args, **kwargs) -> int:
-    """Operations ``fn(*args, **kwargs)`` runs, as PyTorch runs them: one
-    per element of each arithmetic op's output, one per input element of a
-    reduction, a transcendental one like an add; ops that move, make or
+# aten ops an accurate float32 library function evaluates, each many
+# instructions (priced at the calibrated tanh rate); square roots, divisions
+# and reciprocals stay arithmetic (a few instructions: a lower count)
+_TRANSCENDENTAL = frozenset((
+    "exp", "exp2", "expm1", "log", "log2", "log10", "log1p", "sin", "cos",
+    "tan", "tanh", "sinh", "cosh", "asin", "acos", "atan", "atan2", "asinh",
+    "acosh", "atanh", "pow", "erf", "erfc", "sigmoid"))
+
+
+def op_split(fn, *args, **kwargs) -> dict:
+    """Operations ``fn(*args, **kwargs)`` runs, as PyTorch runs them, split
+    into ``arithmetic`` and ``transcendental`` (an op of ``_TRANSCENDENTAL``,
+    one per element of its output): one per element of each arithmetic op's
+    output, one per input element of a reduction; ops that move, make or
     view data count none. Exact for the plain versions, which run each
     expression of a kernel as one op (both sides of a branch where the
     kernel takes one)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    class _Count(TorchDispatchMode):
-        ops = 0
+    counts = {"arithmetic": 0, "transcendental": 0}
 
+    class _Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func._schema.name.split("::")[-1]
             if name in _REDUCTIONS:
                 src = args[0]
-                _Count.ops += src.numel() if torch.is_tensor(src) else 0
+                counts["arithmetic"] += (src.numel() if torch.is_tensor(src)
+                                         else 0)
             elif name not in _NO_ARITH:
                 res = out[0] if isinstance(out, (tuple, list)) else out
                 if torch.is_tensor(res):
-                    _Count.ops += res.numel()
+                    kind = ("transcendental"
+                            if name.rstrip("_") in _TRANSCENDENTAL
+                            else "arithmetic")
+                    counts[kind] += res.numel()
             return out
 
     with _Count():
         fn(*args, **kwargs)
-    return _Count.ops
+    return counts
+
+
+def op_count(fn, *args, **kwargs) -> int:
+    """``op_split``'s two counts summed: a transcendental one like an
+    add."""
+    return sum(op_split(fn, *args, **kwargs).values())
 
 
 def tail_ops(comps, raw, eps, k, dz=None, daux=None) -> int:
@@ -796,6 +830,77 @@ def tail_floors(skel_us: float, ops: int, cal: dict) -> dict:
             "operations": ops / (cal["fma_tflops"] * 1e6)}
 
 
+def reparam_ops(S: int, Bb: int, n: int, sign: int, wraps: int = 1) -> dict:
+    """``op_split`` of the chunk reparam's plain version
+    (``wrapped_reparam_stereo_ref``) at (S, B, n), on CPU inputs made here:
+    its counts depend on the shapes and the branch (sign, wraps) alone. The
+    plain version computes |mu|^2 and sum log sigma on (B, n), once per
+    example, as the kernel does."""
+    g = torch.Generator().manual_seed(0)
+    eps = torch.randn(S, Bb, n, generator=g)
+    mu = 0.1 * torch.randn(Bb, n, generator=g)
+    sig = 0.5 + torch.rand(Bb, n, generator=g)
+    k = torch.tensor(float(sign) if sign else 0.5)
+    return op_split(manifold_kernels.wrapped_reparam_stereo_ref, eps, mu, sig,
+                    k, wraps=wraps, sign=sign)
+
+
+def ops_us(ops: dict, cal: dict) -> float:
+    """An ``op_split`` count's time at the calibrated rates: arithmetic at
+    ``fma_tflops``, each transcendental at ``tanh_gops``."""
+    return (ops["arithmetic"] / (cal["fma_tflops"] * 1e6)
+            + ops["transcendental"] / (cal["tanh_gops"] * 1e3))
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_loops(sass: str, kernel: str) -> list[dict]:
+    """The loops of ``kernel`` in ``cuobjdump -sass`` text: for every
+    backward branch, the instructions from its target to it (``count``)
+    and, of those, the MUFU.EX2 and MUFU.TANH (``tanh``: an accurate
+    ``tanhf`` issues one MUFU.EX2)."""
+    parts = re.split(r"\n\s*Function : ", sass)
+    body = next((p for p in parts[1:] if kernel in p.split("\n", 1)[0]),
+                None)
+    if body is None:
+        raise RuntimeError(f"no function {kernel} in the SASS")
+    insns = [(int(a, 16), op, rest) for a, op, rest in
+             _SASS_INSN.findall(body)]
+    loops = []
+    for addr, op, rest in insns:
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and target and int(target[1], 16) <= addr:
+            lo = int(target[1], 16)
+            ops = [o for a, o, _ in insns if lo <= a <= addr]
+            loops.append({"start": lo, "end": addr, "count": len(ops),
+                          "tanh": sum(o in ("MUFU.EX2", "MUFU.TANH")
+                                      for o in ops)})
+    return loops
+
+
+def tanh_instructions(sass: str | None = None) -> dict:
+    """The instructions one accurate ``tanhf`` takes in the tanh probe as
+    built: of ``probe_tanh_kernel``'s loops (``sass_loops``), the one with
+    the most tanh, its instruction count (loop overhead included) over its
+    tanh count (``per_tanh``). ``sass`` defaults to ``cuobjdump -sass`` of
+    the built ``roofline_probes`` library."""
+    if sass is None:
+        _build.load("roofline_probes")
+        tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+        sass = subprocess.run(
+            [str(tool), "-sass", str(_build.library_path("roofline_probes"))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+    loops = [lp for lp in sass_loops(sass, "probe_tanh_kernel")
+             if lp["tanh"]]
+    if not loops:
+        raise RuntimeError("no loop of probe_tanh_kernel evaluates a tanh")
+    best = max(loops, key=lambda lp: lp["tanh"])
+    return {"instructions": best["count"], "tanh": best["tanh"],
+            "per_tanh": best["count"] / best["tanh"]}
+
+
 def lorentz_compute_us(rows: int, n: int, cal: dict) -> float:
     """The B7b compute price from the calibrated rates: per row 3 n FLOP
     (n subtractions, n FMAs) and the tail's FLOP over ``fma_tflops``, one
@@ -807,7 +912,9 @@ def lorentz_compute_us(rows: int, n: int, cal: dict) -> float:
 
 def rates(times_us: dict, repeat: int) -> dict:
     """Calibrated rates from the probes' device times (us per launch) at
-    (B, N): the stream rate counts 3 words a triad element, the FMA
+    (B, N): the stream rate counts 3 words a triad element (and
+    ``library_stream_gbps`` the same words for ``torch.add`` timed in turns
+    with it, ``triad_over_library`` the time ratio), the FMA
     rate 128 * repeat FLOP a word, the tanh rate 16 * repeat a word;
     ``reduce_us`` is one row's reduction (8 a row), ``transpose_us`` one
     (2048, 8) relayout (8 per 2048 rows); ``*_gbps`` the bytes the reduce
@@ -823,6 +930,9 @@ def rates(times_us: dict, repeat: int) -> dict:
         "transpose_us": times_us["transpose"] / (rows / 2048 * 8),
         "transpose_gbps": 4 * (rows * 8 + words) / t["transpose"] / 1e9,
     }
+    if "triad_library" in t:
+        out["library_stream_gbps"] = 3 * 4 * words / t["triad_library"] / 1e9
+        out["triad_over_library"] = t["triad"] / t["triad_library"]
     if "gemm" in t:
         out["bf16_tflops"] = 4 * 2 * GEMM_M ** 3 / t["gemm"] / 1e12
     if "gemm_tf32" in t:
@@ -1007,8 +1117,21 @@ def _gemm_chain(x, w):
 def _calibrate_once() -> dict:
     x = _normal((B, N), 0, 0.05)
     y = _normal((B, N), 1, 0.05)
+    o = torch.empty_like(x)
+
+    def triad():
+        return measure(lambda: probe_triad(x, y, out=o),
+                       "probe_triad_kernel")
+
+    def library():
+        return measure(lambda: torch.add(x, y, out=o), graph=True)
+
+    # in turns with the library call of the same function: triad, library,
+    # library, triad
+    turns = [triad(), library(), library(), triad()]
     tm = {
-        "triad": measure(lambda: probe_triad(x, y), "probe_triad_kernel"),
+        "triad": mean_timing(turns[0], turns[3]),
+        "triad_library": mean_timing(turns[1], turns[2]),
         "fma": measure(lambda: probe_fma(x, CAL_REPEAT), "probe_fma_kernel"),
         "tanh": measure(lambda: probe_tanh(x, CAL_REPEAT),
                         "probe_tanh_kernel"),
@@ -1016,7 +1139,7 @@ def _calibrate_once() -> dict:
         "transpose": measure(lambda: probe_transpose(x),
                              "probe_transpose_kernel"),
     }
-    del x, y
+    del x, y, o
     a = _normal((GEMM_M, GEMM_M), 2)
     w = _normal((GEMM_M, GEMM_M), 3, GEMM_M ** -0.5)
     with _tf32(True):
@@ -1025,6 +1148,7 @@ def _calibrate_once() -> dict:
     tm["gemm"] = measure(lambda: _gemm_chain(a, w), graph=True)
     cal = rates({k: v.us for k, v in tm.items()}, CAL_REPEAT)
     cal["repeat"] = CAL_REPEAT
+    cal["triad_turns_us"] = [t.us for t in turns]
     cal["timings"] = {k: dataclasses.asdict(v) for k, v in tm.items()}
     return cal
 
@@ -1181,11 +1305,14 @@ def _row_reparam(cal):
     ref = manifold_kernels.wrapped_reparam_stereo_ref(
         eps.double(), mu.double(), sig.double(), k.double(), sign=-1)
     err = max(max_rel_err(a, b) for a, b in zip(got, ref))
+    ops = reparam_ops(RS, RB, RN, -1)
     return {"kernel": "B5 reparam_stereo",
             "shape": f"S={RS} n={RN} B={RB}, sign -1, K = -1 "
                      "(production IWAE chunk)",
             "us": t.us, **peak_share(t.us, nbytes),
-            **binding(t.us, {"skeleton": skel.us, "twin": twin.us}),
+            **binding(t.us, {"skeleton": skel.us,
+                             "operations": ops_us(ops, cal)}),
+            "ops": ops, "twin_us": twin.us,
             "plain_us": plain.us, "max_rel_err_vs_f64": err,
             "l2": f"rotating {n_sets} buffer sets of {nbytes} B",
             "timings": {"kernel": _timing(t), "skeleton": _timing(skel),

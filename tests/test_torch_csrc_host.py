@@ -162,15 +162,76 @@ extern "C" void host_run(const float* raw, const float* eps, const float* k,
 }
 """,
     "reparam_stereo": r"""
+template <int D, int SPT>
+static void run_reparam(const float* eps, long long stride, const float* mu,
+                        const float* sigma, const float* k, float* zt,
+                        int z_off, float* lq, float* lp, int S, int B, int n,
+                        int Z, int sign, int wraps) {
+  for (long long i = 0; i < reparam_threads(S, B, SPT); ++i) {
+    blockIdx.x = (int)(i / REPARAM_THREADS);
+    threadIdx.x = (int)(i % REPARAM_THREADS);
+    if (sign < 0)
+      reparam_stereo_kernel<D, SPT, -1>(eps, stride, mu, sigma, k, zt, z_off,
+                                        lq, lp, S, B, n, Z, sign, wraps);
+    else if (sign > 0)
+      reparam_stereo_kernel<D, SPT, 1>(eps, stride, mu, sigma, k, zt, z_off,
+                                       lq, lp, S, B, n, Z, sign, wraps);
+    else
+      reparam_stereo_kernel<D, SPT, 0>(eps, stride, mu, sigma, k, zt, z_off,
+                                       lq, lp, S, B, n, Z, sign, wraps);
+  }
+}
+
+template <int D>
+static void run_spt(const float* eps, long long stride, const float* mu,
+                    const float* sigma, const float* k, float* zt, int z_off,
+                    float* lq, float* lp, int S, int B, int n, int Z,
+                    int sign, int wraps, int spt) {
+  if (spt == 2)
+    run_reparam<D, 2>(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B, n,
+                      Z, sign, wraps);
+  else
+    run_reparam<D, 1>(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B, n,
+                      Z, sign, wraps);
+}
+
+// The kernel, thread after thread, on the instantiation the launcher picks
+// for n, the sign and spt samples a thread
 extern "C" void host_run(const float* eps, long long stride, const float* mu,
                          const float* sigma, const float* k, float* zt,
                          int z_off, float* lq, float* lp, int S, int B, int n,
-                         int Z, int sign, int wraps) {
+                         int Z, int sign, int wraps, int spt) {
+  switch (reparam_dim_class(n)) {
+    case 2: run_spt<2>(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B, n,
+                       Z, sign, wraps, spt); break;
+    case 3: run_spt<3>(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B, n,
+                       Z, sign, wraps, spt); break;
+    case 6: run_spt<6>(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B, n,
+                       Z, sign, wraps, spt); break;
+    default: run_spt<0>(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B,
+                        n, Z, sign, wraps, spt);
+  }
+}
+
+// The generic draw a point at a time: stereo_draw<0>, the per-example
+// scalars recomputed for every sample
+extern "C" void host_generic(const float* eps, long long stride,
+                             const float* mu, const float* sigma,
+                             const float* k, float* zt, int z_off, float* lq,
+                             float* lp, int S, int B, int n, int Z, int sign,
+                             int wraps, int) {
   for (long long i = 0; i < (long long)S * B; ++i) {
-    blockIdx.x = (int)(i / THREADS);
-    threadIdx.x = (int)(i % THREADS);
-    reparam_stereo_kernel(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B,
-                          n, Z, sign, wraps);
+    const int b = (int)(i % B), s = (int)(i / B);
+    float m[MAX_DIM], sg[MAX_DIM], e[MAX_DIM];
+    for (int j = 0; j < n; ++j) {
+      m[j] = mu[b * n + j];
+      sg[j] = sigma[b * n + j];
+      e[j] = eps[stride * i + j];
+    }
+    StereoSaved<0> sv;
+    stereo_draw<0>(n, sign, wraps, k[0], m, sg, e, lq + i, lp + i, sv);
+    for (int j = 0; j < n; ++j)
+      zt[((long long)s * Z + z_off + j) * B + b] = sv.z[j];
   }
 }
 """,
@@ -218,7 +279,9 @@ def host_libs(tmp_path_factory):
     libs = {}
     for name, harness in _HARNESS.items():
         source = CSRC / f"{name}.cu"
-        body = (source.read_text().split('extern "C"')[0] if source.exists()
+        text = source.read_text() if source.exists() else ""
+        body = (text.split("// --- launchers")[0] if "// --- launchers" in text
+                else text.split('extern "C"')[0] if text
                 else f'#include "{name}.cuh"\n')
         src = work / f"{name}.cpp"
         src.write_text(body + harness)
@@ -226,8 +289,12 @@ def host_libs(tmp_path_factory):
         subprocess.run([gxx, "-O1", "-ffp-contract=off", "-shared", "-fPIC",
                         "-I", str(work), "-o", str(out), str(src)],
                        check=True, capture_output=True, text=True)
-        libs[name] = ctypes.CDLL(str(out)).host_run
+        lib = ctypes.CDLL(str(out))
+        libs[name] = lib.host_run
         libs[name].restype = None
+        if name == "reparam_stereo":
+            libs["reparam_generic"] = lib.host_generic
+            libs["reparam_generic"].restype = None
     return libs
 
 
@@ -407,7 +474,7 @@ def test_reparam_source_matches_plain_version(host_libs, sign, kval, wraps,
     host_libs["reparam_stereo"](
         _ptr(eps), ctypes.c_longlong(E), _ptr(mu), _ptr(sigma),
         _ptr(k.reshape(1)), _ptr(zt), z_off, _ptr(lq), _ptr(lp), S, B, n, Z,
-        sign, wraps)
+        sign, wraps, 2)
     z_r, lq_r, lp_r = tmk.wrapped_reparam_stereo_ref(eps, mu, sigma, k,
                                                      wraps=wraps, sign=sign)
     _, lq64, lp64 = tmk.wrapped_reparam_stereo_ref(
@@ -418,6 +485,53 @@ def test_reparam_source_matches_plain_version(host_libs, sign, kval, wraps,
     assert bool(((z - z_r).abs() <= 1e-5 * (1 + z_r.abs())).all())
     _held(lq, lq_r, lq64, 1e-4 * (1 + 1e-2 * lq_r.abs()), 0.9)
     _held(lp, lp_r, lp64, 1e-4 * (1 + 1e-2 * lp_r.abs()), 0.9)
+
+
+def _reparam_inputs(n, kval, seed, S=5, B=37, E=None):
+    """Noise as a strided view of a wider (S, B, E) block, means and scales
+    (inside the K < 0 ball, every 9th example at its rim)."""
+    E = n + 4 if E is None else E
+    g = torch.Generator().manual_seed(seed)
+    eps = torch.randn(S, B, E, generator=g)[..., 1:1 + n]
+    mu = 0.4 * torch.randn(B, n, generator=g)
+    sigma = 0.1 + 1.5 * torch.rand(B, n, generator=g)
+    if kval < 0:
+        mu = 0.5 * mu / max(-kval, 1.0) ** 0.5
+        mu[::9] *= 0.9999 / (-kval) ** 0.5 / mu[::9].norm(dim=1, keepdim=True)
+    return eps, mu, sigma, torch.tensor([kval])
+
+
+@pytest.mark.parametrize("sign,kval", [(-1, -1.0), (0, -0.5), (0, 0.0),
+                                       (0, 0.9), (1, 1.0), (1, 0.3)])
+@pytest.mark.parametrize("wraps", [0, 1])
+@pytest.mark.parametrize("n,spt", [(2, 1), (2, 2), (3, 2), (6, 1), (6, 2),
+                                   (7, 2)])
+def test_reparam_hoisted_draw_is_bit_equal_to_generic_draw(host_libs, sign,
+                                                           kval, wraps, n,
+                                                           spt):
+    """The kernel (its per-example scalars once a thread, its samples drawn
+    by stereo_draw_at on the instantiation for n: 2, 3, 6, else the generic
+    one) against the generic draw a point at a time (stereo_draw<0>, which
+    recomputes the scalars for every sample): z, log q and log p bit for
+    bit, a sample a thread and two (over an S that leaves the last thread a
+    sample short)."""
+    S, B, Z, z_off = 5, 37, n + 3, 2
+    eps, mu, sigma, k = _reparam_inputs(n, kval, 40 + n + wraps)
+    outs = []
+    for name in ("reparam_stereo", "reparam_generic"):
+        zt = torch.full((S, Z, B), 7.0)
+        lq = torch.full((S, B), float("nan"))
+        lp = torch.full((S, B), float("nan"))
+        host_libs[name](_ptr(eps), ctypes.c_longlong(eps.stride(1)),
+                        _ptr(mu), _ptr(sigma), _ptr(k), _ptr(zt), z_off,
+                        _ptr(lq), _ptr(lp), S, B, n, Z, sign, wraps, spt)
+        outs.append((zt, lq, lp))
+    (zt, lq, lp), (zt0, lq0, lp0) = outs
+    assert bool(torch.isfinite(lq).all() and torch.isfinite(lp).all())
+    assert torch.equal(zt, zt0) and torch.equal(lq, lq0)
+    assert torch.equal(lp, lp0)
+    assert bool((zt[:, :z_off] == 7.0).all() and (zt[:, z_off + n:] == 7.0)
+                .all())
 
 
 def _sphere_floor_rows(comps, kval, seed):

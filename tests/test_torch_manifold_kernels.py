@@ -226,6 +226,55 @@ def test_kernel_matches_plain_version_on_card(cuda_device, sign, k, wraps, n):
         assert float((ours - ref).abs()[res].max()) <= 1e-4
 
 
+def _held(ours, ref, ref64, tol):
+    """chip_smoke's rule: within ``tol`` of the float32 plain version where
+    float32 resolves the value (``ref`` within a tenth of ``tol`` of float64),
+    elsewhere (the K < 0 ball's rim) finite and no farther from float64 than
+    ten times the plain version."""
+    assert bool(torch.isfinite(ours).all())
+    plain_err = (ref.double() - ref64).abs()
+    res = plain_err <= 0.1 * tol
+    assert float(res.double().mean()) >= 0.5
+    assert float(((ours - ref).abs() / tol)[res].max()) <= 1.0
+    far = (ours.double() - ref64).abs() / (plain_err + tol)
+    assert float(far.max()) <= 10.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 6, 7])
+@pytest.mark.parametrize("sign,k", [(-1, -1.0), (0, -0.5), (0, 0.9),
+                                    (1, 1.0)])
+@pytest.mark.parametrize("S,B", [(125, 512), (125, 2048), (3, 37)])
+def test_instantiations_match_plain_version_on_card(cuda_device, n, sign, k,
+                                                    S, B):
+    """Each instantiation (n = 2, 3, 6 in registers, 7 the generic one) at
+    a sample a thread (S B fits on the card) and two (the production chunk
+    does not; S = 3 leaves the last thread a sample short), every 7th
+    example's mean at the K < 0 ball's rim: z within 1e-5 (1 + |z|) and
+    the log-densities within 1e-4 (1 + 0.01 |ref|) of the plain version
+    where float32 resolves them, as chip_smoke holds them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7 * n + S)
+    eps = torch.randn(S, B, n + 1, generator=gen, device=cuda_device)[..., 1:]
+    kt = torch.tensor(k, device=cuda_device)
+    mu = t_stereo.exp_map_mu0(
+        0.3 * torch.randn(B, n, generator=gen, device=cuda_device)
+        / max(abs(k), 1.0) ** 0.5, kt)
+    if k < 0:
+        mu[::7] *= (1 - 1e-7) / (-k) ** 0.5 / mu[::7].norm(dim=1,
+                                                            keepdim=True)
+    sig = 0.2 + torch.rand(B, n, generator=gen, device=cuda_device)
+    got = tmk.wrapped_reparam_stereo_t(eps, mu, sig, kt, sign=sign)
+    ref = tmk.wrapped_reparam_stereo_ref(eps, mu, sig, kt, sign=sign)
+    ref64 = tmk.wrapped_reparam_stereo_ref(eps.double(), mu.double(),
+                                           sig.double(), kt.double(),
+                                           sign=sign)
+    torch.cuda.synchronize()
+    assert tmk.reparam_spt(S, B, n, sign) in (1, 2)
+    _held(got[0], ref[0], ref64[0], 1e-5 * (1 + ref[0].abs()))
+    for ours, r, r64 in zip(got[1:], ref[1:], ref64[1:]):
+        _held(ours, r, r64, 1e-4 * (1 + 1e-2 * r.abs()))
+
+
 # --- the geodesic distances -----------------------------------------------------
 
 DIST_KS = [-1.0, -1e-3, 0.0, 1e-3, 1.0]
