@@ -10,7 +10,7 @@ Phases:
     B1 tail_fwd, B2 decode_bce, B3 tail_bwd, B6 train_decode,
     B5 reparam_stereo, B7 manifold_dist, B8 roofline_probes; B4a and B4b
     live in the header B1 and B3 share) and, beside them, B5's previous
-    design from the same source by its build knobs (``PREVIOUS_REPARAM``),
+    design (``scripts/reparam_stereo_previous.cu``, ``PREVIOUS_REPARAM``),
     printing ptxas's registers, stack frame and spills of each kernel
     instantiation (B5's 24 one by one: n = 2, 3, 6 and generic, one or two
     samples a thread, each curvature sign; those for n = 2, 3, 6 must spill
@@ -76,9 +76,11 @@ Phases:
     the previous design (kernel, previous, previous, kernel) at (125, 512,
     2) sign +1 and -1, (125, 512, 6) sign 0 and the production chunk (125,
     2048, 6) sign -1 over rotating buffer sets, faster on every row; its
-    operation bound is its plain version's operations
-    (``roofline.reparam_ops``), arithmetic at 67 TFLOP/s and each
-    transcendental at phase 2's tanhf instruction count;
+    operation bound is the operations its plain version needs on the
+    timed row's inputs, each point on the branch it takes and the wrap
+    branches' sine once (``roofline.reparam_ops``), each arithmetic op one
+    FMA issue slot at 67 TFLOP/s and each transcendental phase 2's tanhf
+    instruction count of them;
 14. the stereographic family end to end, d2,p2,e2 at h_dim 400 with
     learnable curvature: test ELBO and IWAE-500 over the 10,000-example
     test split through B1 (+B4a), B5 and B2 with launch counts (20, 160,
@@ -180,6 +182,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -368,11 +371,11 @@ def phase_card() -> str:
     return card
 
 
-# B5's previous design, built from this checkout's source by its knobs: a
-# thread per (sample, example) through the generic draw, the per-example
-# scalars recomputed for every sample, the sign taken at run time
-PREVIOUS_REPARAM = ["-DREPARAM_SPT=1", "-DREPARAM_HOIST=0",
-                    "-DREPARAM_GENERIC", "-DREPARAM_RUNTIME_SIGN"]
+# B5's previous design: a thread per (sample, example) through the generic
+# draw, the per-example scalars recomputed for every sample, the sign taken
+# at run time
+PREVIOUS_REPARAM = (Path(__file__).resolve().parent / "scripts"
+                    / "reparam_stereo_previous.cu")
 
 
 def ptxas_entries(report: str) -> dict:
@@ -414,8 +417,7 @@ def phase_build() -> dict:
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         prev = pool.submit(_build.build_variants, {"reparam_previous": (
-            _build.CSRC / "reparam_stereo.cu",
-            _build.EXTRA_FLAGS["reparam_stereo"] + PREVIOUS_REPARAM)},
+            PREVIOUS_REPARAM, _build.EXTRA_FLAGS["reparam_stereo"])},
             _build.BUILD_DIR / "previous")
         reports = _build.build_all()
         prev_lib, prev_report = prev.result()["reparam_previous"]
@@ -434,11 +436,11 @@ def phase_build() -> dict:
     check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
               for (n, _, _), v in inst.items() if n),
           "B5's instantiations for n = 2, 3, 6 spill nothing")
-    v = reparam_instantiations(prev_report)[(0, 1, 2)]
-    print(f"[build] reparam_stereo, previous design <generic, a sample a "
-          f"thread, sign at run time>: {v['registers']} registers, "
-          f"{v['stack']} bytes stack frame, {v['spill_stores']} / "
-          f"{v['spill_loads']} bytes spilled")
+    for v in ptxas_entries(prev_report).values():
+        print(f"[build] reparam_stereo, previous design (generic, a sample "
+              f"a thread, sign at run time): {v['registers']} registers, "
+              f"{v['stack']} bytes stack frame, {v['spill_stores']} / "
+              f"{v['spill_loads']} bytes spilled")
     tanh = roofline.tanh_instructions()
     print(f"[build] tanh probe: {tanh['instructions']} instructions in its "
           f"loop with {tanh['tanh']} tanh, {tanh['per_tanh']:.2f} a tanh "
@@ -448,10 +450,11 @@ def phase_build() -> dict:
 
 
 def ops_ms(ops: dict, per_tanh: float) -> float:
-    """ms of an ``roofline.op_split`` count at the data sheet's FP32 rate:
-    an arithmetic op one FLOP, a transcendental the instructions of one
-    accurate tanhf in SASS, each an FMA's two FLOP."""
-    return ((ops["arithmetic"] + 2 * per_tanh * ops["transcendental"])
+    """ms of an operation count (``roofline.reparam_ops``) at the data
+    sheet's FP32 rate: an arithmetic op one FMA issue slot, a transcendental
+    the instructions of one accurate tanhf in SASS, each such a slot (an
+    FMA's two FLOP)."""
+    return (2 * (ops["arithmetic"] + per_tanh * ops["transcendental"])
             / FP32_FLOPS_PER_S * 1e3)
 
 
@@ -1444,16 +1447,17 @@ def phase_reparam(gen, built) -> dict:
         eps, mu, sig, k, wraps=1, sign=1), 20)
     n = 2
     nbytes = rl.reparam_bytes(S, B, n)
-    ops = rl.reparam_ops(S, B, n, 1)
+    ops = rl.reparam_ops(eps, mu, sig, k, 1)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = ops_ms(ops, built["tanh_per"])
     print(f"[reparam_stereo] (S, B, n) = (125, 512, 2), sign +1, wraps 1: "
           f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, bytes "
           f"bound {bytes_ms * 1e3:.3f} us ({nbytes} B), operations bound "
-          f"{o_ms * 1e3:.3f} us ({ops['arithmetic']} arithmetic at 67 "
-          f"TFLOP/s, {ops['transcendental']} transcendentals at "
-          f"{built['tanh_per']:.2f} FMAs each: the plain version's ops, "
-          f"both sides of its branches)")
+          f"{o_ms * 1e3:.3f} us ({ops['arithmetic']} arithmetic ops, "
+          f"{ops['transcendental']} transcendentals at "
+          f"{built['tanh_per']:.2f} each, in FMA issue slots at 67 "
+          f"TFLOP/s: the plain version's ops on the branch each point "
+          f"takes, the wrap branches' sine once)")
     return {"name": "reparam_stereo", "route": "cuda",
             "source": "mvae_torch/kernels/csrc/reparam_stereo.cu",
             "replaces": "mvae_tpu/kernels/manifold_kernels.py:563",

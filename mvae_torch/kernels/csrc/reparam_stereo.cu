@@ -41,15 +41,6 @@
 // product's (S, B, E) block, addressed by its row stride. The TPU kernel's
 // (n, 8, L) packing and its padding of S and B are not carried over.
 //
-// Build knobs (defaults are the kernel; the others exist to measure it,
-// scripts/torch_reparam_phases.py): REPARAM_SPT fixes the samples a thread
-// (1 or 2), REPARAM_THREADS threads a block, REPARAM_HOIST=0 recomputes the
-// per-example scalars for every sample (stereo_draw), REPARAM_GENERIC runs
-// every n through the generic instantiation, REPARAM_RUNTIME_SIGN takes the
-// sign at run time. -DREPARAM_SPT=1 -DREPARAM_HOIST=0 -DREPARAM_GENERIC
-// -DREPARAM_RUNTIME_SIGN is the previous design: a thread per (sample,
-// example), the generic draw.
-//
 // Entry point (plain C, loaded with ctypes):
 //   int reparam_stereo_launch(eps, eps_stride, mu (B, n), sigma (B, n),
 //                             k (1,), zt (S, Z, B), z_off, lq (S, B),
@@ -60,31 +51,11 @@
 
 #include "tail_tiles.cuh"
 
-#ifndef REPARAM_THREADS
 #define REPARAM_THREADS 128
-#endif
-#ifndef REPARAM_HOIST
-#define REPARAM_HOIST 1
-#endif
-#if defined(REPARAM_SPT) && REPARAM_SPT != 1 && REPARAM_SPT != 2
-#error "REPARAM_SPT is 1 or 2"
-#endif
-// the SIGN of the instantiation that takes the curvature sign at run time
-// (REPARAM_RUNTIME_SIGN); by default each sign has its own
-#define REPARAM_ANY_SIGN 2
 
 // Threads of a chunk: one per example and group of spt samples
 __host__ __device__ inline long long reparam_threads(int S, int B, int spt) {
   return (long long)((S + spt - 1) / spt) * B;
-}
-
-// The instantiation that draws dimension n
-static inline int reparam_dim_class(int n) {
-#ifdef REPARAM_GENERIC
-  return 0;
-#else
-  return (n == 2 || n == 3 || n == 6) ? n : 0;
-#endif
 }
 
 // One (sample, example) point on the example's scalars: the draw, z into
@@ -100,11 +71,7 @@ __device__ __forceinline__ void reparam_point(
   for (int j = 0; j < nn; ++j) e[j] = ep[j];
   StereoSaved<N> sv;
   float q, p;
-#if REPARAM_HOIST
   stereo_draw_at<N>(n, sign, wraps, k, smax, x2, ls, m, sg, e, &q, &p, sv);
-#else
-  stereo_draw<N>(n, sign, wraps, k, m, sg, e, &q, &p, sv);
-#endif
   if (!store) return;
   #pragma unroll
   for (int j = 0; j < nn; ++j) zr[(size_t)j * B] = sv.z[j];
@@ -122,10 +89,9 @@ reparam_stereo_kernel(const float* __restrict__ eps, long long eps_stride,
                       const float* __restrict__ kptr, float* __restrict__ zt,
                       int z_off, float* __restrict__ lq,
                       float* __restrict__ lp, int S, int B, int n, int Z,
-                      int sign, int wraps) {
+                      int wraps) {
   const long long idx = (long long)blockIdx.x * REPARAM_THREADS + threadIdx.x;
   if (idx >= reparam_threads(S, B, SPT)) return;
-  const int sgn = SIGN == REPARAM_ANY_SIGN ? sign : SIGN;
   const int nn = TAIL_DIM(N, n);
   const int b = (int)(idx % B);
   const int s0 = (int)(idx / B) * SPT;
@@ -143,7 +109,7 @@ reparam_stereo_kernel(const float* __restrict__ eps, long long eps_stride,
   for (int i = 0; i < SPT; ++i) {
     const int s = s0 + i < S ? s0 + i : S - 1;
     const long long pt = (long long)s * B + b;
-    reparam_point<N>(n, sgn, wraps, k, smax, x2, ls, m, sg,
+    reparam_point<N>(n, SIGN, wraps, k, smax, x2, ls, m, sg,
                      eps + eps_stride * pt, s0 + i < S,
                      zt + ((size_t)s * Z + z_off) * B + b, B, lq + pt,
                      lp + pt);
@@ -153,45 +119,59 @@ reparam_stereo_kernel(const float* __restrict__ eps, long long eps_stride,
 // --- launchers --------------------------------------------------------------
 
 #define REPARAM_K(D, SPT, SG) (const void*)reparam_stereo_kernel<D, SPT, SG>
-#ifdef REPARAM_RUNTIME_SIGN
-#define REPARAM_SIGNS(D, SPT)                                  \
-  {REPARAM_K(D, SPT, REPARAM_ANY_SIGN), REPARAM_K(D, SPT, REPARAM_ANY_SIGN), \
-   REPARAM_K(D, SPT, REPARAM_ANY_SIGN)}
-#else
 #define REPARAM_SIGNS(D, SPT) \
   {REPARAM_K(D, SPT, -1), REPARAM_K(D, SPT, 0), REPARAM_K(D, SPT, 1)}
-#endif
 #define REPARAM_DIM(D) {REPARAM_SIGNS(D, 1), REPARAM_SIGNS(D, 2)}
 // [dimension class 0, 2, 3, 6][samples a thread - 1][sign + 1]
 static const void* const reparam_kernels[4][2][3] = {
     REPARAM_DIM(0), REPARAM_DIM(2), REPARAM_DIM(3), REPARAM_DIM(6)};
 
-static const void* reparam_kernel(int n, int spt, int sign) {
-  const int d = reparam_dim_class(n);
-  return reparam_kernels[d == 0 ? 0 : d == 2 ? 1 : d == 3 ? 2 : 3][spt - 1]
-                        [sign + 1];
+// The row of reparam_kernels that draws dimension n
+static inline int reparam_dim_row(int n) {
+  return n == 2 ? 1 : n == 3 ? 2 : n == 6 ? 3 : 0;
+}
+
+// Threads of the a-sample-a-thread instantiation the card runs at once
+// (blocks an SM by the occupancy API x SMs x REPARAM_THREADS), asked once
+// per device and instantiation: the answer depends on nothing else. Two
+// threads asking at once both store the same value.
+#define REPARAM_DEVICES 64
+static long long reparam_resident[REPARAM_DEVICES][4][3];
+
+static cudaError_t reparam_resident_threads(int dev, int d, int sign,
+                                            long long* out) {
+  long long* slot =
+      dev >= 0 && dev < REPARAM_DEVICES ? &reparam_resident[dev][d][sign + 1]
+                                        : nullptr;
+  if (slot && *slot > 0) {
+    *out = *slot;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, reparam_kernels[d][0][sign + 1], REPARAM_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  *out = (long long)per_sm * sms * REPARAM_THREADS;
+  if (slot) *slot = *out;
+  return cudaSuccess;
 }
 
 // Samples a thread: 1 while a thread per point fits on the card at once
 // (the chains then have every thread there is to hide their latency), 2
 // when it does not (the per-example scalars are then shared and the chunk
-// takes one wave); REPARAM_SPT fixes it
+// takes one wave)
 static cudaError_t reparam_spt(int S, int B, int n, int sign, int* spt) {
-#ifdef REPARAM_SPT
-  *spt = REPARAM_SPT;
-  return cudaSuccess;
-#else
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0;
+  long long resident = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, reparam_kernel(n, 1, sign), REPARAM_THREADS, 0);
+    err = reparam_resident_threads(dev, reparam_dim_row(n), sign, &resident);
   if (err != cudaSuccess) return err;
-  *spt = (long long)S * B > (long long)per_sm * sms * REPARAM_THREADS ? 2 : 1;
+  *spt = (long long)S * B > resident ? 2 : 1;
   return cudaSuccess;
-#endif
 }
 
 // The samples a thread the launcher takes at (S, B, n, sign), or
@@ -221,8 +201,9 @@ extern "C" int reparam_stereo_launch(const float* eps, long long eps_stride,
     const long long blocks = (total + REPARAM_THREADS - 1) / REPARAM_THREADS;
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
     void* args[] = {&eps, &eps_stride, &mu, &sigma, &k, &zt, &z_off, &lq,
-                    &lp,  &S,          &B,  &n,     &Z, &sign, &wraps};
-    return (int)cudaLaunchKernel(reparam_kernel(n, spt, sign),
+                    &lp,  &S,          &B,  &n,     &Z, &wraps};
+    return (int)cudaLaunchKernel(reparam_kernels[reparam_dim_row(n)][spt - 1]
+                                                [sign + 1],
                                  dim3((unsigned)blocks), dim3(REPARAM_THREADS),
                                  args, 0, (cudaStream_t)stream);
   }

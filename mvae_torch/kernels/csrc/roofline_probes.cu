@@ -136,32 +136,13 @@ __device__ __forceinline__ float tanh_word(float x, int repeat) {
 // its first add: a block takes tiles of ELEM_THREADS * TRIAD_UNROLL words,
 // word u of thread t at t + u * ELEM_THREADS (each load instruction of a warp
 // covers 512 contiguous bytes), grid-stride over the tiles (the launcher gives
-// a block a tile); TRIAD_STREAM reads and writes with the evict-first cache
-// hint (ld.global.cs / st.global.cs: every word is touched once, and the
-// calibration's 1.6 GB rotates through the 50 MB L2 anyway). The knobs exist
-// to measure it (scripts/torch_reparam_phases.py).
+// a block a tile); it reads and writes with the evict-first cache hint
+// (ld.global.cs / st.global.cs: every word is touched once, and the
+// calibration's 1.6 GB rotates through the 50 MB L2 anyway). TRIAD_UNROLL
+// exists to measure it (scripts/torch_reparam_phases.py).
 #ifndef TRIAD_UNROLL
 #define TRIAD_UNROLL 4
 #endif
-#ifndef TRIAD_STREAM
-#define TRIAD_STREAM 1
-#endif
-
-__device__ __forceinline__ float4 triad_load(const float4* p) {
-#if TRIAD_STREAM
-  return __ldcs(p);
-#else
-  return *p;
-#endif
-}
-
-__device__ __forceinline__ void triad_store(float4* p, float4 v) {
-#if TRIAD_STREAM
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
-}
 
 __global__ void __launch_bounds__(ELEM_THREADS)
 probe_triad_kernel(const float4* __restrict__ x, const float4* __restrict__ y,
@@ -174,8 +155,8 @@ probe_triad_kernel(const float4* __restrict__ x, const float4* __restrict__ y,
     for (int u = 0; u < TRIAD_UNROLL; ++u) {
       const long long i = base + (long long)u * ELEM_THREADS;
       if (i < n4) {
-        a[u] = triad_load(x + i);
-        b[u] = triad_load(y + i);
+        a[u] = __ldcs(x + i);
+        b[u] = __ldcs(y + i);
       }
     }
 #pragma unroll
@@ -187,7 +168,7 @@ probe_triad_kernel(const float4* __restrict__ x, const float4* __restrict__ y,
         r.y = a[u].y + b[u].y;
         r.z = a[u].z + b[u].z;
         r.w = a[u].w + b[u].w;
-        triad_store(o + i, r);
+        __stcs(o + i, r);
       }
     }
   }

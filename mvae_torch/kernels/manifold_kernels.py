@@ -65,10 +65,11 @@ def wrapped_reparam_stereo_ref(eps, mu, sigma, k, wraps: int = 1,
     return z.transpose(1, 2), lq[..., 0], lp[..., 0]
 
 
-def bind_reparam(lib):
-    """The ``reparam_stereo_launch`` entry of a built ``reparam_stereo.cu``
-    (the package's, or a variant's), typed for ctypes."""
-    fn = lib.reparam_stereo_launch
+def bind_reparam(lib, entry: str = "reparam_stereo_launch"):
+    """The launch entry ``entry`` of a built ``reparam_stereo.cu`` (the
+    package's, its previous design, or a variant measured beside it; each
+    takes ``reparam_stereo_launch``'s arguments), typed for ctypes."""
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int]

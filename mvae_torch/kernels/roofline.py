@@ -22,10 +22,12 @@ Counterpart of ``mvae_tpu/kernels/roofline.py``. Two pieces, as there:
    (``skel_dist``, ``skel_reparam``: the bytes floor) and a synthetic twin
    that does a lower bound of its operations (``twin_stereo``,
    ``twin_reparam``: the compute floor; ``resident=True`` keeps the twin's
-   input in L2 so its time is the arithmetic's). B5's compute floor is its
-   plain version's operations (``reparam_ops``) priced at the calibrated
-   rates, arithmetic at the FMA rate and each transcendental at the tanh
-   rate (``ops_us``); its twin stays in the row as a second reading. A
+   input in L2 so its time is the arithmetic's). B5's compute floor is the
+   operations its plain version needs on the row's inputs, each point on
+   the branch it takes and a repeated expression once (``reparam_ops``,
+   ``op_split_taken``), priced at the calibrated rates: an arithmetic op
+   one FMA issue slot, each transcendental at the tanh rate (``ops_us``);
+   its twin stays in the row as a second reading. A
    kernel's binding floor is the larger of the two whole-launch times:
    blocks run in parallel on 132 SMs, so the TPU's per-block cost times the
    number of blocks does not apply. Where the reference has no twin, the
@@ -489,15 +491,15 @@ def twin_reparam_ref(eps, mu, sigma, k, scalars=None):
 
 
 def _reparam_probe(wrapper, entry, ref, eps, mu, sigma, k, scalars, out,
-                   z_off):
+                   z_off, sign):
     """The reparam probes' interface, as ``wrapped_reparam_stereo_t``'s:
     eps (S, B, n) (a view with unit stride along n is read in place), mu
     and sigma (B, n), k one value; ``scalars`` the (3, B) hoisted inputs
     (``reparam_scalars(mu, sigma)`` when None: pass them to keep their
     computation out of a timed call); with ``out`` (S, Z, B) z goes to its
     rows z_off .. z_off + n. On the card the probe takes the samples a
-    thread B5 takes at the shape and sign -1 (``reparam_spt``; the
-    production chunk's sign). Returns (zt, lq, lp)."""
+    thread B5 takes at the shape and the row's curvature ``sign``
+    (``reparam_spt``). Returns (zt, lq, lp)."""
     if eps.dim() != 3:
         raise ValueError(f"eps must be (S, B, n), got {tuple(eps.shape)}")
     S, Bb, n = eps.shape
@@ -534,27 +536,30 @@ def _reparam_probe(wrapper, entry, ref, eps, mu, sigma, k, scalars, out,
     _launch(entry, eps.device, eps.data_ptr(), eps.stride(1), mu.data_ptr(),
             sigma.data_ptr(), scalars.data_ptr(), k1.data_ptr(),
             out.data_ptr(), z_off, lq.data_ptr(), lp.data_ptr(), S, Bb, n, Z,
-            manifold_kernels.reparam_spt(S, Bb, n, -1))
+            manifold_kernels.reparam_spt(S, Bb, n, sign))
     _launched(wrapper, zt, lq, lp)
     return zt, lq, lp
 
 
-def skel_reparam(eps, mu, sigma, k, scalars=None, out=None, z_off: int = 0):
+def skel_reparam(eps, mu, sigma, k, scalars=None, out=None, z_off: int = 0,
+                 sign: int = -1):
     """Bytes floor of ``reparam_stereo_kernel`` (B8d), at its launch shape
-    and layout: z = eps, log q = log p = a per-example sum that reads every
-    word of mu and sigma the kernel reads, and the hoisted scalars."""
+    for the curvature ``sign`` and its layout: z = eps, log q = log p = a
+    per-example sum that reads every word of mu and sigma the kernel reads,
+    and the hoisted scalars."""
     return _reparam_probe(skel_reparam, "skel_reparam_launch",
                           skel_reparam_ref, eps, mu, sigma, k, scalars, out,
-                          z_off)
+                          z_off, sign)
 
 
-def twin_reparam(eps, mu, sigma, k, scalars=None, out=None, z_off: int = 0):
+def twin_reparam(eps, mu, sigma, k, scalars=None, out=None, z_off: int = 0,
+                 sign: int = -1):
     """Compute floor of ``reparam_stereo_kernel`` (B8f): the reference's
-    counted op volume in generic multiply-adds, at its launch shape, on the
-    reference's hoisted per-example scalars."""
+    counted op volume in generic multiply-adds, at its launch shape for the
+    curvature ``sign``, on the reference's hoisted per-example scalars."""
     return _reparam_probe(twin_reparam, "twin_reparam_launch",
                           twin_reparam_ref, eps, mu, sigma, k, scalars, out,
-                          z_off)
+                          z_off, sign)
 
 
 SKEL_CHUNK = 8   # roofline_probes.cu's
@@ -830,25 +835,171 @@ def tail_floors(skel_us: float, ops: int, cal: dict) -> dict:
             "operations": ops / (cal["fma_tflops"] * 1e6)}
 
 
-def reparam_ops(S: int, Bb: int, n: int, sign: int, wraps: int = 1) -> dict:
-    """``op_split`` of the chunk reparam's plain version
-    (``wrapped_reparam_stereo_ref``) at (S, B, n), on CPU inputs made here:
-    its counts depend on the shapes and the branch (sign, wraps) alone. The
-    plain version computes |mu|^2 and sum log sigma on (B, n), once per
-    example, as the kernel does."""
-    g = torch.Generator().manual_seed(0)
-    eps = torch.randn(S, Bb, n, generator=g)
-    mu = 0.1 * torch.randn(Bb, n, generator=g)
-    sig = 0.5 + torch.rand(Bb, n, generator=g)
-    k = torch.tensor(float(sign) if sign else 0.5)
-    return op_split(manifold_kernels.wrapped_reparam_stereo_ref, eps, mu, sig,
-                    k, wraps=wraps, sign=sign)
+# ops a kernel does not issue: SASS applies them to an operand
+_MODIFIERS = frozenset(("abs", "neg"))
+# ops that make a tensor of a shape and need no input's values
+_MAKERS = frozenset(("empty", "empty_like", "empty_strided", "zeros",
+                     "zeros_like", "ones", "ones_like", "full", "full_like",
+                     "new_zeros", "new_empty", "new_full", "new_ones",
+                     "scalar_tensor"))
+# ops whose output element i is input element i
+_SAME = frozenset(("clone", "detach", "alias", "_to_copy", "to",
+                   "contiguous", "lift_fresh", "copy"))
+
+
+def _to_shape(mask, shape):
+    """A needed-mask of a broadcast output, folded onto an input's shape:
+    an input element is needed if any output element it feeds is."""
+    if tuple(mask.shape) == tuple(shape):
+        return mask
+    return mask.to(torch.int32).sum_to_size(shape) > 0
+
+
+def _view_needs(func, args, kwargs, src, mask):
+    """The elements of ``src`` a view op's needed output elements read: the
+    op run again on the indices of ``src``."""
+    idx = torch.arange(src.numel(), device=src.device).reshape(src.shape)
+    swapped = [idx if a is src else a for a in args]
+    picked = func(*swapped, **kwargs)[mask]
+    need = torch.zeros(src.numel(), dtype=torch.bool, device=src.device)
+    need[picked.reshape(-1)] = True
+    return need.reshape(src.shape)
+
+
+def op_split_taken(fn, *args, **kwargs) -> dict:
+    """Operations ``fn(*args, **kwargs)`` needs on these inputs, split as
+    ``op_split`` splits them, counted as a kernel that evaluates each
+    expression once and takes one side of every branch does them: an op
+    that repeats an earlier one on the same inputs counts once (the wrap
+    branches' shared sine); of a ``where`` only the side it selects, element
+    by element, counts, and with it only the elements of the ops that feed
+    the side taken; ``abs`` and ``neg`` count none (SASS applies them to an
+    operand). It records the ops as they run, then walks them back from the
+    outputs, marking the elements each one needs; an element counts once
+    if it is needed. In-place ops are refused."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    nodes = []      # (op name, func, args, kwargs, output)
+    node_of = {}    # id(tensor) -> node
+    keep = []       # every tensor seen, so that no id is reused
+    first = {}      # (func, inputs) -> node: common subexpressions
+
+    def ref(t):
+        if id(t) not in node_of:
+            node_of[id(t)] = len(nodes)
+            nodes.append(("input", None, (), {}, t))
+            keep.append(t)
+        return node_of[id(t)]
+
+    def key(a):
+        if torch.is_tensor(a):
+            return ("tensor", ref(a))
+        if isinstance(a, (list, tuple)):
+            return tuple(key(x) for x in a)
+        return (type(a).__name__, repr(a))
+
+    class _Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func._schema.name.split("::")[-1]
+            if func._schema.is_mutable:
+                raise NotImplementedError(f"op_split_taken: in-place {name}")
+            out = func(*args, **kwargs)
+            if not torch.is_tensor(out):
+                if isinstance(out, (tuple, list)) and any(
+                        torch.is_tensor(o) for o in out):
+                    raise NotImplementedError(
+                        f"op_split_taken: {name} has several outputs")
+                return out
+            k = (str(func), key(args), key(sorted(kwargs.items())))
+            if id(out) not in node_of:
+                if k not in first:
+                    first[k] = len(nodes)
+                    nodes.append((name, func, args, kwargs, out))
+                node_of[id(out)] = first[k]
+                keep.append(out)
+            return out
+
+    with _Record():
+        result = fn(*args, **kwargs)
+    outs = result if isinstance(result, (tuple, list)) else (result,)
+    need = [None] * len(nodes)
+
+    def mark(t, mask):
+        i = node_of[id(t)]
+        need[i] = mask if need[i] is None else need[i] | mask
+
+    for t in outs:
+        if torch.is_tensor(t):
+            mark(t, torch.ones(t.shape, dtype=torch.bool, device=t.device))
+    counts = {"arithmetic": 0, "transcendental": 0}
+    for i in range(len(nodes) - 1, -1, -1):
+        name, func, a, kw, out = nodes[i]
+        m = need[i]
+        if name == "input" or m is None or not bool(m.any()):
+            continue
+        tensors = [x for x in a if torch.is_tensor(x)]
+        if name in _MAKERS:
+            continue
+        if name == "where":
+            cond, x, y = a
+            c = torch.broadcast_to(cond, out.shape)
+            mark(cond, _to_shape(m, cond.shape))
+            for side, sel in ((x, m & c), (y, m & ~c)):
+                if torch.is_tensor(side):
+                    mark(side, _to_shape(sel, side.shape))
+        elif name in _SAME:
+            mark(a[0], _to_shape(m, a[0].shape))
+            continue
+        elif name in _NO_ARITH:
+            if not torch.is_tensor(a[0]):
+                raise NotImplementedError(f"op_split_taken: {name}")
+            mark(a[0], _view_needs(func, a, kw, a[0], m))
+            continue
+        elif name in _REDUCTIONS:
+            src = a[0]
+            if out.numel() == 1:
+                ms = torch.ones(src.shape, dtype=torch.bool,
+                                device=src.device)
+            else:
+                dims = a[1] if len(a) > 1 else kw["dim"]
+                dims = sorted(d % src.dim() for d in
+                              (dims if isinstance(dims, (list, tuple))
+                               else [dims]))
+                mo = m
+                if mo.dim() < src.dim():
+                    for d in dims:
+                        mo = mo.unsqueeze(d)
+                ms = mo.expand(src.shape)
+            mark(src, ms)
+            counts["arithmetic"] += int(ms.sum())
+            continue
+        else:
+            for t in tensors:
+                mark(t, _to_shape(m, t.shape))
+        if name in _MODIFIERS:
+            continue
+        kind = ("transcendental" if name.rstrip("_") in _TRANSCENDENTAL
+                else "arithmetic")
+        counts[kind] += int(m.sum())
+    return counts
+
+
+def reparam_ops(eps, mu, sigma, k, sign: int, wraps: int = 1) -> dict:
+    """The chunk reparam's operations on these inputs: ``op_split_taken``
+    of its plain version (``wrapped_reparam_stereo_ref``), so the branch
+    each point takes and the wrap branches' shared sine count as the kernel
+    does them. The plain version computes |mu|^2 and sum log sigma on
+    (B, n), once per example, as the kernel does."""
+    return op_split_taken(manifold_kernels.wrapped_reparam_stereo_ref, eps,
+                          mu, sigma, k, wraps=wraps, sign=sign)
 
 
 def ops_us(ops: dict, cal: dict) -> float:
-    """An ``op_split`` count's time at the calibrated rates: arithmetic at
-    ``fma_tflops``, each transcendental at ``tanh_gops``."""
-    return (ops["arithmetic"] / (cal["fma_tflops"] * 1e6)
+    """An operation count's time at the calibrated rates: each arithmetic
+    op one FMA issue slot (two FLOP at ``fma_tflops``), each
+    transcendental at ``tanh_gops``."""
+    return (2 * ops["arithmetic"] / (cal["fma_tflops"] * 1e6)
             + ops["transcendental"] / (cal["tanh_gops"] * 1e3))
 
 
@@ -1294,9 +1445,11 @@ def _row_reparam(cal):
                  for e, m, s, o, _ in sets], "reparam_stereo_kernel")
     # the probes get the hoisted scalars made once per example, as the
     # reference's do: only what B5 cannot avoid stays in their floors
-    skel = measure([functools.partial(skel_reparam, e, m, s, k, c, out=o)
+    skel = measure([functools.partial(skel_reparam, e, m, s, k, c, out=o,
+                                      sign=-1)
                     for e, m, s, o, c in sets], "skel_reparam_kernel")
-    twin = measure([functools.partial(twin_reparam, e, m, s, k, c, out=o)
+    twin = measure([functools.partial(twin_reparam, e, m, s, k, c, out=o,
+                                      sign=-1)
                     for e, m, s, o, c in sets], "twin_reparam_kernel")
     eps, mu, sig, _, _ = sets[0]
     plain = measure(lambda: manifold_kernels.wrapped_reparam_stereo_ref(
@@ -1305,7 +1458,7 @@ def _row_reparam(cal):
     ref = manifold_kernels.wrapped_reparam_stereo_ref(
         eps.double(), mu.double(), sig.double(), k.double(), sign=-1)
     err = max(max_rel_err(a, b) for a, b in zip(got, ref))
-    ops = reparam_ops(RS, RB, RN, -1)
+    ops = reparam_ops(eps, mu, sig, k, -1)
     return {"kernel": "B5 reparam_stereo",
             "shape": f"S={RS} n={RN} B={RB}, sign -1, K = -1 "
                      "(production IWAE chunk)",

@@ -4,31 +4,34 @@ probe (B8b, roofline_probes.cu) spend their time, on the card.
 
     python3 scripts/torch_reparam_phases.py [--baseline DIR]
 
-B5. Builds the package's ``reparam_stereo.cu`` in variants of its build
-knobs (``VARIANTS``: the kernel as it is, which takes 1 or 2 samples a
-thread by the chunk's size and has an instantiation for each curvature
-sign; the previous design, a thread per (sample, example) through the
-generic draw; the generic instantiation alone; the per-example scalars
-recomputed for every sample; 1 and 2 samples a thread fixed; the sign
-taken at run time; 64-thread blocks) and,
-with ``--baseline``, ``DIR``'s
+B5. Builds the package's ``reparam_stereo.cu`` (the kernel: 1 or 2
+samples a thread by the chunk's size, the vectors in registers for n = 2,
+3, 6, an instantiation for each curvature sign), its previous design
+(``scripts/reparam_stereo_previous.cu``: a thread per (sample, example)
+through the generic draw), variants of the kernel that this script
+compiles from ``_VARIANT`` (a kernel on ``reparam_stereo.cu``'s device
+functions with build flags, ``VARIANTS``: the generic instantiation for
+every n; the per-example scalars recomputed for every sample; 1 and 2
+samples a thread fixed; the sign taken at run time; 64-thread blocks; and
+no flag, which must time as the kernel) and, with ``--baseline``, ``DIR``'s
 ``reparam_stereo.cu`` against ``DIR``'s headers (another copy of the
 sources with the same entry point, such as an earlier commit's). Prints
 ptxas's registers, stack frame and spills of every instantiation of every
-variant. Then, for the rows of ``ROWS`` (the IWAE chunks of d2,p2,e2's
+build. Then, for the rows of ``ROWS`` (the IWAE chunks of d2,p2,e2's
 components at sign +1 and -1, of u6 at sign 0, and the production chunk
-over rotating buffer sets), times every variant, the kernel on a
+over rotating buffer sets), times every build, the kernel on a
 contiguous copy of the noise (where the row's noise is a strided view of
 the product's block), the reparam skeleton (``roofline.skel_reparam``,
-B8d) and an empty kernel by ``roofline.measure`` (CUDA events around a
-CUDA-graph replay of 100 calls), each the mean of two turns (all runs,
-then all again in reverse order). Every variant is held bit for bit to
-the kernel, and the kernel to its plain version (z within 1e-5 (1 + |z|),
-log-densities within 1e-4 (1 + 0.01 |ref|)).
+B8d, at the row's sign) and an empty kernel by ``roofline.measure`` (CUDA
+events around a CUDA-graph replay of 100 calls), each the mean of two
+turns (all runs, then all again in reverse order). Every build is held
+bit for bit to the kernel, and the kernel to its plain version (z within
+1e-5 (1 + |z|), log-densities within 1e-4 (1 + 0.01 |ref|)).
 
 B8b. Builds the triad kernel of ``roofline_probes.cu`` (the text between
 its ``triad`` markers) with 1, 2, 4 and 8 words of each input in flight a
-thread, with and without the streaming cache hints, behind a launcher that
+thread (``TRIAD_UNROLL``), with its streaming cache hints and with plain
+loads and stores in their place, behind a launcher that
 takes the grid, and times each on grids of 8, 16 and 32 blocks of 256
 threads an SM (1, 2 and 4 waves of a full SM) and of one block a tile, in
 turns with ``torch.add(x, y, out=o)`` and the package's ``probe_triad``, at
@@ -53,17 +56,129 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from mvae_torch.kernels import _build, manifold_kernels, roofline  # noqa: E402
 from mvae_torch.ops import stereographic  # noqa: E402
 
+PREVIOUS = Path(__file__).resolve().parent / "reparam_stereo_previous.cu"
+# build flags of _VARIANT
 VARIANTS = {
-    "kernel": [],
-    "previous design": ["-DREPARAM_SPT=1", "-DREPARAM_HOIST=0",
-                        "-DREPARAM_GENERIC", "-DREPARAM_RUNTIME_SIGN"],
-    "generic": ["-DREPARAM_GENERIC"],
-    "no hoist": ["-DREPARAM_HOIST=0"],
-    "spt 1": ["-DREPARAM_SPT=1"],
-    "spt 2": ["-DREPARAM_SPT=2"],
-    "runtime sign": ["-DREPARAM_RUNTIME_SIGN"],
-    "64 threads": ["-DREPARAM_THREADS=64"],
+    "variant, no flag": [],
+    "generic": ["-DVARIANT_GENERIC"],
+    "no hoist": ["-DVARIANT_NOHOIST"],
+    "spt 1": ["-DVARIANT_SPT=1"],
+    "spt 2": ["-DVARIANT_SPT=2"],
+    "runtime sign": ["-DVARIANT_ANY_SIGN"],
+    "64 threads": ["-DVARIANT_THREADS=64"],
 }
+# reparam_stereo_kernel again, on the same device functions, with what the
+# flags change: VARIANT_GENERIC draws every n by the generic instantiation,
+# VARIANT_SPT fixes the samples a thread, VARIANT_NOHOIST recomputes the
+# per-example scalars for every sample (stereo_draw), VARIANT_ANY_SIGN takes
+# the sign at run time, VARIANT_THREADS sets the threads a block
+_VARIANT = r"""
+#include "reparam_stereo.cu"
+
+#ifndef VARIANT_THREADS
+#define VARIANT_THREADS REPARAM_THREADS
+#endif
+#define ANY_SIGN 2
+
+template <int N, int SPT, int SIGN>
+__global__ void __launch_bounds__(VARIANT_THREADS, 1)
+variant_kernel(const float* __restrict__ eps, long long eps_stride,
+               const float* __restrict__ mu, const float* __restrict__ sigma,
+               const float* __restrict__ kptr, float* __restrict__ zt,
+               int z_off, float* __restrict__ lq, float* __restrict__ lp,
+               int S, int B, int n, int Z, int sign, int wraps) {
+  const long long idx = (long long)blockIdx.x * VARIANT_THREADS + threadIdx.x;
+  if (idx >= reparam_threads(S, B, SPT)) return;
+  const int sgn = SIGN == ANY_SIGN ? sign : SIGN;
+  const int nn = TAIL_DIM(N, n);
+  const int b = (int)(idx % B);
+  const int s0 = (int)(idx / B) * SPT;
+  float m[TAIL_ARR(N)], sg[TAIL_ARR(N)];
+  #pragma unroll
+  for (int j = 0; j < nn; ++j) {
+    m[j] = mu[(size_t)b * nn + j];
+    sg[j] = sigma[(size_t)b * nn + j];
+  }
+  const float k = kptr[0];
+  const float smax = ball_smax(k);
+  float x2, ls;
+  stereo_example<N>(n, m, sg, &x2, &ls);
+  #pragma unroll
+  for (int i = 0; i < SPT; ++i) {
+    const int s = s0 + i < S ? s0 + i : S - 1;
+    const long long pt = (long long)s * B + b;
+    float* zr = zt + ((size_t)s * Z + z_off) * B + b;
+#ifdef VARIANT_NOHOIST
+    const float* ep = eps + eps_stride * pt;
+    float e[TAIL_ARR(N)];
+    #pragma unroll
+    for (int j = 0; j < nn; ++j) e[j] = ep[j];
+    StereoSaved<N> sv;
+    float q, p;
+    stereo_draw<N>(n, sgn, wraps, k, m, sg, e, &q, &p, sv);
+    if (s0 + i >= S) continue;
+    #pragma unroll
+    for (int j = 0; j < nn; ++j) zr[(size_t)j * B] = sv.z[j];
+    lq[pt] = q;
+    lp[pt] = p;
+#else
+    reparam_point<N>(n, sgn, wraps, k, smax, x2, ls, m, sg,
+                     eps + eps_stride * pt, s0 + i < S, zr, B, lq + pt,
+                     lp + pt);
+#endif
+  }
+}
+
+template <int D, int SPT>
+static const void* variant_sign(int sign) {
+#ifdef VARIANT_ANY_SIGN
+  return (const void*)variant_kernel<D, SPT, ANY_SIGN>;
+#else
+  return sign < 0   ? (const void*)variant_kernel<D, SPT, -1>
+         : sign > 0 ? (const void*)variant_kernel<D, SPT, 1>
+                    : (const void*)variant_kernel<D, SPT, 0>;
+#endif
+}
+
+template <int D>
+static const void* variant_spt(int spt, int sign) {
+  return spt == 2 ? variant_sign<D, 2>(sign) : variant_sign<D, 1>(sign);
+}
+
+extern "C" int variant_launch(const float* eps, long long eps_stride,
+                              const float* mu, const float* sigma,
+                              const float* k, float* zt, int z_off, float* lq,
+                              float* lp, int S, int B, int n, int Z, int sign,
+                              int wraps, void* stream) {
+  if (n < 1 || n > MAX_DIM || z_off < 0 || z_off + n > Z || sign < -1
+      || sign > 1 || wraps < 0 || S < 0 || B < 0)
+    return (int)cudaErrorInvalidValue;
+#ifdef VARIANT_SPT
+  int spt = VARIANT_SPT;
+#else
+  int spt = 1;
+  const cudaError_t err = reparam_spt(S, B, n, sign, &spt);
+  if (err != cudaSuccess) return (int)err;
+#endif
+#ifdef VARIANT_GENERIC
+  const int d = 0;
+#else
+  const int d = n == 2 || n == 3 || n == 6 ? n : 0;
+#endif
+  const void* kern = d == 2   ? variant_spt<2>(spt, sign)
+                     : d == 3 ? variant_spt<3>(spt, sign)
+                     : d == 6 ? variant_spt<6>(spt, sign)
+                              : variant_spt<0>(spt, sign);
+  const long long total = reparam_threads(S, B, spt);
+  if (total == 0) return (int)cudaGetLastError();
+  const long long blocks = (total + VARIANT_THREADS - 1) / VARIANT_THREADS;
+  void* args[] = {&eps, &eps_stride, &mu, &sigma, &k, &zt, &z_off, &lq,
+                  &lp,  &S,          &B,  &n,     &Z, &sign, &wraps};
+  return (int)cudaLaunchKernel(kern, dim3((unsigned)blocks),
+                               dim3(VARIANT_THREADS), args, 0,
+                               (cudaStream_t)stream);
+}
+"""
 # (label, S, B, n, sign, K, noise width E, rotating sets): n < E reads the
 # component's columns of a (S, B, E) block, as d2,p2,e2's chunk does
 ROWS = (("(125, 512, 2) sign +1", 125, 512, 2, 1, 1.0, 6, False),
@@ -73,6 +188,9 @@ ROWS = (("(125, 512, 2) sign +1", 125, 512, 2, 1, 1.0, 6, False),
          True))
 TRIAD_UNROLLS = (1, 2, 4, 8)
 TRIAD_GRIDS = (8, 16, 32, 0)       # blocks an SM; 0: one block a tile
+_TRIAD_PLAIN = """#define __ldcs(p) (*(p))
+#define __stcs(p, v) (*(p) = (v))
+"""
 _TRIAD_LAUNCHER = r"""
 extern "C" int triad_grid_launch(const float* x, const float* y, float* o,
                                  long long n4, int blocks, void* stream) {
@@ -101,21 +219,27 @@ def _fmt(times: dict) -> str:
 
 def build_reparam(baseline: Path | None) -> dict:
     flags = _build.EXTRA_FLAGS["reparam_stereo"]
-    src = _build.CSRC / "reparam_stereo.cu"
-    specs = {tag.replace(" ", "_"): (src, flags + f)
-             for tag, f in VARIANTS.items()}
+    out = _build.BUILD_DIR / "reparam_phases"
+    out.mkdir(parents=True, exist_ok=True)
+    variant = out / "variant.cu"
+    variant.write_text(_VARIANT)
+    specs = {"kernel": (_build.CSRC / "reparam_stereo.cu", flags),
+             "previous design": (PREVIOUS, flags)}
+    specs.update({tag: (variant, flags + f) for tag, f in VARIANTS.items()})
     if baseline is not None:
         specs["baseline"] = (baseline / "reparam_stereo.cu", flags)
     t0 = time.time()
-    built = _build.build_variants(specs, _build.BUILD_DIR / "reparam_phases")
-    print(f"[reparam] {len(specs)} variants built together in "
+    built = _build.build_variants(
+        {tag.replace(" ", "_").replace(",", ""): spec
+         for tag, spec in specs.items()}, out)
+    print(f"[reparam] {len(specs)} builds together in "
           f"{time.time() - t0:.1f} s")
     fns = {}
-    for tag, (lib, report) in built.items():
-        name = tag.replace("_", " ")
+    for tag, (lib, report) in zip(specs, built.values()):
         for ln in _build.ptxas_lines(report):
-            print(f"[ptxas {name}] {ln}")
-        fns[name] = manifold_kernels.bind_reparam(lib)
+            print(f"[ptxas {tag}] {ln}")
+        entry = "variant_launch" if tag in VARIANTS else "reparam_stereo_launch"
+        fns[tag] = manifold_kernels.bind_reparam(lib, entry)
     return fns
 
 
@@ -179,7 +303,7 @@ def reparam_rows(fns: dict) -> None:
         hoist = [roofline.reparam_scalars(a[1], a[2]) for a in sets]
         runs["skeleton"] = [
             functools.partial(roofline.skel_reparam, a[0], a[1], a[2],
-                              a[3].reshape(()), h, a[4])
+                              a[3].reshape(()), h, a[4], sign=sign)
             for a, h in zip(sets, hoist)]
         times = _turns(runs)
         print(f"[reparam {label}] ({n_sets} buffer sets): {_fmt(times)}",
@@ -198,11 +322,12 @@ def triad_phases() -> None:
     b = text.index("// --- end triad ---")
     out = _build.BUILD_DIR / "triad_phases"
     out.mkdir(parents=True, exist_ok=True)
-    src = out / "triad.cu"
-    src.write_text("#include <cuda_runtime.h>\n#define ELEM_THREADS 256\n"
-                   + text[a:b] + _TRIAD_LAUNCHER)
-    specs = {f"u{u}s{st}": (src, [f"-DTRIAD_UNROLL={u}",
-                                  f"-DTRIAD_STREAM={st}"])
+    head = "#include <cuda_runtime.h>\n#define ELEM_THREADS 256\n"
+    (out / "triad_s1.cu").write_text(head + text[a:b] + _TRIAD_LAUNCHER)
+    # the hints replaced by plain loads and stores
+    (out / "triad_s0.cu").write_text(head + _TRIAD_PLAIN + text[a:b]
+                                     + _TRIAD_LAUNCHER)
+    specs = {f"u{u}s{st}": (out / f"triad_s{st}.cu", [f"-DTRIAD_UNROLL={u}"])
              for u in TRIAD_UNROLLS for st in (0, 1)}
     built = _build.build_variants(specs, out)
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -172,13 +172,13 @@ static void run_reparam(const float* eps, long long stride, const float* mu,
     threadIdx.x = (int)(i % REPARAM_THREADS);
     if (sign < 0)
       reparam_stereo_kernel<D, SPT, -1>(eps, stride, mu, sigma, k, zt, z_off,
-                                        lq, lp, S, B, n, Z, sign, wraps);
+                                        lq, lp, S, B, n, Z, wraps);
     else if (sign > 0)
       reparam_stereo_kernel<D, SPT, 1>(eps, stride, mu, sigma, k, zt, z_off,
-                                       lq, lp, S, B, n, Z, sign, wraps);
+                                       lq, lp, S, B, n, Z, wraps);
     else
       reparam_stereo_kernel<D, SPT, 0>(eps, stride, mu, sigma, k, zt, z_off,
-                                       lq, lp, S, B, n, Z, sign, wraps);
+                                       lq, lp, S, B, n, Z, wraps);
   }
 }
 
@@ -201,7 +201,7 @@ extern "C" void host_run(const float* eps, long long stride, const float* mu,
                          const float* sigma, const float* k, float* zt,
                          int z_off, float* lq, float* lp, int S, int B, int n,
                          int Z, int sign, int wraps, int spt) {
-  switch (reparam_dim_class(n)) {
+  switch (n) {
     case 2: run_spt<2>(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B, n,
                        Z, sign, wraps, spt); break;
     case 3: run_spt<3>(eps, stride, mu, sigma, k, zt, z_off, lq, lp, S, B, n,
