@@ -140,7 +140,26 @@ Phases:
     captures its launches in a CUDA graph and counts each replay;
 21. ``Trainer.fit(profile_epochs=1)`` of a 20-step flagship epoch writes a
     Chrome trace that holds the card's kernels (B1 among them);
-22. one JSON line of kernel numbers, then the result line.
+22. the Riemannian normal, d6:riemannian with the model matrix's flags
+    (fixed curvature) at MNIST width (D = 784, h_dim 400, batch 128):
+    ``log_partition`` in float32 on the card against float64 over a grid
+    of (n, sigma, c) that holds sigma sqrt(c) ~ 0.05 and n = 200; 100
+    training steps (the decode through B6, the tail plain PyTorch) with
+    their rate and the device's busy share; IWAE-500 over 1,024 test
+    examples (B2 in 125-sample launches) with its rate and busy share;
+    per-example ELBO and IWAE against the plain versions on the same noise;
+    one step's gradients of a learnable-curvature instance (dr/dK on the
+    card) against the plain path; the rejection sampler's acceptance rate
+    and mean rounds on a batch's posterior scales;
+23. the conv VAE, u6 with learnable curvature at the synthetic CIFAR's
+    size (32 x 32 x 3, h_dim 400, batch 128): every convolution of a
+    training step and of an IWAE chunk, forward and backward, sees cuDNN's
+    TF32 off while the global flag is PyTorch's default (on); 100 training
+    steps (B1 and B3 once a step) and IWAE-500 over 1,024 test examples
+    (B5 per 20-sample chunk), B2 and B6 never launched, with rates and
+    busy shares; per-example checks as phase 22's, and the per-example
+    IWAE gap of the same evaluation with TF32 on (why it is off);
+24. one JSON line of kernel numbers, then the result line.
 
 Where float32 does not resolve a value (a point at the K < 0 ball's rim,
 a radius within an ulp of the K > 0 injectivity shell), the stereographic
@@ -186,6 +205,7 @@ from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mvae_torch import TrainConfig, Trainer, VAEConfig, parse_components
 from mvae_torch.data import load_mnist
@@ -626,11 +646,13 @@ def _evaluate(trainer, seed):
 
 
 @torch.no_grad()
-def per_example_check(cfg, trainer, n_samples: int) -> None:
-    """Per-example ELBO and IWAE values of one 512-example batch through the
-    kernels and through the plain versions, on the same explicit noise:
-    a pass mean in float32 cannot resolve differences below ~6e-5 nats."""
-    x = (trainer._test_data[:512] > 0.5).float()
+def per_example_check(cfg, trainer, n_samples: int, x=None) -> None:
+    """Per-example ELBO and IWAE values of one 512-example batch (``x``, or
+    the binarized first 512 test examples) through the kernels and through
+    the plain versions, on the same explicit noise: a pass mean in float32
+    cannot resolve differences below ~6e-5 nats."""
+    if x is None:
+        x = (trainer._test_data[:512] > 0.5).float()
     gen = torch.Generator(device="cuda").manual_seed(7)
     noise_elbo = tail_kernels.draw_noise(cfg.components, (512,), x, gen)
     noise_ll = tail_kernels.draw_noise(cfg.components, (n_samples, 512), x,
@@ -2323,6 +2345,287 @@ def phase_trace(ds, tmp) -> None:
           "the trace holds CUDA kernel events, B1 among them")
 
 
+# --- the Riemannian normal and the conv VAE ---------------------------------------
+
+
+def _counted():
+    """The launch counters of the kernels on the training and IWAE paths,
+    by name."""
+    return {"tail_fwd": tail_kernels.tail_forward,
+            "tail_bwd": tail_kernels.tail_backward,
+            "train_decode": decoder_kernels.train_decode_bce,
+            "decode_bce": decoder_kernels.fused_decode_bce_t,
+            "reparam_stereo": manifold_kernels.wrapped_reparam_stereo_t}
+
+
+def _zero_counts() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
+
+
+def _steps(trainer, n: int) -> tuple[float, torch.Tensor]:
+    """(steps/s, ELBOs) of ``n`` training steps on a fixed permutation,
+    the wall ended by a device sync."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    perm = torch.randperm(len(trainer._train_data), device="cuda",
+                          generator=gen)
+    bs, nb = trainer.tc.batch_size, trainer.steps_per_epoch
+    torch.cuda.synchronize()
+    t0 = time.time()
+    elbos = torch.stack([trainer._train_step(
+        trainer._train_data[perm[s % nb * bs:(s % nb + 1) * bs]])["elbo"]
+        for s in range(n)])
+    torch.cuda.synchronize()
+    return n / (time.time() - t0), elbos
+
+
+def _iwae(trainer, n: int) -> tuple[float, float]:
+    """(IWAE LL, examples/s) over the first ``n`` test examples."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ll = trainer.evaluate_log_likelihood("test", n)
+    torch.cuda.synchronize()
+    return ll, n / (time.time() - t0)
+
+
+def _grad_check(trainer_k, trainer_p, x, what: str) -> None:
+    """One step's gradients through the kernels against the plain path on
+    the same weights, batch and noise (rtol 1e-3, atol 5e-4)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    noise = tail_kernels.draw_noise(trainer_k.model_cfg.components,
+                                    (x.shape[0],), x, gen)
+    gk = _grads(trainer_k, x, noise)
+    with train_decoder(False), plain_kernels():
+        gp = _grads(trainer_p, x, noise)
+    worst = max(((a - b).abs() / (1e-3 * b.abs() + 5e-4)).max().item()
+                for a, b in zip(gk, gp))
+    print(f"[{what}] one step, every parameter's gradient against the plain "
+          f"path: max {worst:.3g} of (rtol 1e-3, atol 5e-4)")
+    check(worst <= 1.0 and all(bool(torch.isfinite(g).all()) for g in gk),
+          f"{what}: one-step gradients match the plain path")
+
+
+def phase_riemannian(ds, tmp, card: str) -> dict:
+    """d6:riemannian at MNIST width: the quadrature against float64, 100
+    training steps, IWAE-500 on 1,024 examples, the per-example and
+    gradient checks and the sampler's acceptance (phase 22)."""
+    from mvae_torch.distributions import riemannian_normal as rn
+    worst = 0.0
+    for n in (2, 6, 200):
+        for sig in (0.05, 0.1, 1.0, 5.0):
+            for c in (0.1, 0.25, 1.0, 4.0):
+                got = rn.log_partition(
+                    n, torch.tensor([sig], device="cuda"),
+                    torch.tensor(-c, device="cuda")).double().cpu()
+                ref = rn.log_partition(n, torch.tensor([sig],
+                                                       dtype=torch.float64),
+                                       torch.tensor(-c, dtype=torch.float64))
+                worst = max(worst, ((got - ref).abs()
+                                    / (1.0 + ref.abs())).item())
+    print(f"[riemannian] log_partition in float32 on the card against "
+          f"float64, n in (2, 6, 200), sigma sqrt(c) from 0.016 to 10: max "
+          f"|d| / (1 + |ref|) {worst:.3g}")
+    check(worst <= 1e-5, "log_partition within 1e-5 (1 + |ref|) of float64")
+
+    spec = "d6:riemannian"
+    cfg = VAEConfig(parse_components(spec), ds.data_shape, "mlp", h_dim=400)
+    trainer = Trainer(cfg, ds, TrainConfig(seed=0, burnin_epochs=0),
+                      f"{tmp}/riem")
+    paths = trainer.fused_paths
+    check(not paths["train_tail"]["active"]
+          and paths["train_decoder"]["active"]
+          and paths["iwae_decoder"]["active"],
+          f"{spec}: plain tail, B6 and B2: {paths}")
+    _steps(trainer, 5)  # warm-up (allocator, cuBLAS handles)
+    _zero_counts()
+    rate, elbos = _steps(trainer, 100)
+    train_counts = _read_counts()
+    check(bool(torch.isfinite(elbos).all())
+          and all(bool(torch.isfinite(t).all())
+                  for t in _leaves(trainer.params)),
+          f"{spec}: finite losses and parameters over 100 steps")
+    check(train_counts["train_decode"] == 100,
+          f"{spec}: B6 launched once per step: {train_counts}")
+    busy = profile_pass(f"{spec} 20 training steps",
+                        lambda: _steps(trainer, 20))
+    _iwae(trainer, 1024)  # warm-up
+    _zero_counts()
+    ll, ex_s = _iwae(trainer, 1024)
+    iwae_counts = _read_counts()
+    check(math.isfinite(ll), f"{spec}: finite IWAE-500")
+    check(iwae_counts["decode_bce"] == 2 * 4,
+          f"{spec}: B2 launched 2 batches x 4 chunks of 125: {iwae_counts}")
+    ll_busy = profile_pass(f"{spec} IWAE-500 pass, 1024 examples",
+                           lambda: _iwae(trainer, 1024))
+    print(f"[riemannian] {spec} h_dim 400 batch 128 on {card}: "
+          f"{rate:.2f} steps/s (device busy {100 * busy:.1f}%), ELBO "
+          f"{elbos[0].item():.3f} -> {elbos[-1].item():.3f}; IWAE-500 on "
+          f"1024 test examples {ll:.4f} at {ex_s:.1f} examples/s (device "
+          f"busy {100 * ll_busy:.1f}%); launches training {train_counts}, "
+          f"IWAE {iwae_counts}")
+    per_example_check(cfg, trainer, 500)
+
+    # the sampler on the trained posterior's scales of one batch
+    comp, cp = cfg.components[0], trainer.params["components"][0]
+    with torch.no_grad():
+        x = (trainer._test_data[:512] > 0.5).float()
+        raw = vae._fused_head_raw(cfg, trainer.params,
+                                  vae.encode(cfg, trainer.params, x))[0]
+        _, sigma, k = comp.posterior_params_from_raw(cp, raw)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        rounds = rn.draw_rounds(comp.dim, (500, 512), x, gen)
+        _, log_u, log_acc = rn.proposals(comp.dim, sigma.expand(500, 512), k,
+                                         rounds)
+        ok = log_u <= log_acc
+        used = torch.where(ok.any(-1), ok.to(torch.int8).argmax(-1) + 1,
+                           rn.ROUNDS).float()
+    print(f"[riemannian] sampler on 500 x 512 draws at the trained scales "
+          f"(sigma {sigma.min().item():.3g}..{sigma.max().item():.3g}): "
+          f"acceptance rate {ok.float().mean().item():.4f} per round, mean "
+          f"rounds used {used.mean().item():.4f}, max {int(used.max())}, "
+          f"lanes never accepted {int((~ok.any(-1)).sum())}")
+
+    # one step's gradients with learnable curvature: dr/dK on the card
+    learn = VAEConfig(parse_components(spec, fixed_curvature=False),
+                      ds.data_shape, "mlp", h_dim=400)
+    tk = Trainer(learn, ds, TrainConfig(seed=5), f"{tmp}/riemk")
+    tp = Trainer(learn, ds, TrainConfig(seed=5), f"{tmp}/riemp")
+    x = (tk._train_data[:128] > 0.5).float()
+    _grad_check(tk, tp, x, "riemannian")
+    gk = tk.params["components"][0]["c_param"].grad
+    check(gk is not None and bool(torch.isfinite(gk)) and gk.item() != 0.0,
+          "d6:riemannian: a finite, non-zero curvature gradient")
+    return {"train": train_counts, "iwae": iwae_counts}
+
+
+class _ConvFlags(TorchDispatchMode):
+    """Records cuDNN's TF32 flag at every convolution, forward or
+    backward (the mode reaches the autograd engine's thread)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in (torch.ops.aten.convolution,
+                                   torch.ops.aten.convolution_backward):
+            self.seen.append((func.overloadpacket.__name__,
+                              torch.backends.cudnn.allow_tf32))
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def cudnn_tf32():
+    """The conv nets with cuDNN's TF32 on (only to show what it costs)."""
+    from mvae_torch.models import nets
+    saved = nets._cudnn_f32
+    nets._cudnn_f32 = contextlib.nullcontext
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        nets._cudnn_f32 = saved
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def phase_conv(tmp, card: str) -> dict:
+    """u6 with learnable curvature, conv nets at the synthetic CIFAR's size:
+    TF32 off on every conv, 100 training steps, IWAE-500 on 1,024
+    examples, the per-example checks and the TF32 gap (phase 23)."""
+    from mvae_torch.data import load_cifar
+    ds = load_cifar()
+    spec = "u6"
+    cfg = VAEConfig(parse_components(spec, fixed_curvature=False),
+                    ds.data_shape, "conv", h_dim=400)
+    trainer = Trainer(cfg, ds, TrainConfig(seed=0, burnin_epochs=0),
+                      f"{tmp}/conv")
+    paths = trainer.fused_paths
+    check(paths["train_tail"]["active"] and paths["iwae_reparam"][0]["active"]
+          and not paths["train_decoder"]["active"]
+          and not paths["iwae_decoder"]["active"],
+          f"conv {spec}: B1/B3 and B5, no B2 or B6: {paths}")
+
+    # TF32 off on every convolution while the global flag is on
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with _ConvFlags() as mode:
+            _steps(trainer, 1)
+            with torch.no_grad():
+                vae.log_likelihood(cfg, trainer.params,
+                                   trainer._test_data[:64], 20,
+                                   generator=trainer.generator)
+            torch.cuda.synchronize()
+        restored = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    names = sorted({name for name, _ in mode.seen})
+    on = sum(flag for _, flag in mode.seen)
+    print(f"[conv] cuDNN TF32 with the global flag on: {len(mode.seen)} "
+          f"convolutions ({', '.join(names)}) of a training step and an "
+          f"IWAE chunk, {on} with TF32 on")
+    check(names == ["convolution", "convolution_backward"] and on == 0
+          and restored, "every conv, forward and backward, runs TF32 off")
+
+    _steps(trainer, 5)  # warm-up
+    _zero_counts()
+    rate, elbos = _steps(trainer, 100)
+    train_counts = _read_counts()
+    check(bool(torch.isfinite(elbos).all())
+          and all(bool(torch.isfinite(t).all())
+                  for t in _leaves(trainer.params)),
+          f"conv {spec}: finite losses and parameters over 100 steps")
+    check(train_counts["tail_fwd"] == 100 and train_counts["tail_bwd"] == 100,
+          f"conv {spec}: B1 and B3 launched once per step: {train_counts}")
+    busy = profile_pass(f"conv {spec} 20 training steps",
+                        lambda: _steps(trainer, 20))
+    _iwae(trainer, 1024)  # warm-up
+    _zero_counts()
+    ll, ex_s = _iwae(trainer, 1024)
+    iwae_counts = _read_counts()
+    check(math.isfinite(ll), f"conv {spec}: finite IWAE-500")
+    check(iwae_counts["reparam_stereo"] == 2 * 25,
+          f"conv {spec}: B5 launched 2 batches x 25 chunks of 20: "
+          f"{iwae_counts}")
+    check(train_counts["decode_bce"] + train_counts["train_decode"]
+          + iwae_counts["decode_bce"] + iwae_counts["train_decode"] == 0,
+          f"conv {spec}: B2 and B6 never launched")
+    ll_busy = profile_pass(f"conv {spec} IWAE-500 pass, 1024 examples",
+                           lambda: _iwae(trainer, 1024))
+    print(f"[conv] {spec} conv h_dim 400 batch 128 on 32x32x3 "
+          f"({'synthetic' if ds.synthetic else 'real'} CIFAR) on {card}: "
+          f"{rate:.2f} steps/s (device busy {100 * busy:.1f}%), ELBO "
+          f"{elbos[0].item():.3f} -> {elbos[-1].item():.3f}; IWAE-500 on "
+          f"1024 test examples {ll:.4f} at {ex_s:.1f} examples/s (device "
+          f"busy {100 * ll_busy:.1f}%); launches training {train_counts}, "
+          f"IWAE {iwae_counts}")
+    x = trainer._test_data[:512]
+    per_example_check(cfg, trainer, 500, x)
+
+    # the same evaluation with TF32 on: the gap it would cost
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    noise = tail_kernels.draw_noise(cfg.components, (500, 512), x, gen)
+    with torch.no_grad():
+        ll32 = vae.log_likelihood(cfg, trainer.params, x, 500, noise=noise)
+        with cudnn_tf32():
+            ll_tf32 = vae.log_likelihood(cfg, trainer.params, x, 500,
+                                         noise=noise)
+    gap = (ll_tf32 - ll32).abs()
+    print(f"[conv] per-example IWAE-500 with cuDNN TF32 on against off, "
+          f"same noise, 512 examples: max |dLL| {gap.max().item():.4g}, mean "
+          f"{gap.mean().item():.4g} nats (the path holds 1e-3)")
+
+    learn_k = Trainer(cfg, ds, TrainConfig(seed=5), f"{tmp}/convk")
+    learn_p = Trainer(cfg, ds, TrainConfig(seed=5), f"{tmp}/convp")
+    _grad_check(learn_k, learn_p, learn_k._train_data[:128], "conv")
+    return {"train": train_counts, "iwae": iwae_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2358,6 +2661,8 @@ def main() -> int:
         roofline_rows, roofline_launches = phase_roofline(gen, built)
         kernels += roofline_rows
         phase_trace(ds, tmp)
+        phase_riemannian(ds, tmp, card)
+        phase_conv(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]

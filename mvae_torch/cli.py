@@ -2,6 +2,9 @@
 
     python -m mvae_torch.cli --dataset mnist --model h2,s2,e2 \
         --fixed_curvature false --epochs 100 --likelihood_n 500
+    python -m mvae_torch.cli --dataset mnist --model d6:riemannian
+    python -m mvae_torch.cli --dataset cifar --model u6 \
+        --fixed_curvature false          # the conv VAE (--arch conv)
 
 Trains (``Trainer.fit``: a test ELBO per epoch, the IWAE-n estimate at
 the end), writes ``<run_dir>/result.json`` and prints it as one JSON line,

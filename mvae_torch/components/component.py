@@ -9,10 +9,11 @@ vMF, the single-sample estimate ``log q - log p`` otherwise).
 A Component is a static dataclass; its learnable state is a plain dict of
 tensors {w_mu, b_mu, w_sig, b_sig, c_param} inside the model params.
 
-Posterior families ported so far: 'normal' on e, 'wrapped' on every kind,
-'vmf' on s and p (the exact inverse-CDF cosine at dim 2, the Wood rejection
-cosine otherwise). The spec DSL accepts every family the reference has;
-'riemannian' raises ``NotImplementedError`` when sampled.
+Posterior families: 'normal' on e, 'wrapped' on every kind, 'vmf' on s
+and p (the exact inverse-CDF cosine at dim 2, the Wood rejection cosine
+otherwise) and 'riemannian' on h and d (the Riemannian normal, its radius
+by rejection on the rounds its noise carries; prior RiemannianNormal(mu0,
+1)).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from typing import NamedTuple
 import torch
 
 from ..distributions import (hyperspherical_uniform, normal,
-                             von_mises_fisher, wrapped_normal)
+                             riemannian_normal, von_mises_fisher,
+                             wrapped_normal)
 from ..ops import Manifold, sphere, stable
 
 POSTERIORS = ("wrapped", "normal", "vmf", "riemannian")
@@ -125,7 +127,11 @@ class Component:
         """Noise values one draw consumes: the tangent normals; for the
         vMF led by the cosine's uniform and, where the cosine is drawn by
         rejection (dim != 2), followed by the rejection draw's numbers
-        (``von_mises_fisher.wood_proposals``)."""
+        (``von_mises_fisher.wood_proposals``); for the Riemannian normal
+        followed by the radius's rejection rounds
+        (``riemannian_normal.draw_rounds``)."""
+        if self.posterior == "riemannian":
+            return self.dim + 3 * riemannian_normal.ROUNDS
         if self.posterior != "vmf":
             return self.dim
         wood = 0 if self.dim == 2 else 2 * von_mises_fisher.OVERSAMPLE
@@ -178,8 +184,11 @@ class Reparametrized(NamedTuple):
 def draw_noise(comp: Component, shape, like: torch.Tensor, generator=None):
     """Standard noise (*shape, noise_width) for one component: N(0, 1)
     tangent draws, led by the cosine's U[1e-7, 1) for the vMF and, for the
-    rejection cosine (dim != 2), followed by its proposals."""
+    rejection cosine (dim != 2), followed by its proposals; for the
+    Riemannian normal followed by the radius's rejection rounds."""
     shape = tuple(shape)
+    if comp.posterior == "riemannian":
+        return riemannian_normal.draw_noise(comp.dim, shape, like, generator)
     g = normal.standard_normal(shape + (comp.dim,), like, generator)
     if comp.posterior != "vmf":
         return g
@@ -244,16 +253,23 @@ def reparametrize(comp: Component, params, features, raw=None, noise=None,
         kl = von_mises_fisher.kl_to_uniform(m, scale)
         return Reparametrized(z, log_q, log_p, kl.expand(log_q.shape))
 
-    raise NotImplementedError(
-        f"later slice: the {comp.posterior!r} posterior")
+    if comp.posterior == "riemannian":
+        z, log_q = riemannian_normal.sample_and_log_prob(man, mu, scale, k,
+                                                         noise=noise)
+        mu0 = man.mu0(k, dtype)
+        log_p = riemannian_normal.log_prob(
+            man, z, mu0, torch.ones((), dtype=dtype, device=z.device), k)
+        return Reparametrized(z, log_q, log_p, log_q - log_p)
+
+    raise AssertionError(comp.posterior)
 
 
 def sample_prior(comp: Component, params, shape, dtype=torch.float32,
                  generator=None):
     """Draw (*shape, ambient_dim) from the component's prior, on the device
     of ``params``: the standard normal, the uniform on the sphere (pushed
-    through the stereographic isometry for 'p'), or the wrapped normal at
-    mu0 with unit scale."""
+    through the stereographic isometry for 'p'), or the wrapped or
+    Riemannian normal at mu0 with unit scale."""
     man = comp.manifold
     shape = tuple(shape)
     k = comp.curvature(params)
@@ -266,8 +282,10 @@ def sample_prior(comp: Component, params, shape, dtype=torch.float32,
         if man.kind == "p":
             return sphere.sphere_to_projected(z_s, k)
         return z_s
-    if comp.posterior == "riemannian":
-        raise NotImplementedError("later slice: the 'riemannian' posterior")
     mu0 = torch.broadcast_to(man.mu0(k, dtype), shape + (man.ambient_dim,))
+    if comp.posterior == "riemannian":
+        sigma = torch.ones(shape, dtype=dtype, device=k.device)
+        return riemannian_normal.sample(man, mu0, sigma, k,
+                                        generator=generator)
     return wrapped_normal.sample(man, mu0, torch.ones_like(like), k,
                                  generator=generator)

@@ -2,9 +2,12 @@
 
 The reference keeps its parameters as a pytree of arrays:
 ``{"encoder": {"layers": (...)}, "decoder": {"layers": (...), "out": ...},
-"components": ({w_mu, b_mu, w_sig, b_sig, c_param}, ...)}``. The port uses
-the same structure of dicts and tuples with torch tensors, and the same
-(in, out) weight layout, so conversion is leaf by leaf through numpy.
+"components": ({w_mu, b_mu, w_sig, b_sig, c_param}, ...)}`` for the MLP
+VAE, and ``{"encoder": {conv1, conv2, fc}, "decoder": {fc1, fc2, deconv1,
+deconv2}, ...}`` for the conv VAE. The port uses the same structure of
+dicts and tuples with torch tensors, and the same layouts ((in, out) linear
+weights, HWIO conv weights), so conversion is leaf by leaf through numpy
+and checkpoints are interchangeable.
 """
 from __future__ import annotations
 

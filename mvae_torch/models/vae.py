@@ -1,6 +1,7 @@
 """Mixed-curvature VAE: encode / reparametrize / decode / ELBO / IWAE.
 
-Counterpart of ``mvae_tpu/models/vae.py`` (MLP VAE):
+Counterpart of ``mvae_tpu/models/vae.py`` (the MLP VAE and the conv VAE
+of CIFAR):
 
   forward:  encoder(x) -> features; one fused head GEMM for every
             component -> the product-latent tail (the CUDA tail kernels,
@@ -13,8 +14,9 @@ Counterpart of ``mvae_tpu/models/vae.py`` (MLP VAE):
             - log q(z_i|x)] - log n, encoding once and drawing the
             importance samples in chunks: wrapped components on the
             stereographic kinds d/p/u through the CUDA chunk reparam
-            kernel, the others in plain PyTorch, all decoded by the CUDA
-            decode+BCE kernel.
+            kernel, the others in plain PyTorch, decoded by the CUDA
+            decode+BCE kernel where the decoder is a depth-1 f32 MLP and
+            in plain PyTorch (the conv decoder at full float32) otherwise.
 
 Every draw takes its standard noise as an optional tensor (the layout of
 ``kernels.tail_kernels.draw_noise``); without it, the noise comes from the
@@ -40,8 +42,8 @@ class VAEConfig:
     """Static model description."""
 
     components: tuple[Component, ...]
-    data_shape: tuple[int, ...]      # (D,) flat or (H, W) images
-    arch: str = "mlp"                # 'mlp' ('conv' is a later slice)
+    data_shape: tuple[int, ...]      # (D,) flat or (H, W[, C]) images
+    arch: str = "mlp"                # 'mlp' | 'conv' ((H, W, C) images)
     h_dim: int = 400
     encoder_depth: int = 1
     decoder_depth: int = 1
@@ -49,8 +51,8 @@ class VAEConfig:
     def __post_init__(self):
         if self.arch not in ("mlp", "conv"):
             raise ValueError(f"unknown arch {self.arch!r}")
-        if self.arch == "conv":
-            raise NotImplementedError("later slice: the conv VAE")
+        if self.arch == "conv" and len(self.data_shape) != 3:
+            raise ValueError("conv arch needs (H, W, C) data_shape")
 
     @property
     def flat_dim(self) -> int:
@@ -65,12 +67,20 @@ def init_params(cfg: VAEConfig, init_k: float = 1.0, dtype=torch.float32,
                 generator: torch.Generator | None = None, device=None):
     """Random parameters drawn from ``generator`` (a CPU generator, so a
     seed gives the same weights on every device) and moved to ``device``."""
-    params = _tree_map(lambda t: t.to(device), {
-        "encoder": nets.mlp_encoder_init(cfg.flat_dim, cfg.h_dim, dtype,
-                                         cfg.encoder_depth, generator),
-        "decoder": nets.mlp_decoder_init(cfg.z_dim, cfg.h_dim, cfg.flat_dim,
-                                         dtype, cfg.decoder_depth, generator),
-    })
+    if cfg.arch == "mlp":
+        encoder = nets.mlp_encoder_init(cfg.flat_dim, cfg.h_dim, dtype,
+                                        cfg.encoder_depth, generator)
+        decoder = nets.mlp_decoder_init(cfg.z_dim, cfg.h_dim, cfg.flat_dim,
+                                        dtype, cfg.decoder_depth, generator)
+    else:
+        h, w, c = cfg.data_shape
+        if h != w:
+            raise ValueError("conv arch assumes square images")
+        encoder = nets.conv_encoder_init(h, c, cfg.h_dim, dtype, generator)
+        decoder = nets.conv_decoder_init(cfg.z_dim, cfg.h_dim, h, c, dtype,
+                                         generator)
+    params = _tree_map(lambda t: t.to(device),
+                       {"encoder": encoder, "decoder": decoder})
     params["components"] = tuple(
         comp.init_params(cfg.h_dim, init_k, dtype, generator, device)
         for comp in cfg.components)
@@ -86,12 +96,16 @@ def _tree_map(fn, tree):
 
 
 def encode(cfg: VAEConfig, params, x):
+    if cfg.arch == "conv":
+        return nets.conv_encoder_apply(params["encoder"], x)
     flat = x.reshape(x.shape[:x.dim() - len(cfg.data_shape)]
                      + (cfg.flat_dim,))
     return nets.mlp_encoder_apply(params["encoder"], flat)
 
 
 def decode(cfg: VAEConfig, params, z):
+    if cfg.arch == "conv":
+        return nets.conv_decoder_apply(params["decoder"], z)
     logits = nets.mlp_decoder_apply(params["decoder"], z)
     return logits.reshape(z.shape[:-1] + cfg.data_shape)
 
@@ -197,13 +211,12 @@ def _fused_train_decoder_gate(cfg: VAEConfig, params) -> tuple[bool, str]:
     CPU weights), a depth-1 f32 MLP decoder, and a plan within the kernel's
     shared memory. Returns (eligible, reason); the router and
     ``fused_path_report`` both call it."""
-    w = params.get("decoder", {}).get("out", {}).get("w")
-    if not decoder_kernels.use_fused_train_decoder(getattr(w, "device",
-                                                           None)):
-        return False, ("MVAE_FUSED_TRAIN_DECODER off, or 'auto' on CPU "
-                       "parameters -> plain PyTorch decode")
     if not (cfg.arch == "mlp" and cfg.decoder_depth == 1):
         return False, "decoder not a depth-1 MLP -> plain PyTorch decode"
+    w = params["decoder"]["out"]["w"]
+    if not decoder_kernels.use_fused_train_decoder(w.device):
+        return False, ("MVAE_FUSED_TRAIN_DECODER off, or 'auto' on CPU "
+                       "parameters -> plain PyTorch decode")
     if w.dtype != torch.float32:
         return False, "non-f32 decoder -> plain PyTorch decode"
     if not decoder_kernels.shape_supported(cfg.z_dim, cfg.h_dim):
@@ -272,7 +285,7 @@ def loss_fn(cfg: VAEConfig, params, x, beta: float = 1.0, noise=None,
 def _fused_decoder_eligible(cfg: VAEConfig, params) -> bool:
     """The decode+BCE kernel covers depth-1 f32 MLP decoders whose hidden
     tile fits one block's shared memory."""
-    if cfg.decoder_depth != 1:
+    if not (cfg.arch == "mlp" and cfg.decoder_depth == 1):
         return False
     if params["decoder"]["out"]["w"].dtype != torch.float32:
         return False
@@ -328,7 +341,9 @@ def _log_weights(cfg: VAEConfig, params, x, n_samples: int,
                  chunk_size: int, noise=None, generator=None):
     """(n_samples, B) IWAE log-weights log p(x|z_i) + log p(z_i)
     - log q(z_i|x). ``noise`` (n_samples, B, E) indexes samples globally,
-    so the result does not depend on the chunking."""
+    so the result does not depend on the chunking. Without the decode
+    kernel, each chunk of ``chunk_size`` samples is decoded in plain
+    PyTorch (the conv decoder too) against the image-shaped x."""
     fused = _fused_decoder_eligible(cfg, params)
     if fused:
         # the kernel never materializes logits: the largest divisor <= 128
@@ -338,8 +353,8 @@ def _log_weights(cfg: VAEConfig, params, x, n_samples: int,
     if n_samples % chunk_size:
         raise ValueError("n_samples must divide into chunks")
     feats = encode(cfg, params, x)  # encode once for all importance samples
-    xf = x.reshape(x.shape[0], cfg.flat_dim)
-    xt = xf.T.contiguous() if fused else None
+    xt = x.reshape(x.shape[0], cfg.flat_dim).T.contiguous() if fused else None
+    ximg = x.reshape((x.shape[0],) + cfg.data_shape)
     dec = params["decoder"]
     out = []
     for c0 in range(0, n_samples, chunk_size):
@@ -351,8 +366,9 @@ def _log_weights(cfg: VAEConfig, params, x, n_samples: int,
                 zt, xt, dec["layers"][0]["w"], dec["layers"][0]["b"],
                 dec["out"]["w"], dec["out"]["b"])
         else:
-            logits = nets.mlp_decoder_apply(dec, zt.transpose(1, 2))
-            ll = _sum_data_axes(bernoulli_log_prob(logits, xf), 1)
+            logits = decode(cfg, params, zt.transpose(1, 2))
+            ll = _sum_data_axes(bernoulli_log_prob(logits, ximg),
+                                len(cfg.data_shape))
         out.append(ll + log_p - log_q)
     # the log-weights in >= float32 (never a float64 oracle downgraded)
     log_w = torch.cat(out, dim=0)
@@ -372,7 +388,7 @@ def log_likelihood(cfg: VAEConfig, params, x, n_samples: int = 500,
 def generate(cfg: VAEConfig, params, n: int, generator=None):
     """Ancestral sampling: one prior draw per component -> the decoder's
     Bernoulli means, (n, *data_shape) in [0, 1]."""
-    dtype = params["decoder"]["out"]["w"].dtype
+    dtype = params["components"][0]["w_mu"].dtype
     zs = [sample_prior(comp, cp, (n,), dtype, generator)
           for comp, cp in zip(cfg.components, params["components"])]
     return torch.sigmoid(decode(cfg, params, torch.cat(zs, dim=-1)))

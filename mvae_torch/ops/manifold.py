@@ -95,6 +95,9 @@ class Manifold:
     def mu0(self, k, dtype=torch.float32):
         return self.ops.mu0(self.dim, k, dtype)
 
+    def distance(self, x, y, k):
+        return self.ops.distance(x, y, k)
+
     def exp_map_mu0(self, v, k):
         return self.ops.exp_map_mu0(v, k)
 

@@ -360,10 +360,12 @@ def test_sample_prior_lies_on_the_manifold(spec):
         np.testing.assert_allclose(lor.numpy(), -0.5, rtol=1e-4)
     elif kind == "d":
         assert float((z * z).sum(-1).max()) < 0.5
-    with pytest.raises(NotImplementedError):
-        (rc,) = t_parse("d3:riemannian")
-        sample_prior(rc, rc.init_params(
-            8, generator=torch.Generator().manual_seed(0)), (2,))
+    (rc,) = t_parse("d3:riemannian")
+    zr = sample_prior(rc, rc.init_params(
+        8, generator=torch.Generator().manual_seed(0)), (2,),
+        generator=torch.Generator().manual_seed(1))
+    assert zr.shape == (2, 3) and bool(torch.isfinite(zr).all())
+    assert float((zr * zr).sum(-1).max()) < 1.0
 
 
 def test_sample_prior_on_p_is_the_projected_uniform():

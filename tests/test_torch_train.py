@@ -16,6 +16,7 @@ cosine on the proposals the JAX Trainer drew, implicit gradient included.
 """
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -105,6 +106,121 @@ def test_one_epoch_matches_jax_trainer(tmp_path, spec, fixed, burnin):
     kinds = [(c.manifold.kind, c.dim, c.posterior) for c in jcomps]
     _, perm, noises = epoch_noise(key, kinds, 0, jtr.steps_per_epoch, BS,
                                   (D,), N_TRAIN)
+    jtr.train_one_epoch(0)
+    xs = torch.from_numpy(train)
+    for s, nz in enumerate(noises):
+        idx = torch.from_numpy(perm[s * BS:(s + 1) * BS].astype(np.int64))
+        tr._train_step(xs[idx], torch.from_numpy(nz["u_bin"].copy()),
+                       _port_noise(kinds, nz["comps"]))
+    assert tr.step == jtr.steps_per_epoch == int(jtr.step)
+    delta = _max_rel_delta(jtr.params, tr.params)
+    assert delta < 5e-4, f"params diverged after one epoch: {delta}"
+
+
+def _epoch_noise64(key, kinds, steps, bs, n_train):
+    """``epoch_noise`` of a float64 JAX Trainer (its draws take the data's
+    dtype) for products of normal / wrapped / Riemannian components, with
+    all 128 rounds of each Riemannian radius: (perm, per-step u_bin and
+    the port's (B, E) noise)."""
+    from tests.test_torch_riemannian import jax_noise
+    f64 = np.float64
+    _, k_perm, k_epoch = jax.random.split(key, 3)
+    perm = np.asarray(jax.random.permutation(k_perm, n_train)[:steps * bs])
+    out = []
+    for s in range(steps):
+        k_bin, k_model = jax.random.split(jax.random.fold_in(k_epoch, s))
+        u_bin = np.asarray(jax.random.uniform(k_bin, (bs, D), dtype=f64))
+        cols = [jax_noise(ck, dim, bs, f64) if posterior == "riemannian"
+                else np.asarray(jax.random.normal(ck, (bs, dim), f64))
+                for (_, dim, posterior), ck in zip(
+                    kinds, jax.random.split(k_model, len(kinds)))]
+        out.append((u_bin, np.concatenate(cols, axis=1)))
+    return perm, out
+
+
+@pytest.mark.parametrize("spec,fixed", [("d6:riemannian", False),
+                                        ("h2:riemannian,e2", True)])
+def test_one_epoch_riemannian_matches_jax_trainer(tmp_path, spec, fixed):
+    """The Riemannian normal beside the JAX Trainer, in float64: in
+    float32 both packages' gradients of this posterior (its quadrature
+    log-partition and implicit radius gradient) lie far from their
+    float64 value, and Adam's normalized step turns that into sign flips
+    of near-zero weights within an epoch, in either package."""
+    from mvae_tpu.components import parse_components as j_parse
+    from mvae_tpu.data.base import ArrayDataset as JArrayDataset
+    from mvae_tpu.models import vae as jvae
+    from mvae_tpu.train.trainer import TrainConfig as JTrainConfig
+    from mvae_tpu.train.trainer import Trainer as JTrainer
+
+    train = _data().astype(np.float64)
+    jcomps = j_parse(spec, fixed_curvature=fixed)
+    jtr = JTrainer(jvae.VAEConfig(jcomps, (D,), h_dim=16),
+                   JArrayDataset("tiny", train, train[:8], (D,), True),
+                   JTrainConfig(epochs=1, batch_size=BS, burnin_epochs=0,
+                                seed=3, train_rng="threefry",
+                                eval_batch_size=8, dtype="float64"),
+                   run_dir=str(tmp_path / "jax"))
+    tr = Trainer(tvae.VAEConfig(parse_components(spec, fixed_curvature=fixed),
+                                (D,), h_dim=16),
+                 ArrayDataset("tiny", train, train[:8], (D,), True),
+                 TrainConfig(epochs=1, batch_size=BS, burnin_epochs=0,
+                             seed=3, eval_batch_size=8, dtype="float64"),
+                 run_dir=str(tmp_path / "port"), device="cpu")
+    with torch.no_grad():
+        for leaf, value in zip(_leaves(tr.params), _leaves(params_from_jax(
+                jax.tree.map(np.asarray, jtr.params)))):
+            leaf.copy_(value)
+    key, _ = jax.random.split(jax.random.key(3))
+    kinds = [(c.manifold.kind, c.dim, c.posterior) for c in jcomps]
+    perm, noises = _epoch_noise64(key, kinds, jtr.steps_per_epoch, BS,
+                                  N_TRAIN)
+    jtr.train_one_epoch(0)
+    xs = torch.from_numpy(train)
+    for s, (u_bin, noise) in enumerate(noises):
+        idx = torch.from_numpy(perm[s * BS:(s + 1) * BS].astype(np.int64))
+        tr._train_step(xs[idx], torch.from_numpy(u_bin.copy()),
+                       torch.from_numpy(noise))
+    assert tr.step == jtr.steps_per_epoch == int(jtr.step)
+    delta = _max_rel_delta(jtr.params, tr.params)
+    assert delta < 5e-4, f"params diverged after one epoch: {delta}"
+
+
+def test_one_epoch_conv_matches_jax_trainer(tmp_path):
+    """The conv VAE (a u4 with learnable curvature on a tiny 8x8x3
+    dataset of intensities, not binarized, as CIFAR) beside the JAX
+    Trainer with ``arch="conv"``, as above."""
+    import jax
+    from mvae_tpu.components import parse_components as j_parse
+    from mvae_tpu.data.base import ArrayDataset as JArrayDataset
+    from mvae_tpu.models import vae as jvae
+    from mvae_tpu.train.trainer import TrainConfig as JTrainConfig
+    from mvae_tpu.train.trainer import Trainer as JTrainer
+    from tests.parity.torch_trainer import epoch_noise
+
+    shape = (8, 8, 3)
+    train = np.random.default_rng(1).random((N_TRAIN,) + shape).astype(
+        np.float32)
+    jcomps = j_parse("u4", fixed_curvature=False)
+    jtr = JTrainer(jvae.VAEConfig(jcomps, shape, arch="conv", h_dim=16),
+                   JArrayDataset("tiny", train, train[:8], shape, False),
+                   JTrainConfig(epochs=1, batch_size=BS, burnin_epochs=0,
+                                seed=3, train_rng="threefry",
+                                eval_batch_size=8),
+                   run_dir=str(tmp_path / "jax"))
+    tr = Trainer(tvae.VAEConfig(parse_components("u4", fixed_curvature=False),
+                                shape, arch="conv", h_dim=16),
+                 ArrayDataset("tiny", train, train[:8], shape, False),
+                 TrainConfig(epochs=1, batch_size=BS, burnin_epochs=0,
+                             seed=3, eval_batch_size=8),
+                 run_dir=str(tmp_path / "port"), device="cpu")
+    with torch.no_grad():
+        for leaf, value in zip(_leaves(tr.params), _leaves(params_from_jax(
+                jax.tree.map(np.asarray, jtr.params)))):
+            leaf.copy_(value)
+    key, _ = jax.random.split(jax.random.key(3))
+    kinds = [(c.manifold.kind, c.dim, c.posterior) for c in jcomps]
+    _, perm, noises = epoch_noise(key, kinds, 0, jtr.steps_per_epoch, BS,
+                                  shape, N_TRAIN)
     jtr.train_one_epoch(0)
     xs = torch.from_numpy(train)
     for s, nz in enumerate(noises):

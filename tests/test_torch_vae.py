@@ -332,8 +332,8 @@ def test_spec_rejects(bad):
 
 def test_later_slice_geometry_raises():
     """The stereographic kinds are ported: their geometry runs, and so does
-    the vMF on the projected sphere. What is still to come raises: the
-    Riemannian normal."""
+    the vMF on the projected sphere. The Riemannian normal, which raised
+    before its slice, now draws too: a point inside the ball."""
     from mvae_torch.components import reparametrize
     (comp,) = parse_components("d2")
     z = comp.manifold.exp_map_mu0(torch.ones(3, 2), torch.tensor(-1.0))
@@ -345,9 +345,11 @@ def test_later_slice_geometry_raises():
     assert rep.z.shape == (3, 2) and bool(torch.isfinite(rep.z).all())
     (comp,) = parse_components("d2:riemannian")
     params = comp.init_params(8, generator=torch.Generator())
-    with pytest.raises(NotImplementedError):
-        reparametrize(comp, params, torch.zeros(3, 8),
-                      generator=torch.Generator())
+    rep = reparametrize(comp, params, torch.zeros(3, 8),
+                        generator=torch.Generator())
+    assert rep.z.shape == (3, 2) and bool(torch.isfinite(rep.z).all())
+    assert float(rep.z.norm(dim=1).max()) < 1.0
+    assert all(bool(torch.isfinite(t).all()) for t in rep[1:])
 
 
 # --- the stereographic family ------------------------------------------------
