@@ -159,7 +159,24 @@ Phases:
     (B5 per 20-sample chunk), B2 and B6 never launched, with rates and
     busy shares; per-example checks as phase 22's, and the per-example
     IWAE gap of the same evaluation with TF32 on (why it is off);
-24. one JSON line of kernel numbers, then the result line.
+24. B6's routing by batch (C4): flagship training at MNIST width with B6
+    on and off in turns (on, off, off, on) at batch 64 (a (2, x) mesh
+    rank's share of 128), 256 (the model matrix's), 512 and 1024, each turn
+    ``C4_STEPS`` steps (shortened epochs) after a warm-up of each trainer,
+    its steps/s and a profiled turn's device busy share printed with the
+    card, and the verdict at each batch beside what "auto" routes there;
+25. the ("data", "model") mesh (``mvae_torch.parallel``): four gloo ranks
+    on the one card. One training step of the flagship at full width
+    (batch 128, learnable K) on fixed noise and binarization uniforms on
+    meshes (2, 1), (1, 2) and (2, 2) against the one-device
+    ``Trainer._train_step`` on the same inputs (the loss within 1e-4 nats,
+    every gradient within rtol 1e-3 / atol 5e-4); IWAE-500 of h2,s2,e2 and
+    d2,p2,e2 over 1,024 test examples on (2, 2) on one noise block against
+    the one-device ``log_likelihood`` on it (1e-3 nats per example); each
+    rank's launch counts of B1, B3, B6, B5 and B2 (zero of a kernel its
+    path runs fails the phase); a (2, 1) rank's profiled epoch (steps/s,
+    busy); one epoch of ``--mesh 2,1`` through the CLI;
+26. one JSON line of kernel numbers, then the result line.
 
 Where float32 does not resolve a value (a point at the K < 0 ball's rim,
 a radius within an ulp of the K > 0 injectivity shell), the stereographic
@@ -204,6 +221,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -212,6 +230,9 @@ from mvae_torch.data import load_mnist
 from mvae_torch.kernels import (_build, decoder_kernels, manifold_kernels,
                                 roofline, tail_kernels)
 from mvae_torch.models import vae
+from mvae_torch.parallel import make_mesh, shard_batch, shard_params
+from mvae_torch.parallel.collectives import gather_model
+from mvae_torch.parallel.launch import World
 from mvae_torch.train.trainer import _leaves
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM rate, FP32 FMA and TF32
@@ -2626,6 +2647,247 @@ def phase_conv(tmp, card: str) -> dict:
     return {"train": train_counts, "iwae": iwae_counts}
 
 
+# --- B6's routing by batch (C4) and the mesh ----------------------------------------
+
+C4_BATCHES = (64, 256, 512, 1024)
+C4_STEPS = 200
+
+
+def phase_c4(ds, tmp, card: str) -> dict:
+    """Flagship training with B6 on and off in turns (on, off, off, on) at
+    each of ``C4_BATCHES``: ``C4_STEPS`` steps a turn after 20 of each
+    trainer, then one profiled turn of 50 steps each for the busy share.
+    Returns {batch: (on rates, off rates)}."""
+    out = {}
+    for bs in C4_BATCHES:
+        on_tr = _flagship(ds, f"{tmp}/c4on{bs}", seed=0, batch_size=bs,
+                          burnin_epochs=0)
+        off_tr = _flagship(ds, f"{tmp}/c4off{bs}", seed=0, batch_size=bs,
+                           burnin_epochs=0)
+        order = ((on_tr, True), (off_tr, False), (off_tr, False),
+                 (on_tr, True))
+        for tr, on in order[:2]:
+            with train_decoder(on):
+                _steps(tr, 20)
+        _zero_counts()
+        rates = []
+        for tr, on in order:
+            with train_decoder(on):
+                rates.append(_steps(tr, C4_STEPS)[0])
+        counts = _read_counts()
+        check(counts["train_decode"] == 2 * C4_STEPS,
+              f"C4 batch {bs}: B6 launched on the on turns only: {counts}")
+        busy = []
+        for turn, (tr, on) in enumerate(order):
+            with train_decoder(on):
+                busy.append(profile_pass(
+                    f"C4 batch {bs} turn {turn + 1} B6 "
+                    f"{'on' if on else 'off'}, 50 steps",
+                    lambda: _steps(tr, 50)))
+        on_r = [r for (_, on), r in zip(order, rates) if on]
+        off_r = [r for (_, on), r in zip(order, rates) if not on]
+        verdict = ("on faster in both turns" if min(on_r) > max(off_r) else
+                   "off faster in both turns" if min(off_r) > max(on_r) else
+                   "within the turns' spread")
+        auto = decoder_kernels.use_fused_train_decoder("cuda")
+        print(f"[c4] {card}: batch {bs}, {C4_STEPS} steps a turn: "
+              + "; ".join(f"turn {i + 1} B6 {'on' if on else 'off'} "
+                          f"{r:.2f} steps/s, busy {100.0 * b:.1f}%"
+                          for i, ((_, on), r, b) in enumerate(
+                              zip(order, rates, busy)))
+              + f" -> {verdict}; 'auto' routes B6 "
+                f"{'on' if auto else 'off'} at batch {bs}")
+        out[bs] = (on_r, off_r)
+    return out
+
+
+def _mesh_noise(spec, shape, seed):
+    gen = torch.Generator().manual_seed(seed)
+    comps = parse_components(spec, fixed_curvature=False)
+    return tail_kernels.draw_noise(comps, shape, torch.zeros(()), gen)
+
+
+def _mesh_step_inputs(ds):
+    """The step phase's batch, binarization uniforms and (128, E) noise,
+    from fixed seeds, on the CPU."""
+    gen = torch.Generator().manual_seed(21)
+    x = torch.as_tensor(ds.train[:128])
+    return x, torch.rand(x.shape, generator=gen), _mesh_noise(SPEC, (128,),
+                                                              22)
+
+
+def _tiny_mnist(x):
+    """The step's 128 examples as a dataset: the trainers' weights come from
+    the seed, the batch is given."""
+    from mvae_torch.data import ArrayDataset
+    return ArrayDataset("mnist", x.numpy(), x.numpy(), (28, 28), True)
+
+
+def _mesh_step_task(shape, x, u, noise):
+    """One training step of a full-width flagship on mesh ``shape`` (None
+    outside it): the loss, every parameter's whole gradient and this
+    rank's launch counts."""
+    if dist.get_rank() >= shape[0] * shape[1]:
+        make_mesh(*shape)
+        return None
+    x, u, noise = (torch.as_tensor(t) for t in (x, u, noise))
+    tr = _flagship(_tiny_mnist(x), tempfile.mkdtemp(prefix="mesh_step_"),
+                   seed=0, burnin_epochs=0, mesh_shape=shape)
+    dev = tr.device
+    _zero_counts()
+    stats = tr._train_step(x.to(dev), u.to(dev), noise.to(dev))
+    grads = [t.grad if ax is None else gather_model(t.grad, ax, tr.mesh)
+             for t, ax in zip(_leaves(tr.params), _leaves(tr._axes))]
+    torch.cuda.synchronize(dev)
+    return {"loss": -stats["elbo"].item(), "grads": grads,
+            "counts": _read_counts(), "rows": 128 // shape[0],
+            "b6": tr.fused_paths["train_decoder"]["active"]}
+
+
+def _mesh_iwae_task(spec, x, noise, n_batches):
+    """IWAE-500 of ``spec`` at full width on a (2, 2) mesh over the rows
+    of ``x`` in batches, the samples of ``noise`` split over "model"; this
+    rank's rows' estimates and its launch counts."""
+    mesh = make_mesh(2, 2)
+    cfg = VAEConfig(parse_components(spec, fixed_curvature=False), (28, 28),
+                    "mlp", h_dim=400)
+    params = vae.init_params(cfg, 1.0, torch.float32,
+                             torch.Generator().manual_seed(0), mesh.device)
+    shards = shard_params(params, mesh)
+    x, noise = torch.as_tensor(x), torch.as_tensor(noise)
+    bs = x.shape[0] // n_batches
+    _zero_counts()
+    lls = []
+    with torch.no_grad():
+        for b in range(n_batches):
+            xb = shard_batch(x[b * bs:(b + 1) * bs], mesh).to(mesh.device)
+            nb = noise[:, b * bs:(b + 1) * bs][:, mesh.rows(bs)].to(
+                mesh.device)
+            lls.append(vae.log_likelihood_sharded(cfg, shards, xb, mesh, 500,
+                                                  noise=nb))
+    torch.cuda.synchronize(mesh.device)
+    return {"d": mesh.data_index, "m": mesh.model_index,
+            "ll": torch.stack(lls), "counts": _read_counts()}
+
+
+def _mesh_epoch_task(tmp):
+    """A (2, 1) rank's flagship epoch on MNIST (after a warm-up epoch),
+    profiled: its steps/s and device busy share."""
+    if dist.get_rank() >= 2:
+        make_mesh(2, 1)
+        return None
+    tr = _flagship(load_mnist(), f"{tmp}/mesh_epoch", seed=0,
+                   burnin_epochs=0, mesh_shape=(2, 1))
+    tr.train_one_epoch(0)
+    torch.cuda.synchronize(tr.device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        tr.train_one_epoch(1)
+        torch.cuda.synchronize(tr.device)
+        wall = time.time() - t0
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()) / 1e6
+    return {"rate": tr.steps_per_epoch / wall, "busy": busy / wall}
+
+
+def phase_mesh(ds, tmp, card: str) -> dict:
+    """Phase 25: the mesh on four gloo ranks of the one card against the
+    one-device path, the ranks' launch counts and the CLI."""
+    x, u, noise = _mesh_step_inputs(ds)
+    one = _flagship(_tiny_mnist(x), f"{tmp}/mesh_one", seed=0,
+                    burnin_epochs=0)
+    stats = one._train_step(x.cuda(), u.cuda(), noise.cuda())
+    ref_loss = -stats["elbo"].item()
+    ref = [t.grad.detach().cpu() for t in _leaves(one.params)]
+    result = {}
+    with World(4) as world:
+        for shape in ((2, 1), (1, 2), (2, 2)):
+            t0 = time.time()
+            out = [r for r in world.run(_mesh_step_task, shape, x, u, noise)
+                   if r is not None]
+            worst = max(((torch.as_tensor(g) - r).abs()
+                         / (1e-3 * r.abs() + 5e-4)).max().item()
+                        for o in out for g, r in zip(o["grads"], ref))
+            dloss = max(abs(o["loss"] - ref_loss) for o in out)
+            print(f"[mesh] {card}: {shape[0]}x{shape[1]} mesh, one step at "
+                  f"batch 128 ({out[0]['rows']} rows a rank) against one "
+                  f"device: |d loss| {dloss:.3g} nats, gradients at "
+                  f"{worst:.3g} of (rtol 1e-3, atol 5e-4); launches by rank "
+                  f"{[o['counts'] for o in out]}; B6 "
+                  f"{'on' if out[0]['b6'] else 'off'} on the ranks "
+                  f"({time.time() - t0:.1f} s)")
+            check(dloss <= 1e-4, f"mesh {shape}: the loss within 1e-4 nats")
+            check(worst <= 1.0, f"mesh {shape}: every gradient within the "
+                                f"training contract")
+            for o in out:
+                c = o["counts"]
+                check(c["tail_fwd"] >= 1 and c["tail_bwd"] >= 1
+                      and (c["train_decode"] >= 1 or not o["b6"]),
+                      f"mesh {shape}: every rank launches B1, B3 (and B6 "
+                      f"when its gate is on): {c}")
+            result[f"step {shape[0]}x{shape[1]}"] = (dloss, worst)
+
+        from mvae_torch.data.base import binarize_rows
+        xt = binarize_rows(1234, torch.arange(1024),
+                           torch.as_tensor(ds.test[:1024]), True)
+        for spec in (SPEC, STEREO_SPEC):
+            cfg = VAEConfig(parse_components(spec, fixed_curvature=False),
+                            (28, 28), "mlp", h_dim=400)
+            params = vae.init_params(cfg, 1.0, torch.float32,
+                                     torch.Generator().manual_seed(0), "cuda")
+            nz = _mesh_noise(spec, (500, 1024), 31)
+            with torch.no_grad():
+                one_ll = torch.cat([vae.log_likelihood(
+                    cfg, params, xt[b * 512:(b + 1) * 512].cuda(), 500,
+                    noise=nz[:, b * 512:(b + 1) * 512].cuda())
+                    for b in range(2)]).cpu()
+            t0 = time.time()
+            out = world.run(_mesh_iwae_task, spec, xt, nz, 2)
+            wall = time.time() - t0
+            got = torch.zeros(2, 2, 256)    # (batch, data index, row)
+            for o in sorted(out, key=lambda o: o["m"]):
+                ll = torch.as_tensor(o["ll"])     # (batch, row)
+                if o["m"] == 0:
+                    got[:, o["d"]] = ll
+                check(torch.equal(got[:, o["d"]], ll),
+                      f"mesh IWAE {spec}: the model ranks of a data shard "
+                      f"agree")
+            got = got.reshape(1024)
+            err = (got - one_ll).abs().max().item()
+            counts = [o["counts"] for o in out]
+            print(f"[mesh] {card}: IWAE-500 of {spec} at h_dim 400 over "
+                  f"1,024 test examples on the 2x2 mesh (256 rows, 250 "
+                  f"samples a rank) against one device on the same noise: "
+                  f"max |d LL| {err:.3g} nats (mean LL {got.mean():.4f}); "
+                  f"launches by rank {counts} ({wall:.1f} s)")
+            check(err <= 1e-3, f"mesh IWAE {spec}: within 1e-3 nats")
+            for c in counts:
+                check(c["decode_bce"] >= 1
+                      and (c["reparam_stereo"] >= 1 or spec == SPEC),
+                      f"mesh IWAE {spec}: every rank launches B2 (and B5 "
+                      f"for the stereographic family): {c}")
+            result[f"iwae {spec}"] = err
+
+        ep = [r for r in world.run(_mesh_epoch_task, tmp) if r is not None]
+        print(f"[mesh] {card}: a (2, 1) mesh flagship epoch (batch 128, 64 "
+              f"rows a rank, gloo through the host), by rank: "
+              + "; ".join(f"{r['rate']:.2f} steps/s, busy "
+                          f"{100.0 * r['busy']:.1f}%" for r in ep))
+
+    from mvae_torch import cli
+    t0 = time.time()
+    res = cli.main(["--dataset", "mnist", "--model", SPEC,
+                    "--fixed_curvature", "false", "--epochs", "1",
+                    "--ll_max_examples", "1024", "--mesh", "2,1",
+                    "--run_dir", f"{tmp}/mesh_cli"])
+    print(f"[mesh] {card}: CLI --mesh 2,1, one epoch: "
+          f"{res['train_steps_per_sec']:.2f} train steps/s, IWAE-500 on "
+          f"1,024 examples {res['test/log_likelihood_iwae']:.4f} "
+          f"({time.time() - t0:.1f} s with the ranks' start)")
+    check(math.isfinite(res["test/log_likelihood_iwae"]),
+          "mesh CLI: finite IWAE")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2663,6 +2925,8 @@ def main() -> int:
         phase_trace(ds, tmp)
         phase_riemannian(ds, tmp, card)
         phase_conv(tmp, card)
+        phase_c4(ds, tmp, card)
+        phase_mesh(ds, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]

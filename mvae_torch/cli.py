@@ -19,6 +19,13 @@ run; ``--profile_epochs N`` traces the training of the first N epochs into
 ``<run_dir>/profile`` (a Chrome trace JSON). Runs on CUDA unless ``--device
 cpu`` is given. The reference's ``--train_rng`` has no counterpart: the
 port's training randomness is one torch generator.
+
+``--mesh D,M`` trains on a ("data", "model") mesh of D x M ranks, one
+process each (``parallel.launch``: rank r on ``cuda:(r % device_count)``,
+or on the CPU with ``--device cpu``); rank 0 prints, logs and writes.
+
+    python -m mvae_torch.cli --device cpu --dataset bdp --model h2,s2,e2 \
+        --h_dim 16 --epochs 1 --mesh 2,2
 """
 from __future__ import annotations
 
@@ -78,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["dynamic", "fixed"])
     p.add_argument("--ll_repeats", type=int, default=1)
     p.add_argument("--mesh", default=None,
-                   help="device mesh 'DATA,MODEL' (a later slice)")
+                   help="train on a mesh 'DATA,MODEL' of that many ranks, "
+                        "one process each (the batch must divide DATA)")
     p.add_argument("--debug_nans", action="store_true",
                    help="fail fast on the first op or kernel producing a "
                         "NaN or Inf (slow; debugging)")
@@ -91,8 +99,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _mesh_shape(text: str | None) -> tuple[int, int] | None:
+    if not text:
+        return None
+    parts = [int(v) for v in text.split(",")]
+    return parts[0], parts[1] if len(parts) > 1 else 1
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    mesh_shape = _mesh_shape(args.mesh)
+    if mesh_shape is not None:
+        from .parallel.launch import launch
+        return launch(_main, *mesh_shape, args, device=args.device)[0]
+    return _main(args)
+
+
+def _main(args):
+    """One process's run: the whole run, or one rank of a mesh."""
     if not args.debug_nans:
         return _run(args)
     from .utils import profiling
@@ -119,10 +143,7 @@ def _run(args):
     model_cfg = VAEConfig(components=components,
                           data_shape=dataset.data_shape, arch=arch,
                           h_dim=args.h_dim)
-    mesh_shape = None
-    if args.mesh:
-        parts = [int(v) for v in args.mesh.split(",")]
-        mesh_shape = (parts[0], parts[1] if len(parts) > 1 else 1)
+    mesh_shape = _mesh_shape(args.mesh)
     tc = TrainConfig(epochs=args.epochs, batch_size=args.batch_size,
                      lr=args.lr, curvature_lr=args.curvature_lr,
                      burnin_epochs=args.burnin, beta=args.beta,
@@ -134,28 +155,34 @@ def _run(args):
         f"runs/{args.dataset}_{args.model.replace(',', '-').replace(':', '.')}"
         f"_{'fixed' if args.fixed_curvature else 'learn'}_s{args.seed}")
 
-    print(f"model {canonical_name(components)} on {dataset.name} "
-          f"({'synthetic stand-in' if dataset.synthetic else 'real data'}), "
-          f"arch={arch}, dtype={args.dtype}, run_dir={run_dir}")
     trainer = Trainer(model_cfg, dataset, tc, run_dir, device=args.device)
+    say = print if trainer.chief else (lambda *a, **k: None)
+    say(f"model {canonical_name(components)} on {dataset.name} "
+        f"({'synthetic stand-in' if dataset.synthetic else 'real data'}), "
+        f"arch={arch}, dtype={args.dtype}, run_dir={run_dir}"
+        + (f", mesh {mesh_shape[0]}x{mesh_shape[1]}" if mesh_shape else ""))
 
     def write_samples(n):
         """N prior samples and N test reconstructions. The reconstruction
         inputs go through the dataset's binarization first, as every
         training and eval input does; ``originals`` are those inputs. The
         draws come from a generator of their own (seed + 777), so the file
-        does not depend on how far the trainer's generator has run."""
+        does not depend on how far the trainer's generator has run. On a
+        mesh every rank gathers the weights and rank 0 writes."""
         import numpy as np
         import torch
 
         from .data.base import binarize_batch
         from .models import vae
+        params = trainer.whole_params()
+        if not trainer.chief:
+            return
         gen = torch.Generator(device=trainer.device)
         gen.manual_seed(tc.seed + 777)
         with torch.no_grad():
-            generated = vae.generate(model_cfg, trainer.params, n, gen)
+            generated = vae.generate(model_cfg, params, n, gen)
             x = binarize_batch(trainer._test_data[:n], dataset.binarize, gen)
-            rec = vae.reconstruct(model_cfg, trainer.params, x, generator=gen)
+            rec = vae.reconstruct(model_cfg, params, x, generator=gen)
         path = Path(run_dir) / "samples.npz"
         path.parent.mkdir(parents=True, exist_ok=True)
         np.savez_compressed(
@@ -175,11 +202,11 @@ def _run(args):
                   "step": trainer.step, "eval_only": True,
                   "device": str(trainer.device),
                   "fused_paths": trainer.fused_paths}
-        print(json.dumps(result))
-        return result
+        say(json.dumps(result))
+        return result if trainer.chief else None
     if args.resume:
         trainer.restore_checkpoint()
-        print(f"resumed at step {trainer.step}")
+        say(f"resumed at step {trainer.step}")
     result = trainer.fit(ll_max_examples=args.ll_max_examples,
                          profile_epochs=args.profile_epochs,
                          ll_repeats=args.ll_repeats)
@@ -188,6 +215,8 @@ def _run(args):
     if args.generate:
         write_samples(args.generate)
 
+    if not trainer.chief:
+        return None
     summary = {k: v for k, v in result.items() if k != "history"}
     Path(run_dir).mkdir(parents=True, exist_ok=True)
     (Path(run_dir) / "result.json").write_text(json.dumps(summary, indent=2))

@@ -39,12 +39,23 @@ class ArrayDataset:
 
     def epoch_batches(self, epoch: int, batch_size: int,
                       split: str = "train") -> Iterator[np.ndarray]:
-        """Shuffled full batches (remainder dropped)."""
+        """Shuffled full batches (remainder dropped): the native host-data
+        engine's permutation and gather when it is available (``native``,
+        built from ``native/host_data.cc`` at first use), numpy's otherwise,
+        as the reference chooses."""
+        from . import native
         data = self.train if split == "train" else self.test
         # stable across processes (str hash() is per-process randomized)
         seed = zlib.crc32(f"{self.name}/{split}/{epoch}".encode())
+        n_full = len(data) // batch_size
+        if native.available():
+            idx = native.permutation(seed, len(data))
+            for b in range(n_full):
+                yield native.gather_rows(
+                    data, idx[b * batch_size:(b + 1) * batch_size])
+            return
         idx = np.random.default_rng(seed).permutation(len(data))
-        for b in range(len(data) // batch_size):
+        for b in range(n_full):
             yield data[idx[b * batch_size:(b + 1) * batch_size]]
 
     def eval_batches(self, batch_size: int,

@@ -60,7 +60,10 @@ def _warn_synthetic(name: str):
 
 
 def _read_idx(path: Path) -> np.ndarray:
-    """IDX(.gz) -> uint8 array."""
+    """IDX(.gz) -> uint8 array; the native C++ decode when it is built."""
+    from . import native
+    if native.available():
+        return (native.read_idx_f32(path) * 255.0).astype(np.uint8)
     opener = gzip.open if path.suffix == ".gz" else open
     with opener(path, "rb") as f:
         data = f.read()

@@ -8,7 +8,13 @@ edited source or shared header is rebuilt and an unchanged one is loaded
 as it is. The library is loaded through ``ctypes``; wrappers pass
 ``data_ptr()`` pointers and ``torch.cuda.current_stream().cuda_stream``.
 
-Nothing here runs at import: the CPU-only test box has no ``nvcc``.
+The C++ host-data engine of ``native/host_data.cc`` (IDX decode, epoch
+permutation, row gather) is built the same way by ``g++`` with the flags of
+``native/Makefile`` (``build_host``); ``native/`` itself is only read.
+
+Nothing here runs at import: a machine without ``nvcc`` imports this module
+too. Every library is written to a temporary file and renamed into place,
+so processes that build the same source at once never load a partial file.
 """
 from __future__ import annotations
 
@@ -51,6 +57,11 @@ EXTRA_FLAGS = {
     "manifold_dist": ["--fmad=false"],
     "roofline_probes": [],
 }
+
+# native/Makefile's CXXFLAGS and LDFLAGS
+HOST_SOURCE = Path(__file__).resolve().parents[2] / "native" / "host_data.cc"
+_HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+_HOST_LIBS = ["-lz"]
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -165,6 +176,31 @@ def ptxas_lines(report: str) -> list[str]:
     registers, stack frame and spills."""
     return [ln.strip() for ln in report.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def build_host(source: Path = HOST_SOURCE) -> Path:
+    """The host-data engine built from ``source`` by ``g++`` into
+    ``_build/``, named by a hash of the source and the flags; compiled only
+    when that file is missing. Raises ``RuntimeError`` when the compiler is
+    missing or fails (zlib's headers among its inputs)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the host-data engine is C++")
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(_HOST_FLAGS + _HOST_LIBS).encode())
+    out = BUILD_DIR / f"host_data-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([cxx, *_HOST_FLAGS, str(source), "-o", tmp,
+                           *_HOST_LIBS], capture_output=True, text=True)
+    if proc.returncode != 0:
+        Path(tmp).unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {source.name}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 @functools.lru_cache(maxsize=None)

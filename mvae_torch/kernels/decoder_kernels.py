@@ -214,8 +214,12 @@ def use_fused_train_decoder(device=None) -> bool:
     """The reference's switch ``MVAE_FUSED_TRAIN_DECODER`` for parameters
     on ``device``: "1" on, "0" off; "auto" (the default) on for CUDA and
     off otherwise. The reference's "auto" is off by a TPU v5e measurement;
-    the port's is the H100's (PERF.md section 6: B6 on trained
-    faster than off in both in-turns epochs of one run)."""
+    the port's is the H100's (NVIDIA H100 80GB HBM3, 700 W; PERF.md section
+    6): B6 on trained faster than off in both in-turns epochs at batch 128,
+    and in both turns at 64, 256 and 512 and within the turns' spread at
+    1024 (chip_smoke.py phase 24), though alone it is 1.71x and 2.24x
+    slower than its two SGEMMs at 512 and 1024: the step is host-bound, and
+    B6 saves ~27 host ops a step. So "auto" does not look at the batch."""
     v = os.environ.get("MVAE_FUSED_TRAIN_DECODER", "auto")
     if v in ("0", "1"):
         return v == "1"

@@ -26,7 +26,9 @@ reference's structure and (in, out) weight layout.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import types
 
 import torch
 
@@ -276,8 +278,20 @@ def elbo(cfg: VAEConfig, params, x, beta: float = 1.0, noise=None,
 
 
 def loss_fn(cfg: VAEConfig, params, x, beta: float = 1.0, noise=None,
-            generator=None):
-    """The training loss -mean(ELBO) and the ELBO's stats dict."""
+            generator=None, mesh=None):
+    """The training loss -mean(ELBO) and the ELBO's stats dict.
+
+    On a mesh (``parallel.Mesh``) ``params`` are this rank's shards and
+    ``x`` / ``noise`` its rows (``parallel.shard_batch``): the sharded
+    weights are gathered over "model" at use (their gradients come back
+    reduce-scattered), and the whole step -- the fused tail kernels, the
+    training decode -- runs on the rank's B / n_data rows, as the
+    reference's tail runs per device under ``shard_map``. The loss and
+    stats are the rank's means; the trainer averages the gradients over
+    the mesh, which equal row counts make the global batch's gradient."""
+    if mesh is not None:
+        from ..parallel.collectives import gather_params
+        params = gather_params(params, mesh, mesh_layout(cfg, mesh))
     value, stats = elbo(cfg, params, x, beta, noise, generator)
     return -torch.mean(value), stats
 
@@ -385,6 +399,59 @@ def log_likelihood(cfg: VAEConfig, params, x, n_samples: int = 500,
     return torch.logsumexp(log_w, dim=0) - math.log(n_samples)
 
 
+def mesh_layout(cfg: VAEConfig, mesh):
+    """The model's layout on ``mesh`` (``parallel.param_shardings`` of its
+    whole parameters): which axis of each leaf is sharded over "model"."""
+    return _mesh_layout(cfg, mesh.n_model)
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_layout(cfg: VAEConfig, n_model: int):
+    from ..parallel.mesh import param_shardings
+    shapes = init_params(cfg, device="meta")
+    return param_shardings(types.SimpleNamespace(n_model=n_model), shapes)
+
+
+def log_likelihood_sharded(cfg: VAEConfig, params, x, mesh,
+                           n_samples: int = 500, chunk_size: int = 20,
+                           noise=None, seed: int = 0):
+    """IWAE estimate on a ("data", "model") mesh, the counterpart of the
+    reference's ``log_likelihood_sharded``: ``params`` are this rank's
+    shards (the whole weights are gathered once a call) and ``x`` its rows
+    of the batch (``parallel.shard_batch``); model rank m draws the
+    importance samples [m n / M, (m + 1) n / M) of those rows through the
+    same kernels as one device (B5 for wrapped d/p/u components, B2 for
+    the decode), reduces them to a partial logsumexp, and an all-gather over
+    "model" finishes the n-sample logsumexp. Returns (rows,) log p(x).
+
+    ``noise`` (n_samples, rows, E) is the rows' whole block, indexed by
+    global sample as in ``log_likelihood``: the rank reads its samples of
+    it, so the same block gives the one-device numbers. Without it the rank
+    draws from a generator seeded by (``seed``, m), as the reference's
+    ``fold_in(key, r)``. Requires n_samples % n_model == 0."""
+    from ..parallel.collectives import all_gather_model, gather_params
+    from ..parallel.mesh import fold_seed
+    if n_samples % mesh.n_model:
+        raise ValueError("n_samples must divide the model axis")
+    per_rank = n_samples // mesh.n_model
+    # the per-rank sample count must chunk evenly: the largest divisor
+    chunk_size = next(d for d in range(min(chunk_size, per_rank), 0, -1)
+                      if per_rank % d == 0)
+    with torch.no_grad():
+        params = gather_params(params, mesh, mesh_layout(cfg, mesh))
+    generator = None
+    if noise is None:
+        generator = torch.Generator(device=x.device)
+        generator.manual_seed(fold_seed(seed, mesh.model_index))
+    else:
+        m = mesh.model_index
+        noise = noise[m * per_rank:(m + 1) * per_rank]
+    log_w = _log_weights(cfg, params, x, per_rank, chunk_size, noise,
+                         generator)
+    parts = all_gather_model(mesh, torch.logsumexp(log_w, dim=0))
+    return torch.logsumexp(parts, dim=0) - math.log(n_samples)
+
+
 def generate(cfg: VAEConfig, params, n: int, generator=None):
     """Ancestral sampling: one prior draw per component -> the decoder's
     Bernoulli means, (n, *data_shape) in [0, 1]."""
@@ -402,10 +469,11 @@ def reconstruct(cfg: VAEConfig, params, x, noise=None, generator=None):
     return torch.sigmoid(decode(cfg, params, z))
 
 
-def fused_path_report(cfg: VAEConfig, params) -> dict:
-    """Which of the port's kernels this (config, params) routes to, and why
-    not when not -- from the same gate predicates the code paths call.
-    Every entry is {'active': bool, 'why': str}."""
+def fused_path_report(cfg: VAEConfig, params, mesh=None) -> dict:
+    """Which of the port's kernels this (config, params, mesh) routes to,
+    and why not when not -- from the same gate predicates the code paths
+    call. Every entry is {'active': bool, 'why': str}. On a mesh every
+    kernel runs on each rank's own rows."""
 
     def entry(active: bool, why: str) -> dict:
         return {"active": bool(active), "why": why}
@@ -424,9 +492,17 @@ def fused_path_report(cfg: VAEConfig, params) -> dict:
               "draws in plain PyTorch")
         for i, (c, cp) in enumerate(zip(cfg.components,
                                         params["components"]))]
-    return {"train_tail": entry(*_fused_tail_gate(cfg, params)),
-            "train_decoder": entry(*_fused_train_decoder_gate(cfg, params)),
-            "iwae_decoder": idec, "iwae_reparam": reparam,
+    report = {"train_tail": entry(*_fused_tail_gate(cfg, params)),
+              "train_decoder": entry(*_fused_train_decoder_gate(cfg, params)),
+              "iwae_decoder": idec, "iwae_reparam": reparam}
+    if mesh is not None:
+        where = (f" (on each rank of the {mesh.n_data}x{mesh.n_model} mesh, "
+                 f"over its rows)")
+        for e in (report["train_tail"], report["train_decoder"],
+                  report["iwae_decoder"], *report["iwae_reparam"]):
+            if e["active"]:
+                e["why"] += where
+    return {**report,
             "routing_policy": ("capability, and the H100's own measurement "
                                "for the training decoder's 'auto' (no "
                                "TPU-measured routing)")}

@@ -23,6 +23,21 @@ Differences from the reference:
   (0.9, 0.999), eps 1e-8). Masked curvature gradients are zeroed, never
   dropped, so Adam counts every step as optax does and the bias
   correction after burn-in uses the global step.
+
+With ``mesh_shape`` (D, M) the trainer is one rank of a ("data", "model")
+mesh (``parallel``; the ranks are started by ``parallel.launch``): it holds
+its "model" slice of the wide weights and of their Adam moments (Adam is
+elementwise, so Adam over the slices is Adam over the whole), takes its B / D
+rows of every batch, and averages the gradients and the step's statistics
+over the mesh before Adam. Every rank draws the same batch order (a
+generator seeded by ``seed``); binarization and reparameterization noise come
+from a generator seeded by (seed, data index), the counterpart of the
+reference's ``fold_in(key, axis_index("data"))``. The evaluations shard the
+rows over "data" (and the IWAE's samples over "model"); the pinned
+binarization hashes each row's global example index. Checkpoints hold the
+whole parameters and Adam moments, written by rank 0 in the one-device
+layout, so a mesh checkpoint restores on one device and the other way round;
+rank 0 alone logs and prints.
 """
 from __future__ import annotations
 
@@ -33,10 +48,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.base import (ArrayDataset, binarize_batch, binarize_rows,
                          to_device_dataset)
 from ..models import vae
+from ..parallel import param_shardings, shard_batch, shard_params
+from ..parallel.collectives import (all_reduce_mean_, all_reduce_sum_,
+                                    gather_model, gather_params)
+from ..parallel.mesh import fold_seed
 from ..utils import profiling
 from ..utils.device import resolve_device
 from .metrics import MetricsLogger
@@ -84,6 +104,8 @@ class TrainConfig:
     eval_binarize: str = "dynamic"
     dtype: str = "float32"
     init_k: float = 1.0            # initial |curvature| per component
+    # (data, model) mesh shape; None = one device. The batch must divide
+    # the data axis; the model axis shards the wide encoder/decoder weights
     mesh_shape: tuple[int, int] | None = None
 
 
@@ -134,12 +156,20 @@ class Trainer:
     def __init__(self, model_cfg: vae.VAEConfig, dataset: ArrayDataset,
                  tc: TrainConfig, run_dir: str = "runs/default",
                  device=None):
-        if tc.mesh_shape is not None:
-            raise NotImplementedError(
-                "later slice: the device mesh (torch.distributed)")
         if tc.eval_binarize not in ("dynamic", "fixed"):
             raise ValueError(f"unknown eval_binarize {tc.eval_binarize!r}")
-        self.device = resolve_device(device)
+        self.mesh = None
+        if tc.mesh_shape is not None:
+            from ..parallel import make_mesh
+            if tc.batch_size % tc.mesh_shape[0]:
+                raise ValueError("batch_size must divide the data-mesh axis")
+            self.mesh = make_mesh(*tc.mesh_shape, device=device)
+            if self.mesh is None:
+                raise ValueError(f"this rank is outside the mesh "
+                                 f"{tc.mesh_shape}")
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.dataset = dataset
         self.tc = tc
@@ -150,10 +180,19 @@ class Trainer:
         init_gen = torch.Generator().manual_seed(tc.seed)
         self.params = vae.init_params(model_cfg, tc.init_k, self.dtype,
                                       init_gen, self.device)
-        for t in _leaves(self.params):
-            t.requires_grad_(True)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(tc.seed)
+        # the batch order: one generator, the same on every rank
+        self._perm_generator = self.generator
+        if self.mesh is not None:
+            self._axes = param_shardings(self.mesh, self.params)
+            self.params = shard_params(self.params, self.mesh)
+            self.generator.manual_seed(fold_seed(tc.seed,
+                                                 self.mesh.data_index))
+            self._perm_generator = torch.Generator(device=self.device)
+            self._perm_generator.manual_seed(tc.seed)
+        for t in _leaves(self.params):
+            t.requires_grad_(True)
         self.opt = make_optimizer(self.params, tc)
         self.step = 0
         self.steps_per_epoch = len(dataset.train) // tc.batch_size
@@ -165,7 +204,14 @@ class Trainer:
             f"{c.name}#{i}" for i, c in enumerate(model_cfg.components)]
         self.history: list[dict] = []
         self._logger = None
-        self.fused_paths = vae.fused_path_report(model_cfg, self.params)
+        self.fused_paths = vae.fused_path_report(model_cfg, self.params,
+                                                 self.mesh)
+
+    @property
+    def chief(self) -> bool:
+        """Whether this trainer logs, prints and writes checkpoints: rank 0
+        of a mesh, or the one device."""
+        return self.mesh is None or self.mesh.rank == 0
 
     @property
     def logger(self) -> MetricsLogger:
@@ -174,24 +220,60 @@ class Trainer:
             self._logger = MetricsLogger(self.run_dir)
         return self._logger
 
+    def _log(self, step: int, record: dict) -> None:
+        if self.chief:
+            self.logger.log(step, record)
+
+    def whole_params(self):
+        """The whole parameters: on a mesh gathered over "model" (every
+        rank takes part), detached; on one device ``params`` itself."""
+        if self.mesh is None:
+            return self.params
+        with torch.no_grad():
+            return gather_params(self.params, self.mesh, self._axes)
+
     # --- training ---------------------------------------------------------------
 
     def _train_step(self, x, u_bin=None, noise=None) -> dict:
         """One Adam step on the batch ``x`` of intensities. ``u_bin`` (x's
         shape) are the binarization uniforms and ``noise`` (B, E) the
         reparameterization noise (``tail_kernels.draw_noise`` layout); each
-        is drawn from the trainer's generator when not given. Returns the
-        step's stats as device tensors (no host sync)."""
+        is drawn from the trainer's generator when not given. On a mesh they
+        are the global batch's, and the rank takes its rows. Returns the
+        step's stats as device tensors (no host sync on one device)."""
+        if self.mesh is not None:
+            x, u_bin, noise = (None if t is None else shard_batch(t, self.mesh)
+                               for t in (x, u_bin, noise))
         x = binarize_batch(x, self.dataset.binarize, self.generator, u_bin)
         self.opt.zero_grad(set_to_none=True)
         loss, stats = vae.loss_fn(self.model_cfg, self.params, x,
-                                  self.tc.beta, noise, self.generator)
+                                  self.tc.beta, noise, self.generator,
+                                  self.mesh)
         loss.backward()
+        stats = {k: v.detach() for k, v in stats.items()}
+        if self.mesh is not None:
+            self._average_over_mesh(stats)
         _mask_curvature_grads(self.params, self.model_cfg.components,
                               self.step, self.burnin_steps)
         self.opt.step()
         self.step += 1
-        return {k: v.detach() for k, v in stats.items()}
+        return stats
+
+    def _average_over_mesh(self, stats: dict) -> None:
+        """Average this step's gradients and statistics over the mesh, in
+        place. A replicated leaf's gradient and the statistics are averaged
+        over every rank in one collective (the ranks of a data index hold
+        copies, so that is the mean over "data"); a sharded leaf's, already
+        reduce-scattered over "model" by its gather, over "data"."""
+        mesh = self.mesh
+        whole, sharded = [stats[k] for k in ("elbo", "bce", "kl",
+                                             "kl_per_comp")], []
+        for t, axis in zip(_leaves(self.params), _leaves(self._axes)):
+            if t.grad is not None:
+                (whole if axis is None or mesh.n_model == 1
+                 else sharded).append(t.grad)
+        all_reduce_mean_(mesh, whole)
+        all_reduce_mean_(mesh, sharded, mesh.data_group)
 
     def train_one_epoch(self, epoch: int) -> dict:
         """``steps_per_epoch`` steps over a permutation of the train split
@@ -199,7 +281,8 @@ class Trainer:
         curvature the last step's snapshot."""
         bs = self.tc.batch_size
         n = self.steps_per_epoch * bs
-        perm = torch.randperm(len(self._train_data), generator=self.generator,
+        perm = torch.randperm(len(self._train_data),
+                              generator=self._perm_generator,
                               device=self.device)[:n]
         seq = [self._train_step(self._train_data[perm[s * bs:(s + 1) * bs]])
                for s in range(self.steps_per_epoch)]
@@ -211,20 +294,23 @@ class Trainer:
         return es.means()
 
     def _guard_state(self) -> dict:
-        """Device copy of the resumable state: the non-finite guard's
-        last-finite snapshot (read back only if the guard trips)."""
-        state = self.state()
+        """Device copy of this rank's resumable state: the non-finite
+        guard's last-finite snapshot (read back only if the guard trips)."""
         return {"params": [t.detach().clone() for t in _leaves(self.params)],
-                "opt_state": copy.deepcopy(state["opt_state"]),
-                "step": state["step"], "rng": state["rng"]}
+                "opt_state": copy.deepcopy(self.opt.state_dict()),
+                "step": self.step, "rng": self.generator.get_state(),
+                "perm_rng": self._perm_generator.get_state()}
 
-    def _load_state(self, params_leaves, opt_state, step, rng) -> None:
+    def _load_state(self, params_leaves, opt_state, step, rng,
+                    perm_rng=None) -> None:
         with torch.no_grad():
             for t, v in zip(_leaves(self.params), params_leaves):
                 t.copy_(v)
         self.opt.load_state_dict(opt_state)
         self.step = int(step)
         self.generator.set_state(rng)
+        if perm_rng is not None:
+            self._perm_generator.set_state(perm_rng)
 
     def _check_finite(self, epoch: int, train_stats: dict,
                       prev_state: dict | None):
@@ -236,9 +322,10 @@ class Trainer:
         last_step = int(prev_state["step"]) if prev_state else -1
         if prev_state is not None:
             self._load_state(prev_state["params"], prev_state["opt_state"],
-                             prev_state["step"], prev_state["rng"])
+                             prev_state["step"], prev_state["rng"],
+                             prev_state["perm_rng"])
             self.save_checkpoint()
-        self.logger.log(last_step, {
+        self._log(last_step, {
             "status": "FAILED_NONFINITE", "nonfinite_epoch": epoch,
             **{f"train/{k}": v for k, v in scalars.items()}})
         raise NonFiniteError(epoch, train_stats, last_step)
@@ -258,7 +345,7 @@ class Trainer:
         step0 = self.step
         with contextlib.ExitStack() as tracing:
             for epoch in range(self.tc.epochs):
-                if profile_epochs and epoch == 0:
+                if profile_epochs and epoch == 0 and self.chief:
                     tracing.enter_context(profiling.trace(
                         f"{self.run_dir}/profile", self.device))
                 state_before = self._guard_state()
@@ -267,16 +354,16 @@ class Trainer:
                 te0 = time.time()
                 train_stats = self.train_one_epoch(epoch)
                 train_wall += time.time() - te0
-                if epoch + 1 == profile_epochs:
+                if epoch + 1 == profile_epochs and self.chief:
                     tracing.close()
                 self._check_finite(epoch, train_stats, state_before)
                 rec = {f"train/{k}": v for k, v in train_stats.items()}
                 test_stats = self.evaluate_elbo("test")
                 rec.update({f"test/{k}": v for k, v in test_stats.items()})
                 rec["epoch"] = epoch
-                self.logger.log(self.step, rec)
+                self._log(self.step, rec)
                 self.history.append(rec)
-                if verbose:
+                if verbose and self.chief:
                     print(f"epoch {epoch + 1}/{self.tc.epochs} "
                           f"train[{_fmt(train_stats)}] "
                           f"test[{_fmt(test_stats)}]")
@@ -293,9 +380,9 @@ class Trainer:
                  "steps_per_sec": steps / max(wall, 1e-9),
                  "train_wall_seconds": train_wall,
                  "train_steps_per_sec": steps / max(train_wall, 1e-9)}
-        self.logger.log(self.step, final)
+        self._log(self.step, final)
         self.save_checkpoint()
-        if verbose:
+        if verbose and self.chief:
             print(f"final IWAE-{self.tc.likelihood_n} test LL: {ll:.3f} "
                   f"({wall:.1f}s, {final['steps_per_sec']:.1f} steps/s)")
         return {**final, "history": self.history}
@@ -303,24 +390,91 @@ class Trainer:
     # --- checkpointing ----------------------------------------------------------
 
     def state(self) -> dict:
-        return {"params": self.params, "opt_state": self.opt.state_dict(),
-                "step": self.step, "rng": self.generator.get_state()}
+        """The resumable state in the one-device layout. On a mesh (every
+        rank takes part) the parameters and Adam moments are gathered whole,
+        ``rng`` is rank 0's generator, and ``mesh`` adds the mesh's shape,
+        each data index's generator and the batch order's generator."""
+        if self.mesh is None:
+            return {"params": self.params, "opt_state": self.opt.state_dict(),
+                    "step": self.step, "rng": self.generator.get_state()}
+        mesh = self.mesh
+        rngs = [None] * mesh.size
+        dist.all_gather_object(rngs, self.generator.get_state(),
+                               group=mesh.group)
+        return {"params": self.whole_params(),
+                "opt_state": self._whole_opt_state(), "step": self.step,
+                "rng": rngs[0],
+                "mesh": {"shape": [mesh.n_data, mesh.n_model],
+                         "rng": rngs[::mesh.n_model],
+                         "perm_rng": self._perm_generator.get_state()}}
 
-    def save_checkpoint(self) -> str:
+    def _map_moments(self, sd: dict, fn) -> dict:
+        """Adam's state_dict ``sd`` with ``fn(moment, axis)`` applied to each
+        sharded leaf's moments (exp_avg, exp_avg_sq)."""
+        order = [t for g in self.opt.param_groups for t in g["params"]]
+        axis_of = {id(t): a for t, a in zip(_leaves(self.params),
+                                            _leaves(self._axes))}
+        state = {}
+        for i, st in sd["state"].items():
+            axis = axis_of[id(order[int(i)])]
+            state[i] = {k: fn(v, axis) if axis is not None
+                        and torch.is_tensor(v) and v.dim() > 0 else v
+                        for k, v in st.items()}
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def _whole_opt_state(self) -> dict:
+        """Adam's state with the sharded moments gathered whole (every rank
+        takes part)."""
+        with torch.no_grad():
+            return self._map_moments(
+                self.opt.state_dict(),
+                lambda v, axis: gather_model(v, axis, self.mesh))
+
+    def _shard_opt_state(self, sd: dict) -> dict:
+        """A whole Adam state sliced to this rank's shards."""
+        mesh = self.mesh
+        return self._map_moments(sd, lambda v, axis: v.chunk(
+            mesh.n_model, axis)[mesh.model_index].clone())
+
+    def save_checkpoint(self) -> str | None:
+        """Write the state (``state``) under ``run_dir/ckpt``; on a mesh
+        rank 0 writes it, every rank waits for the write, and the path is
+        returned on rank 0 only."""
         from .. import checkpoint
-        return checkpoint.save(f"{self.run_dir}/ckpt", self.step,
-                               self.state())
+        state = self.state()
+        path = (checkpoint.save(f"{self.run_dir}/ckpt", self.step, state)
+                if self.chief else None)
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group)
+        return path
 
     def restore_checkpoint(self, step: int | None = None) -> None:
         """Load a checkpoint of ``run_dir`` (the latest by default). It is
         read onto the CPU: the parameters are copied into the trainer's
         tensors, Adam moves its moments to the parameters' device and keeps
-        its step counters on the CPU, and the generator takes a CPU state."""
+        its step counters on the CPU, and the generator takes a CPU state.
+        On a mesh each rank keeps its slice; a checkpoint of the same mesh
+        shape restores each generator, any other re-seeds them from (seed,
+        step, data index)."""
         from .. import checkpoint
         st = checkpoint.restore(f"{self.run_dir}/ckpt", step,
                                 map_location="cpu")
-        self._load_state(_leaves(st["params"]), st["opt_state"], st["step"],
-                         st["rng"])
+        if self.mesh is None:
+            self._load_state(_leaves(st["params"]), st["opt_state"],
+                             st["step"], st["rng"])
+            return
+        mesh, saved = self.mesh, st.get("mesh")
+        if saved is not None and saved["shape"] == [mesh.n_data,
+                                                    mesh.n_model]:
+            rng, perm_rng = saved["rng"][mesh.data_index], saved["perm_rng"]
+        else:
+            rng = self.generator.manual_seed(fold_seed(fold_seed(
+                self.tc.seed, int(st["step"])), mesh.data_index)).get_state()
+            perm_rng = self._perm_generator.manual_seed(fold_seed(
+                self.tc.seed, int(st["step"]))).get_state()
+        self._load_state(_leaves(shard_params(st["params"], mesh)),
+                         self._shard_opt_state(st["opt_state"]), st["step"],
+                         rng, perm_rng)
 
     # --- evaluation -------------------------------------------------------------
 
@@ -339,6 +493,15 @@ class Trainer:
             return binarize_batch(x, self.dataset.binarize, self.generator)
         return binarize_rows(_FIXED_BINARIZE_SALT ^ self.tc.seed, row_ids, x,
                              self.dataset.binarize)
+
+    def _eval_batch_size(self, n: int) -> int:
+        """The eval batch: ``eval_batch_size`` (at most the split), on a
+        mesh rounded up to a multiple of the data axis (the pad rows are
+        masked out)."""
+        bs = min(self.tc.eval_batch_size, n)
+        if self.mesh is not None:
+            bs = -(-bs // self.mesh.n_data) * self.mesh.n_data
+        return bs
 
     def _split_batches(self, data, bs):
         """(Nb, bs, ...) padded batches + (Nb, bs) valid mask + n. The tail
@@ -359,20 +522,24 @@ class Trainer:
         """Masked-mean ELBO over the full split: the padded tail is masked
         out and per-batch stats are weighted by their real example count."""
         data = self._test_data if split == "test" else self._train_data
-        bs = min(self.tc.eval_batch_size, len(data))
+        bs = self._eval_batch_size(len(data))
         batches, masks, n = self._split_batches(data, bs)
         nb = batches.shape[0]
         row_ids = self._eval_keys(nb, bs)
+        params = self.whole_params()
         per_batch = []
         for i in range(nb):
-            x = self._binarize(batches[i],
-                               None if row_ids is None else row_ids[i])
-            fwd = vae.forward(self.model_cfg, self.params, x,
+            x, rows = batches[i], None if row_ids is None else row_ids[i]
+            w = masks[i] / torch.clamp(torch.sum(masks[i]), min=1.0)
+            if self.mesh is not None:
+                x, w = shard_batch(x, self.mesh), shard_batch(w, self.mesh)
+                rows = None if rows is None else shard_batch(rows, self.mesh)
+            x = self._binarize(x, rows)
+            fwd = vae.forward(self.model_cfg, params, x,
                               generator=self.generator)
             kl_total = torch.sum(fwd.kl_per_comp, dim=-1)
             value = fwd.log_px_z - self.tc.beta * kl_total
-            w = (masks[i] / torch.clamp(torch.sum(masks[i]), min=1.0)).to(
-                value.dtype)
+            w = w.to(value.dtype)
             per_batch.append({
                 "elbo": torch.sum(w * value),
                 "bce": torch.sum(w * -fwd.log_px_z),
@@ -380,8 +547,13 @@ class Trainer:
                 "kl_per_comp": torch.sum(w[:, None] * fwd.kl_per_comp, dim=0),
                 "curvature": fwd.curvatures,
             })
-        stacked = {k: torch.stack([s[k] for s in per_batch]).cpu().numpy()
+        stacked = {k: torch.stack([s[k] for s in per_batch])
                    for k in per_batch[0]}
+        if self.mesh is not None:
+            # the data shards' weighted sums add up to the batch's
+            all_reduce_sum_(self.mesh, [stacked[k] for k in (
+                "elbo", "bce", "kl", "kl_per_comp")], self.mesh.data_group)
+        stacked = {k: v.cpu().numpy() for k, v in stacked.items()}
         es = EpochStats(self.component_names)
         for i in range(nb):
             es.update({k: v[i] for k, v in stacked.items()},
@@ -394,28 +566,66 @@ class Trainer:
                                 repeats: int = 1) -> float:
         """Mean IWAE-n log-likelihood over the full split (the padded tail
         dropped from the mean). ``repeats`` > 1 averages that many
-        independent passes (fresh binarization and importance draws)."""
+        independent passes (fresh binarization and importance draws).
+
+        On a mesh whose model axis divides n, each data shard's rows go
+        through ``vae.log_likelihood_sharded`` (the samples over "model",
+        drawn from a seed a batch taken from the rank's generator) and the
+        sums meet over "data"; otherwise every rank runs the one-device
+        estimator on the whole parameters and rank 0's value is returned
+        on every rank."""
         if repeats > 1:
             vals = [self.evaluate_log_likelihood(split, max_examples)
                     for _ in range(repeats)]
-            self.logger.log(self.step, {
+            self._log(self.step, {
                 f"{split}/log_likelihood_iwae_repeats": vals,
                 f"{split}/log_likelihood_iwae_std": float(np.std(vals))})
             return float(np.mean(vals))
         data = self._test_data if split == "test" else self._train_data
         if max_examples:
             data = data[:max_examples]
+        mesh = self.mesh
+        if mesh is not None and self.tc.likelihood_n % mesh.n_model == 0:
+            return self._log_likelihood_sharded(data)
         bs = min(self.tc.eval_batch_size, len(data))
         batches, _, n = self._split_batches(data, bs)
         row_ids = self._eval_keys(batches.shape[0], bs)
+        params = self.whole_params()
         lls = []
         for i in range(batches.shape[0]):
             x = self._binarize(batches[i],
                                None if row_ids is None else row_ids[i])
             lls.append(vae.log_likelihood(
-                self.model_cfg, self.params, x, self.tc.likelihood_n,
+                self.model_cfg, params, x, self.tc.likelihood_n,
                 self.tc.likelihood_chunk, generator=self.generator))
-        return float(torch.cat(lls)[:n].mean().cpu())
+        ll = torch.cat(lls)[:n].mean()
+        if mesh is not None:
+            ll = ll.reshape(1).to(torch.float64)
+            if mesh.backend == "gloo":
+                ll = ll.cpu()
+            dist.broadcast(ll, src=0, group=mesh.group)
+        return float(ll.cpu())
+
+    def _log_likelihood_sharded(self, data) -> float:
+        mesh = self.mesh
+        bs = self._eval_batch_size(len(data))
+        batches, masks, n = self._split_batches(data, bs)
+        nb = batches.shape[0]
+        row_ids = self._eval_keys(nb, bs)
+        seeds = torch.randint(0, 2**62, (nb,), generator=self.generator,
+                              device=self.device).tolist()
+        total = torch.zeros((), dtype=torch.float64, device=self.device)
+        for i in range(nb):
+            x = shard_batch(batches[i], mesh)
+            rows = (None if row_ids is None
+                    else shard_batch(row_ids[i], mesh))
+            ll = vae.log_likelihood_sharded(
+                self.model_cfg, self.params, self._binarize(x, rows), mesh,
+                self.tc.likelihood_n, self.tc.likelihood_chunk,
+                seed=seeds[i])
+            total += torch.sum(ll * shard_batch(masks[i], mesh))
+        all_reduce_sum_(mesh, [total], mesh.data_group)
+        return float(total.cpu()) / n
 
 
 def _fmt(stats: dict) -> str:
