@@ -176,7 +176,32 @@ Phases:
     rank's launch counts of B1, B3, B6, B5 and B2 (zero of a kernel its
     path runs fails the phase); a (2, 1) rank's profiled epoch (steps/s,
     busy); one epoch of ``--mesh 2,1`` through the CLI;
-26. one JSON line of kernel numbers, then the result line.
+26. the reference's compiled programs as CUDA graphs
+    (``mvae_torch/train/graphs.py``): two flagship epochs (burn-in 1)
+    graphed and eager from one seed on the same weights, Adam state,
+    generator and statistics bit for bit (else the measured reason and the
+    training contract: 50 steps' losses within 0.05 nats), one capture
+    across the burn-in boundary with the curvature frozen then moving, B1 /
+    B3 / B6 counted once a step through the replays; graphed training after
+    a checkpoint restore and after a forced non-finite rewind equal to
+    uninterrupted training; the flagship, d2,p2,e2, s6:wrapped, s6,
+    d6:riemannian and the conv u6 each trained two short epochs and
+    evaluated (ELBO, IWAE-500) through graphs, each program captured once,
+    finite, rising, every routed kernel launched; per-example ELBO and
+    IWAE-500 on explicit noise graphed against eager (1e-3 nats, bit for
+    bit expected); then in turns (eager, graph, graph, eager) the flagship's
+    steps/s at batch 128 and 1024, d6:riemannian's, and the ELBO and
+    IWAE-500 passes' examples/s of the flagship and s6:wrapped over the test
+    split and of the conv u6 over 1,024 examples (the control), each turn
+    of a pass from one generator seed (values within 1e-3 nats), with the
+    busy shares of profiled turns;
+27. one JSON line of kernel numbers, then the result line.
+
+Every ``Trainer.train_one_epoch``, ``evaluate_elbo`` and
+``evaluate_log_likelihood`` on the card replays graphs (phase 26 holds
+them to the eager loops); each recomputation through the plain versions
+(``plain_kernels``) must launch no kernel, so no plain pass replays a
+graph captured through the kernels.
 
 Where float32 does not resolve a value (a point at the K < 0 ball's rim,
 a radius within an ulp of the K > 0 injectivity shell), the stereographic
@@ -226,13 +251,14 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from mvae_torch import TrainConfig, Trainer, VAEConfig, parse_components
-from mvae_torch.data import load_mnist
+from mvae_torch.data import load_cifar, load_mnist
 from mvae_torch.kernels import (_build, decoder_kernels, manifold_kernels,
                                 roofline, tail_kernels)
 from mvae_torch.models import vae
 from mvae_torch.parallel import make_mesh, shard_batch, shard_params
 from mvae_torch.parallel.collectives import gather_model
 from mvae_torch.parallel.launch import World
+from mvae_torch.train import NonFiniteError, graphs
 from mvae_torch.train.trainer import _leaves
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM rate, FP32 FMA and TF32
@@ -372,8 +398,11 @@ _PLAIN = ((tail_kernels, "tail_forward", tail_kernels.tail_forward_ref),
 @contextlib.contextmanager
 def plain_kernels():
     """Route every kernel wrapper to its plain version (the reference
-    recomputations of phases 5 and 10)."""
+    recomputations of phases 5 and 10), and check that the block launched
+    no kernel: a trainer that replayed a graph captured through the
+    kernels would (its replays add to the counts)."""
     saved = [getattr(mod, name) for mod, name, _ in _PLAIN]
+    before = _read_counts()
     for mod, name, plain in _PLAIN:
         setattr(mod, name, plain)
     try:
@@ -381,6 +410,9 @@ def plain_kernels():
     finally:
         for (mod, name, _), fn in zip(_PLAIN, saved):
             setattr(mod, name, fn)
+    after = _read_counts()
+    check(after == before, f"a plain recomputation launched no kernel: "
+          f"{before} -> {after}")
 
 
 @contextlib.contextmanager
@@ -2554,12 +2586,10 @@ def cudnn_tf32():
         torch.backends.cudnn.allow_tf32 = old
 
 
-def phase_conv(tmp, card: str) -> dict:
-    """u6 with learnable curvature, conv nets at the synthetic CIFAR's size:
-    TF32 off on every conv, 100 training steps, IWAE-500 on 1,024
+def phase_conv(ds, tmp, card: str) -> dict:
+    """u6 with learnable curvature, conv nets at the synthetic CIFAR's size
+    (``ds``): TF32 off on every conv, 100 training steps, IWAE-500 on 1,024
     examples, the per-example checks and the TF32 gap (phase 23)."""
-    from mvae_torch.data import load_cifar
-    ds = load_cifar()
     spec = "u6"
     cfg = VAEConfig(parse_components(spec, fixed_curvature=False),
                     ds.data_shape, "conv", h_dim=400)
@@ -2888,6 +2918,339 @@ def phase_mesh(ds, tmp, card: str) -> dict:
     return result
 
 
+# --- the compiled programs as CUDA graphs (phase 26) -------------------------------
+
+
+def _cut(ds, steps: int, batch: int = 128, test: int = 1024):
+    """``ds`` cut to ``steps`` training batches and ``test`` test examples."""
+    import dataclasses
+    return dataclasses.replace(ds, train=ds.train[:steps * batch],
+                               test=ds.test[:test])
+
+
+def _programs(trainer, kind: str) -> list:
+    """The trainer's captured programs of ``kind`` ("train_step",
+    "eval_elbo", "eval_ll")."""
+    return [p for k, p in trainer._programs.items() if k[0] == kind]
+
+
+def _curvatures(trainer) -> dict:
+    with torch.no_grad():
+        return {n: float(c.curvature(cp)) for n, c, cp in zip(
+            trainer.component_names, trainer.model_cfg.components,
+            trainer.params["components"])}
+
+
+def _same_state(a, b) -> bool:
+    """Parameters, Adam's state and the generator equal bit for bit."""
+    sa, sb = a.opt.state_dict()["state"], b.opt.state_dict()["state"]
+    return (all(torch.equal(x, y) for x, y in zip(_leaves(a.params),
+                                                  _leaves(b.params)))
+            and all(torch.equal(sa[i][k], sb[i][k]) for i in sa
+                    for k in sa[i])
+            and torch.equal(a.generator.get_state(), b.generator.get_state())
+            and a.step == b.step)
+
+
+def _philox_replay() -> str:
+    """Whether a registered generator's draws in a graph replay equal the
+    eager draws from the same state (the measured reason when graphed and
+    eager training part)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    state = gen.get_state()
+    eager = torch.randn(4096, device="cuda", generator=gen)
+    gen.set_state(state)
+    g = torch.cuda.CUDAGraph()
+    g.register_generator_state(gen)
+    torch.randn(4096, device="cuda", generator=gen)       # warm-up
+    gen.set_state(state)
+    with torch.cuda.graph(g):
+        out = torch.randn(4096, device="cuda", generator=gen)
+    g.replay()
+    return (f"a graph's Philox draws from eager's state equal eager's: "
+            f"{torch.equal(out, eager)} (max |d| "
+            f"{(out - eager).abs().max().item():.3g})")
+
+
+def _graphs_same_noise(ds, tmp) -> None:
+    """Two flagship epochs (burn-in 1) graphed and eager from one seed: the
+    same weights, Adam state, generator and statistics bit for bit; one
+    capture across the burn-in boundary; the curvature frozen, then moving;
+    B1 / B3 / B6 counted once a step through the replays."""
+    graph = _flagship(ds, f"{tmp}/gg", seed=0, burnin_epochs=1)
+    eager = _flagship(ds, f"{tmp}/ge", seed=0, burnin_epochs=1)
+    check(graph.graph_path["path"] == "graph",
+          f"one CUDA device replays graphs: {graph.graph_path}")
+    k0 = _curvatures(graph)
+    got, want, counts = [], [], {}
+    S = graph.steps_per_epoch
+    for epoch in range(2):
+        _zero_counts()
+        got.append(graph.train_one_epoch(epoch))
+        counts = {k: counts.get(k, 0) + v for k, v in _read_counts().items()}
+        if epoch == 0:
+            want.append(eager._train_one_epoch_eager(epoch))
+        else:           # the eager body, to keep its per-step statistics
+            body = graphs.TrainEpoch(eager)
+            want.append(eager._epoch_means(body.run(eager._epoch_perm(),
+                                                    graph=False)))
+            eager.step += S
+    torch.cuda.synchronize()
+    progs = _programs(graph, "train_step")
+    print(f"[graphs] flagship, 2 epochs of {S} steps, burn-in 1, graphed "
+          f"and eager from seed 0: captures {[p.captures for p in progs]}, "
+          f"replays {[p.replays for p in progs]}; launches through the "
+          f"graphed epochs {counts}")
+    check(len(progs) == 1 and progs[0].captures == 1
+          and progs[0].replays == 2 * S - graphs.WARMUP_STEPS,
+          "one capture of the step serves burn-in and after")
+    for n in ("h2#0", "s2#1"):
+        check(got[0][f"curvature/{n}"] == k0[n]
+              and got[1][f"curvature/{n}"] != k0[n],
+              f"curvature {n} frozen through burn-in, then moving")
+    check(counts["tail_bwd"] == 2 * S and counts["tail_fwd"] == 2 * S
+          and counts["train_decode"] == 2 * S,
+          f"B1, B3 and B6 launched once a step through the replays: {counts}")
+    bit = _same_state(graph, eager) and got == want
+    per_step = (graph._epoch.stats["elbo"] - body.stats["elbo"]).abs()
+    print(f"[graphs] graphed against eager: weights, Adam state, generator "
+          f"and epoch statistics bit for bit: {bit}; per-step ELBO of epoch "
+          f"1 max |d| {per_step.max().item():.3g}")
+    if not bit:
+        print(f"[graphs] the trajectories part: {_philox_replay()}; held to "
+              f"the training contract instead (50 steps' losses within "
+              f"0.05 nats)")
+        check(per_step[:50].max().item() <= 0.05,
+              "graphed training within 0.05 nats of eager over 50 steps")
+
+
+def _graphs_state_loads(ds, tmp) -> None:
+    """Graphed training continues exactly as uninterrupted after a
+    checkpoint restore and after a forced non-finite rewind (both copy
+    into the tensors the captured step holds)."""
+    small = _cut(ds, 60)
+    ref = _flagship(small, f"{tmp}/slu", seed=0, burnin_epochs=1)
+    for epoch in range(3):
+        ref.train_one_epoch(epoch)
+    res = _flagship(small, f"{tmp}/slr", seed=0, burnin_epochs=1)
+    res.train_one_epoch(0)
+    res.save_checkpoint()
+    res.train_one_epoch(1)
+    res.restore_checkpoint()
+    res.train_one_epoch(1)
+    res.train_one_epoch(2)
+    rew = _flagship(small, f"{tmp}/sln", seed=0, burnin_epochs=1)
+    rew.train_one_epoch(0)
+    before = rew._guard_state()
+    with torch.no_grad():
+        rew.params["decoder"]["out"]["b"][0] = float("nan")
+    bad = rew.train_one_epoch(1)
+    tripped = False
+    try:
+        rew._check_finite(1, bad, before)
+    except NonFiniteError:
+        tripped = True
+    rew.train_one_epoch(1)
+    rew.train_one_epoch(2)
+    caps = [[p.captures for p in _programs(t, "train_step")]
+            for t in (ref, res, rew)]
+    same = (_same_state(ref, res), _same_state(ref, rew))
+    print(f"[graphs] state loads, 3 epochs of 60 steps: after a checkpoint "
+          f"restore equal to uninterrupted bit for bit {same[0]}; after a "
+          f"forced non-finite epoch (guard tripped {tripped}) and its "
+          f"rewind {same[1]}; captures {caps}")
+    check(tripped, "the non-finite guard trips on the poisoned epoch")
+    check(all(same), "graphed training continues exactly after state loads")
+    check(caps == [[1], [1], [1]], "state loads keep the captured step")
+
+
+def _graphs_eval_same_noise(trainer) -> None:
+    """Per-example ELBO and IWAE-500 of 512 test examples on explicit noise
+    through a graph of them and eagerly: bit-equal expected, 1e-3 nats the
+    gate."""
+    cfg, params = trainer.model_cfg, trainer.params
+    x = (trainer._test_data[:512] > 0.5).float()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    nz_e = tail_kernels.draw_noise(cfg.components, (512,), x, gen)
+    nz_l = tail_kernels.draw_noise(cfg.components, (500, 512), x, gen)
+
+    def both():
+        return (vae.elbo(cfg, params, x, noise=nz_e)[0],
+                vae.log_likelihood(cfg, params, x, 500, noise=nz_l))
+
+    with torch.no_grad():
+        want = both()
+        prog = graphs.Graphed(both, (), trainer.generator, 1, copy_out=True)
+        prog()
+        got = prog()
+    check(prog.captures == 1 and prog.replays == 1, "the eval graph replayed")
+    d = [(a - b).abs().max().item() for a, b in zip(got, want)]
+    print(f"[graphs] per example, 512 examples, explicit noise, graphed "
+          f"against eager: max |dELBO| {d[0]:.3g}, max |dLL| {d[1]:.3g} nats "
+          f"(bit for bit: {all(torch.equal(a, b) for a, b in zip(got, want))})")
+    check(max(d) <= 1e-3, "graphed per-example ELBO and IWAE within 1e-3")
+
+
+def _graphs_config(name, trainer, card) -> dict:
+    """Two epochs and an ELBO and IWAE-500 pass of ``trainer`` (a cut data
+    set) through graphs: finite, rising, every program captured once, each
+    kernel its routing names launched."""
+    _zero_counts()
+    stats = [trainer.train_one_epoch(e) for e in range(2)]
+    elbo = trainer.evaluate_elbo("test")["elbo"]
+    ll = trainer.evaluate_log_likelihood("test")
+    counts = _read_counts()
+    caps = {k: [(p.captures, p.replays) for p in _programs(trainer, k)]
+            for k in ("train_step", "eval_elbo", "eval_ll")}
+    paths = trainer.fused_paths
+    routed = {"tail_fwd": paths["train_tail"]["active"],
+              "tail_bwd": paths["train_tail"]["active"],
+              "train_decode": paths["train_decoder"]["active"],
+              "decode_bce": paths["iwae_decoder"]["active"],
+              "reparam_stereo": any(r["active"]
+                                    for r in paths["iwae_reparam"])}
+    print(f"[graphs] {name} through graphs on {card}: train ELBO "
+          f"{stats[0]['elbo']:.3f} -> {stats[1]['elbo']:.3f}, test ELBO "
+          f"{elbo:.3f}, IWAE-500 {ll:.3f}; (captures, replays) {caps}; "
+          f"launches {counts}")
+    check(trainer.graph_path["path"] == "graph", f"{name}: graphs")
+    check(all(math.isfinite(v) for st in stats for v in st.values())
+          and math.isfinite(elbo) and math.isfinite(ll),
+          f"{name}: finite statistics")
+    check(stats[1]["elbo"] > stats[0]["elbo"], f"{name}: train ELBO rises")
+    check(all(v == [(1, v[0][1])] and v[0][1] > 0 for v in caps.values()),
+          f"{name}: each program captured once and replayed")
+    check(all(counts[k] > 0 for k, on in routed.items() if on)
+          and all(counts[k] == 0 for k, on in routed.items() if not on),
+          f"{name}: the routed kernels launched, no other: {counts}")
+    return counts
+
+
+def _turns(what: str, eager, graph, count: int, unit: str,
+           card: str) -> list:
+    """``eager`` and ``graph`` (each one turn, returning a value) in turns
+    eager, graph, graph, eager after one call of each: rates in ``unit``
+    per second and the four values."""
+    eager(), graph()
+    rates, values = [], []
+    for fn in (eager, graph, graph, eager):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        values.append(fn())
+        torch.cuda.synchronize()
+        rates.append(count / (time.time() - t0))
+    print(f"[turns] {card}: {what}, {unit}/s eager {rates[0]:.2f}, graph "
+          f"{rates[1]:.2f}, graph {rates[2]:.2f}, eager {rates[3]:.2f} "
+          f"(graph / eager {min(rates[1:3]) / max(rates[0], rates[3]):.2f}"
+          f"-{max(rates[1:3]) / min(rates[0], rates[3]):.2f}x)")
+    return values
+
+
+def _train_turns(trainer, card: str, epochs: int, what: str,
+                 eager_profile: bool = True) -> None:
+    S = trainer.steps_per_epoch
+
+    def eager():
+        for e in range(epochs):
+            trainer._train_one_epoch_eager(e)
+
+    def graph():
+        for e in range(epochs):
+            trainer.train_one_epoch(e)
+
+    _turns(f"{what}, {epochs} epoch(s) of {S} steps a turn", eager, graph,
+           epochs * S, "steps", card)
+    if eager_profile:
+        profile_pass(f"{what}, eager epoch",
+                     lambda: trainer._train_one_epoch_eager(0))
+    profile_pass(f"{what}, graphed epoch", lambda: trainer.train_one_epoch(0),
+                 layers=True)
+
+
+def _eval_turns(trainer, card: str, n: int | None, what: str,
+                elbo: bool = True, eager_profile: bool = True) -> None:
+    """The ELBO and IWAE-500 passes in turns, each turn from the same
+    generator seed: the four values of each must agree."""
+    def seeded(fn):
+        def run():
+            trainer.generator.manual_seed(21)
+            return fn()
+        return run
+
+    count = n or len(trainer._test_data)
+    if elbo:
+        vals = _turns(f"{what} ELBO pass over {count} examples",
+                      seeded(lambda: trainer._evaluate_elbo("test", False)),
+                      seeded(lambda: trainer._evaluate_elbo("test", True)),
+                      count, "examples", card)
+        elbos = [v["elbo"] for v in vals]
+        print(f"[turns] {what} ELBO values of the four turns {elbos} (all "
+              f"statistics bit for bit: {all(v == vals[0] for v in vals)})")
+        check(max(elbos) - min(elbos) <= 1e-3,
+              f"{what}: graphed and eager ELBO passes within 1e-3 nats")
+    vals = _turns(
+        f"{what} IWAE-500 pass over {count} examples",
+        seeded(lambda: trainer._evaluate_log_likelihood("test", n, False)),
+        seeded(lambda: trainer._evaluate_log_likelihood("test", n, True)),
+        count, "examples", card)
+    print(f"[turns] {what} IWAE-500 values of the four turns {vals} (bit "
+          f"for bit: {all(v == vals[0] for v in vals)})")
+    check(max(vals) - min(vals) <= 1e-3,
+          f"{what}: graphed and eager IWAE passes within 1e-3 nats")
+    if eager_profile:
+        profile_pass(f"{what} IWAE-500 pass, eager", seeded(
+            lambda: trainer._evaluate_log_likelihood("test", n, False)))
+    profile_pass(f"{what} IWAE-500 pass, graphed", seeded(
+        lambda: trainer._evaluate_log_likelihood("test", n, True)))
+
+
+def phase_graphs(ds, cifar, tmp, card: str) -> None:
+    """The reference's compiled programs as CUDA graphs (phase 26): the same
+    noise graphed and eager, one capture across burn-in, state loads, every
+    configuration through graphs, and the steps/s and examples/s in turns
+    (eager, graph, graph, eager). The eager busy shares of
+    ``d6:riemannian``, ``s6:wrapped`` and the conv ``u6`` are phases 22, 18
+    and 23's."""
+    t0 = time.time()
+    _graphs_same_noise(ds, tmp)
+    _graphs_state_loads(ds, tmp)
+    print(f"[graphs] same noise and state loads in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    small = _cut(ds, 40)
+    runs = {}
+    for spec in (SPEC, STEREO_SPEC, SPHERE_SPEC, "s6"):
+        runs[spec] = _flagship(small, f"{tmp}/gc{spec}", spec, seed=0,
+                               burnin_epochs=0)
+    riem = VAEConfig(parse_components("d6:riemannian"), ds.data_shape,
+                     "mlp", h_dim=400)
+    runs["d6:riemannian"] = Trainer(riem, _cut(ds, 30), TrainConfig(
+        seed=0, burnin_epochs=0), f"{tmp}/gcriem")
+    conv = VAEConfig(parse_components("u6", fixed_curvature=False),
+                     cifar.data_shape, "conv", h_dim=400)
+    runs["conv u6"] = Trainer(conv, _cut(cifar, 40), TrainConfig(
+        seed=0, burnin_epochs=0), f"{tmp}/gcconv")
+    for name, trainer in runs.items():
+        _graphs_config(name, trainer, card)
+    _graphs_eval_same_noise(runs[SPEC])
+    print(f"[graphs] six configurations in {time.time() - t0:.1f} s")
+
+    # the turns: training, then the evaluation passes
+    t0 = time.time()
+    _train_turns(_flagship(ds, f"{tmp}/t128", seed=0, burnin_epochs=0),
+                 card, 1, f"{SPEC} training, batch 128")
+    _train_turns(_flagship(ds, f"{tmp}/t1024", seed=0, burnin_epochs=0,
+                           batch_size=1024),
+                 card, 2, f"{SPEC} training, batch 1024")
+    _train_turns(runs["d6:riemannian"], card, 1,
+                 "d6:riemannian training, batch 128", eager_profile=False)
+    for spec in (SPEC, SPHERE_SPEC):
+        full = _flagship(ds, f"{tmp}/e{spec}", spec, seed=0)
+        _eval_turns(full, card, None, spec, eager_profile=spec == SPEC)
+    _eval_turns(runs["conv u6"], card, 1024, "conv u6", elbo=False,
+                eager_profile=False)
+    print(f"[graphs] the turns in {time.time() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2924,9 +3287,11 @@ def main() -> int:
         kernels += roofline_rows
         phase_trace(ds, tmp)
         phase_riemannian(ds, tmp, card)
-        phase_conv(tmp, card)
+        cifar = load_cifar()
+        phase_conv(cifar, tmp, card)
         phase_c4(ds, tmp, card)
         phase_mesh(ds, tmp, card)
+        phase_graphs(ds, cifar, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]

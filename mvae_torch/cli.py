@@ -8,7 +8,8 @@
 
 Trains (``Trainer.fit``: a test ELBO per epoch, the IWAE-n estimate at
 the end), writes ``<run_dir>/result.json`` and prints it as one JSON line,
-with the kernels the run was routed through (``fused_paths``).
+with the kernels the run was routed through (``fused_paths``) and whether
+it replayed CUDA graphs or ran the eager loop, and why (``graph_path``).
 ``--resume`` continues from the latest checkpoint of ``run_dir``;
 ``--eval_only`` restores it and evaluates the test ELBO and IWAE-n LL.
 ``--generate N`` then writes N prior samples and N test-set reconstructions
@@ -201,7 +202,8 @@ def _run(args):
         result = {"test/elbo": elbo["elbo"], "test/log_likelihood_iwae": ll,
                   "step": trainer.step, "eval_only": True,
                   "device": str(trainer.device),
-                  "fused_paths": trainer.fused_paths}
+                  "fused_paths": trainer.fused_paths,
+                  "graph_path": trainer.graph_path}
         say(json.dumps(result))
         return result if trainer.chief else None
     if args.resume:
@@ -211,6 +213,7 @@ def _run(args):
                          profile_epochs=args.profile_epochs,
                          ll_repeats=args.ll_repeats)
     result["fused_paths"] = trainer.fused_paths
+    result["graph_path"] = trainer.graph_path
     result["device"] = str(trainer.device)
     if args.generate:
         write_samples(args.generate)

@@ -42,10 +42,12 @@ from .von_mises_fisher import _gamma_half_int, _uniform_open
 # rejection rounds carried in the noise: the reference's loop cap
 ROUNDS = 128
 
-# 64-point Gauss-Legendre rule mapped to [0, 1] (float64; cast per call)
+# 64-point Gauss-Legendre rule mapped to [0, 1] (float64; cast once per
+# dtype and device, _gl_table)
 _GL_X64, _GL_W64 = np.polynomial.legendre.leggauss(64)
 _GL_X = (_GL_X64 + 1.0) / 2.0
 _GL_W = _GL_W64 / 2.0
+_GL_TABLES: dict = {}
 # half-width of the integration window in units of sigma
 _WINDOW = 12.0
 
@@ -90,11 +92,22 @@ def _window(n: int, sigma, c):
             mode + _WINDOW * sigma)
 
 
+def _gl_table(dtype, device):
+    """The GL-64 nodes and weights on [0, 1] as tensors, made once per
+    (dtype, device) and cached: a copy from host memory cannot be captured
+    into a CUDA graph, so the step that warms a graph up makes them."""
+    table = _GL_TABLES.get((dtype, device))
+    if table is None:
+        table = _GL_TABLES[(dtype, device)] = (
+            torch.as_tensor(_GL_X, dtype=dtype, device=device),
+            torch.as_tensor(_GL_W, dtype=dtype, device=device))
+    return table
+
+
 def _log_integral(n: int, lo, hi, sigma, c):
     """log integral_lo^hi w(s) ds by GL-64, max-normalized."""
     dtype = sigma.dtype
-    x = torch.as_tensor(_GL_X, dtype=dtype, device=sigma.device)
-    w = torch.as_tensor(_GL_W, dtype=dtype, device=sigma.device)
+    x, w = _gl_table(dtype, sigma.device)
     span = hi - lo
     s = lo[..., None] + span[..., None] * x
     logw = _log_w_radial(n, s, sigma[..., None], c[..., None]) + torch.log(w)

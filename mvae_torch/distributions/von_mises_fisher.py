@@ -146,6 +146,19 @@ def _sample_w_raw(m: int, kappa, proposals):
 
 _GL_NODES, _GL_WEIGHTS = np.polynomial.legendre.leggauss(32)
 _XI_CAP = 30.0  # e^{-30} ~ 1e-13: where the quadrature's tail is cut
+_GL_TABLES: dict = {}
+
+
+def _gl_table(dtype, device):
+    """The GL-32 nodes and half weights as tensors, made once per (dtype,
+    device) and cached: a copy from host memory cannot be captured into a
+    CUDA graph, so the step that warms a graph up makes them."""
+    table = _GL_TABLES.get((dtype, device))
+    if table is None:
+        table = _GL_TABLES[(dtype, device)] = (
+            torch.as_tensor(_GL_NODES, dtype=dtype, device=device),
+            0.5 * torch.as_tensor(_GL_WEIGHTS, dtype=dtype, device=device))
+    return table
 
 
 def _quad_hat_integrals(w, kappa, alpha):
@@ -153,8 +166,7 @@ def _quad_hat_integrals(w, kappa, alpha):
     (1 - t^2)^alpha (* t for J) dt, under xi = kappa (w - t)."""
     kap = torch.clamp(kappa, min=1e-6)
     xi_cap = torch.clamp(kap * (w + 1.0), max=_XI_CAP)
-    nodes = torch.as_tensor(_GL_NODES, dtype=w.dtype, device=w.device)
-    wq = 0.5 * torch.as_tensor(_GL_WEIGHTS, dtype=w.dtype, device=w.device)
+    nodes, wq = _gl_table(w.dtype, w.device)
     xi = xi_cap[..., None] * (0.5 * (nodes + 1.0))    # nodes on [0, 1]
     t = w[..., None] - xi / kap[..., None]
     base = torch.exp(-xi) * torch.clamp(

@@ -1,0 +1,242 @@
+"""The trainer's compiled programs as CUDA graphs (L5).
+
+Counterpart of the reference's jitted programs and their memoization
+(``mvae_tpu/train/trainer.py::make_train_epoch``, ``make_eval_elbo``,
+``make_eval_ll``, ``_memoized``). The reference compiles a whole epoch into
+one ``lax.scan`` so that the host never issues a step; here one training
+step, one ELBO batch and one IWAE batch are each captured once into a CUDA
+graph and replayed, so a step reaches the card as one graph launch instead
+of ~90 host-issued ops:
+
+* ``TrainEpoch`` holds the static buffers of the epoch: the batch order
+  ``perm`` (steps, batch), the step index ``k`` on the device, the step's
+  statistics written at row ``k`` of (steps, ...) buffers. ``TrainEpoch.step``
+  is the body the graph captures: it gathers its batch at ``k`` and runs
+  ``Trainer._step_body`` (binarize, loss, backward, the curvature mask at
+  the device step counter, Adam). The burn-in mask is traced, as the
+  reference's, so one capture serves burn-in and after.
+* ``Graphed`` runs a body over static buffers: its first calls are real
+  calls on a side stream (they initialise Adam's state, the kernels'
+  scratch and the cached tables, and their results are used), then it
+  captures the body once and replays it. Randomness comes from the
+  trainer's generator, registered with each graph, so each replay draws
+  the next Philox numbers exactly as an eager call would.
+* ``routing_key`` is the cache key's part that the reference takes from
+  its routing switches: every decision a capture froze, and the kernel
+  entry points it called (a swapped entry point, as ``chip_smoke.py``'s
+  plain recomputations swap them, gets its own capture).
+
+Each replay adds to the kernel wrappers' ``launches`` what its capture
+recorded (``roofline.captured_launches`` / ``count_replays``), so the counts
+are what ran on the card. A capture that fails raises: nothing falls back
+to the eager loop on a CUDA device. ``path`` says where the graphs do not
+apply (the CPU, a mesh rank, the NaN guard) and why.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import (decoder_kernels, manifold_kernels, roofline,
+                       tail_kernels)
+from ..models import nets, vae
+from ..utils import profiling
+
+# real steps (batches) run on a side stream before a capture: PyTorch's
+# recipe for capturing a training step (optimizer state, cuBLAS workspaces)
+WARMUP_STEPS = 3
+WARMUP_BATCHES = 1
+
+# the kernel entry points the model calls through their modules (the names
+# chip_smoke.py's plain_kernels swaps)
+ENTRY_POINTS = ((tail_kernels, "tail_forward"),
+                (tail_kernels, "tail_backward"),
+                (decoder_kernels, "fused_decode_bce_t"),
+                (decoder_kernels, "train_decode_fwd"),
+                (manifold_kernels, "wrapped_reparam_stereo_t"))
+
+
+def path(trainer) -> dict:
+    """Whether ``trainer`` replays graphs ("graph") or runs the eager loop
+    ("eager"), and why. The choice follows the device and the mesh, as the
+    reference's follows its backend."""
+    if trainer.device.type != "cuda":
+        return {"path": "eager", "why": f"{trainer.device.type} device: "
+                "CUDA graphs exist on CUDA devices only"}
+    if trainer.mesh is not None:
+        return {"path": "eager", "why": "mesh rank: the collectives stage "
+                "gloo through the host (graphs of a rank's step under NCCL "
+                "are ROADMAP A6)"}
+    if profiling.nan_guard_enabled():
+        return {"path": "eager", "why": "the NaN guard (--debug_nans) reads "
+                "every op's output on the host"}
+    return {"path": "graph", "why": "one CUDA graph of a training step, of "
+            "an ELBO batch and of an IWAE batch, each captured once per "
+            "(shape, routing) and replayed"}
+
+
+def routing_key(cfg, params) -> tuple:
+    """Every routing decision a capture of ``cfg``'s step or eval batch
+    freezes: the kernel gates (``MVAE_FUSED_TRAIN_DECODER`` is read at every
+    forward), the kernel entry points themselves, and the TF32 switches of
+    cuBLAS and of the conv nets."""
+    return (vae._fused_tail_gate(cfg, params)[0],
+            vae._fused_train_decoder_gate(cfg, params)[0],
+            vae._fused_decoder_eligible(cfg, params),
+            tuple(vae._fused_reparam_eligible(c, cp)
+                  for c, cp in zip(cfg.components, params["components"])),
+            tuple(getattr(mod, name) for mod, name in ENTRY_POINTS),
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, nets._cudnn_f32)
+
+
+_SIDE: dict = {}
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    s = _SIDE.get(device)
+    if s is None:
+        s = _SIDE[device] = torch.cuda.Stream(device)
+    return s
+
+
+class Graphed:
+    """``fn(*statics)`` as a CUDA graph. A call copies its inputs into the
+    static buffers ``statics``; the first ``warmup`` calls run ``fn`` on a
+    side stream (their results are the call's), the next captures it once
+    and every call from then on replays it. ``copy_out`` returns a copy of
+    the static outputs (a tensor or a tuple or dict of them) of each replay."""
+
+    def __init__(self, fn, statics, generator: torch.Generator, warmup: int,
+                 copy_out: bool = False):
+        self.fn = fn
+        self.statics = statics
+        self.generator = generator
+        self.warmup = warmup
+        self.copy_out = copy_out
+        self.graph = None
+        self.out = None
+        self.per_replay: dict = {}
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, *inputs):
+        for s, x in zip(self.statics, inputs):
+            if s is not None:
+                s.copy_(x)
+        if self.graph is None and self.warmup > 0:
+            self.warmup -= 1
+            return self._warm()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+        roofline.count_replays(self.per_replay, 1)
+        return _copy(self.out) if self.copy_out else self.out
+
+    def _warm(self):
+        cur = torch.cuda.current_stream()
+        side = _side_stream(cur.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self.fn(*self.statics)
+        cur.wait_stream(side)
+        for t in _tensors(out):
+            t.record_stream(cur)
+        return out
+
+    def _capture(self):
+        g = torch.cuda.CUDAGraph()
+        g.register_generator_state(self.generator)
+
+        def record():
+            with torch.cuda.graph(g):
+                self.out = self.fn(*self.statics)
+
+        self.per_replay = roofline.captured_launches(record)
+        self.graph = g
+        self.captures += 1
+
+
+def _tensors(out):
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, dict):
+        return [v for v in out.values() if torch.is_tensor(v)]
+    if isinstance(out, (tuple, list)):
+        return [v for v in out if torch.is_tensor(v)]
+    return []
+
+
+def _copy(out):
+    if torch.is_tensor(out):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: v.clone() for k, v in out.items()}
+    return type(out)(v.clone() for v in out)
+
+
+class TrainEpoch:
+    """The static buffers of a training epoch and the step body that the
+    graph captures (``make_train_epoch``'s scan body). ``u_bin`` and
+    ``noise`` (steps, batch, ...) are explicit binarization uniforms and
+    reparameterization noise, for runs that hold the step to another
+    implementation on the same draws; without them the step draws from the
+    trainer's generator."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        S, bs, dev = trainer.steps_per_epoch, trainer.tc.batch_size, \
+            trainer.device
+        self.perm = torch.zeros((S, bs), dtype=torch.int64, device=dev)
+        self.k = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.u_bin = self.noise = None
+        self.explicit = False
+        self.stats: dict | None = None
+
+    def step(self) -> None:
+        """One step from the static buffers: the batch at row ``k`` of
+        ``perm``, its statistics written at row ``k``, ``k`` advanced."""
+        tr = self.trainer
+        x = tr._train_data.index_select(0, self.perm.index_select(
+            0, self.k)[0])
+        u = nz = None
+        if self.explicit:
+            u = self.u_bin.index_select(0, self.k)[0]
+            nz = self.noise.index_select(0, self.k)[0]
+        stats = tr._step_body(x, u, nz)
+        if self.stats is None:
+            self.stats = {name: torch.zeros((len(self.perm),) + v.shape,
+                                            dtype=v.dtype, device=v.device)
+                          for name, v in stats.items()}
+        for name, v in stats.items():
+            self.stats[name].index_copy_(0, self.k, v.unsqueeze(0))
+        self.k += 1
+
+    def run(self, perm, u_bin=None, noise=None, graph: bool = True) -> dict:
+        """One epoch over ``perm`` (steps x batch example indices): replays
+        of the step's graph (``graph``) or the step body run eagerly.
+        Returns the (steps, ...) statistics buffers."""
+        tr = self.trainer
+        S = len(self.perm)
+        self.perm.copy_(perm.reshape(self.perm.shape))
+        self.k.zero_()
+        self.explicit = u_bin is not None
+        if self.explicit:
+            if self.u_bin is None:
+                self.u_bin = torch.empty_like(u_bin)
+                self.noise = torch.empty_like(noise)
+            self.u_bin.copy_(u_bin)
+            self.noise.copy_(noise)
+        if not graph:
+            for _ in range(S):
+                self.step()
+        else:
+            key = ("train_step", tuple(tr._train_data.shape[1:]),
+                   tr._train_data.dtype, tuple(self.perm.shape),
+                   self.explicit, tr.tc.beta, tr.burnin_steps,
+                   routing_key(tr.model_cfg, tr.params))
+            prog = tr._program(key, lambda: Graphed(
+                self.step, (), tr.generator, WARMUP_STEPS))
+            for _ in range(S):
+                prog()
+        return self.stats

@@ -10,9 +10,15 @@ checkpoints the full state (params, optimizer, step, generator).
 
 Differences from the reference:
 
-* training and evaluation are Python loops over batches of eager
-  PyTorch (no scan); the host reads the statistics once per epoch or
-  pass, and a training step never waits on the device;
+* on one CUDA device the reference's compiled programs are CUDA graphs
+  (``graphs``): a training step, an ELBO batch and an IWAE batch are each
+  captured once per (shape, routing) and replayed, the step reading its
+  batch from a static permutation at a device step index and the burn-in
+  mask traced on a device step counter, so one capture serves burn-in and
+  after -- the counterpart of the reference's ``lax.scan`` epoch. On the
+  CPU and on a mesh the same bodies run as Python loops of eager PyTorch
+  (``graph_path`` says which ran, and why). Either way the host reads the
+  statistics once per epoch or pass, and a step never waits on the device;
 * randomness (batch order, binarization, reparameterization noise, eval
   draws) comes from one ``torch.Generator`` on the device (Philox on
   CUDA), seeded from ``TrainConfig.seed``; it replaces the reference's
@@ -20,7 +26,9 @@ Differences from the reference:
   it. The pinned binarization mode (``eval_binarize="fixed"``) is a
   counter hash of (seed, example index);
 * the optimizer is ``torch.optim.Adam`` with optax's defaults (betas
-  (0.9, 0.999), eps 1e-8). Masked curvature gradients are zeroed, never
+  (0.9, 0.999), eps 1e-8), ``capturable`` for CUDA parameters (its step
+  counters on the card, so the graphed and the eager step do the same
+  arithmetic). Masked curvature gradients are multiplied by zero, never
   dropped, so Adam counts every step as optax does and the bias
   correction after burn-in uses the global step.
 
@@ -59,6 +67,7 @@ from ..parallel.collectives import (all_reduce_mean_, all_reduce_sum_,
 from ..parallel.mesh import fold_seed
 from ..utils import profiling
 from ..utils.device import resolve_device
+from . import graphs
 from .metrics import MetricsLogger
 from .stats import EpochStats
 
@@ -125,29 +134,71 @@ def _curvature_leaves(params):
 
 def make_optimizer(params, tc: TrainConfig) -> torch.optim.Adam:
     """One Adam over two parameter groups: the ``c_param`` leaves at
-    ``curvature_lr``, everything else at ``lr`` (optax's defaults)."""
+    ``curvature_lr``, everything else at ``lr`` (optax's defaults);
+    ``capturable`` (step counters on the card, as a CUDA graph needs) for
+    CUDA parameters, the plain one elsewhere."""
     curv = _curvature_leaves(params)
     ids = {id(t) for t in curv}
     groups = [{"params": [t for t in _leaves(params) if id(t) not in ids],
                "lr": tc.lr}]
     if curv:
         groups.append({"params": curv, "lr": tc.curvature_lr})
-    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    cuda = _leaves(params)[0].device.type == "cuda"
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=cuda)
 
 
-def _mask_curvature_grads(params, components, step: int, burnin_steps: int):
-    """Zero the curvature gradients when fixed or during burn-in, in place.
-    Zeroed, not dropped: Adam then advances its step as optax does."""
-    frozen = step < burnin_steps
+def load_optimizer_state(opt: torch.optim.Adam, sd: dict) -> bool:
+    """Adam's state ``sd`` (a ``state_dict``) into ``opt``: copied into its
+    state tensors in place when ``opt`` holds state for every parameter (a
+    captured graph goes on updating them), else through
+    ``load_state_dict`` with ``capturable`` and the step counters' device
+    kept as ``opt`` has them. The learning rates stay ``opt``'s, as the
+    reference's optimizer state holds none. Returns whether the state
+    tensors were replaced (graphs that hold the old ones are stale)."""
+    order = [p for g in opt.param_groups for p in g["params"]]
+    state = sd["state"]
+    if (len(state) == len(order) and all(p in opt.state for p in order)
+            and all(set(opt.state[p]) == set(state[i])
+                    for i, p in enumerate(order))):
+        with torch.no_grad():
+            for i, p in enumerate(order):
+                for name, v in state[i].items():
+                    opt.state[p][name].copy_(v)
+        return False
+    kept = [(g["lr"], g["capturable"]) for g in opt.param_groups]
+    opt.load_state_dict(sd)
+    for g, (lr, capturable) in zip(opt.param_groups, kept):
+        g["lr"], g["capturable"] = lr, capturable
+        if not capturable:
+            continue
+        for p in g["params"]:
+            st = opt.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(device=p.device,
+                                           dtype=torch.float32)
+    return True
+
+
+def _mask_curvature_grads(params, components, step, burnin_steps: int):
+    """The reference's traced mask, in place: a fixed curvature's gradient
+    zeroed, a learnable one's multiplied by ``step >= burnin_steps`` (``step``
+    a 0-d tensor on the gradients' device, so a captured step serves
+    burn-in and after). Masked, not dropped: Adam then advances its step as
+    optax does."""
+    unfrozen = None
     for comp, cp in zip(components, params["components"]):
         if "c_param" not in cp:
             continue
-        if comp.fixed_curvature or frozen:
-            c = cp["c_param"]
-            if c.grad is None:
-                c.grad = torch.zeros_like(c)
-            else:
-                c.grad.zero_()
+        c = cp["c_param"]
+        if c.grad is None:
+            c.grad = torch.zeros_like(c)
+        elif comp.fixed_curvature:
+            c.grad.zero_()
+        else:
+            if unfrozen is None:
+                unfrozen = step >= burnin_steps
+            c.grad.mul_(unfrozen.to(c.grad.dtype))
 
 
 class Trainer:
@@ -195,6 +246,11 @@ class Trainer:
             t.requires_grad_(True)
         self.opt = make_optimizer(self.params, tc)
         self.step = 0
+        # the global step on the device: the curvature mask reads it
+        self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        # captured programs by key (graphs.Graphed) and the epoch's buffers
+        self._programs: dict = {}
+        self._epoch = None
         self.steps_per_epoch = len(dataset.train) // tc.batch_size
         self.burnin_steps = tc.burnin_epochs * self.steps_per_epoch
 
@@ -212,6 +268,21 @@ class Trainer:
         """Whether this trainer logs, prints and writes checkpoints: rank 0
         of a mesh, or the one device."""
         return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def graph_path(self) -> dict:
+        """Whether training and evaluation replay CUDA graphs ("graph") or
+        run the eager loop ("eager"), and why (``graphs.path``)."""
+        return graphs.path(self)
+
+    def _program(self, key, build):
+        """The captured program of ``key``, built on first use (the
+        reference's ``_memoized``; here per trainer: a graph holds this
+        trainer's tensors)."""
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = build()
+        return prog
 
     @property
     def logger(self) -> MetricsLogger:
@@ -240,10 +311,21 @@ class Trainer:
         reparameterization noise (``tail_kernels.draw_noise`` layout); each
         is drawn from the trainer's generator when not given. On a mesh they
         are the global batch's, and the rank takes its rows. Returns the
-        step's stats as device tensors (no host sync on one device)."""
+        step's stats as device tensors (no host sync on one device). This
+        is the eager step: ``train_one_epoch`` replays a graph of the same
+        body on one CUDA device."""
         if self.mesh is not None:
             x, u_bin, noise = (None if t is None else shard_batch(t, self.mesh)
                                for t in (x, u_bin, noise))
+        stats = self._step_body(x, u_bin, noise)
+        self.step += 1
+        return stats
+
+    def _step_body(self, x, u_bin, noise) -> dict:
+        """The step on this rank's rows, the body a CUDA graph captures:
+        binarize, the loss and its backward, the mesh average, the
+        curvature mask at the device step counter, Adam, the counter
+        advanced. Issues no host read and no host-to-device copy."""
         x = binarize_batch(x, self.dataset.binarize, self.generator, u_bin)
         self.opt.zero_grad(set_to_none=True)
         loss, stats = vae.loss_fn(self.model_cfg, self.params, x,
@@ -254,9 +336,9 @@ class Trainer:
         if self.mesh is not None:
             self._average_over_mesh(stats)
         _mask_curvature_grads(self.params, self.model_cfg.components,
-                              self.step, self.burnin_steps)
+                              self._step_t, self.burnin_steps)
         self.opt.step()
-        self.step += 1
+        self._step_t += 1
         return stats
 
     def _average_over_mesh(self, stats: dict) -> None:
@@ -275,18 +357,42 @@ class Trainer:
         all_reduce_mean_(mesh, whole)
         all_reduce_mean_(mesh, sharded, mesh.data_group)
 
+    def _epoch_perm(self):
+        """The epoch's batch order: a permutation of the train split from
+        the batch-order generator, cut to whole batches (the reference's
+        ``perm``, drawn outside the compiled epoch)."""
+        n = self.steps_per_epoch * self.tc.batch_size
+        return torch.randperm(len(self._train_data),
+                              generator=self._perm_generator,
+                              device=self.device)[:n]
+
     def train_one_epoch(self, epoch: int) -> dict:
         """``steps_per_epoch`` steps over a permutation of the train split
         drawn from the generator; stats averaged over the steps, the
-        curvature the last step's snapshot."""
+        curvature the last step's snapshot. On one CUDA device each step is
+        a replay of the step's graph (``graphs.TrainEpoch``), elsewhere the
+        eager loop (``graph_path``)."""
+        if self.graph_path["path"] == "eager":
+            return self._train_one_epoch_eager(epoch)
+        if self._epoch is None:
+            self._epoch = graphs.TrainEpoch(self)
+        stacked = self._epoch.run(self._epoch_perm())
+        self.step += self.steps_per_epoch
+        return self._epoch_means(stacked)
+
+    def _train_one_epoch_eager(self, epoch: int) -> dict:
+        """``train_one_epoch`` as a Python loop of eager steps
+        (``_train_step``): the CPU's and a mesh rank's epoch."""
         bs = self.tc.batch_size
-        n = self.steps_per_epoch * bs
-        perm = torch.randperm(len(self._train_data),
-                              generator=self._perm_generator,
-                              device=self.device)[:n]
+        perm = self._epoch_perm()
         seq = [self._train_step(self._train_data[perm[s * bs:(s + 1) * bs]])
                for s in range(self.steps_per_epoch)]
-        stacked = {k: torch.stack([st[k] for st in seq]) for k in seq[0]}
+        return self._epoch_means({k: torch.stack([st[k] for st in seq])
+                                  for k in seq[0]})
+
+    def _epoch_means(self, stacked: dict) -> dict:
+        """An epoch's (steps, ...) statistics averaged over the steps, the
+        curvature the last step's snapshot, read to the host once."""
         means = {k: torch.mean(v, dim=0) for k, v in stacked.items()}
         means["curvature"] = stacked["curvature"][-1]
         es = EpochStats(self.component_names)
@@ -306,8 +412,10 @@ class Trainer:
         with torch.no_grad():
             for t, v in zip(_leaves(self.params), params_leaves):
                 t.copy_(v)
-        self.opt.load_state_dict(opt_state)
+        if load_optimizer_state(self.opt, opt_state):
+            self._programs.clear()
         self.step = int(step)
+        self._step_t.fill_(self.step)
         self.generator.set_state(rng)
         if perm_rng is not None:
             self._perm_generator.set_state(perm_rng)
@@ -450,9 +558,9 @@ class Trainer:
 
     def restore_checkpoint(self, step: int | None = None) -> None:
         """Load a checkpoint of ``run_dir`` (the latest by default). It is
-        read onto the CPU: the parameters are copied into the trainer's
-        tensors, Adam moves its moments to the parameters' device and keeps
-        its step counters on the CPU, and the generator takes a CPU state.
+        read onto the CPU: the parameters and Adam's state are copied into
+        the trainer's tensors (``load_optimizer_state``), and the generator
+        takes a CPU state.
         On a mesh each rank keeps its slice; a checkpoint of the same mesh
         shape restores each generator, any other re-seeds them from (seed,
         step, data index)."""
@@ -517,36 +625,63 @@ class Trainer:
             torch.float32).reshape(nb, bs)
         return batches, masks, n
 
-    @torch.no_grad()
+    def _eval_program(self, kind: str, body, x, mask, rows, graph: bool):
+        """The per-batch evaluation ``body(params, x, mask, rows)`` as a
+        function of (x, mask, rows): without ``graph`` the body on the
+        whole parameters (gathered once a pass on a mesh), else its graph
+        (``graphs.Graphed``) over static buffers shaped as this pass's
+        batch ``x``, ``mask`` and ``rows``, keyed by those shapes, the
+        fields the body reads and the routing (the reference's
+        ``make_eval_elbo`` / ``make_eval_ll`` keys)."""
+        if not graph:
+            params = self.whole_params()
+            return lambda *batch: body(params, *batch)
+        fields = ((self.tc.beta,) if kind == "eval_elbo" else
+                  (self.tc.likelihood_n, self.tc.likelihood_chunk))
+        key = (kind, tuple(x.shape), x.dtype, mask is None, rows is None,
+               fields, graphs.routing_key(self.model_cfg, self.params))
+        return self._program(key, lambda: graphs.Graphed(
+            lambda *batch: body(self.params, *batch),
+            tuple(None if t is None else torch.empty_like(t)
+                  for t in (x, mask, rows)),
+            self.generator, graphs.WARMUP_BATCHES, copy_out=True))
+
+    def _elbo_batch(self, params, x, mask, rows) -> dict:
+        """One eval batch's masked sums (weights ``mask`` / its count): the
+        body of the ELBO pass's graph (``make_eval_elbo``'s scan body)."""
+        w = mask / torch.clamp(torch.sum(mask), min=1.0)
+        if self.mesh is not None:
+            x, w = shard_batch(x, self.mesh), shard_batch(w, self.mesh)
+            rows = None if rows is None else shard_batch(rows, self.mesh)
+        x = self._binarize(x, rows)
+        fwd = vae.forward(self.model_cfg, params, x, generator=self.generator)
+        kl_total = torch.sum(fwd.kl_per_comp, dim=-1)
+        value = fwd.log_px_z - self.tc.beta * kl_total
+        w = w.to(value.dtype)
+        return {"elbo": torch.sum(w * value),
+                "bce": torch.sum(w * -fwd.log_px_z),
+                "kl": torch.sum(w * kl_total),
+                "kl_per_comp": torch.sum(w[:, None] * fwd.kl_per_comp, dim=0),
+                "curvature": fwd.curvatures}
+
     def evaluate_elbo(self, split: str = "test") -> dict:
         """Masked-mean ELBO over the full split: the padded tail is masked
-        out and per-batch stats are weighted by their real example count."""
+        out and per-batch stats are weighted by their real example count.
+        On one CUDA device each batch is a replay of the ELBO graph, else
+        the eager loop (``graph_path``)."""
+        return self._evaluate_elbo(split, self.graph_path["path"] == "graph")
+
+    @torch.no_grad()
+    def _evaluate_elbo(self, split: str, graph: bool) -> dict:
         data = self._test_data if split == "test" else self._train_data
         bs = self._eval_batch_size(len(data))
         batches, masks, n = self._split_batches(data, bs)
         nb = batches.shape[0]
         row_ids = self._eval_keys(nb, bs)
-        params = self.whole_params()
-        per_batch = []
-        for i in range(nb):
-            x, rows = batches[i], None if row_ids is None else row_ids[i]
-            w = masks[i] / torch.clamp(torch.sum(masks[i]), min=1.0)
-            if self.mesh is not None:
-                x, w = shard_batch(x, self.mesh), shard_batch(w, self.mesh)
-                rows = None if rows is None else shard_batch(rows, self.mesh)
-            x = self._binarize(x, rows)
-            fwd = vae.forward(self.model_cfg, params, x,
-                              generator=self.generator)
-            kl_total = torch.sum(fwd.kl_per_comp, dim=-1)
-            value = fwd.log_px_z - self.tc.beta * kl_total
-            w = w.to(value.dtype)
-            per_batch.append({
-                "elbo": torch.sum(w * value),
-                "bce": torch.sum(w * -fwd.log_px_z),
-                "kl": torch.sum(w * kl_total),
-                "kl_per_comp": torch.sum(w[:, None] * fwd.kl_per_comp, dim=0),
-                "curvature": fwd.curvatures,
-            })
+        rows = [None] * nb if row_ids is None else row_ids
+        run = self._eval_program("eval_elbo", self._elbo_batch, batches[0],
+                                 masks[0], rows[0], graph)
+        per_batch = [run(batches[i], masks[i], rows[i]) for i in range(nb)]
         stacked = {k: torch.stack([s[k] for s in per_batch])
                    for k in per_batch[0]}
         if self.mesh is not None:
@@ -560,7 +695,6 @@ class Trainer:
                       weight=min(bs, n - i * bs))
         return es.means()
 
-    @torch.no_grad()
     def evaluate_log_likelihood(self, split: str = "test",
                                 max_examples: int | None = None,
                                 repeats: int = 1) -> float:
@@ -573,7 +707,9 @@ class Trainer:
         drawn from a seed a batch taken from the rank's generator) and the
         sums meet over "data"; otherwise every rank runs the one-device
         estimator on the whole parameters and rank 0's value is returned
-        on every rank."""
+        on every rank. On one CUDA device each batch is a replay of the
+        IWAE graph (the whole chunk loop), else the eager loop
+        (``graph_path``)."""
         if repeats > 1:
             vals = [self.evaluate_log_likelihood(split, max_examples)
                     for _ in range(repeats)]
@@ -581,6 +717,12 @@ class Trainer:
                 f"{split}/log_likelihood_iwae_repeats": vals,
                 f"{split}/log_likelihood_iwae_std": float(np.std(vals))})
             return float(np.mean(vals))
+        return self._evaluate_log_likelihood(
+            split, max_examples, self.graph_path["path"] == "graph")
+
+    @torch.no_grad()
+    def _evaluate_log_likelihood(self, split: str, max_examples: int | None,
+                                 graph: bool) -> float:
         data = self._test_data if split == "test" else self._train_data
         if max_examples:
             data = data[:max_examples]
@@ -589,15 +731,12 @@ class Trainer:
             return self._log_likelihood_sharded(data)
         bs = min(self.tc.eval_batch_size, len(data))
         batches, _, n = self._split_batches(data, bs)
-        row_ids = self._eval_keys(batches.shape[0], bs)
-        params = self.whole_params()
-        lls = []
-        for i in range(batches.shape[0]):
-            x = self._binarize(batches[i],
-                               None if row_ids is None else row_ids[i])
-            lls.append(vae.log_likelihood(
-                self.model_cfg, params, x, self.tc.likelihood_n,
-                self.tc.likelihood_chunk, generator=self.generator))
+        nb = batches.shape[0]
+        row_ids = self._eval_keys(nb, bs)
+        rows = [None] * nb if row_ids is None else row_ids
+        run = self._eval_program("eval_ll", self._ll_batch, batches[0],
+                                 None, rows[0], graph)
+        lls = [run(batches[i], None, rows[i]) for i in range(nb)]
         ll = torch.cat(lls)[:n].mean()
         if mesh is not None:
             ll = ll.reshape(1).to(torch.float64)
@@ -605,6 +744,16 @@ class Trainer:
                 ll = ll.cpu()
             dist.broadcast(ll, src=0, group=mesh.group)
         return float(ll.cpu())
+
+    def _ll_batch(self, params, x, mask, rows):
+        """One eval batch's IWAE estimates, (B,) (``mask`` unused: the
+        caller drops the pad rows): the body of the IWAE pass's graph
+        (``make_eval_ll``'s scan body), the whole chunk loop of
+        ``vae._log_weights`` in it."""
+        return vae.log_likelihood(
+            self.model_cfg, params, self._binarize(x, rows),
+            self.tc.likelihood_n, self.tc.likelihood_chunk,
+            generator=self.generator)
 
     def _log_likelihood_sharded(self, data) -> float:
         mesh = self.mesh

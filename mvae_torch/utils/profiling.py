@@ -86,6 +86,10 @@ class _NanGuard(TorchDispatchMode):
 _GUARD: list[_NanGuard] = []
 
 
+def nan_guard_enabled() -> bool:
+    return bool(_GUARD)
+
+
 def enable_nan_guard() -> None:
     """Fail fast, naming the op, on any NaN or Inf an op produces (slow;
     debugging only). Applies to this thread and to autograd's backward."""
