@@ -11,12 +11,23 @@ Phases:
     B5 reparam_stereo, B7 manifold_dist, B8 roofline_probes; B4a and B4b
     live in the header B1 and B3 share) and, beside them, B5's previous
     design (``scripts/reparam_stereo_previous.cu``, ``PREVIOUS_REPARAM``),
-    printing ptxas's registers, stack frame and spills of each kernel
-    instantiation (B5's 24 one by one: n = 2, 3, 6 and generic, one or two
-    samples a thread, each curvature sign; those for n = 2, 3, 6 must spill
-    nothing), and the instructions of one accurate tanhf in the tanh
+    the compute twins' previous design (``scripts/twin_probes_previous.cu``,
+    ``PREVIOUS_TWINS``), printing ptxas's registers, stack frame
+    and spills of each kernel instantiation (B5's 24 one by one: n = 2, 3,
+    6 and generic, one or two samples a thread, each curvature sign; those
+    for n = 2, 3, 6 must spill nothing; B8f's 8, n = 2, 3, 6 and generic at
+    one or two samples a thread, those for n = 2, 3, 6 with no spill and
+    no stack frame), the instructions of one accurate tanhf in the tanh
     probe's SASS loop (``roofline.tanh_instructions``, cuobjdump), which
-    prices a transcendental in the kernels line's operation bounds;
+    prices a transcendental in the kernels line's operation bounds, the
+    instructions the stereographic twin's sqrt, reciprocal and exp steps
+    issue on their common path (``roofline.transcendental_instructions``,
+    from the price loops beside the probes), which price B8e's, and the
+    SASS instructions a row of B8e's resident per-row loop issues on its
+    common path
+    (``roofline.twin_row_instructions``), at least a row's counted
+    operations (``roofline.twin_stereo_row_ops``): no two output rows share
+    a result;
  3. the tail kernel (tail_fwd.cu) against ``tail_forward_ref`` at the
     flagship product h2,s2,e2, B = 512 and B = 1000 (ragged), random heads
     with large-|mu| rows and curvatures that put rows on both sides of the
@@ -117,7 +128,8 @@ Phases:
     ``roofline_probes.cu``): the triad, FMA and tanh (repeat 1 and 32),
     reduce and transpose probes at (1,048,576, 128), both distance
     skeletons and the stereographic twin (resident and streaming) there, the
-    reparam skeleton and twin at (S, B, n) = (125, 2048, 6), the tail's
+    reparam skeleton and twin at (S, B, n) = (125, 2048, 6) (the twin also
+    at (125, 512, 2) and at a generic n, (125, 512, 5)), the tail's
     I/O skeleton (both grids) for h2,s2,e2, d2,p2,e2, u6 and s6:wrapped at
     B = 128, 512 and 1000, each against its plain version; then
     ``roofline.main()`` with the probes' launch counts read around it: the
@@ -135,7 +147,16 @@ Phases:
     the calibrated FMA rate);
     then each row's kernel held to its plain version on the row's own
     inputs (B7a, B7b and B5 at the tolerances of phases 17 and 13, float64
-    beside them; B2 within 1e-3 nats per row as in phase 4). The launch
+    beside them; B2 within 1e-3 nats per row as in phase 4); then the
+    compute twins in turns with their previous design (new, previous,
+    previous, new): B8e resident and streaming on B7a's row inputs, B8f at
+    the production chunk, sign -1, over B5's rotating buffer sets (each
+    previous design held to the plain version too; each new twin faster),
+    and B8f in turns with B5 (twin, B5, B5, twin), no slower than B5; B5's
+    row (B5, its skeleton, B8f) at 20 and at 100 calls a graph, each in
+    turns (the row's own timing takes ``roofline.REPARAM_ROW_CALLS``, 100);
+    and each twin's share of its bound (B8e's with the tail's
+    transcendentals at their SASS prices). The launch
     counts of this phase count what ran on the card: ``roofline.measure``
     captures its launches in a CUDA graph and counts each replay;
 21. ``Trainer.fit(profile_epochs=1)`` of a 20-step flagship epoch writes a
@@ -234,6 +255,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -449,6 +471,11 @@ def phase_card() -> str:
 # at run time
 PREVIOUS_REPARAM = (Path(__file__).resolve().parent / "scripts"
                     / "reparam_stereo_previous.cu")
+# The compute twins' previous design (B8e: a warp a row, the resident tile
+# read from L2 for every output row; B8f: one generic kernel with the
+# coordinates in per-thread arrays)
+PREVIOUS_TWINS = (Path(__file__).resolve().parent / "scripts"
+                  / "twin_probes_previous.cu")
 
 
 def ptxas_entries(report: str) -> dict:
@@ -482,20 +509,39 @@ def reparam_instantiations(report: str) -> dict:
     return out
 
 
+def twin_reparam_instantiations(report: str) -> dict:
+    """B8f's instantiations (N, samples a thread) -> ptxas's numbers."""
+    out = {}
+    for name, v in ptxas_entries(report).items():
+        m = re.search(r"twin_reparam_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            out[(int(m[1]), int(m[2]))] = v
+    return out
+
+
 def phase_build() -> dict:
-    """Every kernel source built (one nvcc each, together with B5's previous
-    design); ptxas's report printed; B5's register-resident instantiations
-    (n = 2, 3, 6) checked to spill nothing; the instructions of one
-    accurate tanhf in the tanh probe counted from its SASS."""
+    """Every kernel source built (one nvcc each, together with B5's and the
+    compute twins' previous designs); ptxas's report printed; B5's and
+    B8f's register-resident instantiations (n = 2, 3, 6) checked to spill
+    nothing (B8f's to use no stack frame either); the instructions of one
+    accurate tanhf in the tanh probe and of each transcendental step of
+    B8e's tail (on its common path) counted from their SASS; B8e's
+    resident per-row loop counted from its SASS and checked to hold at
+    least a row's counted operations."""
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        prev = pool.submit(_build.build_variants, {"reparam_previous": (
-            PREVIOUS_REPARAM, _build.EXTRA_FLAGS["reparam_stereo"])},
+        prev = pool.submit(_build.build_variants, {
+            "reparam_previous": (PREVIOUS_REPARAM,
+                                 _build.EXTRA_FLAGS["reparam_stereo"]),
+            "twins_previous": (PREVIOUS_TWINS,
+                               _build.EXTRA_FLAGS["roofline_probes"])},
             _build.BUILD_DIR / "previous")
         reports = _build.build_all()
-        prev_lib, prev_report = prev.result()["reparam_previous"]
-    print(f"[build] {len(reports)} kernels and B5's previous design in "
-          f"{time.time() - t0:.1f} s")
+        variants = prev.result()
+    prev_lib, prev_report = variants["reparam_previous"]
+    twins_lib, twins_report = variants["twins_previous"]
+    print(f"[build] {len(reports)} kernels and B5's and the twins' previous "
+          f"designs in {time.time() - t0:.1f} s")
     for name, text in reports.items():
         for line in _build.ptxas_lines(text):
             print(f"[build] {name}: {line}")
@@ -514,12 +560,47 @@ def phase_build() -> dict:
               f"a thread, sign at run time): {v['registers']} registers, "
               f"{v['stack']} bytes stack frame, {v['spill_stores']} / "
               f"{v['spill_loads']} bytes spilled")
+    for v in ptxas_entries(twins_report).values():
+        print(f"[build] twins, previous design: {v['registers']} registers, "
+              f"{v['stack']} bytes stack frame, {v['spill_stores']} / "
+              f"{v['spill_loads']} bytes spilled")
+    twin = twin_reparam_instantiations(reports["roofline_probes"])
+    for (n, spt), v in sorted(twin.items()):
+        print(f"[build] twin_reparam <n={n or 'generic'}, {spt} sample(s) a "
+              f"thread>: {v['registers']} registers, {v['stack']} bytes "
+              f"stack frame, {v['spill_stores']} / {v['spill_loads']} bytes "
+              f"spilled (stores / loads)")
+    check(len(twin) == 8, f"B8f built in 8 instantiations: {sorted(twin)}")
+    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
+              and v["stack"] == 0 for (n, _), v in twin.items() if n),
+          "B8f's instantiations for n = 2, 3, 6 spill nothing and use no "
+          "stack frame")
     tanh = roofline.tanh_instructions()
     print(f"[build] tanh probe: {tanh['instructions']} instructions in its "
           f"loop with {tanh['tanh']} tanh, {tanh['per_tanh']:.2f} a tanh "
           f"(cuobjdump -sass)")
+    prices = roofline.transcendental_instructions()
+    row = roofline.twin_row_instructions()
+    ops = roofline.twin_stereo_row_ops(roofline.N, prices)
+    print(f"[build] B8e tail's transcendental steps as built (cuobjdump "
+          f"-sass, common path, a loop of 32 steps less one of 16): sqrt "
+          f"{prices['sqrt']:.2f}, reciprocal {prices['rcp']:.2f}, exp "
+          f"{prices['exp']:.2f} instructions; a row's six "
+          f"{prices['tail']:.2f}: {ops:.2f} counted operations a row of "
+          f"{roofline.N} (was {roofline.twin_stereo_row_ops(roofline.N)})")
+    print(f"[build] B8e resident per-row loop: {row['instructions']} "
+          f"instructions on its common path for {row['rows']} output "
+          f"row(s) a lane, {row['per_row']:.2f} a row ({row['ffma']} FFMA, "
+          f"{row['mufu']} MUFU) against {ops:.2f} counted operations a row")
+    check(row["per_row"] >= ops, "B8e's resident loop runs at least a "
+                                 "row's counted operations for each row")
     return {"previous_reparam": manifold_kernels.bind_reparam(prev_lib),
-            "tanh_per": tanh["per_tanh"]}
+            "previous_twin_stereo": roofline.bind_probe(
+                twins_lib, "twin_stereo_launch"),
+            "previous_twin_reparam": roofline.bind_probe(
+                twins_lib, "twin_reparam_launch"),
+            "tanh_per": tanh["per_tanh"], "twin_prices": prices,
+            "twin_row": row}
 
 
 def ops_ms(ops: dict, per_tanh: float) -> float:
@@ -2153,6 +2234,144 @@ def _roofline_rows_held(rl) -> None:
           + " (B2 in nats per row)")
 
 
+def _previous_twin_stereo(built, x, y, resident):
+    """B8e's previous design on the wrapper's arguments (not counted)."""
+    out = torch.empty(x.shape[0], device="cuda")
+    _build.check(built["previous_twin_stereo"](
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+        int(resident), torch.cuda.current_stream().cuda_stream),
+        "previous twin_stereo_launch")
+    return out
+
+
+def _previous_twin_reparam(built, eps, mu, sig, k, hoist, out, sign):
+    """B8f's previous design on the wrapper's arguments (z into all of
+    ``out``; not counted)."""
+    S, B, n = eps.shape
+    lq = torch.empty(S, B, device="cuda")
+    lp = torch.empty(S, B, device="cuda")
+    _build.check(built["previous_twin_reparam"](
+        eps.data_ptr(), eps.stride(1), mu.data_ptr(), sig.data_ptr(),
+        hoist.data_ptr(), k.reshape(1).data_ptr(), out.data_ptr(), 0,
+        lq.data_ptr(), lp.data_ptr(), S, B, n, out.shape[1],
+        manifold_kernels.reparam_spt(S, B, n, sign),
+        torch.cuda.current_stream().cuda_stream),
+        "previous twin_reparam_launch")
+    return out, lq, lp
+
+
+def _in_turns(first, second) -> tuple:
+    """first, second, second, first: the two means and the four times."""
+    turns = [first(), second(), second(), first()]
+    return (roofline.mean_timing(turns[0], turns[3]),
+            roofline.mean_timing(turns[1], turns[2]), turns)
+
+
+def _twin_turns(rl, built) -> dict:
+    """B8e (resident and streaming) and B8f in turns with their previous
+    design (new, previous, previous, new) on the rows' inputs, each
+    previous held to the plain version too; B8f in turns with B5 (twin,
+    B5, B5, twin) at the production chunk, sign -1, over the row's rotating
+    buffer sets. Returns each new twin's mean time in its turns (ms)."""
+    x, y = rl.stereo_inputs()
+    out = {}
+    for resident, label in ((True, "resident"), (False, "streaming")):
+        ref = rl.twin_stereo_ref(x, y, resident)
+        prev = _previous_twin_stereo(built, x, y, resident)
+        torch.cuda.synchronize()
+        d = (prev - ref).abs()
+        check(bool((d <= 1e-4 * (ref.abs() + 1e-2 * ref.abs().max()))
+                   .all()), f"B8e's previous design ({label}) within its "
+                            f"tolerance of the plain version")
+        new_t, prev_t, turns = _in_turns(
+            lambda: rl.measure(lambda: rl.twin_stereo(x, y, resident),
+                               "twin_stereo_resident_kernel" if resident
+                               else "twin_stereo_kernel"),
+            lambda: rl.measure(
+                lambda: _previous_twin_stereo(built, x, y, resident),
+                "twin_stereo_kernel"))
+        print(f"[roofline] B8e twin_stereo {label} at {(rl.B, rl.N)}: "
+              f"{new_t.us:.3f} us, previous design {prev_t.us:.3f} us in "
+              f"turns (new, previous, previous, new: "
+              f"{', '.join(f'{t.us:.3f}' for t in turns)} us; CUPTI trace "
+              f"medians {new_t.trace_us}, {prev_t.trace_us}): "
+              f"{prev_t.us / new_t.us:.2f}x")
+        if resident:
+            out["twin_stereo"] = new_t.us / 1e3
+            check(new_t.us < prev_t.us, "B8e's resident twin faster than "
+                                        "its previous design")
+    del x, y, ref, prev
+    k = torch.tensor(-1.0, device="cuda")
+    sets = rl.reparam_sets(rl.buffer_sets(
+        rl.reparam_bytes(rl.RS, rl.RB, rl.RN), rl._l2_bytes()))
+    e, m, sg, o, c = sets[0]
+    ref = rl.twin_reparam_ref(e, m, sg, k, c)
+    prev = _previous_twin_reparam(built, e, m, sg, k, c, torch.empty_like(o),
+                                  -1)
+    torch.cuda.synchronize()
+    for got, r in zip(prev, ref):
+        check(bool(((got - r).abs()
+                    <= 1e-4 * (r.abs() + 1e-2 * r.abs().max())).all()),
+              "B8f's previous design within its tolerance of the plain "
+              "version")
+
+    def twin(calls=rl.REPARAM_ROW_CALLS):
+        return rl.measure([functools.partial(rl.twin_reparam, *a[:3], k,
+                                             a[4], out=a[3], sign=-1)
+                           for a in sets], "twin_reparam_kernel", calls)
+
+    def previous():
+        return rl.measure([functools.partial(_previous_twin_reparam, built,
+                                             *a[:3], k, a[4], a[3], -1)
+                           for a in sets], "twin_reparam_kernel",
+                          rl.REPARAM_ROW_CALLS)
+
+    def b5(calls=rl.REPARAM_ROW_CALLS):
+        return rl.measure([functools.partial(
+            manifold_kernels.wrapped_reparam_stereo_t, *a[:3], k, out=a[3],
+            sign=-1) for a in sets], "reparam_stereo_kernel", calls)
+
+    def skel(calls):
+        return rl.measure([functools.partial(rl.skel_reparam, *a[:3], k,
+                                             a[4], out=a[3], sign=-1)
+                           for a in sets], "skel_reparam_kernel", calls)
+
+    # B5's row at the parent's calls a graph (ITERS) and at this row's
+    # (REPARAM_ROW_CALLS), each kernel in turns (fewer, more, more, fewer)
+    calls = (rl.ITERS, rl.REPARAM_ROW_CALLS)
+    yard = {}
+    for name, f in (("B5", b5), ("skeleton", skel), ("B8f", twin)):
+        few, many, _ = _in_turns(lambda: f(calls[0]), lambda: f(calls[1]))
+        yard[name] = (few.us, many.us)
+    print(f"[roofline] B5's row at {calls[0]} and {calls[1]} calls a graph "
+          f"(each in turns {calls[0]}, {calls[1]}, {calls[1]}, {calls[0]}): "
+          + ", ".join(f"{k} {a:.3f} / {b:.3f} us" for k, (a, b)
+                      in yard.items())
+          + "; skeleton / B5 "
+          + " / ".join(f"{100 * yard['skeleton'][i] / yard['B5'][i]:.1f}%"
+                       for i in (0, 1)))
+    out["twin_reparam_calls"] = {c: yard["B8f"][i] / 1e3
+                                 for i, c in enumerate(calls)}
+
+    new_t, prev_t, turns = _in_turns(twin, previous)
+    tw_t, b5_t, b5_turns = _in_turns(twin, b5)
+    shape = f"({rl.RS}, {rl.RB}, {rl.RN}), sign -1, {len(sets)} buffer sets"
+    print(f"[roofline] B8f twin_reparam at {shape}: {new_t.us:.3f} us, "
+          f"previous design {prev_t.us:.3f} us in turns (new, previous, "
+          f"previous, new: {', '.join(f'{t.us:.3f}' for t in turns)} us; "
+          f"CUPTI trace medians {new_t.trace_us}, {prev_t.trace_us}): "
+          f"{prev_t.us / new_t.us:.2f}x")
+    print(f"[roofline] B8f against B5 in turns (twin, B5, B5, twin: "
+          f"{', '.join(f'{t.us:.3f}' for t in b5_turns)} us): twin "
+          f"{tw_t.us:.3f} us, B5 {b5_t.us:.3f} us, twin / B5 "
+          f"{tw_t.us / b5_t.us:.3f}")
+    check(new_t.us < prev_t.us, "B8f faster than its previous design")
+    check(tw_t.us <= b5_t.us, "B8f no slower than B5 in turns: a floor B5 "
+                              "cannot beat")
+    out["twin_reparam"] = (new_t.us + tw_t.us) / 2e3
+    return out
+
+
 def phase_roofline(gen, built) -> tuple[list[dict], dict]:
     """B8: every probe kernel against its plain version at the roofline
     shapes, then ``roofline.main()`` (calibration and the B7a, B7b, B5, B2
@@ -2224,6 +2443,19 @@ def phase_roofline(gen, built) -> tuple[list[dict], dict]:
         close("twin_reparam", got, ref,
              1e-4 * (ref.abs() + 1e-2 * ref.abs().max()))
     timed("twin_reparam", lambda: rl.twin_reparam_ref(eps, mu, sig, k, hoist))
+    # B8f's other instantiation families: n = 2 on the d2,p2,e2 chunk and a
+    # generic n (5)
+    for n in (2, 5):
+        e2 = torch.randn(rl.RS, 512, n, generator=gen, device="cuda")
+        m2 = stereographic.exp_map_mu0(
+            0.4 * torch.randn(512, n, generator=gen, device="cuda"), k)
+        s2 = 0.5 + 0.7 * torch.rand(512, n, generator=gen, device="cuda")
+        h2 = rl.reparam_scalars(m2, s2)
+        for got, ref in zip(rl.twin_reparam(e2, m2, s2, k, h2),
+                            rl.twin_reparam_ref(e2, m2, s2, k, h2)):
+            close("twin_reparam", got, ref,
+                 1e-4 * (ref.abs() + 1e-2 * ref.abs().max()))
+    del e2, m2, s2, h2
     for spec, kset in rl.TAIL_SPECS:
         for bt in (128, 512, 1000):
             comps, *args = rl.tail_inputs(spec, kset, bt)
@@ -2305,6 +2537,7 @@ def phase_roofline(gen, built) -> tuple[list[dict], dict]:
     check(all(v > 0 for v in launches.values()),
           f"every B8 probe launched by roofline.main(): {launches}")
     _roofline_rows_held(rl)
+    twin_turns = _twin_turns(rl, built)
 
     p = result["probes"]
     words = B * N
@@ -2341,11 +2574,12 @@ def phase_roofline(gen, built) -> tuple[list[dict], dict]:
         _probe_row("skel_reparam", 410, p["skel_reparam"],
                    plain["skel_reparam"], err["skel_reparam"], skel_bytes,
                    sb * (2 * rl.RN + 4)),
-        # the resident twin reads one 2048-row tile and writes a float a row
+        # the resident twin reads one 2048-row tile and writes a float a
+        # row; its tail's transcendentals at their SASS instructions
         _probe_row("twin_stereo", 478, p["twin_stereo_resident"],
                    plain["twin_stereo"], err["twin_stereo"],
                    4 * (2 * rl.RESIDENT_ROWS * N + B),
-                   B * (6 * N + 2 * 67)),
+                   2 * B * rl.twin_stereo_row_ops(N, built["twin_prices"])),
         _probe_row("twin_reparam", 552, p["twin_reparam"],
                    plain["twin_reparam"], err["twin_reparam"], twin_bytes,
                    sb * (18 * rl.RN + 2 * 120 + 4)),
@@ -2361,6 +2595,25 @@ def phase_roofline(gen, built) -> tuple[list[dict], dict]:
                       rl.tail_bytes(comps, 128, True) // 4)
     skel["replaces"] = "mvae_tpu/kernels/tail_kernels.py:735"
     rows.append(skel)
+    # the twins' shares of their bounds (B8e's operations with the tail's
+    # transcendentals at their SASS prices, B8f's bytes): at least half,
+    # read in roofline.main() and in the turns
+    for r in rows:
+        if r["name"] in ("twin_stereo", "twin_reparam"):
+            t_ms = twin_turns[r["name"]]
+            share = 100 * r["bound_ms"] / r["ms"]
+            turns_share = 100 * r["bound_ms"] / t_ms
+            print(f"[roofline] {r['name']}: {r['ms'] * 1e3:.3f} us against "
+                  f"its {r['bound_by']} bound {r['bound_ms'] * 1e3:.3f} us "
+                  f"({share:.1f}%); in turns {t_ms * 1e3:.3f} us "
+                  f"({turns_share:.1f}%)")
+            if r["name"] == "twin_reparam":
+                print("[roofline] twin_reparam by calls a graph: " + ", ".join(
+                    f"{c}: {v * 1e3:.3f} us "
+                    f"({100 * r['bound_ms'] / v:.1f}%)" for c, v
+                    in twin_turns["twin_reparam_calls"].items()))
+            check(share >= 50 and turns_share >= 50,
+                  f"{r['name']} at half of its bound or better")
     for (spec, _, kern, B), r in zip(rl.TAIL_ROWS, result["rows"][4:]):
         name = "tail_bwd" if kern == "B3" else "tail_fwd"
         print(f"[roofline] {r['kernel']} at {r['shape']}: {r['us']:.3f} us "

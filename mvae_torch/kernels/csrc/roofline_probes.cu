@@ -9,7 +9,8 @@
 //   probe_transpose_kernel  _elementwise_call(_transpose_kernel)    B8a
 //   skel_dist_kernel        _skel_dist ("rowstore", "block")        B8c
 //   skel_reparam_kernel     _skel_reparam                           B8d
-//   twin_stereo_kernel      _twin_stereo (resident or streaming)    B8e
+//   twin_stereo_resident_kernel, twin_stereo_kernel
+//                           _twin_stereo (resident; streaming)      B8e
 //   twin_reparam_kernel     _twin_reparam                           B8f
 // and one probe the TPU harness has no counterpart of:
 //   skel_tail_fwd_kernel    the tail's I/O skeleton, the floor of B1
@@ -26,9 +27,14 @@
 //
 // Bound: triad, reduce, transpose and the skeletons by bytes (they do one
 // operation a word or less); fma and tanh by operations at repeat >= 2; the
-// resident stereographic twin by operations (its input tile stays in L2);
-// the reparam twin by operations. Each probe is timed whole: its launch
-// time, not a per-block cost, is the floor it stands for.
+// resident stereographic twin by operations (it reads one 2 MB tile and
+// does ~500 FMA issue slots a row: 3 n Gram FMAs and a tail whose sqrt,
+// reciprocals and exp are priced at the SASS instructions of their common
+// path); the
+// streaming twin and the reparam twin by bytes (the reparam twin's ~1.4 us
+// of operations at the production chunk are a third of its 4.3 us of
+// bytes). Each probe is timed whole: its launch time, not a per-block
+// cost, is the floor it stands for.
 //
 // Design: 16-byte loads throughout. The FMA and tanh probes stride a grid of
 // eight 256-thread blocks per SM over float4 words. The triad keeps
@@ -39,16 +45,18 @@
 // probes take the launch shape of the kernel they price: the distance kernels'
 // (manifold_dist.cu: 256 threads, one warp per row, float4 loads, xor
 // butterfly sums, lane 0 stores) for reduce, the distance skeleton and the
-// stereographic twin; reparam_stereo.cu's (128 threads, one per example and 1
-// or 2 samples, the example index fastest, z written into rows z_off.. of an
-// (S, Z, B) buffer, the noise read at eps_stride) for the reparam skeleton and
-// twin. The transpose probe stages a (256, 8) tile of each block's rows
-// through shared memory, padded to 9 columns so that the transposed reads hit
-// 32 different banks, eight times (one relayout for each of the TPU probe's
-// eight). The tail skeleton takes the tail kernels' grid and their scalar
-// loads and stores (tail_grid.cuh), so it is timed with the same launch, the
-// same rows per block and the same fold. Built without
-// --fmad=false: the FMA probe times FFMA.
+// streaming stereographic twin; reparam_stereo.cu's (128 threads, one per
+// example and 1 or 2 samples, the example index fastest, z written into rows
+// z_off.. of an (S, Z, B) buffer, the noise read at eps_stride) for the
+// reparam skeleton and twin. The resident stereographic twin takes the shape
+// that runs a row's arithmetic fastest (its note below). The transpose probe
+// stages a (256, 8) tile of each block's rows through shared memory, padded
+// to 9 columns so that the transposed reads hit 32 different banks, eight
+// times (one relayout for each of the TPU probe's eight). The tail skeleton
+// takes the tail kernels' grid and their scalar loads and stores
+// (tail_grid.cuh), so it is timed with the same launch, the same rows per
+// block and the same fold. Built without --fmad=false: the FMA probe times
+// FFMA.
 //
 // Entry points (plain C, loaded with ctypes; each returns cudaGetLastError()
 // after its launch, or cudaErrorInvalidValue for a shape it does not take):
@@ -333,24 +341,61 @@ skel_dist_kernel(const float* __restrict__ x, const float* __restrict__ y,
   if (lane == 0) out[row] = variant ? (acc + xr[0]) + yr[0] : acc;
 }
 
+// --- the stereographic twin (B8e) -------------------------------------------
+
+// The tail's three transcendental steps, as the reference's chains take them
+__host__ __device__ __forceinline__ float twin_sqrt_step(float t) {
+  return sqrtf(fabsf(t) + 1e-6f);
+}
+__host__ __device__ __forceinline__ float twin_rcp_step(float t) {
+  return 1.f / (fabsf(t) + 1.f);
+}
+__host__ __device__ __forceinline__ float twin_exp_step(float t) {
+  return expf(-fabsf(t) * 1e-3f);
+}
+
+// Each step alone, built beside the probes only to count in SASS the
+// instructions it takes (roofline.transcendental_instructions): a loop of
+// 16 steps a trip and one of 32, so that the difference of the two loops'
+// executed instructions over 16 is one step's, the loops' own counter and
+// branch cancelling (never launched)
+#define TWIN_PRICE(NAME, STEP)                                         \
+  __global__ void NAME(float* o, int repeat) {                         \
+    float t = o[threadIdx.x];                                          \
+    _Pragma("unroll 1") for (int r = 0; r < repeat; ++r) {             \
+      _Pragma("unroll") for (int j = 0; j < 16; ++j) t = STEP(t);      \
+    }                                                                  \
+    _Pragma("unroll 1") for (int r = 0; r < repeat; ++r) {             \
+      _Pragma("unroll") for (int j = 0; j < 32; ++j) t = STEP(t);      \
+    }                                                                  \
+    o[threadIdx.x] = t;                                                \
+  }
+TWIN_PRICE(price_sqrt_kernel, twin_sqrt_step)
+TWIN_PRICE(price_rcp_kernel, twin_rcp_step)
+TWIN_PRICE(price_exp_kernel, twin_exp_step)
+#undef TWIN_PRICE
+
 // The stereographic twin's scalar tail from a row's three Gram sums: the
 // TPU probe's lower-bound op volume (_STWIN_PREFIX_OPS = 9, three chains
 // of _STWIN_CHAIN_OPS = 18 with one sqrt, recip / exp each,
 // _STWIN_MERGE_OPS = 4)
-__device__ __forceinline__ float twin_stereo_tail(float r1, float r2,
-                                                  float r3) {
+__host__ __device__ __forceinline__ float twin_stereo_tail(float r1,
+                                                           float r2,
+                                                           float r3) {
   float t = (r1 + r2 * 1.0000001f) + r3;
+#pragma unroll
   for (int j = 0; j < 9; ++j) t = t * 1.0000001f + 0.1f;
   float ta = t, tb = t + 1.f, tc = t + 2.f;
+#pragma unroll
   for (int j = 0; j < 18; ++j) {
     if (j == 5) {
-      ta = sqrtf(fabsf(ta) + 1e-6f);
-      tb = sqrtf(fabsf(tb) + 1e-6f);
-      tc = sqrtf(fabsf(tc) + 1e-6f);
+      ta = twin_sqrt_step(ta);
+      tb = twin_sqrt_step(tb);
+      tc = twin_sqrt_step(tc);
     } else if (j == 12) {
-      ta = 1.f / (fabsf(ta) + 1.f);
-      tb = expf(-fabsf(tb) * 1e-3f);
-      tc = 1.f / (fabsf(tc) + 1.f);
+      ta = twin_rcp_step(ta);
+      tb = twin_exp_step(tb);
+      tc = twin_rcp_step(tc);
     } else {
       ta = ta * 1.0000001f + 0.1f;
       tb = tb * 1.0000002f + 0.1f;
@@ -358,13 +403,15 @@ __device__ __forceinline__ float twin_stereo_tail(float r1, float r2,
     }
   }
   t = ta + tb * tc;
+#pragma unroll
   for (int j = 0; j < 4; ++j) t = t * 1.0000001f + 0.1f;
   return t;
 }
 
-// The compute floor of stereo_dist_kernel: three row Gram sums, then the
-// tail. resident = 1 reads row (r mod RESIDENT_ROWS) for output row r, so
-// the input stays in L2 and the time is the arithmetic's
+// The streaming twin, the compute floor of stereo_dist_kernel at its launch
+// shape: a warp a row, three row Gram sums, the tail on lane 0. resident = 1
+// reads row (r mod RESIDENT_ROWS) for output row r: the launcher takes it so
+// only for rows wider than the resident kernel holds
 __global__ void __launch_bounds__(ROW_THREADS)
 twin_stereo_kernel(const float* __restrict__ x, const float* __restrict__ y,
                    float* __restrict__ out, long long rows, int n, int vec4,
@@ -397,6 +444,207 @@ twin_stereo_kernel(const float* __restrict__ x, const float* __restrict__ y,
   y2 = probe_warp_sum(y2);
   xy = probe_warp_sum(xy);
   if (lane == 0) out[row] = twin_stereo_tail(x2, y2, xy);
+}
+
+// The resident twin, _twin_stereo(resident=True) of the TPU harness: the
+// compute floor of stereo_dist_kernel. Bound: operations (per output row 3 n
+// Gram FMAs and the tail, ~500 FMA issue slots at n = 128, against one 2 MB
+// tile read and 4 bytes written). It prices the arithmetic of a distance row
+// alone, so it takes the launch shape that runs that arithmetic fastest, not
+// the distance kernel's: the previous design (a warp a row) re-read its tile
+// row from L2 for every output row (1.07 GB a launch at 2^20 rows), spent 15
+// shuffles a row on three butterfly sums and ran the tail on one lane in 32. A
+// block stages TWIN_TILE consecutive rows of the 2048-row tile (x and y, at
+// most 8 KB) in shared memory once, each row twin_stride(n) words apart so
+// that the lanes' reads of it hit 32 different banks; each of its warps holds
+// them in registers, TWIN_LANES lanes a row and cpl columns a lane (lane q of
+// a row's group holds columns q, q + 4, q + 8, ..., zeros past n), and
+// computes every output
+// row src + 2048 m that reads them, TWIN_LANES copies m at a time, the block's
+// warps taking turns over m. For each copy a lane forms its columns' three Gram
+// sums (3 cpl FMAs), the group's four lanes reduce-scatter the copies' sums in
+// two shuffle levels, so that lane q holds copy q's three row sums, and every
+// lane runs the tail of its own output row: per lane and TWIN_LANES copies, one
+// row's Gram FMAs and one tail. Each copy's sums start from zero * m, zero a
+// kernel argument (0.0f) that the compiler cannot fold: no two output rows
+// share a result, which the per-row loop's SASS instruction count shows
+// (roofline.twin_row_instructions).
+#define TWIN_LANES 4
+#define TWIN_TILE (32 / TWIN_LANES)   // tile rows a block (and a warp) holds
+#define TWIN_MAX_CPL 32
+#define TWIN_MAX_STRIDE (TWIN_LANES * TWIN_MAX_CPL + TWIN_LANES)
+
+// Columns a lane holds for rows of n <= TWIN_LANES * TWIN_MAX_CPL columns:
+// the resident kernel's instantiations
+__host__ __device__ inline int twin_cpl(int n) {
+  return n <= 8 ? 2 : n <= 32 ? 8 : TWIN_MAX_CPL;
+}
+
+// Column i of lane q's columns (past n: a zero)
+__host__ __device__ inline int twin_col(int q, int i) {
+  return q + TWIN_LANES * i;
+}
+
+// Words between two staged rows of n columns: a multiple of 32 plus
+// TWIN_LANES, so that lane (g, q) of a warp reads column q + 4 i of row g
+// from bank 4 g + q + 4 i (mod 32): one bank a lane, no conflict (a row
+// stride of 128 put all 32 lanes on one bank)
+__host__ __device__ inline int twin_stride(int n) {
+  return 32 * ((n + 31) / 32) + TWIN_LANES;
+}
+
+// Output rows that read tile row src: src + 2048 m for m < twin_copies
+// (rows < 2^42)
+__host__ __device__ inline int twin_copies(long long rows, int src) {
+  return src < rows ? (int)((rows - 1 - src) / RESIDENT_ROWS + 1) : 0;
+}
+
+// Word i of a block's staged tile rows src0 .. src0 + TWIN_TILE - 1 of x
+// (n words a row; zeros past the tile's rows)
+__host__ __device__ inline float twin_staged(const float* x, int src0,
+                                             long long tile, int n, int i) {
+  const long long at = (long long)src0 * n + i;
+  return at < tile * n ? x[at] : 0.f;
+}
+
+// Lane q's columns of a staged row (xr, yr: n words each)
+template <int CPL>
+__host__ __device__ inline void twin_lane_load(const float* xr,
+                                               const float* yr, int n, int q,
+                                               float* xv, float* yv) {
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int c = twin_col(q, i);
+    xv[i] = c < n ? xr[c] : 0.f;
+    yv[i] = c < n ? yr[c] : 0.f;
+  }
+}
+
+// A lane's three Gram sums x.x, y.y, x.y over its columns, from z0
+template <int CPL>
+__host__ __device__ inline void twin_lane_gram(const float* xv,
+                                               const float* yv, float z0,
+                                               float* p) {
+  float a = z0, b = z0, c = z0;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    a = fmaf(xv[i], xv[i], a);
+    b = fmaf(yv[i], yv[i], b);
+    c = fmaf(xv[i], yv[i], c);
+  }
+  p[0] = a;
+  p[1] = b;
+  p[2] = c;
+}
+
+// One level of the group's reduce-scatter: of a pair of partial sums the
+// lane keeps the upper one if `upper`, else the lower, and gives its
+// partner the other
+__host__ __device__ inline void twin_split(bool upper, float lo, float hi,
+                                           float* keep, float* give) {
+  *keep = upper ? hi : lo;
+  *give = upper ? lo : hi;
+}
+
+// The group's reduce-scatter: p[j] are lane q's partial sums of copy j;
+// level 1 (partner q ^ 2) keeps copies (q & 2) + h, level 2 (partner q ^ 1)
+// copy q. s = copy q's row sums, (p_0 + p_2) + (p_1 + p_3) over the group's
+// lanes' partials, each pair in some order. shfl(v, mask) is lane
+// q ^ mask's v
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Shfl>
+__host__ __device__ __forceinline__ void twin_group_sums(float (*p)[3], int q,
+                                                         Shfl& shfl,
+                                                         float* s) {
+  float a[2][3];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float keep, give;
+      twin_split(q & 2, p[h][k], p[2 + h][k], &keep, &give);
+      a[h][k] = keep + shfl(give, 2);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float keep, give;
+    twin_split(q & 1, a[0][k], a[1][k], &keep, &give);
+    s[k] = keep + shfl(give, 1);
+  }
+}
+
+// A block's staging of its tile rows src0 .. src0 + TWIN_TILE - 1 into sx,
+// sy (twin_stride(n) words a row): thread tid of `threads` takes words tid,
+// tid + threads, ...
+__host__ __device__ inline void twin_stage(const float* x, const float* y,
+                                           float* sx, float* sy, int src0,
+                                           long long tile, int n, int tid,
+                                           int threads) {
+  const int stride = twin_stride(n);
+  for (int i = tid; i < TWIN_TILE * n; i += threads) {
+    const int r = i / n, at = r * stride + i - r * n;
+    sx[at] = twin_staged(x, src0, tile, n, i);
+    sy[at] = twin_staged(y, src0, tile, n, i);
+  }
+}
+
+// Lane `lane` of warp w of a block whose staged tile rows (from src0) are
+// sx, sy: the lane's columns of its tile row, then the warp's turns over
+// the copies, each a Gram sum of four copies, the group's reduce-scatter
+// (shfl) and the tail of the lane's own output row, stored if that row
+// exists
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <int CPL, class Shfl>
+__host__ __device__ __forceinline__ void twin_warp_rows(
+    const float* sx, const float* sy, int n, int src0, long long rows, int w,
+    int lane, float zero, float* out, Shfl& shfl) {
+  const int stride = twin_stride(n);
+  const int g = lane / TWIN_LANES, q = lane % TWIN_LANES;
+  const int src = src0 + g;
+  float xv[CPL], yv[CPL];
+  twin_lane_load<CPL>(sx + g * stride, sy + g * stride, n, q, xv, yv);
+  const int mine = twin_copies(rows, src), most = twin_copies(rows, src0);
+  for (int m0 = w * TWIN_LANES; m0 < most; m0 += ROW_WARPS * TWIN_LANES) {
+    float p[TWIN_LANES][3];
+#pragma unroll
+    for (int j = 0; j < TWIN_LANES; ++j)
+      twin_lane_gram<CPL>(xv, yv, zero * (float)(m0 + j), p[j]);
+    float s[3];
+    twin_group_sums(p, q, shfl, s);
+    const float v = twin_stereo_tail(s[0], s[1], s[2]);
+    if (m0 + q < mine) out[src + (long long)RESIDENT_ROWS * (m0 + q)] = v;
+  }
+}
+
+// The card's lane exchange for twin_warp_rows
+struct TwinWarpShfl {
+  __device__ __forceinline__ float operator()(float v, int mask) const {
+    return __shfl_xor_sync(0xffffffffu, v, mask);
+  }
+};
+
+// The resident twin (above); a block of ROW_THREADS takes tile rows
+// TWIN_TILE * blockIdx.x .. + TWIN_TILE - 1
+template <int CPL>
+__global__ void __launch_bounds__(ROW_THREADS, 2)
+twin_stereo_resident_kernel(const float* __restrict__ x,
+                            const float* __restrict__ y,
+                            float* __restrict__ out, long long rows, int n,
+                            float zero) {
+  __shared__ float sx[TWIN_TILE * TWIN_MAX_STRIDE];
+  __shared__ float sy[TWIN_TILE * TWIN_MAX_STRIDE];
+  const int src0 = blockIdx.x * TWIN_TILE;
+  const long long tile = rows < RESIDENT_ROWS ? rows : RESIDENT_ROWS;
+  twin_stage(x, y, sx, sy, src0, tile, n, threadIdx.x, ROW_THREADS);
+  __syncthreads();
+  TwinWarpShfl shfl;
+  twin_warp_rows<CPL>(sx, sy, n, src0, rows, threadIdx.x / 32,
+                      threadIdx.x % 32, zero, out, shfl);
 }
 
 // --- reparam probes (reparam_stereo.cu's launch shape) --------------------
@@ -454,12 +702,24 @@ skel_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
   }
 }
 
-// The compute floor of reparam_stereo_kernel: the TPU probe's counted op
-// volume (_TWIN_FULL_OPS = 9 full-width passes, a _TWIN_PREFIX_OPS = 40
-// prefix, two _TWIN_CHAIN_OPS = 40 chains, an exp every
-// _TWIN_TRANSC_EVERY = 12) in generic multiply-adds for every sample; it
-// reads what the TPU twin reads: eps, mu_0, sigma_0, the hoisted scalars
-// and k
+// The reparam twin, _twin_reparam of the TPU harness: the compute floor of
+// reparam_stereo_kernel, the TPU probe's counted op volume (_TWIN_FULL_OPS
+// = 9 full-width passes, a _TWIN_PREFIX_OPS = 40 prefix, two
+// _TWIN_CHAIN_OPS = 40 chains, an exp every _TWIN_TRANSC_EVERY = 12) in
+// generic multiply-adds for every sample; it reads what the TPU twin reads:
+// eps, mu_0, sigma_0, the hoisted scalars and k. Bound: bytes (at the
+// production chunk its ~1.4 us of operations are a third of its 4.3 us of
+// bytes), so it has to move them as B5 does: it takes B5's launch shape,
+// reads the noise and writes z as B5 does, and is instantiated as B5 and
+// the skeleton are, on the dimension class N (2, 3, 6: every coordinate in
+// registers; 0: n at run time) and samples a thread SPT: a thread's
+// samples are independent chains the scheduler interleaves, the last group
+// of a chunk whose S is not a multiple of SPT computes sample S - 1 again
+// and stores nothing for it. Each coordinate's nine passes run as soon as
+// its noise word is in, so no instantiation keeps a per-thread array (the
+// previous design's two arrays of REP_MAX_DIM, indexed by run-time loops,
+// sat in a 272-byte stack frame, and the twin took 3.1x B5's time)
+template <int N, int SPT>
 __global__ void __launch_bounds__(REP_THREADS)
 twin_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
                     const float* __restrict__ mu,
@@ -467,29 +727,37 @@ twin_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
                     const float* __restrict__ hoist,
                     const float* __restrict__ kptr, float* __restrict__ zt,
                     int z_off, float* __restrict__ lq,
-                    float* __restrict__ lp, int S, int B, int n, int Z,
-                    int spt) {
+                    float* __restrict__ lp, int S, int B, int n, int Z) {
   const long long idx = (long long)blockIdx.x * REP_THREADS + threadIdx.x;
-  if (idx >= rep_threads(S, B, spt)) return;
+  if (idx >= rep_threads(S, B, SPT)) return;
+  const int nn = N > 0 ? N : n;
   const int b = (int)(idx % B);
-  const int s0 = (int)(idx / B) * spt;
+  const int s0 = (int)(idx / B) * SPT;
   const float r = ((hoist[b] + hoist[B + b]) + hoist[2 * B + b]) + kptr[0];
-  const float m0 = mu[(size_t)b * n], sg0 = sigma[(size_t)b * n];
-  for (int i = 0; i < spt; ++i) {
-    const int s = s0 + i;
-    if (s >= S) break;
+  const float m0 = mu[(size_t)b * nn], sg0 = sigma[(size_t)b * nn];
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) {
+    const bool store = s0 + i < S;
+    const int s = store ? s0 + i : S - 1;
     const long long pt = (long long)s * B + b;
     const float* ep = eps + eps_stride * pt;
-    float e[REP_MAX_DIM], z[REP_MAX_DIM];
-    for (int j = 0; j < n; ++j) z[j] = e[j] = ep[j];
-    for (int p = 0; p < 9; ++p)
-      for (int j = 0; j < n; ++j) z[j] = z[j] * 1.0000001f + e[j];
     float* zr = zt + ((size_t)s * Z + z_off) * B + b;
-    for (int j = 0; j < n; ++j) zr[(size_t)j * B] = z[j];
-    float t = (z[0] + m0) + sg0;
+    float z0 = 0.f;
+#pragma unroll
+    for (int j = 0; j < nn; ++j) {
+      const float e = ep[j];
+      float z = e;
+#pragma unroll
+      for (int p = 0; p < 9; ++p) z = z * 1.0000001f + e;
+      if (store) zr[(size_t)j * B] = z;
+      if (j == 0) z0 = z;
+    }
+    float t = (z0 + m0) + sg0;
+#pragma unroll
     for (int q = 0; q < 40; ++q)
       t = (q % 12 == 11) ? expf(-fabsf(t) * 1e-3f) : t * 1.0000001f + r;
     float tq = t, tp = t + 1.f;
+#pragma unroll
     for (int q = 0; q < 40; ++q) {
       if (q % 12 == 11) {
         tq = expf(-fabsf(tq) * 1e-3f);
@@ -499,8 +767,10 @@ twin_reparam_kernel(const float* __restrict__ eps, long long eps_stride,
         tp = tp * 1.0000002f + r;
       }
     }
-    lq[pt] = tq;
-    lp[pt] = tp;
+    if (store) {
+      lq[pt] = tq;
+      lp[pt] = tp;
+    }
   }
 }
 
@@ -815,13 +1085,28 @@ extern "C" int twin_stereo_launch(const float* x, const float* y, float* out,
                                   long long rows, int n, int resident,
                                   void* stream) {
   unsigned blocks;
-  if (n < 1 || resident < 0 || resident > 1
-      || !row_grid(rows, ROW_WARPS, &blocks))
+  if (n < 1 || resident < 0 || resident > 1 || rows < 0)
     return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (resident && n <= TWIN_LANES * TWIN_MAX_CPL) {
+    const long long tile = rows < RESIDENT_ROWS ? rows : RESIDENT_ROWS;
+    blocks = (unsigned)((tile + TWIN_TILE - 1) / TWIN_TILE);
+#define TWIN_GO(C)                                                    \
+  twin_stereo_resident_kernel<C><<<blocks, ROW_THREADS, 0, st>>>(x, y, out, \
+                                                                 rows, n, 0.f)
+    switch (twin_cpl(n)) {
+      case 2: TWIN_GO(2); break;
+      case 8: TWIN_GO(8); break;
+      default: TWIN_GO(TWIN_MAX_CPL);
+    }
+#undef TWIN_GO
+    return (int)cudaGetLastError();
+  }
+  if (!row_grid(rows, ROW_WARPS, &blocks)) return (int)cudaErrorInvalidValue;
   const int vec4 = n % 4 == 0 && aligned16(x) && aligned16(y);
-  if (rows > 0)
-    twin_stereo_kernel<<<blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-        x, y, out, rows, n, vec4, resident);
+  twin_stereo_kernel<<<blocks, ROW_THREADS, 0, st>>>(x, y, out, rows, n, vec4,
+                                                     resident);
   return (int)cudaGetLastError();
 }
 
@@ -868,10 +1153,20 @@ extern "C" int twin_reparam_launch(const float* eps, long long eps_stride,
   unsigned blocks;
   if (!reparam_grid(S, B, n, Z, z_off, spt, &blocks))
     return (int)cudaErrorInvalidValue;
-  if (rep_threads(S, B, spt) > 0)
-    twin_reparam_kernel<<<blocks, REP_THREADS, 0, (cudaStream_t)stream>>>(
-        eps, eps_stride, mu, sigma, hoist, k, zt, z_off, lq, lp, S, B, n, Z,
-        spt);
+  if (rep_threads(S, B, spt) > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+#define TWIN_GO(D)                                                            \
+  (spt == 2 ? twin_reparam_kernel<D, 2> : twin_reparam_kernel<D, 1>)         \
+      <<<blocks, REP_THREADS, 0, st>>>(eps, eps_stride, mu, sigma, hoist, k, \
+                                       zt, z_off, lq, lp, S, B, n, Z)
+    switch (n) {
+      case 2: TWIN_GO(2); break;
+      case 3: TWIN_GO(3); break;
+      case 6: TWIN_GO(6); break;
+      default: TWIN_GO(0);
+    }
+#undef TWIN_GO
+  }
   return (int)cudaGetLastError();
 }
 

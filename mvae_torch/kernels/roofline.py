@@ -21,8 +21,13 @@ Counterpart of ``mvae_tpu/kernels/roofline.py``. Two pieces, as there:
    each, an I/O skeleton with the kernel's exact launch shape and reads
    (``skel_dist``, ``skel_reparam``: the bytes floor) and a synthetic twin
    that does a lower bound of its operations (``twin_stereo``,
-   ``twin_reparam``: the compute floor; ``resident=True`` keeps the twin's
-   input in L2 so its time is the arithmetic's). B5's compute floor is the
+   ``twin_reparam``: the compute floor). ``twin_stereo(resident=True)``
+   reads one 2048-row tile and holds it on chip, in registers, while it
+   computes every output row that reads it, a row's Gram sums and tail
+   each its own (``twin_row_instructions`` counts them in SASS), so its
+   time is the arithmetic's; ``twin_reparam`` is instantiated on the
+   dimension and samples a thread as B5 is, so that it stays a floor B5
+   cannot beat. B5's compute floor is the
    operations its plain version needs on the row's inputs, each point on
    the branch it takes and a repeated expression once (``reparam_ops``,
    ``op_split_taken``), priced at the calibrated rates: an arithmetic op
@@ -105,6 +110,10 @@ GEMM_M = 4096
 # 32 puts the probe 25x past it
 CAL_REPEAT = 32
 ITERS = 20
+# Calls a graph in B5's row (B5, its skeleton and twin), as in the tail rows:
+# on the H100 a replay's fixed cost spread over ITERS calls adds ~0.5 us to
+# each of these few-us kernels (chip_smoke phase 20 prints the row at both)
+REPARAM_ROW_CALLS = 100
 
 # the B7b compute price: n subtractions and n FMAs a row, one row
 # reduction, and a tail of ~12 FLOP and 3 transcendentals (log1p, two
@@ -157,12 +166,19 @@ _ARGTYPES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(name: str):
-    fn = getattr(_build.load("roofline_probes"), name)
+def bind_probe(lib, name: str):
+    """The launch entry ``name`` of a built probe library (the package's,
+    or a previous design measured beside it: the same signatures), typed
+    for ctypes."""
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = _ARGTYPES[name] + [_VP]
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    return bind_probe(_build.load("roofline_probes"), name)
 
 
 def _launch(name: str, device, *args) -> None:
@@ -420,9 +436,11 @@ def twin_stereo_ref(x, y, resident: bool = False):
 
 
 def twin_stereo(x, y, resident: bool = False):
-    """Compute floor of ``stereo_dist_kernel`` (B8e), at its launch shape;
-    ``resident=True`` keeps the input tile in L2 so the time is the
-    arithmetic alone."""
+    """Compute floor of ``stereo_dist_kernel`` (B8e). Streaming, at its
+    launch shape (a warp a row, every row read from device memory);
+    ``resident=True`` (rows of up to 128 columns) holds the 2048-row tile
+    in registers, four lanes a row, and runs every output row's Gram sums
+    and tail on it, so the time is the arithmetic alone."""
     rows, n = _rows("twin_stereo", x)
     if x.shape != y.shape:
         raise ValueError("x and y must have one shape")
@@ -434,6 +452,24 @@ def twin_stereo(x, y, resident: bool = False):
             out.data_ptr(), rows, n, int(resident))
     _launched(twin_stereo, out)
     return out
+
+
+# the tail's transcendental steps (roofline_probes.cu twin_sqrt_step,
+# twin_rcp_step, twin_exp_step) and how many of each a row takes
+STWIN_TRANSCENDENTALS = {"sqrt": 3, "rcp": 2, "exp": 1}
+
+
+def twin_stereo_row_ops(n: int, prices: dict | None = None) -> float:
+    """FMA issue slots of one output row of the stereographic twin: 3 n
+    Gram FMAs and the reference's 9 + 3 x 18 + 4 tail ops, each of its
+    six transcendental steps priced at ``prices[kind]`` (its SASS
+    instructions, ``transcendental_instructions``) or, without ``prices``,
+    as one op (the reference's count)."""
+    tail = STWIN_PREFIX_OPS + 3 * STWIN_CHAIN_OPS + STWIN_MERGE_OPS
+    if prices:
+        tail += sum(c * (prices[k] - 1)
+                    for k, c in STWIN_TRANSCENDENTALS.items())
+    return 3 * n + tail
 
 
 # _TWIN_FULL_OPS, _TWIN_PREFIX_OPS, _TWIN_CHAIN_OPS, _TWIN_TRANSC_EVERY
@@ -556,7 +592,9 @@ def twin_reparam(eps, mu, sigma, k, scalars=None, out=None, z_off: int = 0,
                  sign: int = -1):
     """Compute floor of ``reparam_stereo_kernel`` (B8f): the reference's
     counted op volume in generic multiply-adds, at its launch shape for the
-    curvature ``sign``, on the reference's hoisted per-example scalars."""
+    curvature ``sign`` and on its instantiations (n = 2, 3, 6 and generic,
+    the samples a thread B5 takes), on the reference's hoisted per-example
+    scalars."""
     return _reparam_probe(twin_reparam, "twin_reparam_launch",
                           twin_reparam_ref, eps, mu, sigma, k, scalars, out,
                           z_off, sign)
@@ -1003,8 +1041,35 @@ def ops_us(ops: dict, cal: dict) -> float:
             + ops["transcendental"] / (cal["tanh_gops"] * 1e3))
 
 
-_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                         r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _function_insns(sass: str, kernel: str) -> list[tuple]:
+    """(address, predicated, opcode, operands) of every instruction of
+    ``kernel`` in ``cuobjdump -sass`` text (an ``@PT`` guard is none)."""
+    parts = re.split(r"\n\s*Function : ", sass)
+    body = next((p for p in parts[1:] if kernel in p.split("\n", 1)[0]),
+                None)
+    if body is None:
+        raise RuntimeError(f"no function {kernel} in the SASS")
+    return [(int(a, 16), bool(pred) and "PT" not in pred, op, rest)
+            for a, pred, op, rest in _SASS_INSN.findall(body)]
+
+
+def _loop_ops(sass: str, kernel: str) -> list[tuple[int, int, list]]:
+    """(start, end, opcodes) of every loop of ``kernel`` in ``cuobjdump
+    -sass`` text: for every backward branch, the instructions from its
+    target to it."""
+    insns = _function_insns(sass, kernel)
+    loops = []
+    for addr, _, op, rest in insns:
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and target and int(target[1], 16) <= addr:
+            lo = int(target[1], 16)
+            loops.append((lo, addr, [o for a, _, o, _ in insns
+                                     if lo <= a <= addr]))
+    return loops
 
 
 def sass_loops(sass: str, kernel: str) -> list[dict]:
@@ -1012,23 +1077,9 @@ def sass_loops(sass: str, kernel: str) -> list[dict]:
     backward branch, the instructions from its target to it (``count``)
     and, of those, the MUFU.EX2 and MUFU.TANH (``tanh``: an accurate
     ``tanhf`` issues one MUFU.EX2)."""
-    parts = re.split(r"\n\s*Function : ", sass)
-    body = next((p for p in parts[1:] if kernel in p.split("\n", 1)[0]),
-                None)
-    if body is None:
-        raise RuntimeError(f"no function {kernel} in the SASS")
-    insns = [(int(a, 16), op, rest) for a, op, rest in
-             _SASS_INSN.findall(body)]
-    loops = []
-    for addr, op, rest in insns:
-        target = re.search(r"0x([0-9a-f]+)", rest)
-        if op.startswith("BRA") and target and int(target[1], 16) <= addr:
-            lo = int(target[1], 16)
-            ops = [o for a, o, _ in insns if lo <= a <= addr]
-            loops.append({"start": lo, "end": addr, "count": len(ops),
-                          "tanh": sum(o in ("MUFU.EX2", "MUFU.TANH")
-                                      for o in ops)})
-    return loops
+    return [{"start": lo, "end": hi, "count": len(ops),
+             "tanh": sum(o in ("MUFU.EX2", "MUFU.TANH") for o in ops)}
+            for lo, hi, ops in _loop_ops(sass, kernel)]
 
 
 def tanh_instructions(sass: str | None = None) -> dict:
@@ -1038,11 +1089,7 @@ def tanh_instructions(sass: str | None = None) -> dict:
     tanh count (``per_tanh``). ``sass`` defaults to ``cuobjdump -sass`` of
     the built ``roofline_probes`` library."""
     if sass is None:
-        _build.load("roofline_probes")
-        tool = Path(_build.nvcc_path()).parent / "cuobjdump"
-        sass = subprocess.run(
-            [str(tool), "-sass", str(_build.library_path("roofline_probes"))],
-            capture_output=True, text=True, timeout=300, check=True).stdout
+        sass = _probes_sass()
     loops = [lp for lp in sass_loops(sass, "probe_tanh_kernel")
              if lp["tanh"]]
     if not loops:
@@ -1050,6 +1097,107 @@ def tanh_instructions(sass: str | None = None) -> dict:
     best = max(loops, key=lambda lp: lp["tanh"])
     return {"instructions": best["count"], "tanh": best["tanh"],
             "per_tanh": best["count"] / best["tanh"]}
+
+
+def _probes_sass() -> str:
+    """``cuobjdump -sass`` of the built ``roofline_probes`` library."""
+    _build.load("roofline_probes")
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    return subprocess.run(
+        [str(tool), "-sass", str(_build.library_path("roofline_probes"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+
+
+def _executed_path(sass: str, kernel: str, lo: int, hi: int) -> list[str]:
+    """The opcodes one trip of ``kernel``'s loop ``lo`` .. ``hi`` issues on
+    its common path: from ``lo`` to the loop's backward branch at ``hi``, an
+    unconditional branch followed, a conditional one taken only if the
+    instructions it jumps over hold a CALL (the precise functions' slow
+    path, reached for special or denormal inputs) and otherwise not taken
+    (a branch out of the loop, a divergence check), a predicated CALL
+    counted but not followed."""
+    insns = _function_insns(sass, kernel)
+    at = {a: i for i, (a, *_) in enumerate(insns)}
+    path, i = [], at[lo]
+    while True:
+        addr, pred, op, rest = insns[i]
+        path.append(op)
+        if addr == hi:
+            return path
+        if op.startswith("CALL") and not pred:
+            raise RuntimeError(f"{kernel}'s loop at {lo:#x} calls a "
+                               f"subroutine on its common path ({addr:#x})")
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and target:
+            t = int(target[1], 16)
+            if op == "BRA" and not pred:
+                if not lo <= t <= hi:
+                    raise RuntimeError(f"{kernel}'s loop at {lo:#x} leaves "
+                                       f"it unconditionally ({addr:#x})")
+                i = at[t]
+                continue
+            if addr < t <= hi and any(o.startswith("CALL") for a, _, o, _
+                                      in insns if addr < a < t):
+                i = at[t]
+                continue
+        i += 1
+
+
+def transcendental_instructions(sass: str | None = None) -> dict:
+    """The instructions each transcendental step of the stereographic
+    twin's tail takes as built, on the path it runs for the twin's inputs
+    (``_executed_path``: |t| + 1e-6 and |t| + 1 are normal numbers, so no
+    slow path): each ``price_<kind>_kernel`` (``roofline_probes.cu``) has a
+    loop of 16 steps a trip and one of 32, and the difference of their
+    executed instructions over the difference of their MUFU counts is one
+    step's, the loops' own counter and branch cancelling; ``tail`` the six
+    steps of a row summed (``STWIN_TRANSCENDENTALS``). ``sass`` defaults to
+    ``cuobjdump -sass`` of the built ``roofline_probes`` library."""
+    if sass is None:
+        sass = _probes_sass()
+    prices = {}
+    for kind in STWIN_TRANSCENDENTALS:
+        kernel = f"price_{kind}_kernel"
+        loops = []
+        for lo, hi, _ in _loop_ops(sass, kernel):
+            ops = _executed_path(sass, kernel, lo, hi)
+            mufu = sum(o.startswith("MUFU") for o in ops)
+            if mufu:
+                loops.append((mufu, len(ops)))
+        if len(loops) < 2 or min(loops)[0] == max(loops)[0]:
+            raise RuntimeError(f"{kernel} has no two loops of different "
+                               f"MUFU counts: {loops}")
+        (m1, c1), (m2, c2) = min(loops), max(loops)
+        prices[kind] = (c2 - c1) / (m2 - m1)
+    prices["tail"] = sum(c * prices[k]
+                         for k, c in STWIN_TRANSCENDENTALS.items())
+    return prices
+
+
+def twin_row_instructions(sass: str | None = None) -> dict:
+    """The per-row loop of the resident stereographic twin as built (its
+    128-column instantiation): of the kernel's loops the one with the most
+    instructions, the instructions one trip issues on its common path
+    (``instructions``, ``_executed_path``: the tail's slow paths left out,
+    the loop's counter and branch in), its stores (``rows``: one a lane's
+    output row), FFMA and MUFU counts and instructions a row
+    (``per_row``). ``sass`` defaults to ``cuobjdump -sass`` of the built
+    ``roofline_probes`` library."""
+    kernel = "twin_stereo_resident_kernelILi32E"
+    if sass is None:
+        sass = _probes_sass()
+    loops = _loop_ops(sass, kernel)
+    if not loops:
+        raise RuntimeError(f"{kernel} has no loop")
+    lo, hi, _ = max(loops, key=lambda lp: len(lp[2]))
+    ops = _executed_path(sass, kernel, lo, hi)
+    rows = sum(o.startswith("STG") for o in ops)
+    if not rows:
+        raise RuntimeError(f"the largest loop of {kernel} stores nothing")
+    return {"instructions": len(ops), "rows": rows,
+            "ffma": sum(o.startswith("FFMA") for o in ops),
+            "mufu": sum(o.startswith("MUFU") for o in ops),
+            "per_row": len(ops) / rows}
 
 
 def lorentz_compute_us(rows: int, n: int, cal: dict) -> float:
@@ -1390,7 +1538,7 @@ def _row_stereo(cal, x, y):
                     iters=3)
     skel = measure(lambda: skel_dist(x, y, "rowstore"), "skel_dist_kernel")
     twin_c = measure(lambda: twin_stereo(x, y, resident=True),
-                     "twin_stereo_kernel")
+                     "twin_stereo_resident_kernel")
     twin_s = measure(lambda: twin_stereo(x, y), "twin_stereo_kernel")
     m = 1 << 16
     err = max_rel_err(
@@ -1442,15 +1590,18 @@ def _row_reparam(cal):
 
     t = measure([functools.partial(manifold_kernels.wrapped_reparam_stereo_t,
                                    e, m, s, k, out=o, sign=-1)
-                 for e, m, s, o, _ in sets], "reparam_stereo_kernel")
+                 for e, m, s, o, _ in sets], "reparam_stereo_kernel",
+                iters=REPARAM_ROW_CALLS)
     # the probes get the hoisted scalars made once per example, as the
     # reference's do: only what B5 cannot avoid stays in their floors
     skel = measure([functools.partial(skel_reparam, e, m, s, k, c, out=o,
                                       sign=-1)
-                    for e, m, s, o, c in sets], "skel_reparam_kernel")
+                    for e, m, s, o, c in sets], "skel_reparam_kernel",
+                   iters=REPARAM_ROW_CALLS)
     twin = measure([functools.partial(twin_reparam, e, m, s, k, c, out=o,
                                       sign=-1)
-                    for e, m, s, o, c in sets], "twin_reparam_kernel")
+                    for e, m, s, o, c in sets], "twin_reparam_kernel",
+                   iters=REPARAM_ROW_CALLS)
     eps, mu, sig, _, _ = sets[0]
     plain = measure(lambda: manifold_kernels.wrapped_reparam_stereo_ref(
         eps, mu, sig, k, sign=-1), iters=3)
