@@ -216,7 +216,15 @@ Phases:
     split and of the conv u6 over 1,024 examples (the control), each turn
     of a pass from one generator seed (values within 1e-3 nats), with the
     busy shares of profiled turns;
-27. one JSON line of kernel numbers, then the result line.
+27. the matrix runner (``mvae_torch/matrix.py``): ``matrix.run_row`` for
+    the flagship and ``d2,p2,e2`` at the matrix's batch 256, one epoch,
+    seed 11, IWAE-500 over 1,024 test examples; each row ``OK`` with a
+    finite LL, on the graph path with one capture of each program, its
+    kernels launched (the flagship: B1, B3, B6 in training, B1 in the ELBO
+    pass, B2 in the IWAE; ``d2,p2,e2``: B1 and B3 with the B4a tile, B5
+    and B2 in the IWAE), the summary file written; each row's training
+    steps/s printed;
+28. one JSON line of kernel numbers, then the result line.
 
 Every ``Trainer.train_one_epoch``, ``evaluate_elbo`` and
 ``evaluate_log_likelihood`` on the card replays graphs (phase 26 holds
@@ -3504,6 +3512,60 @@ def phase_graphs(ds, cifar, tmp, card: str) -> None:
     print(f"[graphs] the turns in {time.time() - t0:.1f} s")
 
 
+# --- the matrix runner (phase 27) ---------------------------------------------------
+
+def phase_matrix(ds, tmp) -> None:
+    """``mvae_torch.matrix.run_row`` itself, as ``python -m
+    mvae_torch.matrix`` runs each row, cut to one epoch and 1,024 IWAE
+    examples (phase 27): the rows' status, LL, graph path and captures,
+    the kernels each launched, and the summary file."""
+    import argparse
+
+    from mvae_torch import matrix
+    t0 = time.time()
+    args = argparse.Namespace(epochs=1, batch_size=256, ll_repeats=1,
+                              eval_binarize="fixed")
+    steps = len(ds.train) // args.batch_size
+    configs = dict(matrix.CONFIGS)
+    rows = []
+    for tag in ("h2s2e2-learnK/mnist", "d2p2e2-learnK/mnist"):
+        _zero_counts()
+        row = matrix.run_row(tag, configs[tag], 11, args,
+                             extra=("--ll_max_examples", "1024"),
+                             run_root=f"{tmp}/matrix")
+        n = _read_counts()
+        ll = row.get("test/log_likelihood_iwae")
+        print(f"[matrix] {tag}: {row['status']}, IWAE-500 LL over 1,024 "
+              f"{ll}, train_steps_per_sec {row.get('train_steps_per_sec')} "
+              f"at batch {args.batch_size}, wall {row['wall_s']} s, "
+              f"{row.get('graph_path', {}).get('path')}, captures "
+              f"{row.get('graph_captures')}, launches {n}, card "
+              f"{row.get('card')}")
+        check(row["status"] == "OK" and isinstance(ll, float)
+              and math.isfinite(ll), f"{tag}: row OK with a finite LL")
+        check(row["graph_path"]["path"] == "graph"
+              and row["graph_captures"] == {"train_step": 1, "eval_elbo": 1,
+                                            "eval_ll": 1},
+              f"{tag}: graphed, one capture of each program")
+        check(n["tail_bwd"] == steps, f"{tag}: B3 once a training step")
+        check(n["tail_fwd"] > n["tail_bwd"],
+              f"{tag}: B1 in training and in the ELBO pass")
+        check(n["decode_bce"] > 0, f"{tag}: B2 in the IWAE")
+        if tag.startswith("h2s2e2"):
+            check(n["train_decode"] >= steps, f"{tag}: B6 in training")
+        else:
+            check(n["reparam_stereo"] > 0, f"{tag}: B5 in the IWAE")
+        rows.append(row)
+    out = Path(tmp) / "matrix.json"
+    summary = Path(tmp) / "matrix_summary.json"
+    matrix.save(rows, out, summary)
+    written = json.loads(summary.read_text())
+    check(sorted(written) == sorted(r["tag"] for r in rows)
+          and all(v["n_seeds"] == 1 for v in written.values()),
+          "the matrix summary written, a row a tag")
+    print(f"[matrix] two rows and their summary in {time.time() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3545,6 +3607,7 @@ def main() -> int:
         phase_c4(ds, tmp, card)
         phase_mesh(ds, tmp, card)
         phase_graphs(ds, cifar, tmp, card)
+        phase_matrix(ds, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]

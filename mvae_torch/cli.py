@@ -9,7 +9,8 @@
 Trains (``Trainer.fit``: a test ELBO per epoch, the IWAE-n estimate at
 the end), writes ``<run_dir>/result.json`` and prints it as one JSON line,
 with the kernels the run was routed through (``fused_paths``) and whether
-it replayed CUDA graphs or ran the eager loop, and why (``graph_path``).
+it replayed CUDA graphs or ran the eager loop, and why (``graph_path``),
+with the graphs it captured of each program (``graph_captures``).
 ``--resume`` continues from the latest checkpoint of ``run_dir``;
 ``--eval_only`` restores it and evaluates the test ELBO and IWAE-n LL.
 ``--generate N`` then writes N prior samples and N test-set reconstructions
@@ -132,7 +133,7 @@ def _run(args):
     from .components import canonical_name, parse_components
     from .data import load_dataset
     from .models import VAEConfig
-    from .train import TrainConfig, Trainer
+    from .train import TrainConfig, Trainer, graphs
 
     components = parse_components(args.model,
                                   fixed_curvature=args.fixed_curvature,
@@ -214,6 +215,7 @@ def _run(args):
                          ll_repeats=args.ll_repeats)
     result["fused_paths"] = trainer.fused_paths
     result["graph_path"] = trainer.graph_path
+    result["graph_captures"] = graphs.captures(trainer)
     result["device"] = str(trainer.device)
     if args.generate:
         write_samples(args.generate)

@@ -74,6 +74,16 @@ def path(trainer) -> dict:
             "(shape, routing) and replayed"}
 
 
+def captures(trainer) -> dict:
+    """How many graphs ``trainer`` captured, by program kind ("train_step",
+    "eval_elbo", "eval_ll"): one of each a run where every call shares its
+    shapes and routing."""
+    out: dict = {}
+    for key, prog in trainer._programs.items():
+        out[key[0]] = out.get(key[0], 0) + prog.captures
+    return out
+
+
 def routing_key(cfg, params) -> tuple:
     """Every routing decision a capture of ``cfg``'s step or eval batch
     freezes: the kernel gates (``MVAE_FUSED_TRAIN_DECODER`` is read at every
