@@ -224,7 +224,19 @@ Phases:
     pass, B2 in the IWAE; ``d2,p2,e2``: B1 and B3 with the B4a tile, B5
     and B2 in the IWAE), the summary file written; each row's training
     steps/s printed;
-28. one JSON line of kernel numbers, then the result line.
+28. the mesh under NCCL: a (1, 1) mesh, one NCCL process on the card
+    (NCCL takes one card a rank), through ``scripts/torch_mesh_cards.py``'s
+    ``mesh_checks``: the rank graphed on NCCL; one step against one device
+    (loss within 1e-4 nats, gradients within the training contract) with
+    B1, B3 and B6 launched; IWAE-500 of the flagship and ``d2,p2,e2`` over
+    1,024 test examples within 1e-3 nats a row of one device, B2 (and B5)
+    launched; two 100-step epochs across burn-in graphed against the eager
+    rank bit for bit (weights, Adam state, generator, statistics), B1, B3
+    and B6 once a step through the replays, the ELBO and IWAE passes graphed
+    against eager bit for bit, one capture of each program. On a machine
+    with four cards or more the script's four-card checks run too; on fewer
+    a line says they did not run and names their committed results;
+29. one JSON line of kernel numbers, then the result line.
 
 Every ``Trainer.train_one_epoch``, ``evaluate_elbo`` and
 ``evaluate_log_likelihood`` on the card replays graphs (phase 26 holds
@@ -3035,11 +3047,11 @@ def _mesh_step_task(shape, x, u, noise):
             "b6": tr.fused_paths["train_decoder"]["active"]}
 
 
-def _mesh_iwae_task(spec, x, noise, n_batches):
-    """IWAE-500 of ``spec`` at full width on a (2, 2) mesh over the rows
-    of ``x`` in batches, the samples of ``noise`` split over "model"; this
-    rank's rows' estimates and its launch counts."""
-    mesh = make_mesh(2, 2)
+def _mesh_iwae_task(spec, x, noise, n_batches, shape=(2, 2)):
+    """IWAE-500 of ``spec`` at full width on a mesh of ``shape`` over the
+    rows of ``x`` in batches, the samples of ``noise`` split over "model";
+    this rank's rows' estimates and its launch counts."""
+    mesh = make_mesh(*shape)
     cfg = VAEConfig(parse_components(spec, fixed_curvature=False), (28, 28),
                     "mlp", h_dim=400)
     params = vae.init_params(cfg, 1.0, torch.float32,
@@ -3566,6 +3578,37 @@ def phase_matrix(ds, tmp) -> None:
     print(f"[matrix] two rows and their summary in {time.time() - t0:.1f} s")
 
 
+# --- the mesh under NCCL (phase 28) ------------------------------------------------
+
+MESH_CARDS_RESULTS = "results/torch_mesh_cards.json"
+
+
+def phase_mesh_nccl(ds, card: str) -> None:
+    """A (1, 1) mesh under NCCL through ``scripts/torch_mesh_cards.py``'s
+    checks of one mesh (phase 28), and its four-card checks where the
+    machine has the cards."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import torch_mesh_cards
+    t0 = time.time()
+    record = torch_mesh_cards.Checks()
+    with World(1) as world:
+        torch_mesh_cards.mesh_checks(world, (1, 1), ds, card, record)
+    print(f"[mesh-nccl] a (1, 1) NCCL mesh: {len(record.items)} checks, "
+          f"{len(record.failed)} failed ({time.time() - t0:.1f} s)")
+    for c in record.items:
+        check(c["ok"], c["what"])
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"[mesh-nccl] the four-card checks ((4, 1), (2, 2), (1, 4) "
+              f"under NCCL) did not run: {cards} card(s) here; their "
+              f"results are {MESH_CARDS_RESULTS} (python3 "
+              f"scripts/torch_mesh_cards.py on four cards)")
+        return
+    out = Path(tempfile.mkdtemp()) / "torch_mesh_cards.json"
+    check(torch_mesh_cards.main(["--out", str(out)]) == 0,
+          f"the four-card checks of scripts/torch_mesh_cards.py ({out})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3608,6 +3651,7 @@ def main() -> int:
         phase_mesh(ds, tmp, card)
         phase_graphs(ds, cifar, tmp, card)
         phase_matrix(ds, tmp)
+        phase_mesh_nccl(ds, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]

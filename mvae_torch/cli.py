@@ -24,7 +24,10 @@ port's training randomness is one torch generator.
 
 ``--mesh D,M`` trains on a ("data", "model") mesh of D x M ranks, one
 process each (``parallel.launch``: rank r on ``cuda:(r % device_count)``,
-or on the CPU with ``--device cpu``); rank 0 prints, logs and writes.
+or on the CPU with ``--device cpu``; NCCL when each rank has a card of its
+own, gloo otherwise); rank 0 logs and writes. Every rank prints its
+backend, graph path and graph captures, and the result carries them, by
+rank, under ``ranks``.
 
     python -m mvae_torch.cli --device cpu --dataset bdp --model h2,s2,e2 \
         --h_dim 16 --epochs 1 --mesh 2,2
@@ -204,7 +207,9 @@ def _run(args):
                   "step": trainer.step, "eval_only": True,
                   "device": str(trainer.device),
                   "fused_paths": trainer.fused_paths,
-                  "graph_path": trainer.graph_path}
+                  "graph_path": trainer.graph_path,
+                  "graph_captures": graphs.captures(trainer),
+                  **_ranks(trainer)}
         say(json.dumps(result))
         return result if trainer.chief else None
     if args.resume:
@@ -217,6 +222,7 @@ def _run(args):
     result["graph_path"] = trainer.graph_path
     result["graph_captures"] = graphs.captures(trainer)
     result["device"] = str(trainer.device)
+    result.update(_ranks(trainer))
     if args.generate:
         write_samples(args.generate)
 
@@ -227,6 +233,27 @@ def _run(args):
     (Path(run_dir) / "result.json").write_text(json.dumps(summary, indent=2))
     print(json.dumps(summary))
     return result
+
+
+def _ranks(trainer) -> dict:
+    """On a mesh, ``{"ranks": [...]}``: each rank's device, backend, graph
+    path and graph captures in rank order, each rank printing its own (every
+    rank takes part); on one device nothing."""
+    mesh = trainer.mesh
+    if mesh is None:
+        return {}
+    import torch.distributed as dist
+
+    from .train import graphs
+    mine = {"rank": mesh.rank, "device": str(trainer.device),
+            "backend": mesh.backend, "graph_path": trainer.graph_path,
+            "graph_captures": graphs.captures(trainer)}
+    print(f"[rank {mesh.rank}] {mine['device']}, backend {mesh.backend}, "
+          f"{trainer.graph_path['path']} ({trainer.graph_path['why']}), "
+          f"captures {mine['graph_captures']}", flush=True)
+    ranks = [None] * mesh.size
+    dist.all_gather_object(ranks, mine, group=mesh.group)
+    return {"ranks": ranks}
 
 
 if __name__ == "__main__":

@@ -414,7 +414,7 @@ def _mesh_layout(cfg: VAEConfig, n_model: int):
 
 def log_likelihood_sharded(cfg: VAEConfig, params, x, mesh,
                            n_samples: int = 500, chunk_size: int = 20,
-                           noise=None, seed: int = 0):
+                           noise=None, generator=None):
     """IWAE estimate on a ("data", "model") mesh, the counterpart of the
     reference's ``log_likelihood_sharded``: ``params`` are this rank's
     shards (the whole weights are gathered once a call) and ``x`` its rows
@@ -427,23 +427,22 @@ def log_likelihood_sharded(cfg: VAEConfig, params, x, mesh,
     ``noise`` (n_samples, rows, E) is the rows' whole block, indexed by
     global sample as in ``log_likelihood``: the rank reads its samples of
     it, so the same block gives the one-device numbers. Without it the rank
-    draws from a generator seeded by (``seed``, m), as the reference's
-    ``fold_in(key, r)``. Requires n_samples % n_model == 0."""
+    draws from ``generator``, which the caller seeds apart for each model
+    index (the reference's ``fold_in(key, r)``). Requires n_samples %
+    n_model == 0. Reads nothing on the host and allocates by shape only,
+    so an NCCL rank captures it in a CUDA graph."""
     from ..parallel.collectives import all_gather_model, gather_params
-    from ..parallel.mesh import fold_seed
     if n_samples % mesh.n_model:
         raise ValueError("n_samples must divide the model axis")
+    if (noise is None) == (generator is None):
+        raise ValueError("give the rank's noise block or its generator")
     per_rank = n_samples // mesh.n_model
     # the per-rank sample count must chunk evenly: the largest divisor
     chunk_size = next(d for d in range(min(chunk_size, per_rank), 0, -1)
                       if per_rank % d == 0)
     with torch.no_grad():
         params = gather_params(params, mesh, mesh_layout(cfg, mesh))
-    generator = None
-    if noise is None:
-        generator = torch.Generator(device=x.device)
-        generator.manual_seed(fold_seed(seed, mesh.model_index))
-    else:
+    if noise is not None:
         m = mesh.model_index
         noise = noise[m * per_rank:(m + 1) * per_rank]
     log_w = _log_weights(cfg, params, x, per_rank, chunk_size, noise,

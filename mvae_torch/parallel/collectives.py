@@ -9,12 +9,19 @@
   collective a call.
 * ``all_gather_model``: the IWAE's per-rank partial logsumexps over "model".
 
+Under NCCL (a card a rank) every collective works on the card, on the
+current stream, into a buffer whose shape the inputs fix, and reads
+nothing on the host: a CUDA graph of a rank's step or eval batch captures
+them (``train.graphs``). The gather is one ``all_gather_into_tensor`` and
+the gradient's reduce-scatter one ``reduce_scatter_tensor``.
+
 Under gloo (ranks that share a card), a CUDA tensor is copied to the
 host, summed or gathered there by gloo between the processes and copied
 back (``_on_host``): a copy around the collective, not a fallback; every
-operation of the model runs on the card. NCCL works on the card.
-A reduce-scatter is an all-reduce followed by this rank's slice, so gloo
-needs no reduce-scatter of its own.
+operation of the model runs on the card. Those host copies cannot be
+captured, so gloo ranks run eagerly. Gloo's reduce-scatter is an all-reduce
+followed by this rank's slice, which needs no collective of its own on the
+host.
 """
 from __future__ import annotations
 
@@ -39,16 +46,32 @@ def _reduce_one_(mesh: Mesh, t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
-def _all_gather(mesh: Mesh, t: torch.Tensor, group, n: int) -> list:
-    """The ``n`` ranks' copies of ``t`` over ``group``, in rank order."""
+def _all_gather(mesh: Mesh, t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(n, *t.shape): the ``n`` ranks' copies of ``t`` over ``group``, in
+    rank order."""
     src = t.detach().contiguous()
     if _on_host(mesh, src):
         parts = [torch.empty_like(src, device="cpu") for _ in range(n)]
         dist.all_gather(parts, src.cpu(), group=group)
-        return [p.to(t.device) for p in parts]
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    return parts
+        return torch.stack(parts).to(t.device)
+    out = src.new_empty((n,) + src.shape)
+    dist.all_gather_into_tensor(out.view(-1), src.view(-1), group=group)
+    return out
+
+
+def _reduce_scatter_mean(mesh: Mesh, g: torch.Tensor, axis: int):
+    """This model rank's slice along ``axis`` of the mean of the model
+    ranks' ``g``: under gloo an all-reduce then the slice, else one
+    reduce-scatter of ``g``'s slices stacked in rank order."""
+    n = mesh.n_model
+    if mesh.backend == "gloo":
+        g = _reduce_one_(mesh, g.contiguous().clone(), mesh.model_group) / n
+        return g.chunk(n, axis)[mesh.model_index].contiguous()
+    stacked = torch.stack(g.chunk(n, axis))
+    part = stacked.new_empty(stacked.shape[1:])
+    dist.reduce_scatter_tensor(part.view(-1), stacked.view(-1),
+                               group=mesh.model_group)
+    return part / n
 
 
 class _GatherModel(torch.autograd.Function):
@@ -57,16 +80,12 @@ class _GatherModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, shard, axis, mesh):
         ctx.axis, ctx.mesh = axis, mesh
-        return torch.cat(_all_gather(mesh, shard, mesh.model_group,
-                                     mesh.n_model), dim=axis)
+        parts = _all_gather(mesh, shard, mesh.model_group, mesh.n_model)
+        return torch.cat(parts.unbind(0), dim=axis)
 
     @staticmethod
     def backward(ctx, g):
-        mesh = ctx.mesh
-        g = _reduce_one_(mesh, g.contiguous().clone(), mesh.model_group)
-        g = g / mesh.n_model
-        part = g.chunk(mesh.n_model, ctx.axis)[mesh.model_index]
-        return part.contiguous(), None, None
+        return _reduce_scatter_mean(ctx.mesh, g, ctx.axis), None, None
 
 
 def gather_model(shard: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
@@ -118,4 +137,4 @@ def all_reduce_sum_(mesh: Mesh, tensors: list, group=None,
 
 def all_gather_model(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """(n_model, ...) the model ranks' ``t``, stacked in model order."""
-    return torch.stack(_all_gather(mesh, t, mesh.model_group, mesh.n_model))
+    return _all_gather(mesh, t, mesh.model_group, mesh.n_model)

@@ -5,6 +5,9 @@ starts n_data x n_model processes with ``torch.multiprocessing`` (start
 method ``spawn``: the parent may have touched CUDA) that join one process
 group through a file store in a temporary directory. Rank r runs on
 ``cuda:(r % device_count)``, or on the CPU when the caller asks for it.
+The backend is NCCL when every rank has a card of its own and gloo when
+ranks share a card or run on the CPU (``mesh.backend_for``); a rank whose
+NCCL setup fails raises like any other (no rank falls back to gloo).
 
     results = launch(fn, n_data, n_model, *args, device=None)
 
@@ -61,13 +64,35 @@ def _host(value):
     return value
 
 
+def _report_failure(rank, results) -> None:
+    """Send this rank's traceback to the launcher, flushed before the
+    process group goes down, so that it precedes the errors of ranks that
+    then lose their peer."""
+    results.put((rank, False, traceback.format_exc()))
+    results.close()
+    results.join_thread()
+
+
 def _rank_main(rank, n_ranks, store, backend, device, tasks, results):
-    if rank_device(rank, device).type == "cuda":
-        torch.cuda.set_device(rank_device(rank, device))
-    else:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
-    dist.init_process_group(backend, init_method=f"file://{store}",
-                            rank=rank, world_size=n_ranks, timeout=_TIMEOUT)
+    try:
+        # the card first: NCCL binds a communicator to the current device
+        dev = rank_device(rank, device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        else:
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
+        if backend == "nccl":
+            # every rank is a process of this host: NCCL's bootstrap (its
+            # socket handshake; the collectives themselves go over NVLink)
+            # stays on the loopback, which a machine without a network
+            # still has, instead of searching the interfaces
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                rank=rank, world_size=n_ranks,
+                                timeout=_TIMEOUT)
+    except BaseException:
+        _report_failure(rank, results)
+        return
     try:
         while True:
             task = tasks.get()
@@ -78,12 +103,8 @@ def _rank_main(rank, n_ranks, store, backend, device, tasks, results):
                 results.put((rank, True, _host(fn(*args))))
             except BaseException:
                 # the launcher raises it; this rank's collectives are in an
-                # unknown state, so it takes no further task. The report is
-                # flushed before the process group goes down, so it precedes
-                # the errors of ranks that then lose their peer.
-                results.put((rank, False, traceback.format_exc()))
-                results.close()
-                results.join_thread()
+                # unknown state, so it takes no further task
+                _report_failure(rank, results)
                 return
     finally:
         dist.destroy_process_group()

@@ -20,7 +20,9 @@ weight at use and reduce-scatters its gradient back.
 
 The process group is the launcher's: ``nccl`` when every rank has a card of
 its own, ``gloo`` when ranks share a card or run on the CPU
-(``backend_for``).
+(``backend_for``). Under NCCL a rank's step and eval batches are CUDA
+graphs with their collectives inside (``train.graphs``); under gloo they
+run eagerly.
 """
 from __future__ import annotations
 
@@ -91,9 +93,13 @@ def backend_for(n_ranks: int, device=None) -> tuple[str, str]:
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     cards = torch.cuda.device_count()
     if n_ranks <= cards:
-        return "nccl", f"{n_ranks} ranks on {cards} cards, one card a rank"
-    return "gloo", (f"{n_ranks} ranks share {cards} card(s); collectives "
-                    f"are staged through the host")
+        names = ", ".join(f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                          for i in range(n_ranks))
+        return "nccl", (f"{n_ranks} ranks on {n_ranks} of {cards} cards, "
+                        f"one card a rank ({names})")
+    return "gloo", (f"{n_ranks} ranks share {cards} card(s): NCCL takes one "
+                    f"card a rank, so the collectives are staged through "
+                    f"the host and the ranks run eagerly")
 
 
 def rank_device(rank: int, device=None) -> torch.device:
@@ -107,12 +113,21 @@ def rank_device(rank: int, device=None) -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
+# meshes made in this process, by (world group, shape, device): NCCL makes a
+# communicator, with its buffers on the card, for each process group at its
+# first collective, so the trainers of one process share their mesh's groups
+# instead of making new ones (the key holds the world group itself, so a
+# later world cannot take its id)
+_MESHES: dict = {}
+
+
 def make_mesh(n_data: int | None = None, n_model: int = 1,
               device=None) -> Mesh | None:
     """The mesh of the first n_data x n_model ranks of the initialized
     world (``n_data`` defaults to world size // n_model). Every rank of the
     world calls it, in the same order as every other collective; a rank
-    outside the mesh gets None."""
+    outside the mesh gets None. A shape's process groups are made at its
+    first call in the world; later calls return the same mesh."""
     if not dist.is_initialized():
         raise RuntimeError("a mesh needs the process group of "
                            "mvae_torch.parallel.launch")
@@ -125,18 +140,23 @@ def make_mesh(n_data: int | None = None, n_model: int = 1,
         raise ValueError(
             f"mesh {n_data}x{n_model} needs {n_data * n_model} processes, "
             f"have {world}")
+    key = (dist.group.WORLD, n_data, n_model, str(device))
+    if key in _MESHES:
+        return _MESHES[key]
     grid = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
     # every rank of the world enters every new_group, members or not
     group = dist.new_group(list(range(n_data * n_model)))
     data_groups = [dist.new_group([grid[d][m] for d in range(n_data)])
                    for m in range(n_model)]
     model_groups = [dist.new_group(grid[d]) for d in range(n_data)]
-    if rank >= n_data * n_model:
-        return None
-    d, m = divmod(rank, n_model)
-    return Mesh({"data": n_data, "model": n_model}, d, m,
-                rank_device(rank, device), dist.get_backend(), group,
-                data_groups[m], model_groups[d])
+    mesh = None
+    if rank < n_data * n_model:
+        d, m = divmod(rank, n_model)
+        mesh = Mesh({"data": n_data, "model": n_model}, d, m,
+                    rank_device(rank, device), dist.get_backend(), group,
+                    data_groups[m], model_groups[d])
+    _MESHES[key] = mesh
+    return mesh
 
 
 def batch_sharding(mesh: Mesh) -> tuple:

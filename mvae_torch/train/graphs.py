@@ -26,11 +26,21 @@ of ~90 host-issued ops:
   entry points it called (a swapped entry point, as ``chip_smoke.py``'s
   plain recomputations swap them, gets its own capture).
 
+A rank of an NCCL mesh (a card a rank, ``parallel``) captures the same
+programs with its collectives inside: the weight gathers and gradient
+reduce-scatters over "model", the flat all-reduce of the gradients and
+statistics, the IWAE's all-gather of partial logsumexps. Its warm-up calls
+run every collective of the program once, so NCCL has made the
+communicator of each process group before the capture; the capture runs
+in ``thread_local`` mode, so that NCCL's watchdog thread may query its
+events meanwhile. ``TrainEpoch`` keeps only the rank's columns of the
+batch order, so a step gathers its rows on the card.
+
 Each replay adds to the kernel wrappers' ``launches`` what its capture
 recorded (``roofline.captured_launches`` / ``count_replays``), so the counts
 are what ran on the card. A capture that fails raises: nothing falls back
 to the eager loop on a CUDA device. ``path`` says where the graphs do not
-apply (the CPU, a mesh rank, the NaN guard) and why.
+apply (the CPU, a gloo mesh rank, the NaN guard) and why.
 """
 from __future__ import annotations
 
@@ -57,21 +67,25 @@ ENTRY_POINTS = ((tail_kernels, "tail_forward"),
 
 def path(trainer) -> dict:
     """Whether ``trainer`` replays graphs ("graph") or runs the eager loop
-    ("eager"), and why. The choice follows the device and the mesh, as the
-    reference's follows its backend."""
+    ("eager"), and why. The choice follows the device and the mesh's
+    backend, as the reference's follows its backend."""
     if trainer.device.type != "cuda":
         return {"path": "eager", "why": f"{trainer.device.type} device: "
                 "CUDA graphs exist on CUDA devices only"}
-    if trainer.mesh is not None:
-        return {"path": "eager", "why": "mesh rank: the collectives stage "
-                "gloo through the host (graphs of a rank's step under NCCL "
-                "are ROADMAP A6)"}
+    mesh = trainer.mesh
+    if mesh is not None and mesh.backend != "nccl":
+        return {"path": "eager", "why": f"{mesh.backend} mesh rank: ranks "
+                "that share a card stage their collectives through the "
+                "host, which a CUDA graph cannot capture"}
     if profiling.nan_guard_enabled():
         return {"path": "eager", "why": "the NaN guard (--debug_nans) reads "
                 "every op's output on the host"}
+    where = ("" if mesh is None else
+             f" on NCCL rank {mesh.rank} of the {mesh.n_data}x{mesh.n_model} "
+             f"mesh, its collectives inside")
     return {"path": "graph", "why": "one CUDA graph of a training step, of "
             "an ELBO batch and of an IWAE batch, each captured once per "
-            "(shape, routing) and replayed"}
+            f"(shape, routing) and replayed{where}"}
 
 
 def captures(trainer) -> dict:
@@ -113,14 +127,17 @@ class Graphed:
     """``fn(*statics)`` as a CUDA graph. A call copies its inputs into the
     static buffers ``statics``; the first ``warmup`` calls run ``fn`` on a
     side stream (their results are the call's), the next captures it once
-    and every call from then on replays it. ``copy_out`` returns a copy of
-    the static outputs (a tensor or a tuple or dict of them) of each replay."""
+    and every call from then on replays it. ``generator`` (one, or a tuple)
+    is registered with the graph: each replay draws its next numbers.
+    ``copy_out`` returns a copy of the static outputs (a tensor or a tuple
+    or dict of them) of each replay."""
 
-    def __init__(self, fn, statics, generator: torch.Generator, warmup: int,
+    def __init__(self, fn, statics, generator, warmup: int,
                  copy_out: bool = False):
         self.fn = fn
         self.statics = statics
-        self.generator = generator
+        self.generators = (generator if isinstance(generator, tuple)
+                           else (generator,))
         self.warmup = warmup
         self.copy_out = copy_out
         self.graph = None
@@ -156,10 +173,13 @@ class Graphed:
 
     def _capture(self):
         g = torch.cuda.CUDAGraph()
-        g.register_generator_state(self.generator)
+        for gen in self.generators:
+            g.register_generator_state(gen)
 
         def record():
-            with torch.cuda.graph(g):
+            # thread_local: another thread's CUDA calls (NCCL's watchdog
+            # querying its events) do not break the capture
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
                 self.out = self.fn(*self.statics)
 
         self.per_replay = roofline.captured_launches(record)
@@ -191,13 +211,20 @@ class TrainEpoch:
     ``noise`` (steps, batch, ...) are explicit binarization uniforms and
     reparameterization noise, for runs that hold the step to another
     implementation on the same draws; without them the step draws from the
-    trainer's generator."""
+    trainer's generator. On a mesh the buffers hold the rank's columns of
+    the global batch (``Mesh.rows``), cut once an epoch on the card: a
+    step gathers exactly the rows ``parallel.shard_batch`` gives the eager
+    step."""
 
     def __init__(self, trainer):
         self.trainer = trainer
         S, bs, dev = trainer.steps_per_epoch, trainer.tc.batch_size, \
             trainer.device
-        self.perm = torch.zeros((S, bs), dtype=torch.int64, device=dev)
+        # this rank's columns of a (steps, batch) buffer
+        mesh = trainer.mesh
+        self.rows = slice(None) if mesh is None else mesh.rows(bs)
+        per_rank = bs if mesh is None else bs // mesh.n_data
+        self.perm = torch.zeros((S, per_rank), dtype=torch.int64, device=dev)
         self.k = torch.zeros(1, dtype=torch.int64, device=dev)
         self.u_bin = self.noise = None
         self.explicit = False
@@ -228,10 +255,11 @@ class TrainEpoch:
         Returns the (steps, ...) statistics buffers."""
         tr = self.trainer
         S = len(self.perm)
-        self.perm.copy_(perm.reshape(self.perm.shape))
+        self.perm.copy_(perm.reshape(S, -1)[:, self.rows])
         self.k.zero_()
         self.explicit = u_bin is not None
         if self.explicit:
+            u_bin, noise = u_bin[:, self.rows], noise[:, self.rows]
             if self.u_bin is None:
                 self.u_bin = torch.empty_like(u_bin)
                 self.noise = torch.empty_like(noise)

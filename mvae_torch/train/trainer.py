@@ -10,14 +10,15 @@ checkpoints the full state (params, optimizer, step, generator).
 
 Differences from the reference:
 
-* on one CUDA device the reference's compiled programs are CUDA graphs
-  (``graphs``): a training step, an ELBO batch and an IWAE batch are each
-  captured once per (shape, routing) and replayed, the step reading its
-  batch from a static permutation at a device step index and the burn-in
-  mask traced on a device step counter, so one capture serves burn-in and
-  after -- the counterpart of the reference's ``lax.scan`` epoch. On the
-  CPU and on a mesh the same bodies run as Python loops of eager PyTorch
-  (``graph_path`` says which ran, and why). Either way the host reads the
+* on one CUDA device, and on each rank of an NCCL mesh, the reference's
+  compiled programs are CUDA graphs (``graphs``): a training step, an ELBO
+  batch and an IWAE batch are each captured once per (shape, routing) and
+  replayed, the step reading its batch from a static permutation at a
+  device step index and the burn-in mask traced on a device step counter,
+  so one capture serves burn-in and after -- the counterpart of the
+  reference's ``lax.scan`` epoch; a rank's collectives are inside its
+  graphs. On the CPU and on a gloo mesh the same bodies run as Python loops
+  of eager PyTorch (``graph_path`` says which ran, and why). Either way the host reads the
   statistics once per epoch or pass, and a step never waits on the device;
 * randomness (batch order, binarization, reparameterization noise, eval
   draws) comes from one ``torch.Generator`` on the device (Philox on
@@ -41,8 +42,9 @@ over the mesh before Adam. Every rank draws the same batch order (a
 generator seeded by ``seed``); binarization and reparameterization noise come
 from a generator seeded by (seed, data index), the counterpart of the
 reference's ``fold_in(key, axis_index("data"))``. The evaluations shard the
-rows over "data" (and the IWAE's samples over "model"); the pinned
-binarization hashes each row's global example index. Checkpoints hold the
+rows over "data" (and the IWAE's samples over "model", drawn from a
+generator seeded once a pass by (a draw of the rank's generator, model
+index)); the pinned binarization hashes each row's global example index. Checkpoints hold the
 whole parameters and Adam moments, written by rank 0 in the one-device
 layout, so a mesh checkpoint restores on one device and the other way round;
 rank 0 alone logs and prints.
@@ -242,6 +244,8 @@ class Trainer:
                                                  self.mesh.data_index))
             self._perm_generator = torch.Generator(device=self.device)
             self._perm_generator.manual_seed(tc.seed)
+            # the sharded IWAE's importance draws, apart for each model index
+            self._sample_generator = torch.Generator(device=self.device)
         for t in _leaves(self.params):
             t.requires_grad_(True)
         self.opt = make_optimizer(self.params, tc)
@@ -625,26 +629,32 @@ class Trainer:
             torch.float32).reshape(nb, bs)
         return batches, masks, n
 
-    def _eval_program(self, kind: str, body, x, mask, rows, graph: bool):
+    def _eval_program(self, kind: str, body, x, mask, rows, graph: bool,
+                      whole: bool = True):
         """The per-batch evaluation ``body(params, x, mask, rows)`` as a
-        function of (x, mask, rows): without ``graph`` the body on the
-        whole parameters (gathered once a pass on a mesh), else its graph
-        (``graphs.Graphed``) over static buffers shaped as this pass's
-        batch ``x``, ``mask`` and ``rows``, keyed by those shapes, the
-        fields the body reads and the routing (the reference's
-        ``make_eval_elbo`` / ``make_eval_ll`` keys)."""
+        function of (x, mask, rows): without ``graph`` the body run eagerly,
+        else its graph (``graphs.Graphed``) over static buffers shaped as
+        this pass's batch ``x``, ``mask`` and ``rows``, keyed by those
+        shapes, the fields the body reads and the routing (the reference's
+        ``make_eval_elbo`` / ``make_eval_ll`` keys). The body gets the
+        whole parameters (``whole``: on a mesh gathered once a pass
+        eagerly, once a batch inside a graph) or this rank's shards."""
         if not graph:
-            params = self.whole_params()
+            params = self.whole_params() if whole else self.params
             return lambda *batch: body(params, *batch)
         fields = ((self.tc.beta,) if kind == "eval_elbo" else
                   (self.tc.likelihood_n, self.tc.likelihood_chunk))
         key = (kind, tuple(x.shape), x.dtype, mask is None, rows is None,
-               fields, graphs.routing_key(self.model_cfg, self.params))
+               whole, fields,
+               graphs.routing_key(self.model_cfg, self.params))
+        params = self.whole_params if whole else lambda: self.params
+        gens = (self.generator,) + ((self._sample_generator,)
+                                    if self.mesh is not None else ())
         return self._program(key, lambda: graphs.Graphed(
-            lambda *batch: body(self.params, *batch),
+            lambda *batch: body(params(), *batch),
             tuple(None if t is None else torch.empty_like(t)
                   for t in (x, mask, rows)),
-            self.generator, graphs.WARMUP_BATCHES, copy_out=True))
+            gens, graphs.WARMUP_BATCHES, copy_out=True))
 
     def _elbo_batch(self, params, x, mask, rows) -> dict:
         """One eval batch's masked sums (weights ``mask`` / its count): the
@@ -704,10 +714,10 @@ class Trainer:
 
         On a mesh whose model axis divides n, each data shard's rows go
         through ``vae.log_likelihood_sharded`` (the samples over "model",
-        drawn from a seed a batch taken from the rank's generator) and the
-        sums meet over "data"; otherwise every rank runs the one-device
-        estimator on the whole parameters and rank 0's value is returned
-        on every rank. On one CUDA device each batch is a replay of the
+        drawn from a generator seeded once a pass) and the sums meet over
+        "data"; otherwise every rank runs the one-device estimator on the
+        whole parameters and rank 0's value is returned on every rank. On
+        one CUDA device and on an NCCL rank each batch is a replay of the
         IWAE graph (the whole chunk loop), else the eager loop
         (``graph_path``)."""
         if repeats > 1:
@@ -728,7 +738,7 @@ class Trainer:
             data = data[:max_examples]
         mesh = self.mesh
         if mesh is not None and self.tc.likelihood_n % mesh.n_model == 0:
-            return self._log_likelihood_sharded(data)
+            return self._log_likelihood_sharded(data, graph)
         bs = min(self.tc.eval_batch_size, len(data))
         batches, _, n = self._split_batches(data, bs)
         nb = batches.shape[0]
@@ -755,24 +765,38 @@ class Trainer:
             self.tc.likelihood_n, self.tc.likelihood_chunk,
             generator=self.generator)
 
-    def _log_likelihood_sharded(self, data) -> float:
+    def _ll_batch_sharded(self, params, x, mask, rows):
+        """One eval batch's masked IWAE sum over this rank's rows (``params``
+        its shards): the body of a mesh rank's IWAE graph, its samples
+        drawn from ``_sample_generator`` and its partial logsumexps met over
+        "model" inside."""
+        mesh = self.mesh
+        x, mask = shard_batch(x, mesh), shard_batch(mask, mesh)
+        rows = None if rows is None else shard_batch(rows, mesh)
+        ll = vae.log_likelihood_sharded(
+            self.model_cfg, params, self._binarize(x, rows), mesh,
+            self.tc.likelihood_n, self.tc.likelihood_chunk,
+            generator=self._sample_generator)
+        return torch.sum(ll * mask.to(ll.dtype))
+
+    def _log_likelihood_sharded(self, data, graph: bool) -> float:
         mesh = self.mesh
         bs = self._eval_batch_size(len(data))
         batches, masks, n = self._split_batches(data, bs)
         nb = batches.shape[0]
         row_ids = self._eval_keys(nb, bs)
-        seeds = torch.randint(0, 2**62, (nb,), generator=self.generator,
-                              device=self.device).tolist()
-        total = torch.zeros((), dtype=torch.float64, device=self.device)
-        for i in range(nb):
-            x = shard_batch(batches[i], mesh)
-            rows = (None if row_ids is None
-                    else shard_batch(row_ids[i], mesh))
-            ll = vae.log_likelihood_sharded(
-                self.model_cfg, self.params, self._binarize(x, rows), mesh,
-                self.tc.likelihood_n, self.tc.likelihood_chunk,
-                seed=seeds[i])
-            total += torch.sum(ll * shard_batch(masks[i], mesh))
+        rows = [None] * nb if row_ids is None else row_ids
+        # one seed a pass from the data shard's generator (the same on its
+        # model ranks), folded with the model index: each model rank draws
+        # its own samples of the same rows
+        seed = int(torch.randint(0, 2**62, (), generator=self.generator,
+                                 device=self.device))
+        self._sample_generator.manual_seed(fold_seed(seed, mesh.model_index))
+        run = self._eval_program("eval_ll", self._ll_batch_sharded,
+                                 batches[0], masks[0], rows[0], graph,
+                                 whole=False)
+        total = torch.stack([run(batches[i], masks[i], rows[i])
+                             for i in range(nb)]).to(torch.float64).sum()
         all_reduce_sum_(mesh, [total], mesh.data_group)
         return float(total.cpu()) / n
 
