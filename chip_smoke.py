@@ -236,7 +236,17 @@ Phases:
     against eager bit for bit, one capture of each program. On a machine
     with four cards or more the script's four-card checks run too; on fewer
     a line says they did not run and names their committed results;
-29. one JSON line of kernel numbers, then the result line.
+29. the benchmark: ``python bench_torch.py --steps 300 --repeats 2
+    --conv_steps 100`` in a fresh process (its calibration first, as in a
+    bench run): its last line parsed and printed under ``[bench]``; no
+    ``"error"`` (its numbers are finite: it prints with
+    ``allow_nan=False``), ``pct_of_step_ceiling`` and ``step_mfu_pct`` in
+    (0, 100] (the latter where the card has a quoted FP32 peak), the priced
+    MACs equal to the counted ones, the flagship step graphed with B1, B3 and
+    B6 launched once a step; and, where the bf16 row at h_dim 1024 routes
+    its decode to B6, B6 at (Z, H, D) = (8, 1024, 784) against its plain
+    version (phase 7's checks, batches 1 to 1024);
+30. one JSON line of kernel numbers, then the result line.
 
 Every ``Trainer.train_one_epoch``, ``evaluate_elbo`` and
 ``evaluate_log_likelihood`` on the card replays graphs (phase 26 holds
@@ -3609,6 +3619,55 @@ def phase_mesh_nccl(ds, card: str) -> None:
           f"the four-card checks of scripts/torch_mesh_cards.py ({out})")
 
 
+# --- the benchmark (phase 29) -----------------------------------------------------
+
+BENCH_ARGS = ("--steps", "300", "--repeats", "2", "--conv_steps", "100")
+
+
+def phase_bench(gen) -> None:
+    """``bench_torch.py`` at short chunks in a fresh process, its line
+    checked and printed, and B6 at the bf16 h_dim 1024 row's widths
+    against its plain version where that row routes to it (phase 29)."""
+    root = Path(__file__).resolve().parent
+    t0 = time.time()
+    out = subprocess.run([sys.executable, str(root / "bench_torch.py"),
+                          *BENCH_ARGS], cwd=root, capture_output=True,
+                         text=True, timeout=900)
+    for ln in out.stderr.strip().splitlines()[-40:]:
+        print(f"[bench] stderr: {ln}")
+    check(out.returncode == 0 and out.stdout.strip(),
+          f"bench_torch.py {' '.join(BENCH_ARGS)} exits 0 "
+          f"(rc {out.returncode})")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"[bench] {json.dumps(line)}")
+    print(f"[bench] {time.time() - t0:.1f} s in its own process")
+    check("error" not in line, f"the bench's line has no error: "
+          f"{line.get('error')}")
+    # step_mfu_pct is null off the card its peak is quoted for
+    keys = ("pct_of_step_ceiling",) + (
+        ("step_mfu_pct",) if line["step_mfu_peak_tflops"] is not None else ())
+    for key in keys:
+        v = line.get(key)
+        check(v is not None and 0 < v <= 100,
+              f"the bench's {key} in (0, 100]: {v}")
+    counted = line["step_model_counted"]
+    check(counted["executed_minus_counted"] == 0,
+          f"the bench's priced MACs are the counted ones: "
+          f"{line['step_model']['executed_macs']} against {counted['macs']}")
+    check(line["graph_path"] == "graph",
+          f"the bench's flagship step is graphed: {line['graph_path']}")
+    check(line["launches_per_step"] == {"tail_fwd": 1.0, "tail_bwd": 1.0,
+                                        "train_decode": 1.0},
+          f"the bench's flagship step launches B1, B3, B6 once a step: "
+          f"{line['launches_per_step']}")
+    row = line["bf16_matmul_rows"]["1024"]
+    print(f"[bench] bf16 h_dim 1024 decode: {row['decode_route']}")
+    if row["train_decode_launches_per_step"] == 1.0:
+        worst = _train_decode_held(8, 1024, 784, gen)
+        print(f"[bench] B6 at (Z, H, D) = (8, 1024, 784) against its plain "
+              f"version: max |dll| {worst:.3g} nats a row")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3652,6 +3711,7 @@ def main() -> int:
         phase_graphs(ds, cifar, tmp, card)
         phase_matrix(ds, tmp)
         phase_mesh_nccl(ds, card)
+        phase_bench(gen)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]

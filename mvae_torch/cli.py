@@ -132,11 +132,13 @@ def _main(args):
         profiling.disable_nan_guard()
 
 
-def _run(args):
-    from .components import canonical_name, parse_components
+def build_trainer(args):
+    """The ``Trainer`` the flags ``args`` describe (latent, dataset,
+    network, training settings, run directory), as a run builds it."""
+    from .components import parse_components
     from .data import load_dataset
     from .models import VAEConfig
-    from .train import TrainConfig, Trainer, graphs
+    from .train import TrainConfig, Trainer
 
     components = parse_components(args.model,
                                   fixed_curvature=args.fixed_curvature,
@@ -159,12 +161,20 @@ def _run(args):
     run_dir = args.run_dir or (
         f"runs/{args.dataset}_{args.model.replace(',', '-').replace(':', '.')}"
         f"_{'fixed' if args.fixed_curvature else 'learn'}_s{args.seed}")
+    return Trainer(model_cfg, dataset, tc, run_dir, device=args.device)
 
-    trainer = Trainer(model_cfg, dataset, tc, run_dir, device=args.device)
+
+def _run(args):
+    from .components import canonical_name
+    from .train import graphs
+
+    trainer = build_trainer(args)
+    model_cfg, dataset, tc = trainer.model_cfg, trainer.dataset, trainer.tc
+    run_dir, mesh_shape = trainer.run_dir, tc.mesh_shape
     say = print if trainer.chief else (lambda *a, **k: None)
-    say(f"model {canonical_name(components)} on {dataset.name} "
+    say(f"model {canonical_name(model_cfg.components)} on {dataset.name} "
         f"({'synthetic stand-in' if dataset.synthetic else 'real data'}), "
-        f"arch={arch}, dtype={args.dtype}, run_dir={run_dir}"
+        f"arch={model_cfg.arch}, dtype={args.dtype}, run_dir={run_dir}"
         + (f", mesh {mesh_shape[0]}x{mesh_shape[1]}" if mesh_shape else ""))
 
     def write_samples(n):

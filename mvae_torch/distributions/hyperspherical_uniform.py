@@ -25,6 +25,11 @@ def log_prob(z, k):
                               z.shape[:-1])
 
 
+def entropy(m: int, k):
+    """The uniform's entropy: log Area(S^{m-1}_R)."""
+    return log_surface_area(m, k)
+
+
 def sample(shape, m: int, k, like: torch.Tensor, generator=None):
     """Uniform draw on the radius-R sphere: a normalized Gaussian times R,
     (*shape, m) with ``like``'s dtype and device."""

@@ -40,6 +40,16 @@ def log_prob(x, mu, sigma):
                      dtype=acc_dtype(x.dtype))
 
 
+def kl_diag(mu_q, sigma_q, mu_p, sigma_p):
+    """Analytic KL(q || p) between diagonal Gaussians, summed over the last
+    axis."""
+    sigma_q = torch.broadcast_to(sigma_q, mu_q.shape)
+    sigma_p = torch.broadcast_to(sigma_p, mu_q.shape)
+    var_ratio = (sigma_q / sigma_p) ** 2
+    t1 = ((mu_q - mu_p) / sigma_p) ** 2
+    return 0.5 * torch.sum(var_ratio + t1 - 1.0 - torch.log(var_ratio), dim=-1)
+
+
 def kl_std(mu, sigma):
     """KL(q || N(0, I)), summed over the last axis."""
     sigma = torch.broadcast_to(sigma, mu.shape)

@@ -245,6 +245,14 @@ def sample(mu, kappa, k, noise=None, generator=None, proposals=None):
     return z_unit * r.to(mu.dtype)
 
 
+def sample_and_log_prob(mu, kappa, k, noise=None, generator=None,
+                        proposals=None):
+    """A draw z (``sample``, its noise and proposals given or drawn from
+    ``generator``) and its log q(z)."""
+    z = sample(mu, kappa, k, noise, generator, proposals)
+    return z, log_prob(z, mu, kappa, k)
+
+
 def mean_resultant_length(m: int, kappa):
     """A_m(kappa) = I_{m/2}(kappa) / I_{m/2-1}(kappa) = E[<mu, z>]."""
     return bessel_ratio(m / 2.0 - 1.0, kappa)

@@ -67,6 +67,11 @@ def softplus(x: Tensor) -> Tensor:
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
+def safe_sqrt(x: Tensor) -> Tensor:
+    """sqrt with clamped argument: finite value and gradient at x <= 0."""
+    return torch.sqrt(torch.clamp(x, min=tiny(x.dtype)))
+
+
 def safe_norm(x: Tensor, dim: int = -1, keepdim: bool = False) -> Tensor:
     """L2 norm with a finite gradient at 0 (adds `tiny` under the sqrt)."""
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim)
@@ -84,6 +89,13 @@ def atanh_clamped(x: Tensor) -> Tensor:
     e = eps(x.dtype)
     x = torch.clamp(x, -1.0 + e, 1.0 - e)
     return 0.5 * torch.log1p(2.0 * x / (1.0 - x))
+
+
+def asin_clamped(x: Tensor) -> Tensor:
+    """asin with its argument clamped into [-1 + eps, 1 - eps] (finite
+    gradient)."""
+    e = eps(x.dtype)
+    return torch.asin(torch.clamp(x, -1.0 + e, 1.0 - e))
 
 
 def cosh_clamped(x: Tensor, max_arg: float = 85.0) -> Tensor:
@@ -351,6 +363,16 @@ def _acosh_1p(u: Tensor) -> Tensor:
 # --- in terms of (r, K) -------------------------------------------------------
 
 
+def sin_k(r: Tensor, k: Tensor) -> Tensor:
+    """Generalized sine: sin(sqrt(K) r)/sqrt(K); sinh-form for K<0; r at K=0."""
+    return r * sindiv_u(k * r * r)
+
+
+def cos_k(r: Tensor, k: Tensor) -> Tensor:
+    """Generalized cosine: cos(sqrt(K) r); cosh-form for K < 0; 1 at K = 0."""
+    return cos_u(k * r * r)
+
+
 def tan_k(r: Tensor, k: Tensor) -> Tensor:
     """Generalized tangent: tan(sqrt(K) r)/sqrt(K); tanh-form for K < 0."""
     return r * tandiv_u(k * r * r)
@@ -364,3 +386,16 @@ def arctan_k(y: Tensor, k: Tensor) -> Tensor:
 def arcsin_k(y: Tensor, k: Tensor) -> Tensor:
     """Inverse of sin_k: asin(sqrt(K) y)/sqrt(K); arsinh-form for K < 0."""
     return y * arcsindiv_u(k * y * y)
+
+
+def log_sin_k_div(r: Tensor, k: Tensor) -> Tensor:
+    """log(sin_k(r)/r), the per-dimension wrapped-normal log-det term."""
+    return log_sindiv_u(k * r * r)
+
+
+def logsumexp(a: Tensor, dim=None, keepdim: bool = False) -> Tensor:
+    """log(sum(exp(a))) over ``dim`` (every dimension when None), the
+    reference's alias of ``jax.scipy.special.logsumexp``."""
+    if dim is None:
+        dim = tuple(range(a.dim()))
+    return torch.logsumexp(a, dim=dim, keepdim=keepdim)

@@ -7,8 +7,13 @@ PyTorch counterpart of ``mvae_tpu/utils/special.py``:
   nu); the Hankel asymptotic above for nu <= 8; the uniform (Debye)
   large-order asymptotic through u_4 above for nu > 8, where the Hankel
   series diverges near the switch point.
+* ``log_iv(nu, x)`` -- log I_nu(x), unscaled.
 * ``bessel_ratio(nu, x)`` -- I_{nu+1}(x) / I_nu(x), the vMF mean resultant
   length at nu = m/2 - 1.
+* ``erfcx(x)`` -- e^{x^2} erfc(x), the reference's two branches (the direct
+  product below |x| = 8, a four-term asymptotic series above) and its
+  reflection for x < 0, copied as they are so that the port agrees with it
+  to rounding (``torch.special.erfcx`` is exact where the series is not).
 """
 from __future__ import annotations
 
@@ -84,3 +89,29 @@ def log_ive(nu: float, x):
 def bessel_ratio(nu: float, x):
     """A(x) = I_{nu+1}(x) / I_nu(x), from log_ive (scale factors cancel)."""
     return torch.exp(log_ive(nu + 1.0, x) - log_ive(nu, x))
+
+
+def log_iv(nu: float, x):
+    """log I_nu(x) (unscaled; overflows only where I_nu itself does in exp)."""
+    return log_ive(nu, x) + x
+
+
+_INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
+
+
+def erfcx(x):
+    """e^{x^2} erfc(x): the direct product below |x| = 8, the asymptotic
+    series above. For x < 0 the reflection erfcx(x) = 2 e^{x^2} - erfcx(-x);
+    callers keep x^2 within exp's range (|x| <~ 9 in float32)."""
+    ax = torch.abs(x)
+    mod = ax < 8.0
+    ax_mod = torch.where(mod, ax, torch.ones_like(ax))
+    direct = torch.exp(ax_mod * ax_mod) * torch.special.erfc(ax_mod)
+    ax_big = torch.where(mod, torch.full_like(ax, 9.0), ax)
+    inv2x2 = 1.0 / (2.0 * ax_big * ax_big)
+    s = 1.0 + inv2x2 * (-1.0 + inv2x2 * (3.0 + inv2x2 * (-15.0
+                                                          + inv2x2 * 105.0)))
+    asym = _INV_SQRT_PI / ax_big * s
+    pos = torch.where(mod, direct, asym)
+    neg = 2.0 * torch.exp(torch.clamp(x * x, max=80.0)) - pos
+    return torch.where(x >= 0, pos, neg)

@@ -1,5 +1,6 @@
-"""The port stands alone: importing every mvae_torch module, its CLI and
-chip_smoke.py loads neither JAX nor the JAX package; and an entry point
+"""The port stands alone: importing every mvae_torch module, its CLI,
+its benchmark (``mvae_torch.bench``, ``bench_torch.py``) and chip_smoke.py
+loads neither JAX nor the JAX package; and an entry point
 asked for no device on a machine without CUDA raises instead of running
 on the CPU."""
 import pathlib
@@ -22,6 +23,8 @@ for name in names:
 import mvae_torch.cli
 import mvae_torch.checkpoint
 import mvae_torch.train.metrics
+import mvae_torch.bench
+import bench_torch
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mvae_tpu"))
