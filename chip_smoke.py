@@ -12,7 +12,10 @@ Phases:
     live in the header B1 and B3 share) and, beside them, B5's previous
     design (``scripts/reparam_stereo_previous.cu``, ``PREVIOUS_REPARAM``),
     the compute twins' previous design (``scripts/twin_probes_previous.cu``,
-    ``PREVIOUS_TWINS``), printing ptxas's registers, stack frame
+    ``PREVIOUS_TWINS``), the tail kernels' previous design
+    (``scripts/tail_previous``, ``PREVIOUS_TAIL``: every product on the
+    warp-a-component geometry, each tile serial on one thread) and B5 built
+    on its tiles, printing ptxas's registers, stack frame
     and spills of each kernel instantiation (B5's 24 one by one: n = 2, 3,
     6 and generic, one or two samples a thread, each curvature sign; those
     for n = 2, 3, 6 must spill nothing; B8f's 8, n = 2, 3, 6 and generic at
@@ -27,7 +30,9 @@ Phases:
     common path
     (``roofline.twin_row_instructions``), at least a row's counted
     operations (``roofline.twin_stereo_row_ops``): no two output rows share
-    a result;
+    a result; and the tail's sinf, cosf, logf and expf on their common path
+    (``roofline.tail_transcendental_prices``), which price the tail
+    kernels' operation bounds;
  3. the tail kernel (tail_fwd.cu) against ``tail_forward_ref`` at the
     flagship product h2,s2,e2, B = 512 and B = 1000 (ragged), random heads
     with large-|mu| rows and curvatures that put rows on both sides of the
@@ -75,7 +80,9 @@ Phases:
     runs left to run apart, printed beside its rounding-level floor);
 11. a checkpoint saved on the card and restored into a fresh Trainer;
 12. the stereographic tile (B4a) inside B1 and B3 against the plain
-    versions for the tables of d2,p2,e2, u6 and p6 at B = 512 and B = 128:
+    versions (and B1 bit for bit against the tail's previous design, B3
+    printed bit-equal or not) for the tables of d2,p2,e2, u6 and p6 at
+    B = 512 and B = 128:
     curvatures +-1 and +-1e-3 (for u also 0), rows with a saturated sigma
     cap, with mu_tan = 0 and eps = 0, and a point at the ball's rim; then
     B1 at B = 128 and 512 and B3 at B = 128 timed for d2,p2,e2 and u6
@@ -83,8 +90,9 @@ Phases:
 13. the IWAE chunk reparam kernel (reparam_stereo.cu, B5) against
     ``wrapped_reparam_stereo_ref`` at (S, B, n) = (125, 512, 2) and
     (125, 512, 6), signs -1, 0, +1, wraps 0 and 1, and bit for bit
-    against its previous design on each case; then its time in turns with
-    the previous design (kernel, previous, previous, kernel) at (125, 512,
+    against its previous design and against itself built on the tail's
+    previous tiles on each case; then its time in turns with each (kernel,
+    previous, previous, kernel) at (125, 512,
     2) sign +1 and -1, (125, 512, 6) sign 0 and the production chunk (125,
     2048, 6) sign -1 over rotating buffer sets, faster on every row; its
     operation bound is the operations its plain version needs on the
@@ -104,12 +112,18 @@ Phases:
     (finite losses on both sides of K = 0) and IWAE-500 on 1,024 examples
     through the sign-0 instance of B4a and B5;
 16. the embedded-sphere tile (B4b) inside B1 and B3 against the plain
-    versions for the tables of s6:wrapped and s3:wrapped,h2,e2 at B = 512
+    versions (B1 bit for bit against the previous design) for the tables
+    of s6:wrapped and s3:wrapped,h2,e2 at B = 512
     and B = 128: curvatures 1, 1e-3, 4, rows with a saturated sigma cap,
     with mu_tan = 0 and eps = 0, with the mean at the antipode of mu0; then
     the rows where the tile's K-dependent floors are taken, held to the
     float32 plain version directly; then B1 at B = 128 and 512 and B3 at
-    B = 128 timed for s6:wrapped beside the row-per-thread kernels';
+    B = 128 timed for s6:wrapped beside the row-per-thread kernels'; then
+    B1 and B3 in turns with their previous design (new, previous,
+    previous, new) on every tail row of ``roofline.TAIL_ROWS`` (B3 at
+    B = 256 for u6 and s6:wrapped among them), B1's outputs bit for bit,
+    with each redesign's factor against its target printed and the
+    flagship's kernels within 3% or not;
 17. the distance kernels (manifold_dist.cu, B7a and B7b) against their
     plain versions at (B, n) = (1,048,576, 128) and (1000, 6), K in
     {-1, -1e-3, 0, 1e-3, 1} for B7a, with device time, bytes bound and the
@@ -143,8 +157,9 @@ Phases:
     bytes; its share of the TF32 peak; B5's: its skeleton or its plain
     version's operations, arithmetic at the calibrated FMA rate and
     transcendentals at the calibrated tanh rate, its twin beside them;
-    B1's and B3's: the tail skeleton or the plain version's operations at
-    the calibrated FMA rate);
+    B1's and B3's: the tail skeleton, the lower of its two grids for a
+    product on the split geometry, or the plain version's operations at
+    the calibrated FMA rate, each transcendental at its SASS count);
     then each row's kernel held to its plain version on the row's own
     inputs (B7a, B7b and B5 at the tolerances of phases 17 and 13, float64
     beside them; B2 within 1e-3 nats per row as in phase 4); then the
@@ -506,6 +521,25 @@ PREVIOUS_REPARAM = (Path(__file__).resolve().parent / "scripts"
 # coordinates in per-thread arrays)
 PREVIOUS_TWINS = (Path(__file__).resolve().parent / "scripts"
                   / "twin_probes_previous.cu")
+# The tail kernels' previous design (B1, B3 with the B4a / B4b tiles as they
+# stood at commit b875f52: every product on the warp-a-component geometry,
+# each tile serial on one thread), and B5 built on its tiles
+PREVIOUS_TAIL = Path(__file__).resolve().parent / "scripts" / "tail_previous"
+# filled by phase_build: the previous tail design's launch entries, and the
+# SASS instructions of the tail's transcendentals
+# (roofline.tail_transcendental_prices)
+_PREVIOUS: dict = {}
+_TAIL_PRICES: dict = {}
+
+
+def _reparam_on_previous_tiles() -> Path:
+    """B5's source beside the previous design's tiles (``PREVIOUS_TAIL``):
+    B5 as it was built before the split tail design."""
+    d = _build.BUILD_DIR / "reparam_previous_tiles"
+    d.mkdir(parents=True, exist_ok=True)
+    shutil.copy(_build.CSRC / "reparam_stereo.cu", d)
+    shutil.copy(PREVIOUS_TAIL / "tail_tiles.cuh", d)
+    return d / "reparam_stereo.cu"
 
 
 def ptxas_entries(report: str) -> dict:
@@ -564,14 +598,24 @@ def phase_build() -> dict:
             "reparam_previous": (PREVIOUS_REPARAM,
                                  _build.EXTRA_FLAGS["reparam_stereo"]),
             "twins_previous": (PREVIOUS_TWINS,
-                               _build.EXTRA_FLAGS["roofline_probes"])},
+                               _build.EXTRA_FLAGS["roofline_probes"]),
+            "tail_fwd_previous": (PREVIOUS_TAIL / "tail_fwd.cu",
+                                  _build.EXTRA_FLAGS["tail_fwd"]),
+            "tail_bwd_previous": (PREVIOUS_TAIL / "tail_bwd.cu",
+                                  _build.EXTRA_FLAGS["tail_bwd"]),
+            "reparam_previous_tiles": (_reparam_on_previous_tiles(),
+                                       _build.EXTRA_FLAGS["reparam_stereo"])},
             _build.BUILD_DIR / "previous")
         reports = _build.build_all()
         variants = prev.result()
     prev_lib, prev_report = variants["reparam_previous"]
     twins_lib, twins_report = variants["twins_previous"]
-    print(f"[build] {len(reports)} kernels and B5's and the twins' previous "
-          f"designs in {time.time() - t0:.1f} s")
+    _PREVIOUS.update(
+        fwd=tail_kernels.bind_tail(variants["tail_fwd_previous"][0])["fwd"],
+        bwd=tail_kernels.bind_tail(variants["tail_bwd_previous"][0])["bwd"])
+    print(f"[build] {len(reports)} kernels and the previous designs of B5, "
+          f"the twins and the tail kernels (and B5 on the previous tail "
+          f"tiles) in {time.time() - t0:.1f} s")
     for name, text in reports.items():
         for line in _build.ptxas_lines(text):
             print(f"[build] {name}: {line}")
@@ -610,6 +654,10 @@ def phase_build() -> dict:
           f"loop with {tanh['tanh']} tanh, {tanh['per_tanh']:.2f} a tanh "
           f"(cuobjdump -sass)")
     prices = roofline.transcendental_instructions()
+    _TAIL_PRICES.update(roofline.tail_transcendental_prices())
+    print("[build] the tail kernels' transcendentals as built (cuobjdump "
+          "-sass, common path; 'other' at the tanh probe's count): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in _TAIL_PRICES.items()))
     row = roofline.twin_row_instructions()
     ops = roofline.twin_stereo_row_ops(roofline.N, prices)
     print(f"[build] B8e tail's transcendental steps as built (cuobjdump "
@@ -625,6 +673,8 @@ def phase_build() -> dict:
     check(row["per_row"] >= ops, "B8e's resident loop runs at least a "
                                  "row's counted operations for each row")
     return {"previous_reparam": manifold_kernels.bind_reparam(prev_lib),
+            "reparam_previous_tiles": manifold_kernels.bind_reparam(
+                variants["reparam_previous_tiles"][0]),
             "previous_twin_stereo": roofline.bind_probe(
                 twins_lib, "twin_stereo_launch"),
             "previous_twin_reparam": roofline.bind_probe(
@@ -688,9 +738,9 @@ def _tail_time(name: str, spec: str, comps, args, err: float,
     """Time B1 (``args`` = raw, eps, k) or B3 (``args`` with dz, daux) on
     ``args`` beside its plain version, its bounds from this run's inputs
     (bytes over the data sheet's HBM rate; the plain version's operations,
-    ``roofline.tail_ops``, over its FP32 rate) and the row-per-thread
-    kernel's time: one row
-    of the kernels line."""
+    ``roofline.tail_op_split``, in FMA issue slots over its FP32 rate, each
+    transcendental at its SASS instructions, ``_TAIL_PRICES``) and the
+    row-per-thread kernel's time: one row of the kernels line."""
     bwd = len(args) == 5
     fn = tail_kernels.tail_backward if bwd else tail_kernels.tail_forward
     ref = (tail_kernels.tail_backward_ref if bwd
@@ -701,15 +751,17 @@ def _tail_time(name: str, spec: str, comps, args, err: float,
                           100)
     plain_ms = time_ms(lambda: ref(comps, *args), 10 if bwd else 20)
     nbytes = roofline.tail_bytes(comps, B, bwd)
-    ops = roofline.tail_ops(comps, *args)
+    split = roofline.tail_op_split(comps, *args)
+    slots = roofline.tail_priced_ops(split, _TAIL_PRICES)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    ops_ms = 2 * slots / FP32_FLOPS_PER_S * 1e3
     kern = "tail_bwd" if bwd else "tail_fwd"
     print(f"[{name}] {spec} {'B3' if bwd else 'B1'} at B={B}: kernel "
           f"{ms * 1e3:.2f} us ({_rowwise(kern, spec, B)}; graph events; "
           f"{trace}), plain {plain_ms * 1e3:.1f} us, bytes bound "
           f"{bytes_ms * 1e3:.4f} us ({nbytes} B), ops bound "
-          f"{ops_ms * 1e3:.4f} us ({ops} operations)")
+          f"{ops_ms * 1e3:.4f} us ({split['arithmetic']} arithmetic ops and "
+          f"{split['by_name']} transcendentals: {slots:.0f} FMA slots)")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": f"mvae_tpu/kernels/tail_kernels.py:{line}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1404,18 +1456,28 @@ def held(ours, ref, ref64, tol, what: str) -> tuple[float, float]:
 
 def _tile_case(tag: str, comps, args, what: str):
     """One case of a wrapped tile (``tag``: B4a or B4b) inside B1 and B3
-    against the plain versions, float32 and float64. Returns the shares of
-    the tolerance used (forward, raw gradient, batch-summed curvature
-    gradient), the largest errors on resolved entries (forward, backward)
-    and the number of rows float32 resolves."""
+    against the plain versions, float32 and float64, and against the tail
+    kernels' previous design (``PREVIOUS_TAIL``): B1's outputs bit for bit.
+    Returns the shares of the tolerance used (forward, raw gradient,
+    batch-summed curvature gradient), the largest errors on resolved
+    entries (forward, backward), the number of rows float32 resolves and
+    whether B3's outputs equal the previous design's bit for bit."""
     a64 = [t.double() for t in args]
     z, aux = tail_kernels.tail_forward(comps, *args[:3])
     z_r, aux_r = tail_kernels.tail_forward_ref(comps, *args[:3])
     z64, aux64 = tail_kernels.tail_forward_ref(comps, *a64[:3])
-    draw, dk, _ = tail_kernels.tail_backward(comps, *args)
+    draw, dk, dks_k = tail_kernels.tail_backward(comps, *args)
     pr, pk, _ = tail_kernels.tail_backward_ref(comps, *args)
     p64, pk64, _ = tail_kernels.tail_backward_ref(comps, *a64)
+    z0, aux0 = tail_kernels.tail_forward_launch(_PREVIOUS["fwd"], comps,
+                                                *args[:3])
+    prev_bwd = tail_kernels.tail_backward_launch(_PREVIOUS["bwd"], comps,
+                                                 *args)
     torch.cuda.synchronize()
+    check(torch.equal(z, z0) and torch.equal(aux, aux0),
+          f"{tag} B1 bit-equal to the previous design at {what}")
+    same_bwd = all(torch.equal(a, b)
+                   for a, b in zip((draw, dk, dks_k), prev_bwd))
     rz, ez = held(z, z_r, z64, 1e-5 * (1 + z_r.abs()), f"{tag} z at {what}")
     ra, ea = held(aux, aux_r, aux64, 1e-4 * (1 + 1e-2 * aux_r.abs()),
                   f"{tag} log-densities at {what}")
@@ -1440,7 +1502,7 @@ def _tile_case(tag: str, comps, args, what: str):
     check(kr <= 1.0, f"{tag} curvature gradient within rtol 2e-3 at {what}: "
                      f"{kr:.3g} (kernel {dks.tolist()}, plain {pks.tolist()}, "
                      f"float64 {pk64[res].sum(0).tolist()})")
-    return max(rz, ra), rb, kr, max(ez, ea), eb, int(res.sum())
+    return max(rz, ra), rb, kr, max(ez, ea), eb, int(res.sum()), same_bwd
 
 
 def _tile_times(tag: str, spec: str, comps, f, b, prefix: str, line: int,
@@ -1498,13 +1560,15 @@ def phase_stereo_tail(gen) -> list[dict]:
         for B in (512, 128):
             for kset in ksets:
                 what = f"{spec} B={B} k={kset}"
-                rf, rb, kr, ef, eb, n_res = _tile_case(
+                rf, rb, kr, ef, eb, n_res, same = _tile_case(
                     "B4a", comps, _stereo_inputs(comps, B, kset, gen), what)
                 err_f, err_b = max(err_f, ef), max(err_b, eb)
                 worst_f, worst_b = max(worst_f, rf), max(worst_b, rb, kr)
                 print(f"[stereo_tile] {what}: forward {rf:.3g} of tol, "
                       f"backward {rb:.3g}, curvature {kr:.3g} "
-                      f"({n_res}/{B} rows resolved)")
+                      f"({n_res}/{B} rows resolved); against the previous "
+                      f"design: B1 bit-equal, B3 "
+                      f"{'bit-equal' if same else 'not bit-equal'}")
     out = []
     for spec in (STEREO_SPEC, "u6"):
         comps = tuple(parse_components(spec, fixed_curvature=False))
@@ -1531,11 +1595,14 @@ def _reparam_row(S, B, n, kval, gen):
     return eps, mu, sig, k, torch.zeros(S, n + 2, B, device="cuda"), 1
 
 
-def _previous_reparam(built, eps, mu, sig, k, out, z_off, sign, wraps=1):
-    """B5's previous design on the wrapper's arguments (not counted)."""
+def _previous_reparam(built, eps, mu, sig, k, out, z_off, sign, wraps=1,
+                      which="previous_reparam"):
+    """B5's previous design (``which``: or B5 built on the previous tail
+    tiles, ``reparam_previous_tiles``) on the wrapper's arguments (not
+    counted)."""
     lq = torch.empty(eps.shape[:2], device="cuda")
     lp = torch.empty(eps.shape[:2], device="cuda")
-    manifold_kernels.reparam_launch(built["previous_reparam"], eps, mu, sig,
+    manifold_kernels.reparam_launch(built[which], eps, mu, sig,
                                     k.reshape(1), out, z_off, lq, lp, sign,
                                     wraps)
     return out[:, z_off:z_off + eps.shape[2]], lq, lp
@@ -1543,10 +1610,12 @@ def _previous_reparam(built, eps, mu, sig, k, out, z_off, sign, wraps=1):
 
 def phase_reparam(gen, built) -> dict:
     """B5 against its plain version and, bit for bit, against its previous
-    design; then its time in turns with the previous design on four rows:
-    the IWAE chunk of d2,p2,e2's components (S = 125, B = 512, n = 2) at
-    sign +1 and -1, of u6 (n = 6, sign 0), and the production chunk (125,
-    2048, 6) over rotating buffer sets."""
+    design and against itself built on the tail's previous tiles
+    (``PREVIOUS_TAIL``: the split tail design must leave B5 as it was);
+    then its time in turns with each on four rows: the IWAE chunk of
+    d2,p2,e2's components (S = 125, B = 512, n = 2) at sign +1 and -1, of
+    u6 (n = 6, sign 0), and the production chunk (125, 2048, 6) over
+    rotating buffer sets."""
     S, B = 125, 512
     worst = err = 0.0
     keep = None
@@ -1570,7 +1639,14 @@ def phase_reparam(gen, built) -> dict:
                 prev = _previous_reparam(built, eps, mu, sig, k,
                                          torch.zeros_like(out), 1, sign,
                                          wraps)
+                tiles = _previous_reparam(built, eps, mu, sig, k,
+                                          torch.zeros_like(out), 1, sign,
+                                          wraps, "reparam_previous_tiles")
                 torch.cuda.synchronize()
+                check(all(torch.equal(a, b)
+                          for a, b in zip((zt, lq, lp), tiles)),
+                      f"B5 n={n} sign={sign} k={kval} wraps={wraps}: "
+                      f"bit-equal to B5 on the previous tail tiles")
                 what = f"B5 n={n} sign={sign} k={kval} wraps={wraps}"
                 check(bool((out[:, 0] == 0).all()
                            and (out[:, 1 + n:] == 0).all()),
@@ -1590,7 +1666,8 @@ def phase_reparam(gen, built) -> dict:
                     keep = (eps, mu, sig, k, out)
     print(f"[reparam_stereo] 32 cases at (S, B) = (125, 512): worst share of "
           f"the tolerance {worst:.3g}, largest error on resolved entries "
-          f"{err:.3g}; each bit-equal to the previous design")
+          f"{err:.3g}; each bit-equal to the previous design and to B5 on "
+          f"the previous tail tiles")
     eps, mu, sig, k, out = keep
     rl = roofline
     prod = rl.reparam_sets(rl.buffer_sets(rl.reparam_bytes(rl.RS, rl.RB,
@@ -1616,9 +1693,24 @@ def phase_reparam(gen, built) -> dict:
                 lambda a=a: _previous_reparam(built, *a, sign)
                 for a in sets], "reparam_stereo_kernel", 100)
 
+        def on_tiles():
+            return rl.measure([
+                lambda a=a: _previous_reparam(built, *a, sign,
+                                              which="reparam_previous_tiles")
+                for a in sets], "reparam_stereo_kernel", 100)
+
         turns = [kernel(), previous(), previous(), kernel()]
         t = rl.mean_timing(turns[0], turns[3])
         p = rl.mean_timing(turns[1], turns[2])
+        tt = [kernel(), on_tiles(), on_tiles(), kernel()]
+        t2 = rl.mean_timing(tt[0], tt[3])
+        p2 = rl.mean_timing(tt[1], tt[2])
+        print(f"[reparam_stereo] {label}: kernel {t2.us:.2f} us, on the "
+              f"previous tail tiles {p2.us:.2f} us in turns "
+              f"({', '.join(f'{x.us:.2f}' for x in tt)} us): "
+              f"{t2.us / p2.us:.3f} of it "
+              f"({'within' if abs(t2.us / p2.us - 1) <= 0.03 else 'outside'}"
+              f" 3%)")
         e0 = sets[0][0]
         spt = manifold_kernels.reparam_spt(*e0.shape, sign)
         print(f"[reparam_stereo] {label}: kernel {t.us:.2f} us ({spt} "
@@ -1823,8 +1915,12 @@ def _sphere_floor_rows(spec, kval, gen, **opts):
     z_r, aux_r = tail_kernels.tail_forward_ref(comps, raw, eps, k)
     draw, dk, _ = tail_kernels.tail_backward(comps, raw, eps, k, dz, daux)
     pr, pk, _ = tail_kernels.tail_backward_ref(comps, raw, eps, k, dz, daux)
+    z0, aux0 = tail_kernels.tail_forward_launch(_PREVIOUS["fwd"], comps, raw,
+                                                eps, k)
     torch.cuda.synchronize()
     what = f"B4b floor rows of {spec} {opts or ''} at K={kval}"
+    check(torch.equal(z, z0) and torch.equal(aux, aux0),
+          f"{what}: B1 bit-equal to the previous design")
     half = ((z_r[:, 0] - 1.0 / kval ** 0.5) ** 2
             + (z_r[:, 1:] ** 2).sum(1)).sqrt() / 2.0
     check(bool((half[1:3] > (1.0 - 1e-6) / kval ** 0.5).all()
@@ -1858,13 +1954,15 @@ def phase_sphere_tail(gen) -> list[dict]:
         for B in (512, 128):
             for kset in ksets:
                 what = f"{spec} B={B} k={kset}"
-                rf, rb, kr, ef, eb, n_res = _tile_case(
+                rf, rb, kr, ef, eb, n_res, same = _tile_case(
                     "B4b", comps, _sphere_inputs(comps, B, kset, gen), what)
                 err_f, err_b = max(err_f, ef), max(err_b, eb)
                 worst_f, worst_b = max(worst_f, rf), max(worst_b, rb, kr)
                 print(f"[sphere_tile] {what}: forward {rf:.3g} of tol, "
                       f"backward {rb:.3g}, curvature {kr:.3g} "
-                      f"({n_res}/{B} rows resolved)")
+                      f"({n_res}/{B} rows resolved); against the previous "
+                      f"design: B1 bit-equal, B3 "
+                      f"{'bit-equal' if same else 'not bit-equal'}")
     floor = 0.0
     for spec, opts in (("s3:wrapped", {}), ("s6:wrapped",
                                             {"scalar_sigma": True}),
@@ -1883,6 +1981,69 @@ def phase_sphere_tail(gen) -> list[dict]:
           f"{worst_f:.3g}, backward {worst_b:.3g}; largest error on resolved "
           f"entries: forward {err_f:.3g}, backward {err_b:.3g}")
     return rows
+
+
+# The kernels line's rows of the tail kernels and the tail row each one's
+# previous design is timed on in turns
+_TURN_ROWS = {"tail_fwd": ("B1", SPEC, 512), "tail_bwd": ("B3", SPEC, 128),
+              "stereo_tile_fwd": ("B1", STEREO_SPEC, 512),
+              "stereo_tile_bwd": ("B3", STEREO_SPEC, 128),
+              "sphere_tile_fwd": ("B1", SPHERE_SPEC, 512),
+              "sphere_tile_bwd": ("B3", SPHERE_SPEC, 128)}
+
+
+def phase_tail_turns(card: str) -> dict:
+    """B1 and B3 in turns with their previous design (``PREVIOUS_TAIL``) on
+    every tail row of ``roofline.TAIL_ROWS`` (B3 at the matrix's batch 256
+    for u6 and s6:wrapped among them), on the rows' own inputs: the new
+    kernel's outputs first against the previous design's (B1's bit for bit;
+    whether B3's are printed: phases 12 and 16 hold them to the contract),
+    then new, previous, previous, new, each ``roofline.measure`` (CUDA
+    events around the replay of a CUDA graph of 100 calls). Returns
+    (kernel, spec, B) -> (new ms, previous ms)."""
+    rl = roofline
+    out = {}
+    for spec, kset, kern, B in rl.TAIL_ROWS:
+        comps, raw, eps, k, dz, daux = rl.tail_inputs(spec, kset, B)
+        if kern == "B1":
+            args, name = (raw, eps, k), "tail_fwd_kernel"
+            new = functools.partial(tail_kernels.tail_forward, comps, *args)
+            old = functools.partial(tail_kernels.tail_forward_launch,
+                                    _PREVIOUS["fwd"], comps, *args)
+        else:
+            args, name = (raw, eps, k, dz, daux), "tail_bwd_kernel"
+            new = functools.partial(tail_kernels.tail_backward, comps, *args)
+            old = functools.partial(tail_kernels.tail_backward_launch,
+                                    _PREVIOUS["bwd"], comps, *args)
+        a, b = new(), old()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        if kern == "B1":
+            check(same, f"{kern} {spec} B={B} bit-equal to the previous "
+                        f"design on its tail row's inputs")
+        turns = [rl.measure(f, name, iters=100) for f in (new, old, old, new)]
+        t = rl.mean_timing(turns[0], turns[3])
+        p = rl.mean_timing(turns[1], turns[2])
+        out[(kern, spec, B)] = (t.us / 1e3, p.us / 1e3)
+        print(f"[tail_turns] {card}: {kern} {spec} at B={B}: "
+              f"{t.us:.2f} us, previous design {p.us:.2f} us in turns (new, "
+              f"previous, previous, new: "
+              f"{', '.join(f'{x.us:.2f}' for x in turns)} us): "
+              f"{p.us / t.us:.2f}x; outputs "
+              f"{'bit-equal' if same else 'not bit-equal'} to the previous "
+              f"design's")
+    for kern, B, target in (("B3", 128, 2.0), ("B1", 512, 1.3)):
+        for spec in (STEREO_SPEC, "u6", SPHERE_SPEC):
+            t, p = out[(kern, spec, B)]
+            print(f"[tail_turns] {kern} {spec} at B={B}: {p / t:.2f}x the "
+                  f"previous design (target {target}x): "
+                  f"{'met' if p / t >= target else 'missed'}")
+    for kern, B in (("B1", 512), ("B1", 128), ("B3", 128)):
+        t, p = out[(kern, SPEC, B)]
+        print(f"[tail_turns] the flagship's {kern} at B={B}: {t / p:.3f} of "
+              f"the previous design's time ("
+              f"{'within' if abs(t / p - 1) <= 0.03 else 'outside'} 3%)")
+    return out
 
 
 def _stereo_points(B, n, kval, gen):
@@ -2644,12 +2805,22 @@ def phase_roofline(gen, built) -> tuple[list[dict], dict]:
                     in twin_turns["twin_reparam_calls"].items()))
             check(share >= 50 and turns_share >= 50,
                   f"{r['name']} at half of its bound or better")
+    print("[roofline] the tail's transcendentals in SASS instructions "
+          "(common path): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in result["tail_prices"].items()))
     for (spec, _, kern, B), r in zip(rl.TAIL_ROWS, result["rows"][4:]):
         name = "tail_bwd" if kern == "B3" else "tail_fwd"
+        warp = r["timings"].get("skeleton_warp")
         print(f"[roofline] {r['kernel']} at {r['shape']}: {r['us']:.3f} us "
               f"({_rowwise(name, spec, B)}); skeleton "
-              f"{r['floors_us']['skeleton']:.3f} us, operations "
-              f"{r['ops']} at the calibrated FMA rate "
+              f"{r['timings']['skeleton']['us']:.3f} us on the kernel's "
+              f"grid ({r['geometry']})"
+              + (f", {warp['us']:.3f} us on the warp-a-component grid"
+                 if warp else "")
+              + f" -> {r['floors_us']['skeleton']:.3f} us; operations "
+              f"{r['ops']} ({r['fma_slots']:.0f} FMA slots, the "
+              f"transcendentals at their SASS instructions: "
+              f"{r['transcendentals']}) at the calibrated FMA rate "
               f"{r['floors_us']['operations']:.4f} us -> binding "
               f"{r['binding_floor_us']:.3f} us ({r['bound_by']}), "
               f"{r['pct_of_binding']:.1f}% of it")
@@ -3693,6 +3864,11 @@ def main() -> int:
         phase_replay(ds, tmp, STEREO_SPEC, b6=False, free_run=False)
         phase_u6(ds, tmp)
         kernels += phase_sphere_tail(gen)
+        turns = phase_tail_turns(card)
+        for k in kernels:
+            if k["name"] in _TURN_ROWS:
+                k["ms_in_turns"], k["previous_ms"] = turns[
+                    _TURN_ROWS[k["name"]]]
         dist_rows, dist_launches = phase_dist(gen)
         kernels += dist_rows
         sphere_eval = phase_end_to_end(SPHERE_SPEC)

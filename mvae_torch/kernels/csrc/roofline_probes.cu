@@ -55,7 +55,10 @@
 // times (one relayout for each of the TPU probe's eight). The tail skeleton
 // takes the tail kernels' grid and their scalar loads and stores
 // (tail_grid.cuh), so it is timed with the same launch, the same rows per
-// block and the same fold. Built without --fmad=false: the FMA probe times
+// block and the same fold: the split geometry for a product with a d/p/u or
+// s component (a row's component on one thread of its 16, the split fold
+// from dk_rows), or on request the warp-a-component one every product took
+// before. Built without --fmad=false: the FMA probe times
 // FFMA.
 //
 // Entry points (plain C, loaded with ctypes; each returns cudaGetLastError()
@@ -71,10 +74,11 @@
 //                           z_off, lq, lp, S, B, n, Z, spt, stream)
 //   int twin_reparam_launch(the same arguments)
 //   int skel_tail_launch(raw, eps, kvec, dz, daux, out, out_c, dk, part,
-//                        counter, B, W, E, Z, nc, bwd, table, stream):
+//                        counter, B, W, E, Z, nc, bwd, warp, table, stream):
 //     with bwd = 0 the arguments of tail_fwd_launch (out = z, out_c = aux;
 //     dz, daux, dk, part and counter unused), with bwd = 1 those of
-//     tail_bwd_launch (out = draw, out_c = dk_rows)
+//     tail_bwd_launch (out = draw, out_c = dk_rows); warp = 1 takes the
+//     warp-a-component geometry whatever the product
 // Row probes take cols % 4 == 0 (and cols >= 8 for transpose) with 16-byte
 // aligned bases; the distance skeleton and twin read rows of any width.
 
@@ -373,6 +377,22 @@ __host__ __device__ __forceinline__ float twin_exp_step(float t) {
 TWIN_PRICE(price_sqrt_kernel, twin_sqrt_step)
 TWIN_PRICE(price_rcp_kernel, twin_rcp_step)
 TWIN_PRICE(price_exp_kernel, twin_exp_step)
+
+// The accurate sinf, cosf and logf the tail kernels' tiles take, priced the
+// same way (roofline.tail_transcendental_prices): the steps keep their
+// arguments where the common path runs (|t| <= 1, a normal log argument)
+__host__ __device__ __forceinline__ float price_sin_step(float t) {
+  return sinf(t);
+}
+__host__ __device__ __forceinline__ float price_cos_step(float t) {
+  return cosf(t);
+}
+__host__ __device__ __forceinline__ float price_log_step(float t) {
+  return logf(fabsf(t) + 2.f);
+}
+TWIN_PRICE(price_sin_kernel, price_sin_step)
+TWIN_PRICE(price_cos_kernel, price_cos_step)
+TWIN_PRICE(price_log_kernel, price_log_step)
 #undef TWIN_PRICE
 
 // The stereographic twin's scalar tail from a row's three Gram sums: the
@@ -962,6 +982,127 @@ skel_tail_bwd_kernel(const float* __restrict__ raw,
   }
 }
 
+// The split geometry, forward, phase 1: thread (row, item i < nc) of the
+// row's components
+__device__ __forceinline__ void skel_tail_fwd_split_rows(
+    const float* __restrict__ raw, const float* __restrict__ eps,
+    const float* __restrict__ kvec, float* __restrict__ z,
+    float* __restrict__ aux, int B, int W, int E, int Z, const TailTable& t,
+    int block, int tid, float* sh) {
+  const int g = tail_split_row(tid), row = block * TAIL_SPLIT_ROWS + g;
+  if (row >= B) return;
+  const int nc = t.nc;
+  for (int i = tail_split_item(tid); i < nc; i += TAIL_LANES) {
+    int rw, zw;
+    const float s = skel_tail_sum(raw, eps, kvec, raw, raw, W, E, Z, 0, t,
+                                  row, i, &rw, &zw);
+    float* o = z + (size_t)row * Z + t.z_off[i];
+    for (int j = 0; j < zw; ++j) o[j] = s;
+    aux[(size_t)row * (nc + 2) + i] = s;
+    sh[i * TAIL_SPLIT_ROWS + g] = s;
+  }
+}
+
+// The split geometry, forward, phase 2: item 0 of a row sums its components
+// in order
+__device__ __forceinline__ void skel_tail_fwd_split_sums(
+    float* __restrict__ aux, int B, int nc, int block, int tid,
+    const float* sh) {
+  const int g = tail_split_row(tid), row = block * TAIL_SPLIT_ROWS + g;
+  if (tail_split_item(tid) != 0 || row >= B) return;
+  float s = 0.f;
+  for (int i = 0; i < nc; ++i) s = s + sh[i * TAIL_SPLIT_ROWS + g];
+  aux[(size_t)row * (nc + 2) + nc] = s;
+  aux[(size_t)row * (nc + 2) + nc + 1] = s;
+}
+
+// The split geometry, backward: item 0 of a row of split component c
+__device__ __forceinline__ void skel_tail_bwd_split_rows(
+    const float* __restrict__ raw, const float* __restrict__ eps,
+    const float* __restrict__ kvec, const float* __restrict__ dz,
+    const float* __restrict__ daux, float* __restrict__ draw,
+    float* __restrict__ dk_rows, int B, int W, int E, int Z,
+    const TailTable& t, int c, int bx, int tid) {
+  const int g = tail_split_row(tid), row = bx * TAIL_SPLIT_ROWS + g;
+  if (tail_split_item(tid) != 0 || row >= B) return;
+  int rw, zw;
+  const float s = skel_tail_sum(raw, eps, kvec, dz, daux, W, E, Z, 1, t, row,
+                                c, &rw, &zw);
+  float* o = draw + (size_t)row * W + t.raw_off[c];
+  for (int j = 0; j < rw; ++j) o[j] = s;
+  dk_rows[(size_t)row * t.nc + c] = s;
+  __threadfence();
+}
+
+__global__ void __launch_bounds__(TAIL_THREADS)
+skel_tail_fwd_kernel_split(const float* __restrict__ raw,
+                           const float* __restrict__ eps,
+                           const float* __restrict__ kvec,
+                           float* __restrict__ z, float* __restrict__ aux,
+                           int B, int W, int E, int Z, TailTable t) {
+  __shared__ float sh[MAX_COMPS * TAIL_SPLIT_ROWS];
+  skel_tail_fwd_split_rows(raw, eps, kvec, z, aux, B, W, E, Z, t, blockIdx.x,
+                           threadIdx.x, sh);
+  __syncthreads();
+  skel_tail_fwd_split_sums(aux, B, t.nc, blockIdx.x, threadIdx.x, sh);
+}
+
+// grid (tail_split_blocks(B), nc) as tail_bwd_kernel_split: a component
+// that runs a row on one thread takes its first tail_bwd_blocks(B) blocks
+__global__ void __launch_bounds__(TAIL_THREADS)
+skel_tail_bwd_kernel_split(const float* __restrict__ raw,
+                           const float* __restrict__ eps,
+                           const float* __restrict__ kvec,
+                           const float* __restrict__ dz,
+                           const float* __restrict__ daux,
+                           float* __restrict__ draw,
+                           float* __restrict__ dk_rows, float* __restrict__ dk,
+                           float* __restrict__ part,
+                           unsigned* __restrict__ counter, int B, int W,
+                           int E, int Z, TailTable t) {
+  __shared__ float sh[TAIL_GROUPS * TAIL_ROWS];
+  __shared__ float gs[TAIL_GROUPS], buf[TAIL_FOLD_CHUNK], total;
+  __shared__ bool last;
+  const int bx = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
+  if (!t.split[c]) {
+    const int blocks = tail_bwd_blocks(B);
+    if (bx >= blocks) return;
+    skel_tail_bwd_rows(raw, eps, kvec, dz, daux, draw, dk_rows, B, W, E, Z, t,
+                       c, bx, tid, sh);
+    __syncthreads();
+    tail_fold_groups(B, bx, tid, sh, gs);
+    __syncthreads();
+    if (blocks == 1) {
+      tail_fold_direct(B, c, tid, gs, dk);
+      return;
+    }
+    tail_fold_publish(B, t.nc, c, bx, tid, gs, part);
+    __syncthreads();
+    if (tid == 0) last = tail_fold_ticket(counter + c, blocks);
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      tail_fold_last(B, t.nc, c, tid, part, dk, counter);
+    }
+    return;
+  }
+  skel_tail_bwd_split_rows(raw, eps, kvec, dz, daux, draw, dk_rows, B, W, E,
+                           Z, t, c, bx, tid);
+  __syncthreads();
+  if (tid == 0) last = tail_fold_ticket(counter + c, gridDim.x);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int r0 = 0; r0 < B; r0 += TAIL_FOLD_CHUNK) {
+    tail_split_fold_stage(B, t.nc, c, r0, tid, dk_rows, buf);
+    __syncthreads();
+    tail_split_fold_groups(B, r0, tid, buf);
+    __syncthreads();
+    tail_split_fold_total(B, c, r0, tid, buf, &total, dk, counter);
+    __syncthreads();
+  }
+}
+
 // --- launchers ------------------------------------------------------------
 
 // A grid of at most per_sm blocks per SM (8: a full SM's 2048 threads), or
@@ -1175,15 +1316,23 @@ extern "C" int skel_tail_launch(const float* raw, const float* eps,
                                 const float* daux, float* out, float* out_c,
                                 float* dk, float* part, unsigned* counter,
                                 int B, int W, int E, int Z, int nc, int bwd,
-                                const int* table, void* stream) {
+                                int warp, const int* table, void* stream) {
   TailTable t;
   if (!tail_table_from(table, nc, &t) || B < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (B > 0 && bwd)
+  const bool split = !warp && tail_any_split(t);
+  if (B > 0 && bwd && split)
+    skel_tail_bwd_kernel_split<<<dim3(tail_split_blocks(B), nc), TAIL_THREADS,
+                                 0, s>>>(raw, eps, kvec, dz, daux, out, out_c,
+                                         dk, part, counter, B, W, E, Z, t);
+  else if (B > 0 && bwd)
     skel_tail_bwd_kernel<<<dim3(tail_bwd_blocks(B), nc), tail_bwd_threads(B),
                            0, s>>>(raw, eps, kvec, dz, daux, out, out_c, dk,
                                    part, counter, B, W, E, Z, t);
+  else if (B > 0 && split)
+    skel_tail_fwd_kernel_split<<<tail_split_blocks(B), TAIL_THREADS, 0, s>>>(
+        raw, eps, kvec, out, out_c, B, W, E, Z, t);
   else if (B > 0)
     skel_tail_fwd_kernel<<<tail_blocks(B), TAIL_ROWS * tail_warps(nc), 0,
                            s>>>(raw, eps, kvec, out, out_c, B, W, E, Z, t);

@@ -162,7 +162,7 @@ _ARGTYPES = {
                            + [_INT] * 5,
     "twin_reparam_launch": [_VP, _LL] + [_VP] * 5 + [_INT] + [_VP] * 2
                            + [_INT] * 5,
-    "skel_tail_launch": [_VP] * 10 + [_INT] * 6 + [_VP],
+    "skel_tail_launch": [_VP] * 10 + [_INT] * 7 + [_VP],
 }
 
 
@@ -656,12 +656,14 @@ def skel_tail_ref(comps, raw, eps, k, dz=None, daux=None):
     return torch.cat(outs, 1), torch.stack(cols + [total, total], 1)
 
 
-def skel_tail(comps, raw, eps, k, dz=None, daux=None):
+def skel_tail(comps, raw, eps, k, dz=None, daux=None, warp=False):
     """Bytes floor of the tail kernels at their own grid (``tail_forward``'s
-    without ``dz``, ``tail_backward``'s with ``dz`` and ``daux``): reads
-    every input word and writes every output word of the tail, the
-    backward's fold included, and about one add a word read. Same arguments
-    and result shapes as the kernel it prices; values as ``skel_tail_ref``."""
+    without ``dz``, ``tail_backward``'s with ``dz`` and ``daux``; with
+    ``warp`` the warp-a-component grid every product took before the split
+    geometry): reads every input word and writes every output word of the
+    tail, the backward's fold included, and about one add a word read. Same
+    arguments and result shapes as the kernel it prices; values as
+    ``skel_tail_ref`` on either grid."""
     comps = tuple(comps)
     W, E, Z = tail_kernels._dims(comps)
     nc, B = len(comps), raw.shape[0]
@@ -690,7 +692,7 @@ def skel_tail(comps, raw, eps, k, dz=None, daux=None):
     counter = tail_kernels._fold_counter(dev)
     _launch("skel_tail_launch", dev, *[t.data_ptr() for t in ins],
             out.data_ptr(), out_c.data_ptr(), dk.data_ptr(), part.data_ptr(),
-            counter.data_ptr(), B, W, E, Z, nc, int(bwd),
+            counter.data_ptr(), B, W, E, Z, nc, int(bwd), int(warp),
             tail_kernels._table(comps))
     outs = (out, out_c, dk) if bwd else (out, out_c)
     _launched(skel_tail, *outs)
@@ -812,17 +814,19 @@ _TRANSCENDENTAL = frozenset((
     "acosh", "atanh", "pow", "erf", "erfc", "sigmoid"))
 
 
-def op_split(fn, *args, **kwargs) -> dict:
+def op_split(fn, *args, names: bool = False, **kwargs) -> dict:
     """Operations ``fn(*args, **kwargs)`` runs, as PyTorch runs them, split
     into ``arithmetic`` and ``transcendental`` (an op of ``_TRANSCENDENTAL``,
     one per element of its output): one per element of each arithmetic op's
     output, one per input element of a reduction; ops that move, make or
     view data count none. Exact for the plain versions, which run each
     expression of a kernel as one op (both sides of a branch where the
-    kernel takes one)."""
+    kernel takes one). With ``names``, also ``by_name``: the
+    transcendentals by op name."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     counts = {"arithmetic": 0, "transcendental": 0}
+    by_name: dict = {}
 
     class _Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -835,14 +839,18 @@ def op_split(fn, *args, **kwargs) -> dict:
             elif name not in _NO_ARITH:
                 res = out[0] if isinstance(out, (tuple, list)) else out
                 if torch.is_tensor(res):
-                    kind = ("transcendental"
-                            if name.rstrip("_") in _TRANSCENDENTAL
+                    base = name.rstrip("_")
+                    kind = ("transcendental" if base in _TRANSCENDENTAL
                             else "arithmetic")
                     counts[kind] += res.numel()
+                    if kind == "transcendental":
+                        by_name[base] = by_name.get(base, 0) + res.numel()
             return out
 
     with _Count():
         fn(*args, **kwargs)
+    if names:
+        counts["by_name"] = by_name
     return counts
 
 
@@ -853,24 +861,46 @@ def op_count(fn, *args, **kwargs) -> int:
 
 
 def tail_ops(comps, raw, eps, k, dz=None, daux=None) -> int:
-    """Operations of the tail at these inputs: ``op_count`` of the plain
-    forward (``tail_forward_ref``) or, with the cotangents, of the plain
-    backward (``tail_backward_ref``: autograd through the forward, which
-    the kernel recomputes as well), counted on CPU copies."""
+    """Operations of the tail at these inputs: ``tail_op_split``'s two
+    counts summed (the plain forward's or, with the cotangents, the plain
+    backward's: autograd through the forward, which the kernel recomputes
+    as well)."""
+    split = tail_op_split(comps, raw, eps, k, dz, daux)
+    return split["arithmetic"] + split["transcendental"]
+
+
+def tail_op_split(comps, raw, eps, k, dz=None, daux=None) -> dict:
+    """``op_split`` (with ``by_name``) of the plain forward or, with the
+    cotangents, of the plain backward, counted on CPU copies."""
     cpu = [t.detach().cpu() for t in (raw, eps, k)]
     if dz is None:
-        return op_count(tail_kernels.tail_forward_ref, comps, *cpu)
-    return op_count(tail_kernels.tail_backward_ref, comps, *cpu,
-                    dz.detach().cpu(), daux.detach().cpu())
+        return op_split(tail_kernels.tail_forward_ref, comps, *cpu,
+                        names=True)
+    return op_split(tail_kernels.tail_backward_ref, comps, *cpu,
+                    dz.detach().cpu(), daux.detach().cpu(), names=True)
 
 
-def tail_floors(skel_us: float, ops: int, cal: dict) -> dict:
+def tail_priced_ops(split: dict, prices: dict) -> float:
+    """FMA issue slots of a tail call (``tail_op_split``): an arithmetic op
+    one, a transcendental its SASS instructions (``prices``,
+    ``tail_transcendental_prices``: exp, log, sin, cos their own, every
+    other one ``other``)."""
+    return split["arithmetic"] + sum(
+        n * prices.get(name, prices["other"])
+        for name, n in split["by_name"].items())
+
+
+def tail_floors(skel_us: float, slots: float, cal: dict,
+                skel_warp_us: float | None = None) -> dict:
     """The tail kernels' floors (us per launch): ``skeleton``, the I/O
-    skeleton's measured time at the kernel's grid (``skel_tail``), and
-    ``operations``, ``tail_ops`` at the calibrated FMA rate (every
-    operation priced as an FMA, transcendentals too: a lower bound)."""
-    return {"skeleton": skel_us,
-            "operations": ops / (cal["fma_tflops"] * 1e6)}
+    skeleton's measured time at the kernel's grid (``skel_tail``) or, where
+    the product takes the split geometry, the lower of that and the
+    warp-a-component grid's (``skel_warp_us``: a floor must not rise
+    because the kernel's geometry changed), and ``operations``, ``slots``
+    FMA issue slots (``tail_priced_ops``) at the calibrated FMA rate."""
+    skel = skel_us if skel_warp_us is None else min(skel_us, skel_warp_us)
+    return {"skeleton": skel,
+            "operations": 2.0 * slots / (cal["fma_tflops"] * 1e6)}
 
 
 # ops a kernel does not issue: SASS applies them to an operand
@@ -1112,10 +1142,11 @@ def _executed_path(sass: str, kernel: str, lo: int, hi: int) -> list[str]:
     """The opcodes one trip of ``kernel``'s loop ``lo`` .. ``hi`` issues on
     its common path: from ``lo`` to the loop's backward branch at ``hi``, an
     unconditional branch followed, a conditional one taken only if the
-    instructions it jumps over hold a CALL (the precise functions' slow
-    path, reached for special or denormal inputs) and otherwise not taken
-    (a branch out of the loop, a divergence check), a predicated CALL
-    counted but not followed."""
+    instructions it jumps over hold a CALL or a local-memory access (the
+    precise functions' slow path, reached for special, denormal or, for
+    sinf and cosf, huge inputs: their argument reduction's table lives in
+    local memory) and otherwise not taken (a branch out of the loop, a
+    divergence check), a predicated CALL counted but not followed."""
     insns = _function_insns(sass, kernel)
     at = {a: i for i, (a, *_) in enumerate(insns)}
     path, i = [], at[lo]
@@ -1136,11 +1167,39 @@ def _executed_path(sass: str, kernel: str, lo: int, hi: int) -> list[str]:
                                        f"it unconditionally ({addr:#x})")
                 i = at[t]
                 continue
-            if addr < t <= hi and any(o.startswith("CALL") for a, _, o, _
-                                      in insns if addr < a < t):
+            if addr < t <= hi and any(o.startswith(("CALL", "LDL", "STL"))
+                                      for a, _, o, _ in insns
+                                      if addr < a < t):
                 i = at[t]
                 continue
         i += 1
+
+
+def _price_loops(sass: str, kind: str, steps=(16, 32)) -> float:
+    """The SASS instructions one step of ``price_<kind>_kernel`` issues on
+    its common path: of its loops the two outermost (the largest spans: a
+    step may hold a loop of its own on a slow path), one of ``steps[0]``
+    steps a trip and one of ``steps[1]``, the difference of their executed
+    instructions (``_executed_path``) over the difference of their MUFU
+    counts, or, where a step issues no MUFU (the accurate sinf, cosf and
+    logf are polynomials), over the difference of their steps; the loops'
+    own counter and branch cancel."""
+    kernel = f"price_{kind}_kernel"
+    outer = sorted(_loop_ops(sass, kernel), key=lambda lp: lp[0] - lp[1])[:2]
+    loops = []
+    for lo, hi, _ in outer:
+        ops = _executed_path(sass, kernel, lo, hi)
+        loops.append((sum(o.startswith("MUFU") for o in ops), len(ops)))
+    if len(loops) < 2:
+        raise RuntimeError(f"{kernel} has no two loops: {loops}")
+    (m1, c1), (m2, c2) = sorted(loops, key=lambda lp: lp[1])
+    if m2 > m1:
+        return (c2 - c1) / (m2 - m1)
+    if m1 or m2 or c2 == c1:
+        raise RuntimeError(f"{kernel} has no two loops of different MUFU "
+                           f"counts or, without MUFU, of different "
+                           f"lengths: {loops}")
+    return (c2 - c1) / (steps[1] - steps[0])
 
 
 def transcendental_instructions(sass: str | None = None) -> dict:
@@ -1155,22 +1214,29 @@ def transcendental_instructions(sass: str | None = None) -> dict:
     ``cuobjdump -sass`` of the built ``roofline_probes`` library."""
     if sass is None:
         sass = _probes_sass()
-    prices = {}
-    for kind in STWIN_TRANSCENDENTALS:
-        kernel = f"price_{kind}_kernel"
-        loops = []
-        for lo, hi, _ in _loop_ops(sass, kernel):
-            ops = _executed_path(sass, kernel, lo, hi)
-            mufu = sum(o.startswith("MUFU") for o in ops)
-            if mufu:
-                loops.append((mufu, len(ops)))
-        if len(loops) < 2 or min(loops)[0] == max(loops)[0]:
-            raise RuntimeError(f"{kernel} has no two loops of different "
-                               f"MUFU counts: {loops}")
-        (m1, c1), (m2, c2) = min(loops), max(loops)
-        prices[kind] = (c2 - c1) / (m2 - m1)
+    prices = {kind: _price_loops(sass, kind)
+              for kind in STWIN_TRANSCENDENTALS}
     prices["tail"] = sum(c * prices[k]
                          for k, c in STWIN_TRANSCENDENTALS.items())
+    return prices
+
+
+# The tail kernels' transcendentals priced by their own SASS count
+# (``tail_transcendental_prices``); every other one at the accurate tanhf's
+TAIL_PRICED = ("sin", "cos", "log", "exp")
+
+
+def tail_transcendental_prices(sass: str | None = None,
+                               steps=(16, 32)) -> dict:
+    """SASS instructions of one accurate sinf, cosf, logf and expf on their
+    common path as built (``price_<kind>_kernel`` of ``roofline_probes.cu``,
+    loops of ``steps`` steps, counted by ``_price_loops``), and ``other``,
+    an accurate tanhf's (``tanh_instructions``), the price of every other
+    transcendental of the tail (tan, atan, log1p, pow, tanh)."""
+    if sass is None:
+        sass = _probes_sass()
+    prices = {kind: _price_loops(sass, kind, steps) for kind in TAIL_PRICED}
+    prices["other"] = tanh_instructions(sass)["per_tanh"]
     return prices
 
 
@@ -1628,7 +1694,8 @@ def _row_reparam(cal):
 TAIL_SPECS = (("h2,s2,e2", (-1.0, 1.0, 0.0)), ("d2,p2,e2", (-1.0, 1.0, 0.0)),
               ("u6", (0.5,)), ("s6:wrapped", (1.0,)))
 TAIL_ROWS = tuple((spec, kset, kern, B) for spec, kset in TAIL_SPECS
-                  for kern, B in (("B1", 128), ("B1", 512), ("B3", 128)))
+                  for kern, B in (("B1", 128), ("B1", 512), ("B3", 128))) + (
+    ("u6", (0.5,), "B3", 256), ("s6:wrapped", (1.0,), "B3", 256))
 
 
 def tail_inputs(spec, kset, B):
@@ -1656,32 +1723,45 @@ def tail_bytes(comps, B: int, backward: bool) -> int:
     return 4 * (B * (W + E) + nc + B * (Z + nc + 2))
 
 
-def _row_tail(cal, spec, kset, kern, B):
+def _row_tail(cal, prices, spec, kset, kern, B):
     comps, raw, eps, k, dz, daux = tail_inputs(spec, kset, B)
     bwd = kern == "B3"
     cot = (dz, daux) if bwd else ()
     fn = tail_kernels.tail_backward if bwd else tail_kernels.tail_forward
     ref = (tail_kernels.tail_backward_ref if bwd
            else tail_kernels.tail_forward_ref)
+    name = "skel_tail_bwd_kernel" if bwd else "skel_tail_fwd_kernel"
     # 100 calls a graph, as chip_smoke's kernel_ms: on the H100 a replay's
     # fixed cost spread over 20 calls added ~1-3 us to a call of these
     # few-us kernels
     t = measure(lambda: fn(comps, raw, eps, k, *cot),
                 "tail_bwd_kernel" if bwd else "tail_fwd_kernel", iters=100)
-    skel = measure(lambda: skel_tail(comps, raw, eps, k, *cot),
-                   "skel_tail_bwd_kernel" if bwd else "skel_tail_fwd_kernel",
+    skel = measure(lambda: skel_tail(comps, raw, eps, k, *cot), name,
                    iters=100)
+    split_grid = any(tail_kernels.component_split(c) for c in comps)
+    skel_warp = (measure(lambda: skel_tail(comps, raw, eps, k, *cot,
+                                           warp=True), name, iters=100)
+                 if split_grid else None)
     plain = measure(lambda: ref(comps, raw, eps, k, *cot), iters=3)
-    ops = tail_ops(comps, raw, eps, k, *cot)
+    split = tail_op_split(comps, raw, eps, k, *cot)
+    ops = split["arithmetic"] + split["transcendental"]
+    slots = tail_priced_ops(split, prices)
     nbytes = tail_bytes(comps, B, bwd)
+    timings = {"kernel": _timing(t), "skeleton": _timing(skel),
+               "plain": _timing(plain)}
+    if skel_warp is not None:
+        timings["skeleton_warp"] = _timing(skel_warp)
     return {"kernel": f"{kern} tail_{'bwd' if bwd else 'fwd'} {spec}",
             "shape": f"B={B}, K={kset}", "us": t.us,
             **peak_share(t.us, nbytes, ops),
-            **binding(t.us, tail_floors(skel.us, ops, cal)),
-            "plain_us": plain.us, "ops": ops, "bytes": nbytes,
+            **binding(t.us, tail_floors(
+                skel.us, slots, cal,
+                None if skel_warp is None else skel_warp.us)),
+            "plain_us": plain.us, "ops": ops, "fma_slots": slots,
+            "transcendentals": split["by_name"], "bytes": nbytes,
+            "geometry": "split" if split_grid else "warp a component",
             "l2": "one buffer set (the caller's heads come from L2)",
-            "timings": {"kernel": _timing(t), "skeleton": _timing(skel),
-                        "plain": _timing(plain)}}
+            "timings": timings}
 
 
 @contextlib.contextmanager
@@ -1809,7 +1889,10 @@ def main(out_path: str | None = None) -> dict:
     rows.append(_row_lorentz(cal, *lorentz_inputs()))
     rows.append(_row_reparam(cal))
     rows.append(_row_decode(cal))
-    rows += [_row_tail(cal, *r) for r in TAIL_ROWS]
+    prices = tail_transcendental_prices()
+    _log("tail transcendentals, SASS instructions (common path): "
+         + ", ".join(f"{k} {v:.2f}" for k, v in prices.items()))
+    rows += [_row_tail(cal, prices, *r) for r in TAIL_ROWS]
     for r in rows:
         _log(f"{r['kernel']:20s} {r['us']:10.3f} us; binding floor "
              f"{r['binding_floor_us']:10.3f} us ({r['bound_by']}) -> "
@@ -1825,9 +1908,12 @@ def main(out_path: str | None = None) -> dict:
     for r in rows[4:]:
         probes[f"skel_tail {r['kernel']} {r['shape']}"] = \
             r["timings"]["skeleton"]
+        if "skeleton_warp" in r["timings"]:
+            probes[f"skel_tail warp {r['kernel']} {r['shape']}"] = \
+                r["timings"]["skeleton_warp"]
     result = {"card": name, "device": torch.cuda.get_device_name(0),
-              "peak": PEAK, "calibration": cal, "rows": rows,
-              "probes": probes}
+              "peak": PEAK, "calibration": cal, "tail_prices": prices,
+              "rows": rows, "probes": probes}
     if out_path:
         with open(out_path, "w") as f:
             f.write(json.dumps(result) + "\n")

@@ -66,6 +66,13 @@ def component_supported(comp) -> bool:
     return False
 
 
+def component_split(comp) -> bool:
+    """Whether the tail kernels run this component's rows split over a
+    row's threads (``csrc/tail_grid.cuh``: the stereographic and wrapped
+    embedded-sphere tiles)."""
+    return _kind(comp) in (KIND_WRAPPED_STEREO, KIND_WRAPPED_S)
+
+
 def _kind(comp) -> int:
     if comp.posterior == "normal":
         return KIND_NORMAL
@@ -521,21 +528,30 @@ def _table(comps):
     return (ctypes.c_int * len(rows))(*rows)
 
 
+def bind_tail(lib):
+    """The two launch entries of a built tail library (the package's, or the
+    previous design ``scripts/tail_previous`` measured beside it; each takes
+    ``tail_fwd_launch``'s or ``tail_bwd_launch``'s arguments), typed for
+    ctypes: {"fwd": fn or None, "bwd": fn or None}."""
+    out = {}
+    for kind, n_ptr in (("fwd", 5), ("bwd", 10)):
+        fn = getattr(lib, f"tail_{kind}_launch", None)
+        if fn is not None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p, ctypes.c_void_p])
+        out[kind] = fn
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
-    fn = _build.load("tail_fwd").tail_fwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_void_p])
-    return fn
+    return bind_tail(_build.load("tail_fwd"))["fwd"]
 
 
-def tail_forward(comps, raw, eps, k):
-    """The fused tail: on a CUDA tensor one launch of ``csrc/tail_fwd.cu``;
-    on a CPU tensor its plain version ``tail_forward_ref``. Same arguments
-    and results as ``tail_forward_ref``."""
-    comps = tuple(comps)
-    W, E, Z = _dims(comps)
+def _check_fwd(comps, raw, eps, k):
+    """Shapes, family and device of a forward call; True for a CPU one."""
+    W, E, _ = _dims(comps)
     nc = len(comps)
     if raw.dim() != 2 or raw.shape[1] != W:
         raise ValueError(f"raw must be (B, {W}), got {tuple(raw.shape)}")
@@ -546,7 +562,7 @@ def tail_forward(comps, raw, eps, k):
     if not all(component_supported(c) for c in comps):
         raise ValueError("product has a component outside the kernel family")
     if raw.device.type == "cpu":
-        return tail_forward_ref(comps, raw, eps, k)
+        return True
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
     for name, t in (("raw", raw), ("eps", eps), ("k", k)):
@@ -554,13 +570,32 @@ def tail_forward(comps, raw, eps, k):
             raise ValueError(f"{name} must be float32 on {raw.device}")
     if nc > MAX_COMPS:
         raise ValueError(f"at most {MAX_COMPS} components")
+    return False
+
+
+def tail_forward_launch(fn, comps, raw, eps, k):
+    """One launch of a forward entry ``fn`` (``bind_tail``) on CUDA tensors
+    checked by the caller: (z, aux). Counts nothing."""
+    W, E, Z = _dims(comps)
+    nc, B = len(comps), raw.shape[0]
     raw, eps, k = raw.contiguous(), eps.contiguous(), k.contiguous()
     z = torch.empty((B, Z), dtype=torch.float32, device=raw.device)
     aux = torch.empty((B, nc + 2), dtype=torch.float32, device=raw.device)
     stream = torch.cuda.current_stream(raw.device).cuda_stream
-    _build.check(_lib()(raw.data_ptr(), eps.data_ptr(), k.data_ptr(),
-                        z.data_ptr(), aux.data_ptr(), B, W, E, Z, nc,
-                        _table(comps), stream), "tail_fwd_launch")
+    _build.check(fn(raw.data_ptr(), eps.data_ptr(), k.data_ptr(),
+                    z.data_ptr(), aux.data_ptr(), B, W, E, Z, nc,
+                    _table(comps), stream), "tail_fwd_launch")
+    return z, aux
+
+
+def tail_forward(comps, raw, eps, k):
+    """The fused tail: on a CUDA tensor one launch of ``csrc/tail_fwd.cu``;
+    on a CPU tensor its plain version ``tail_forward_ref``. Same arguments
+    and results as ``tail_forward_ref``."""
+    comps = tuple(comps)
+    if _check_fwd(comps, raw, eps, k):
+        return tail_forward_ref(comps, raw, eps, k)
+    z, aux = tail_forward_launch(_lib(), comps, raw, eps, k)
     tail_forward.launches += 1
     check_outputs("tail_fwd", z, aux)
     return z, aux
@@ -613,11 +648,7 @@ def tail_backward_ref(comps, raw, eps, k, dz, daux):
 
 @functools.lru_cache(maxsize=None)
 def _lib_bwd():
-    fn = _build.load("tail_bwd").tail_bwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_void_p])
-    return fn
+    return bind_tail(_build.load("tail_bwd"))["bwd"]
 
 
 _FOLD_COUNTERS: dict = {}
@@ -638,12 +669,8 @@ def _fold_counter(device):
     return buf
 
 
-def tail_backward(comps, raw, eps, k, dz, daux):
-    """The tail's backward: on a CUDA tensor one launch of
-    ``csrc/tail_bwd.cu``, which also folds the per-row curvature gradients
-    over the batch; on a CPU tensor its plain version ``tail_backward_ref``.
-    Same arguments and results as ``tail_backward_ref``."""
-    comps = tuple(comps)
+def _check_bwd(comps, raw, eps, k, dz, daux):
+    """Shapes, family and device of a backward call; True for a CPU one."""
     W, E, Z = _dims(comps)
     nc = len(comps)
     B = raw.shape[0]
@@ -655,7 +682,7 @@ def tail_backward(comps, raw, eps, k, dz, daux):
     if not all(component_supported(c) for c in comps):
         raise ValueError("product has a component outside the kernel family")
     if raw.device.type == "cpu":
-        return tail_backward_ref(comps, raw, eps, k, dz, daux)
+        return True
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
     for name, (t, _) in shapes.items():
@@ -663,6 +690,14 @@ def tail_backward(comps, raw, eps, k, dz, daux):
             raise ValueError(f"{name} must be float32 on {raw.device}")
     if nc > MAX_COMPS:
         raise ValueError(f"at most {MAX_COMPS} components")
+    return False
+
+
+def tail_backward_launch(fn, comps, raw, eps, k, dz, daux):
+    """One launch of a backward entry ``fn`` (``bind_tail``) on CUDA tensors
+    checked by the caller: (draw, dk_rows, dk). Counts nothing."""
+    W, E, Z = _dims(comps)
+    nc, B = len(comps), raw.shape[0]
     args = [t.detach().contiguous() for t in (raw, eps, k, dz, daux)]
     dev = raw.device
     draw = torch.empty((B, W), dtype=torch.float32, device=dev)
@@ -673,10 +708,23 @@ def tail_backward(comps, raw, eps, k, dz, daux):
     if B == 0:
         dk.zero_()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(_lib_bwd()(*[t.data_ptr() for t in args], draw.data_ptr(),
-                            dk_rows.data_ptr(), dk.data_ptr(),
-                            part.data_ptr(), counter.data_ptr(), B, W, E, Z,
-                            nc, _table(comps), stream), "tail_bwd_launch")
+    _build.check(fn(*[t.data_ptr() for t in args], draw.data_ptr(),
+                    dk_rows.data_ptr(), dk.data_ptr(), part.data_ptr(),
+                    counter.data_ptr(), B, W, E, Z, nc, _table(comps),
+                    stream), "tail_bwd_launch")
+    return draw, dk_rows, dk
+
+
+def tail_backward(comps, raw, eps, k, dz, daux):
+    """The tail's backward: on a CUDA tensor one launch of
+    ``csrc/tail_bwd.cu``, which also folds the per-row curvature gradients
+    over the batch; on a CPU tensor its plain version ``tail_backward_ref``.
+    Same arguments and results as ``tail_backward_ref``."""
+    comps = tuple(comps)
+    if _check_bwd(comps, raw, eps, k, dz, daux):
+        return tail_backward_ref(comps, raw, eps, k, dz, daux)
+    draw, dk_rows, dk = tail_backward_launch(_lib_bwd(), comps, raw, eps, k,
+                                             dz, daux)
     tail_backward.launches += 1
     check_outputs("tail_bwd", draw, dk_rows, dk)
     return draw, dk_rows, dk

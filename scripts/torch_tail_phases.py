@@ -4,9 +4,11 @@ on the card.
 
     python3 scripts/torch_tail_phases.py [--csrc DIR] [--batches 128,512]
 
-Builds the two kernel sources of ``DIR`` (default: the package's
-``mvae_torch/kernels/csrc``; another copy must have the same layout, one
-warp a component as in ``tail_grid.cuh``) as they are and in variants
+Builds the two kernel sources of ``DIR`` (default: the tail kernels'
+previous design, ``scripts/tail_previous``: one warp a component and each
+tile serial on one thread, the layout the knobs below patch; the
+package's split kernels have another layout, timed in turns with this
+one by ``scripts/torch_tail_turns.py``) as they are and in variants
 that leave a phase out or add one. It times every variant, the tail's I/O
 skeleton (``roofline.skel_tail``, B1's and B3's floor) and an empty kernel
 by ``roofline.measure`` (CUDA events around a CUDA-graph replay of 100
@@ -288,7 +290,8 @@ def _table(comps, only=None, wraps0=False):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--csrc", default=str(_build.CSRC))
+    ap.add_argument("--csrc", default=str(Path(__file__).resolve().parent
+                                          / "tail_previous"))
     ap.add_argument("--batches", default="128,512")
     args = ap.parse_args()
     if not torch.cuda.is_available():

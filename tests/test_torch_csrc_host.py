@@ -42,6 +42,8 @@ from mvae_torch.kernels import manifold_kernels as tmk
 from mvae_torch.kernels import tail_kernels as ttk
 
 CSRC = Path(ttk.__file__).resolve().parent / "csrc"
+# the tail kernels' previous design, frozen (scripts/tail_previous)
+PREVIOUS = Path(__file__).resolve().parents[1] / "scripts" / "tail_previous"
 
 _STUB = r"""
 #pragma once
@@ -73,6 +75,186 @@ static HostIdx gridDim;
 
 _HARNESS = {
     "tail_fwd": r"""
+#include <vector>
+
+template <int D>
+static void run_fwd(const float* raw, const float* eps, const float* k,
+                    float* z, float* aux, int B, int W, int E, int Z,
+                    const TailTable& t) {
+  if (!tail_any_split(t)) {
+    float sh[2 * MAX_COMPS * TAIL_ROWS];
+    const int threads = TAIL_ROWS * tail_warps(t.nc);
+    for (int b = 0; b < tail_blocks(B); ++b) {
+      for (int tid = 0; tid < threads; ++tid)
+        fwd_rows<D>(raw, eps, k, z, aux, B, W, E, Z, t, b, tid, sh);
+      for (int tid = 0; tid < threads; ++tid)
+        fwd_sums(aux, B, t.nc, b, tid, sh);
+    }
+    return;
+  }
+  // the split geometry: each block's shared floats NaN before it runs, so a
+  // read of a float no phase wrote shows
+  std::vector<float> sh(TAIL_SPLIT_ROWS * t.row_floats);
+  for (int b = 0; b < tail_split_blocks(B); ++b) {
+    for (float& v : sh) v = NAN;
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      fwd_split_coords<D>(raw, eps, k, z, aux, B, W, E, Z, t, b, tid,
+                          sh.data());
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      fwd_split_owners<D>(k, z, B, Z, t, b, tid, sh.data());
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      fwd_split_branches(B, t, b, tid, sh.data());
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      fwd_split_sums(aux, B, t, b, tid, sh.data());
+  }
+}
+
+// One block after another, each thread of a block through a phase before
+// any thread starts the next (the kernel's __syncthreads), on the geometry
+// and instantiation the launcher picks
+extern "C" void host_run(const float* raw, const float* eps, const float* k,
+                         float* z, float* aux, int B, int W, int E, int Z,
+                         int nc, const int* table) {
+  TailTable t;
+  if (!tail_table_from(table, nc, &t)) return;
+  switch (tail_dim_class(t)) {
+    case 2: run_fwd<2>(raw, eps, k, z, aux, B, W, E, Z, t); break;
+    case 3: run_fwd<3>(raw, eps, k, z, aux, B, W, E, Z, t); break;
+    case 6: run_fwd<6>(raw, eps, k, z, aux, B, W, E, Z, t); break;
+    default: run_fwd<0>(raw, eps, k, z, aux, B, W, E, Z, t);
+  }
+}
+""",
+    "tail_bwd": r"""
+#include <vector>
+
+// The blocks of a component that runs a row on one thread (bwd_rows), with
+// `threads` threads a block (the split geometry launches TAIL_THREADS)
+template <int D>
+static void run_rows(const float* raw, const float* eps, const float* k,
+                     const float* dz, const float* daux, float* draw,
+                     float* dk_rows, float* dk, float* part,
+                     unsigned* counter, int B, int W, int E, int Z,
+                     const TailTable& t, int c, int threads) {
+  float sh[TAIL_GROUPS * TAIL_ROWS], gs[TAIL_GROUPS];
+  const int blocks = tail_bwd_blocks(B);
+  for (int bx = 0; bx < blocks; ++bx) {
+    for (int tid = 0; tid < threads; ++tid)
+      bwd_rows<D>(raw, eps, k, dz, daux, draw, dk_rows, B, W, E, Z, t, c, bx,
+                  tid, sh);
+    for (int tid = 0; tid < threads; ++tid)
+      tail_fold_groups(B, bx, tid, sh, gs);
+    if (blocks == 1) {
+      for (int tid = 0; tid < threads; ++tid)
+        tail_fold_direct(B, c, tid, gs, dk);
+      continue;
+    }
+    for (int tid = 0; tid < threads; ++tid)
+      tail_fold_publish(B, t.nc, c, bx, tid, gs, part);
+    if (tail_fold_ticket(counter + c, blocks))
+      for (int tid = 0; tid < threads; ++tid)
+        tail_fold_last(B, t.nc, c, tid, part, dk, counter);
+  }
+}
+
+// A split component's blocks: its phases for every thread in turn, each
+// thread's saved intermediates `S` kept from its phase 1 to its phase 4
+// (the registers a thread keeps across the kernel's barriers), the shared
+// floats NaN before each block; then the ticket and the last block's fold
+template <int D, class S>
+static void run_split(const float* raw, const float* eps, const float* k,
+                      const float* dz, const float* daux, float* draw,
+                      float* dk_rows, float* dk, float* part,
+                      unsigned* counter, int B, int W, int E, int Z,
+                      const TailTable& t, int c) {
+  std::vector<float> sh(TAIL_SPLIT_ROWS * TAIL_BWD_ROW);
+  std::vector<S> st(TAIL_THREADS);
+  const int blocks = tail_split_blocks(B);
+  for (int bx = 0; bx < blocks; ++bx) {
+    for (float& v : sh) v = NAN;
+    float* s = sh.data();
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      bwd_split_coords<D>(raw, eps, k, dz, daux, B, W, E, Z, t, c, bx, tid, s,
+                          st[tid]);
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      bwd_split_owner<D>(k, B, t, c, bx, tid, s, st[tid]);
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      bwd_split_branches(B, t, c, bx, tid, s);
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      bwd_split_records(B, t, c, bx, tid, s);
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      bwd_split_reverse<D>(k, draw, B, W, t, c, bx, tid, s, st[tid]);
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      bwd_split_sigma<D>(k, draw, B, W, t, c, bx, tid, s, st[tid]);
+    for (int tid = 0; tid < TAIL_THREADS; ++tid)
+      bwd_split_final<D>(k, draw, dk_rows, B, W, t, c, bx, tid, s, st[tid]);
+    if (tail_fold_ticket(counter + c, blocks)) {
+      float total = NAN;
+      for (int r0 = 0; r0 < B; r0 += TAIL_FOLD_CHUNK) {
+        for (float& v : sh) v = NAN;
+        for (int tid = 0; tid < TAIL_THREADS; ++tid)
+          tail_split_fold_stage(B, t.nc, c, r0, tid, dk_rows, s);
+        for (int tid = 0; tid < TAIL_THREADS; ++tid)
+          tail_split_fold_groups(B, r0, tid, s);
+        for (int tid = 0; tid < TAIL_THREADS; ++tid)
+          tail_split_fold_total(B, c, r0, tid, s, &total, dk, counter);
+      }
+    }
+  }
+}
+
+template <int D>
+static void run_bwd(const float* raw, const float* eps, const float* k,
+                    const float* dz, const float* daux, float* draw,
+                    float* dk_rows, float* dk, float* part,
+                    unsigned* counter, int B, int W, int E, int Z,
+                    const TailTable& t) {
+  for (int c = 0; c < t.nc; ++c) {
+    if (!tail_any_split(t))
+      run_rows<D>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                  W, E, Z, t, c, tail_bwd_threads(B));
+    else if (!t.split[c])
+      run_rows<D>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                  W, E, Z, t, c, TAIL_THREADS);
+    else if (t.kind[c] == KIND_WRAPPED_STEREO)
+      run_split<D, SplitStereo<D>>(raw, eps, k, dz, daux, draw, dk_rows, dk,
+                                   part, counter, B, W, E, Z, t, c);
+    else
+      run_split<D, SplitSphere<D>>(raw, eps, k, dz, daux, draw, dk_rows, dk,
+                                   part, counter, B, W, E, Z, t, c);
+  }
+}
+
+// Block (bx, c) after block, each thread of a block through a phase before
+// any thread starts the next (the kernel's __syncthreads), on the geometry
+// and instantiation the launcher picks
+extern "C" void host_run(const float* raw, const float* eps, const float* k,
+                         const float* dz, const float* daux, float* draw,
+                         float* dk_rows, float* dk, float* part,
+                         unsigned* counter, int B, int W, int E, int Z,
+                         int nc, const int* table) {
+  TailTable t;
+  if (!tail_table_from(table, nc, &t)) return;
+  switch (tail_dim_class(t)) {
+    case 2:
+      run_bwd<2>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                 W, E, Z, t);
+      break;
+    case 3:
+      run_bwd<3>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                 W, E, Z, t);
+      break;
+    case 6:
+      run_bwd<6>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                 W, E, Z, t);
+      break;
+    default:
+      run_bwd<0>(raw, eps, k, dz, daux, draw, dk_rows, dk, part, counter, B,
+                 W, E, Z, t);
+  }
+}
+""",
+    "tail_fwd_previous": r"""
 template <int D>
 static void run_fwd(const float* raw, const float* eps, const float* k,
                     float* z, float* aux, int B, int W, int E, int Z,
@@ -102,7 +284,7 @@ extern "C" void host_run(const float* raw, const float* eps, const float* k,
   }
 }
 """,
-    "tail_bwd": r"""
+    "tail_bwd_previous": r"""
 template <int D>
 static void run_bwd(const float* raw, const float* eps, const float* k,
                     const float* dz, const float* daux, float* draw,
@@ -268,27 +450,39 @@ extern "C" void host_run(int lorentz, const float* k, const float* a,
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    """name -> the kernel function's host harness, built once per module."""
+    """name -> the kernel function's host harness, built once per module
+    (one g++ a source, all started together). ``*_previous`` is the tail
+    kernels' previous design (``scripts/tail_previous``), built against its
+    own headers."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA sources for the host")
     work = tmp_path_factory.mktemp("csrc_host")
-    (work / "cuda_runtime.h").write_text(_STUB)
-    for header in CSRC.glob("*.cuh"):
-        shutil.copy(header, work / header.name)
-    libs = {}
+    for d, headers in ((work, CSRC), (work / "previous", PREVIOUS)):
+        d.mkdir(exist_ok=True)
+        (d / "cuda_runtime.h").write_text(_STUB)
+        for header in headers.glob("*.cuh"):
+            shutil.copy(header, d / header.name)
+    procs = {}
     for name, harness in _HARNESS.items():
-        source = CSRC / f"{name}.cu"
+        base = name.removesuffix("_previous")
+        d = work / "previous" if base != name else work
+        source = (PREVIOUS if base != name else CSRC) / f"{base}.cu"
         text = source.read_text() if source.exists() else ""
         body = (text.split("// --- launchers")[0] if "// --- launchers" in text
                 else text.split('extern "C"')[0] if text
                 else f'#include "{name}.cuh"\n')
-        src = work / f"{name}.cpp"
+        src = d / f"{base}.cpp"
         src.write_text(body + harness)
-        out = work / f"{name}.so"
-        subprocess.run([gxx, "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                        "-I", str(work), "-o", str(out), str(src)],
-                       check=True, capture_output=True, text=True)
+        out = d / f"{base}.so"
+        procs[name] = (subprocess.Popen(
+            [gxx, "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-I",
+             str(d), "-o", str(out), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"g++ failed for {name}:\n{log}"
         lib = ctypes.CDLL(str(out))
         libs[name] = lib.host_run
         libs[name].restype = None
@@ -362,6 +556,12 @@ CASES = [
     ("h2,s2,e2,d2,p2,u2,h2,e2,d2,p2,u2,h2,s2,e2,s2:wrapped,e2",
      (-1.0, 1.0, 0.0, -0.5, 0.8, 0.3, -2.0, 0.0, -1e-3, 1e-3, -0.4, -0.3,
       2.0, 0.0, 1.5, 0.0), {}),
+    # the split geometry: u with K on both sides of 0 in one batch, a
+    # table mixing split components with the flagship's kinds, wraps 2
+    # (the owner's serial sums)
+    ("u6,u6", (0.5, -0.5), {}),
+    ("d2,p2,e2,h2,s2,e2", (-1.0, 1.0, 0.0, -1.0, 1.0, 0.0), {}),
+    ("u6", (0.7,), {"wraps": 2}), ("s6:wrapped", (0.7,), {"wraps": 2}),
 ]
 
 
@@ -383,10 +583,11 @@ def _held(ours, ref, ref64, tol, min_resolved):
     assert float(far.max()) <= 10.0, float(far.max())
 
 
-def _host_bwd(host_libs, comps, raw, eps, k, dz, daux):
-    """The compiled backward source on the host: (draw, dk_rows, dk). The
-    folded dk equals ``fold_rows_ref(dk_rows)`` (the kernel's order) bit for
-    bit and the fold's counters are back at zero."""
+def _host_bwd(host_libs, comps, raw, eps, k, dz, daux, name="tail_bwd"):
+    """The compiled backward source on the host (``name``: ``tail_bwd`` or
+    ``tail_bwd_previous``): (draw, dk_rows, dk). The folded dk equals
+    ``fold_rows_ref(dk_rows)`` (the kernel's order) bit for bit and the
+    fold's counters are back at zero."""
     B = raw.shape[0]
     W, E, Z = ttk._dims(comps)
     nc = len(comps)
@@ -395,9 +596,9 @@ def _host_bwd(host_libs, comps, raw, eps, k, dz, daux):
     dk = torch.full((nc,), float("nan"))
     part = torch.full((-(-B // 32), nc), float("nan"))
     counter = torch.zeros(nc, dtype=torch.int32)
-    host_libs["tail_bwd"](_ptr(raw), _ptr(eps), _ptr(k), _ptr(dz), _ptr(daux),
-                          _ptr(draw), _ptr(dk_rows), _ptr(dk), _ptr(part),
-                          _ptr(counter), B, W, E, Z, nc, ttk._table(comps))
+    host_libs[name](_ptr(raw), _ptr(eps), _ptr(k), _ptr(dz), _ptr(daux),
+                    _ptr(draw), _ptr(dk_rows), _ptr(dk), _ptr(part),
+                    _ptr(counter), B, W, E, Z, nc, ttk._table(comps))
     assert not counter.any()
     assert torch.equal(dk, ttk.fold_rows_ref(dk_rows))
     return draw, dk_rows, dk
@@ -405,6 +606,38 @@ def _host_bwd(host_libs, comps, raw, eps, k, dz, daux):
 
 def _comps(spec, opts):
     return tuple(parse_components(spec, fixed_curvature=False, **opts))
+
+
+def _host_fwd(host_libs, name, comps, raw, eps, k):
+    """A compiled forward source on the host (``name``: ``tail_fwd`` or its
+    previous design ``tail_fwd_previous``): (z, aux)."""
+    B = raw.shape[0]
+    W, E, Z = ttk._dims(comps)
+    nc = len(comps)
+    z = torch.full((B, Z), float("nan"))
+    aux = torch.full((B, nc + 2), float("nan"))
+    host_libs[name](_ptr(raw), _ptr(eps), _ptr(k), _ptr(z), _ptr(aux), B, W,
+                    E, Z, nc, ttk._table(comps))
+    return z, aux
+
+
+def _assert_previous_design(host_libs, comps, raw, eps, k, dz, daux):
+    """The compiled sources against the previous design's
+    (``scripts/tail_previous``, the same compiler and libm): the forward's z
+    and aux and the backward's draw, dk_rows and folded dk bit for bit (the
+    split geometry evaluates every expression of the previous tiles and
+    sums every sum in the same order), each fold equal to ``fold_rows_ref``
+    with its counters back at 0. Returns the backward."""
+    z, aux = _host_fwd(host_libs, "tail_fwd", comps, raw, eps, k)
+    z0, aux0 = _host_fwd(host_libs, "tail_fwd_previous", comps, raw, eps, k)
+    assert bool(torch.isfinite(z).all() and torch.isfinite(aux).all())
+    assert torch.equal(z, z0) and torch.equal(aux, aux0)
+    new = _host_bwd(host_libs, comps, raw, eps, k, dz, daux)
+    old = _host_bwd(host_libs, comps, raw, eps, k, dz, daux,
+                    "tail_bwd_previous")
+    for a, b in zip(new, old):
+        assert torch.equal(a, b)
+    return new
 
 
 @pytest.mark.parametrize("big_sigma", [False, True])
@@ -449,6 +682,54 @@ def test_backward_source_matches_plain_version(host_libs, spec, kset, opts,
     dks, dks_r = dk[res].sum(0), dk_r[res].sum(0)
     assert bool(((dks - dks_r).abs() <= 2e-3 * dks_r.abs() + 5e-4).all()), (
         dks, dks_r)
+
+
+@pytest.mark.parametrize("big_sigma", [False, True])
+@pytest.mark.parametrize("spec,kset,opts", CASES)
+def test_tail_source_bit_equal_to_previous_design(host_libs, spec, kset,
+                                                  opts, big_sigma):
+    """Every case, forward and backward, against the previous design's
+    sources bit for bit (the split geometry for the products with a d/p/u
+    or s component, the warp-a-component one for the others)."""
+    comps = _comps(spec, opts)
+    _assert_previous_design(host_libs, comps,
+                            *_inputs(comps, 64, kset, 2, big_sigma))
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 257])
+@pytest.mark.parametrize("spec,kset", [
+    ("u6", (0.5,)), ("s6:wrapped", (1.0,)), ("d2,p2,e2", (-1.0, 1.0, 0.0)),
+    ("d2,p2,e2,h2,s2,e2", (-1.0, 1.0, 0.0, -1.0, 1.0, 0.0))])
+def test_tail_source_ragged_batches(host_libs, spec, kset, B):
+    """Ragged batches (a split block of 16 rows part-filled; at 257 the
+    warp-a-component blocks of the mixed table past their one block, and
+    the split fold over 9 groups): bit for bit against the previous design,
+    and within the plain version's contract."""
+    comps = _comps(spec, {})
+    raw, eps, k, dz, daux = _inputs(comps, max(B, 5), kset, 3)
+    raw, eps, dz, daux = (t[:B].contiguous() for t in (raw, eps, dz, daux))
+    draw, _, _ = _assert_previous_design(host_libs, comps, raw, eps, k, dz,
+                                         daux)
+    z, aux = _host_fwd(host_libs, "tail_fwd", comps, raw, eps, k)
+    z_r, aux_r = ttk.tail_forward_ref(comps, raw, eps, k)
+    z64, aux64 = ttk.tail_forward_ref(comps, raw.double(), eps.double(),
+                                      k.double())
+    _held(z, z_r, z64, 1e-5 * (1 + z_r.abs()), 0.5)
+    _held(aux, aux_r, aux64, 1e-4 * (1 + 1e-2 * aux_r.abs()), 0.5)
+    draw_r, _, _ = ttk.tail_backward_ref(comps, raw, eps, k, dz, daux)
+    d64, _, _ = ttk.tail_backward_ref(
+        comps, *[t.double() for t in (raw, eps, k, dz, daux)])
+    _held(draw, draw_r, d64, 1e-3 * draw_r.abs() + 5e-4, 0.5)
+
+
+@pytest.mark.parametrize("spec,kset", [
+    ("u6", (0.5,)), ("d2,p2,e2,h2,s2,e2", (-1.0, 1.0, 0.0, -1.0, 1.0, 0.0))])
+def test_tail_source_fold_past_a_chunk(host_libs, spec, kset):
+    """4100 rows: the split fold stages dk_rows a chunk of 4096 rows at a
+    time, the running sum crossing the chunk; the backward bit for bit
+    against the previous design, whose fold takes the rows in one pass."""
+    comps = _comps(spec, {})
+    _assert_previous_design(host_libs, comps, *_inputs(comps, 4100, kset, 4))
 
 
 @pytest.mark.parametrize("sign,kval", [(-1, -1.0), (-1, -1e-3), (0, -0.5),

@@ -771,7 +771,8 @@ def test_kernels_geometry_on_card(cuda_device, spec, kset, batch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("spec,kset", [("h2,s2,e2", (-1.0, 1.0, 0.0)),
                                        ("d2,p2,e2", (-1.0, 1.0, 0.0)),
-                                       ("s6:wrapped", (1.0,))])
+                                       ("s6:wrapped", (1.0,)),
+                                       ("u6", (0.5,))])
 def test_backward_graph_replays_bit_equal_on_card(cuda_device, spec, kset):
     """B3 captured in a CUDA graph and replayed ten times: every output,
     the folded curvature gradient included, equal bit for bit to the eager
@@ -827,3 +828,97 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the tail kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def previous_design(tmp_path_factory):
+    """The tail kernels' previous design (``scripts/tail_previous``: every
+    product on the warp-a-component geometry, each tile serial on one
+    thread) and B5 built on its tiles, compiled by nvcc: {"fwd", "bwd",
+    "reparam"} launch entries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the kernels have no CPU mode")
+    import shutil
+    from pathlib import Path
+
+    from mvae_torch.kernels import _build
+    from mvae_torch.kernels import manifold_kernels as tmk
+
+    prev = Path(__file__).resolve().parents[1] / "scripts" / "tail_previous"
+    work = tmp_path_factory.mktemp("tail_previous")
+    shutil.copy(_build.CSRC / "reparam_stereo.cu", work)
+    shutil.copy(prev / "tail_tiles.cuh", work)
+    built = _build.build_variants({
+        "fwd": (prev / "tail_fwd.cu", _build.EXTRA_FLAGS["tail_fwd"]),
+        "bwd": (prev / "tail_bwd.cu", _build.EXTRA_FLAGS["tail_bwd"]),
+        "reparam": (work / "reparam_stereo.cu",
+                    _build.EXTRA_FLAGS["reparam_stereo"])}, work / "build")
+    return {"fwd": ttk.bind_tail(built["fwd"][0])["fwd"],
+            "bwd": ttk.bind_tail(built["bwd"][0])["bwd"],
+            "reparam": tmk.bind_reparam(built["reparam"][0])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 128, 256, 512])
+@pytest.mark.parametrize("spec,kset", [("h2,s2,e2", (-1.0, 1.0, 0.0)),
+                                       ("d2,p2,e2", (-1.0, 1.0, 0.0)),
+                                       ("u6", (0.5,)),
+                                       ("s6:wrapped", (1.0,))])
+def test_kernels_against_previous_design_on_card(previous_design, spec, kset,
+                                                 batch):
+    """B1 and B3 against their previous design on the card: the forward's
+    z and aux bit for bit (the split geometry evaluates the previous tiles'
+    expressions and sums in the same order), the backward within the
+    float32 backward contract of it (rtol 1e-3 / atol 5e-4 on the raw
+    gradient, rtol 2e-3 on the folded curvature gradient), its fold equal
+    to the fold of its own rows."""
+    comps = tuple(t_parse(spec, fixed_curvature=False))
+    raw, eps, k, dz, daux = _stereo_card_inputs(comps, batch, kset,
+                                                torch.device("cuda"), 8)
+    z, aux = ttk.tail_forward(comps, raw, eps, k)
+    z0, aux0 = ttk.tail_forward_launch(previous_design["fwd"], comps, raw,
+                                       eps, k)
+    draw, dk_rows, dk = ttk.tail_backward(comps, raw, eps, k, dz, daux)
+    d0, _, k0 = ttk.tail_backward_launch(previous_design["bwd"], comps, raw,
+                                         eps, k, dz, daux)
+    torch.cuda.synchronize()
+    assert torch.equal(z, z0) and torch.equal(aux, aux0)
+    assert bool(((draw - d0).abs() <= 1e-3 * d0.abs() + 5e-4).all())
+    assert bool(((dk - k0).abs() <= 2e-3 * k0.abs() + 5e-4).all())
+    assert torch.equal(dk, ttk.fold_rows_ref(dk_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wraps", [0, 1])
+@pytest.mark.parametrize("sign,kval", [(-1, -1.0), (-1, -1e-3), (0, -0.5),
+                                       (0, 0.0), (0, 1e-3), (0, 0.9),
+                                       (1, 1.0), (1, 1e-3)])
+@pytest.mark.parametrize("n", [2, 6])
+def test_reparam_bit_equal_on_previous_tiles_on_card(previous_design, n,
+                                                     sign, kval, wraps):
+    """B5 (``csrc/reparam_stereo.cu``, a thread a point through
+    ``stereo_draw_at``) against itself built on the previous design's tiles,
+    bit for bit, at the IWAE chunk (S, B) = (125, 512): the split tail's
+    refactoring of the shared device functions leaves B5's arithmetic as it
+    was."""
+    from mvae_torch.kernels import manifold_kernels as tmk
+
+    g = torch.Generator(device="cuda").manual_seed(100 * n + 10 * sign + wraps)
+    S, Bb = 125, 512
+    eps = torch.randn(S, Bb, n + 2, generator=g, device="cuda")[..., 1:1 + n]
+    k = torch.tensor(kval, device="cuda")
+    mu = 0.3 * torch.randn(Bb, n, generator=g, device="cuda")
+    if kval < 0:
+        mu = 0.5 * mu / max(-kval, 1.0) ** 0.5
+    sig = 0.2 + torch.rand(Bb, n, generator=g, device="cuda")
+    out = torch.zeros(S, n + 2, Bb, device="cuda")
+    got = tmk.wrapped_reparam_stereo_t(eps, mu, sig, k, wraps=wraps,
+                                       sign=sign, out=out, z_off=1)
+    out0 = torch.zeros_like(out)
+    lq0 = torch.empty(S, Bb, device="cuda")
+    lp0 = torch.empty(S, Bb, device="cuda")
+    tmk.reparam_launch(previous_design["reparam"], eps, mu, sig,
+                       k.reshape(1), out0, 1, lq0, lp0, sign, wraps)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out0)
+    assert torch.equal(got[1], lq0) and torch.equal(got[2], lp0)
