@@ -95,6 +95,7 @@ from .models import VAEConfig, nets, vae
 from .ops.stable import softplus
 from .train import TrainConfig, Trainer, graphs
 from .train.trainer import _leaves
+from .utils import profiling
 
 METRIC = "vae_train_steps_per_sec_per_chip"
 UNIT = "steps/s (batch=1024, h2s2e2 MNIST VAE, f32)"
@@ -358,11 +359,13 @@ def launches_since(before: dict, steps: int) -> dict:
 
 def device_seconds(run, device) -> tuple[float, float] | None:
     """(device busy s, wall s) of ``run()`` from ``torch.profiler``'s CUDA
-    trace; None off CUDA or when the trace holds no device time."""
+    trace, the program's layer markers off (the plain graphs replayed);
+    None off CUDA or when the trace holds no device time."""
     if torch.device(device).type != "cuda":
         return None
     _sync(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiling.marking(False), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         _sync(device)

@@ -18,9 +18,13 @@ with the graphs it captured of each program (``graph_captures``).
 ``--debug_nans`` makes every op and kernel that produces a NaN or an Inf
 raise, naming it (slow; ``utils.profiling.enable_nan_guard``), for the
 run; ``--profile_epochs N`` traces the training of the first N epochs into
-``<run_dir>/profile`` (a Chrome trace JSON). Runs on CUDA unless ``--device
-cpu`` is given. The reference's ``--train_rng`` has no counterpart: the
-port's training randomness is one torch generator.
+``<run_dir>/profile`` (a Chrome trace JSON), with the program's layer spans
+(``utils.profiling``): the host ranges of the epoch's copies, graph replays
+and statistics read, and on a card a marker kernel ``mvae_span_<layer>``
+where each layer of a replayed step starts (encode, tail, decode, loss,
+bwd_decode, bwd_tail, bwd_encode, optimizer, end). Runs on CUDA unless
+``--device cpu`` is given. The reference's ``--train_rng`` has no
+counterpart: the port's training randomness is one torch generator.
 
 ``--mesh D,M`` trains on a ("data", "model") mesh of D x M ranks, one
 process each (``parallel.launch``: rank r on ``cuda:(r % device_count)``,
@@ -97,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "NaN or Inf (slow; debugging)")
     p.add_argument("--profile_epochs", type=int, default=0,
                    help="trace the training of the first N epochs into "
-                        "<run_dir>/profile (torch.profiler, Chrome trace)")
+                        "<run_dir>/profile (torch.profiler, Chrome trace, "
+                        "with the program's layer spans and markers)")
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (the CPU runs the "
                         "kernels' plain versions and must be asked for)")

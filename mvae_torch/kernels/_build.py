@@ -35,6 +35,14 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 
+def span_layers_flag() -> str:
+    """The layer list of the span markers (``csrc/spans.cu``), written once
+    in ``utils.profiling.LAYERS``, as the X-macro the source expands."""
+    from ..utils.profiling import LAYERS
+    return "-DMVAE_SPAN_LAYERS=" + "".join(f"MVAE_SPAN({layer})"
+                                          for layer in LAYERS)
+
+
 # Per-source flags. The tail kernels are compiled with --fmad=false: their
 # plain version rounds after every multiply and add (one PyTorch op each),
 # and a fused multiply-add would change the rounding of the cancellation-free
@@ -48,6 +56,7 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # written: a contracted tail leaves a residue of ~sqrt(eps) |x| there. The
 # roofline probes keep contraction on: the FMA probe has to time FFMA, not
 # FMUL + FADD, and the twins price their op volume in fused multiply-adds.
+# The span markers take their names from the profiler's layer list.
 EXTRA_FLAGS = {
     "tail_fwd": ["--fmad=false"],
     "tail_bwd": ["--fmad=false"],
@@ -56,6 +65,7 @@ EXTRA_FLAGS = {
     "train_decode": [],
     "manifold_dist": ["--fmad=false"],
     "roofline_probes": [],
+    "spans": [span_layers_flag()],
 }
 
 # native/Makefile's CXXFLAGS and LDFLAGS

@@ -20,7 +20,12 @@ of CIFAR):
 
 Every draw takes its standard noise as an optional tensor (the layout of
 ``kernels.tail_kernels.draw_noise``); without it, the noise comes from the
-``torch.Generator`` passed in. Params are plain dicts of tensors with the
+``torch.Generator`` passed in. While a torch profiler records, the passes
+mark their layers (``utils.profiling.mark``): the forward ``tail`` and
+``decode`` (and, under autograd, ``bwd_tail`` and ``bwd_encode`` where the
+backward reaches z's and the encoder features' gradients), the ELBO
+``loss``, and the IWAE batch ``encode``, ``reparam`` and ``decode`` a chunk,
+``logsumexp`` and ``end``. Params are plain dicts of tensors with the
 reference's structure and (in, out) weight layout.
 """
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..components import (Component, reparametrize, sample_prior,
                           total_ambient_dim)
 from ..kernels import decoder_kernels, manifold_kernels, tail_kernels
 from ..ops.stable import acc_dtype, softplus
+from ..utils import profiling
 from . import nets
 
 
@@ -239,8 +245,12 @@ def forward_from_features(cfg: VAEConfig, params, x, feats, noise=None,
     training/eval-ELBO decode and its Bernoulli log-likelihood run in one
     kernel when ``_fused_train_decoder_eligible`` (logits never stored,
     backward = the four weight/input products)."""
+    profiling.mark("tail", feats)
+    profiling.mark_grad(feats, "bwd_encode")
     z, log_q, log_p, kls, curvs = _reparam_components(cfg, params, feats,
                                                       noise, generator)
+    profiling.mark_grad(z, "bwd_tail")
+    profiling.mark("decode", z)
     if _fused_train_decoder_eligible(cfg, params):
         dec = params["decoder"]
         xf = x.reshape(x.shape[:x.dim() - len(cfg.data_shape)]
@@ -265,6 +275,7 @@ def elbo(cfg: VAEConfig, params, x, beta: float = 1.0, noise=None,
          generator=None):
     """Per-example ELBO and a stats dict (single-sample MC KL)."""
     fwd = forward(cfg, params, x, noise, generator)
+    profiling.mark("loss", fwd.log_px_z)
     kl_total = torch.sum(fwd.kl_per_comp, dim=-1)
     value = fwd.log_px_z - beta * kl_total
     stats = {
@@ -366,6 +377,7 @@ def _log_weights(cfg: VAEConfig, params, x, n_samples: int,
                           if n_samples % d == 0)
     if n_samples % chunk_size:
         raise ValueError("n_samples must divide into chunks")
+    profiling.mark("encode", x)
     feats = encode(cfg, params, x)  # encode once for all importance samples
     xt = x.reshape(x.shape[0], cfg.flat_dim).T.contiguous() if fused else None
     ximg = x.reshape((x.shape[0],) + cfg.data_shape)
@@ -373,8 +385,10 @@ def _log_weights(cfg: VAEConfig, params, x, n_samples: int,
     out = []
     for c0 in range(0, n_samples, chunk_size):
         nz = None if noise is None else noise[c0:c0 + chunk_size]
+        profiling.mark("reparam", feats)
         zt, log_q, log_p = _reparam_chunk_t(cfg, params, feats, chunk_size,
                                             nz, generator)
+        profiling.mark("decode", feats)
         if fused:
             ll = decoder_kernels.fused_decode_bce_t(
                 zt, xt, dec["layers"][0]["w"], dec["layers"][0]["b"],
@@ -384,6 +398,7 @@ def _log_weights(cfg: VAEConfig, params, x, n_samples: int,
             ll = _sum_data_axes(bernoulli_log_prob(logits, ximg),
                                 len(cfg.data_shape))
         out.append(ll + log_p - log_q)
+    profiling.mark("logsumexp", feats)
     # the log-weights in >= float32 (never a float64 oracle downgraded)
     log_w = torch.cat(out, dim=0)
     return log_w.to(acc_dtype(log_w.dtype))
@@ -396,7 +411,9 @@ def log_likelihood(cfg: VAEConfig, params, x, n_samples: int = 500,
     - log n."""
     log_w = _log_weights(cfg, params, x, n_samples, chunk_size, noise,
                          generator)
-    return torch.logsumexp(log_w, dim=0) - math.log(n_samples)
+    out = torch.logsumexp(log_w, dim=0) - math.log(n_samples)
+    profiling.mark("end", out)
+    return out
 
 
 def mesh_layout(cfg: VAEConfig, mesh):
@@ -448,7 +465,9 @@ def log_likelihood_sharded(cfg: VAEConfig, params, x, mesh,
     log_w = _log_weights(cfg, params, x, per_rank, chunk_size, noise,
                          generator)
     parts = all_gather_model(mesh, torch.logsumexp(log_w, dim=0))
-    return torch.logsumexp(parts, dim=0) - math.log(n_samples)
+    out = torch.logsumexp(parts, dim=0) - math.log(n_samples)
+    profiling.mark("end", out)
+    return out
 
 
 def generate(cfg: VAEConfig, params, n: int, generator=None):

@@ -38,9 +38,14 @@ batch order, so a step gathers its rows on the card.
 
 Each replay adds to the kernel wrappers' ``launches`` what its capture
 recorded (``roofline.captured_launches`` / ``count_replays``), so the counts
-are what ran on the card. A capture that fails raises: nothing falls back
-to the eager loop on a CUDA device. ``path`` says where the graphs do not
-apply (the CPU, a gloo mesh rank, the NaN guard) and why.
+are what ran on the card. ``Graphed`` captures each body twice: the plain
+graph, and beside it a graph of the same body with the layer markers of
+``utils.profiling`` (a graph keeps no host range, so its layers show in a
+trace as marker kernels); a replay takes the marked one while a torch
+profiler records and the plain one otherwise, and the calls' copies, the
+replays and the capture are host spans then. A capture that fails raises:
+nothing falls back to the eager loop on a CUDA device. ``path`` says where
+the graphs do not apply (the CPU, a gloo mesh rank, the NaN guard) and why.
 """
 from __future__ import annotations
 
@@ -130,7 +135,9 @@ class Graphed:
     and every call from then on replays it. ``generator`` (one, or a tuple)
     is registered with the graph: each replay draws its next numbers.
     ``copy_out`` returns a copy of the static outputs (a tensor or a tuple
-    or dict of them) of each replay."""
+    or dict of them) of each replay. ``marked`` is the same body captured
+    with the layer markers, in a pool of its own, replayed instead of
+    ``graph`` while a torch profiler records."""
 
     def __init__(self, fn, statics, generator, warmup: int,
                  copy_out: bool = False):
@@ -140,25 +147,33 @@ class Graphed:
                            else (generator,))
         self.warmup = warmup
         self.copy_out = copy_out
-        self.graph = None
-        self.out = None
+        self.graph = self.marked = None
+        self.out = self.marked_out = None
         self.per_replay: dict = {}
         self.captures = 0
         self.replays = 0
 
     def __call__(self, *inputs):
-        for s, x in zip(self.statics, inputs):
-            if s is not None:
-                s.copy_(x)
+        marked = profiling.markers_on()
+        span = profiling.span if marked else profiling.no_span
+        with span("graph.copy_in"):
+            for s, x in zip(self.statics, inputs):
+                if s is not None:
+                    s.copy_(x)
         if self.graph is None and self.warmup > 0:
             self.warmup -= 1
             return self._warm()
         if self.graph is None:
             self._capture()
-        self.graph.replay()
+        with span("graph.replay"):
+            (self.marked if marked else self.graph).replay()
         self.replays += 1
         roofline.count_replays(self.per_replay, 1)
-        return _copy(self.out) if self.copy_out else self.out
+        out = self.marked_out if marked else self.out
+        if not self.copy_out:
+            return out
+        with span("graph.copy_out"):
+            return _copy(out)
 
     def _warm(self):
         cur = torch.cuda.current_stream()
@@ -171,19 +186,29 @@ class Graphed:
             t.record_stream(cur)
         return out
 
-    def _capture(self):
+    def _record(self, marks: bool) -> None:
+        """One capture of the body, with its markers (``marked``,
+        ``marked_out``) or without (``graph``, ``out``)."""
         g = torch.cuda.CUDAGraph()
         for gen in self.generators:
             g.register_generator_state(gen)
+        # thread_local: another thread's CUDA calls (NCCL's watchdog
+        # querying its events) do not break the capture
+        with profiling.marking(marks), \
+                torch.cuda.graph(g, capture_error_mode="thread_local"):
+            out = self.fn(*self.statics)
+        if marks:
+            self.marked, self.marked_out = g, out
+        else:
+            self.graph, self.out = g, out
 
-        def record():
-            # thread_local: another thread's CUDA calls (NCCL's watchdog
-            # querying its events) do not break the capture
-            with torch.cuda.graph(g, capture_error_mode="thread_local"):
-                self.out = self.fn(*self.statics)
-
-        self.per_replay = roofline.captured_launches(record)
-        self.graph = g
+    def _capture(self):
+        with profiling.span("graph.capture"):
+            self.per_replay = roofline.captured_launches(
+                lambda: self._record(False))
+            # the marked graph's wrapper calls are the plain one's: its
+            # capture leaves the launch counts as they were
+            roofline.captured_launches(lambda: self._record(True))
         self.captures += 1
 
 
@@ -232,8 +257,10 @@ class TrainEpoch:
 
     def step(self) -> None:
         """One step from the static buffers: the batch at row ``k`` of
-        ``perm``, its statistics written at row ``k``, ``k`` advanced."""
+        ``perm``, its statistics written at row ``k``, ``k`` advanced; its
+        markers open with ``encode`` and close with ``end``."""
         tr = self.trainer
+        profiling.mark("encode", self.k)
         x = tr._train_data.index_select(0, self.perm.index_select(
             0, self.k)[0])
         u = nz = None
@@ -248,6 +275,7 @@ class TrainEpoch:
         for name, v in stats.items():
             self.stats[name].index_copy_(0, self.k, v.unsqueeze(0))
         self.k += 1
+        profiling.mark("end", self.k)
 
     def run(self, perm, u_bin=None, noise=None, graph: bool = True) -> dict:
         """One epoch over ``perm`` (steps x batch example indices): replays
@@ -255,19 +283,21 @@ class TrainEpoch:
         Returns the (steps, ...) statistics buffers."""
         tr = self.trainer
         S = len(self.perm)
-        self.perm.copy_(perm.reshape(S, -1)[:, self.rows])
-        self.k.zero_()
-        self.explicit = u_bin is not None
-        if self.explicit:
-            u_bin, noise = u_bin[:, self.rows], noise[:, self.rows]
-            if self.u_bin is None:
-                self.u_bin = torch.empty_like(u_bin)
-                self.noise = torch.empty_like(noise)
-            self.u_bin.copy_(u_bin)
-            self.noise.copy_(noise)
+        with profiling.span("epoch.copy_in"):
+            self.perm.copy_(perm.reshape(S, -1)[:, self.rows])
+            self.k.zero_()
+            self.explicit = u_bin is not None
+            if self.explicit:
+                u_bin, noise = u_bin[:, self.rows], noise[:, self.rows]
+                if self.u_bin is None:
+                    self.u_bin = torch.empty_like(u_bin)
+                    self.noise = torch.empty_like(noise)
+                self.u_bin.copy_(u_bin)
+                self.noise.copy_(noise)
         if not graph:
-            for _ in range(S):
-                self.step()
+            with profiling.span("epoch.replays"):
+                for _ in range(S):
+                    self.step()
         else:
             key = ("train_step", tuple(tr._train_data.shape[1:]),
                    tr._train_data.dtype, tuple(self.perm.shape),
@@ -275,6 +305,7 @@ class TrainEpoch:
                    routing_key(tr.model_cfg, tr.params))
             prog = tr._program(key, lambda: Graphed(
                 self.step, (), tr.generator, WARMUP_STEPS))
-            for _ in range(S):
-                prog()
+            with profiling.span("epoch.replays"):
+                for _ in range(S):
+                    prog()
         return self.stats

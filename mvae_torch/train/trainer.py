@@ -318,27 +318,35 @@ class Trainer:
         step's stats as device tensors (no host sync on one device). This
         is the eager step: ``train_one_epoch`` replays a graph of the same
         body on one CUDA device."""
+        profiling.mark("encode", x)
         if self.mesh is not None:
             x, u_bin, noise = (None if t is None else shard_batch(t, self.mesh)
                                for t in (x, u_bin, noise))
         stats = self._step_body(x, u_bin, noise)
         self.step += 1
+        profiling.mark("end", x)
         return stats
 
     def _step_body(self, x, u_bin, noise) -> dict:
         """The step on this rank's rows, the body a CUDA graph captures:
         binarize, the loss and its backward, the mesh average, the
         curvature mask at the device step counter, Adam, the counter
-        advanced. Issues no host read and no host-to-device copy."""
+        advanced. Issues no host read and no host-to-device copy. Its
+        callers mark where a step starts and ends (``profiling.mark``); the
+        forward marks its layers (``vae``), the backward's start here, its
+        boundaries at z's and the encoder features' gradients, and the
+        optimizer's."""
         x = binarize_batch(x, self.dataset.binarize, self.generator, u_bin)
         self.opt.zero_grad(set_to_none=True)
         loss, stats = vae.loss_fn(self.model_cfg, self.params, x,
                                   self.tc.beta, noise, self.generator,
                                   self.mesh)
+        profiling.mark("bwd_decode", loss)
         loss.backward()
         stats = {k: v.detach() for k, v in stats.items()}
         if self.mesh is not None:
             self._average_over_mesh(stats)
+        profiling.mark("optimizer", loss)
         _mask_curvature_grads(self.params, self.model_cfg.components,
                               self._step_t, self.burnin_steps)
         self.opt.step()
@@ -400,7 +408,8 @@ class Trainer:
         means = {k: torch.mean(v, dim=0) for k, v in stacked.items()}
         means["curvature"] = stacked["curvature"][-1]
         es = EpochStats(self.component_names)
-        es.update({k: v.cpu().numpy() for k, v in means.items()})
+        with profiling.host_sync("epoch.stats_read"):
+            es.update({k: v.cpu().numpy() for k, v in means.items()})
         return es.means()
 
     def _guard_state(self) -> dict:
@@ -658,21 +667,26 @@ class Trainer:
 
     def _elbo_batch(self, params, x, mask, rows) -> dict:
         """One eval batch's masked sums (weights ``mask`` / its count): the
-        body of the ELBO pass's graph (``make_eval_elbo``'s scan body)."""
+        body of the ELBO pass's graph (``make_eval_elbo``'s scan body),
+        marked from ``encode`` to ``end``."""
+        profiling.mark("encode", x)
         w = mask / torch.clamp(torch.sum(mask), min=1.0)
         if self.mesh is not None:
             x, w = shard_batch(x, self.mesh), shard_batch(w, self.mesh)
             rows = None if rows is None else shard_batch(rows, self.mesh)
         x = self._binarize(x, rows)
         fwd = vae.forward(self.model_cfg, params, x, generator=self.generator)
+        profiling.mark("loss", x)
         kl_total = torch.sum(fwd.kl_per_comp, dim=-1)
         value = fwd.log_px_z - self.tc.beta * kl_total
         w = w.to(value.dtype)
-        return {"elbo": torch.sum(w * value),
-                "bce": torch.sum(w * -fwd.log_px_z),
-                "kl": torch.sum(w * kl_total),
-                "kl_per_comp": torch.sum(w[:, None] * fwd.kl_per_comp, dim=0),
-                "curvature": fwd.curvatures}
+        out = {"elbo": torch.sum(w * value),
+               "bce": torch.sum(w * -fwd.log_px_z),
+               "kl": torch.sum(w * kl_total),
+               "kl_per_comp": torch.sum(w[:, None] * fwd.kl_per_comp, dim=0),
+               "curvature": fwd.curvatures}
+        profiling.mark("end", x)
+        return out
 
     def evaluate_elbo(self, split: str = "test") -> dict:
         """Masked-mean ELBO over the full split: the padded tail is masked
@@ -698,7 +712,8 @@ class Trainer:
             # the data shards' weighted sums add up to the batch's
             all_reduce_sum_(self.mesh, [stacked[k] for k in (
                 "elbo", "bce", "kl", "kl_per_comp")], self.mesh.data_group)
-        stacked = {k: v.cpu().numpy() for k, v in stacked.items()}
+        with profiling.host_sync("elbo.read"):
+            stacked = {k: v.cpu().numpy() for k, v in stacked.items()}
         es = EpochStats(self.component_names)
         for i in range(nb):
             es.update({k: v[i] for k, v in stacked.items()},
@@ -753,7 +768,8 @@ class Trainer:
             if mesh.backend == "gloo":
                 ll = ll.cpu()
             dist.broadcast(ll, src=0, group=mesh.group)
-        return float(ll.cpu())
+        with profiling.host_sync("iwae.read"):
+            return float(ll.cpu())
 
     def _ll_batch(self, params, x, mask, rows):
         """One eval batch's IWAE estimates, (B,) (``mask`` unused: the
@@ -789,8 +805,9 @@ class Trainer:
         # one seed a pass from the data shard's generator (the same on its
         # model ranks), folded with the model index: each model rank draws
         # its own samples of the same rows
-        seed = int(torch.randint(0, 2**62, (), generator=self.generator,
-                                 device=self.device))
+        with profiling.host_sync("iwae.seed_read"):
+            seed = int(torch.randint(0, 2**62, (), generator=self.generator,
+                                     device=self.device))
         self._sample_generator.manual_seed(fold_seed(seed, mesh.model_index))
         run = self._eval_program("eval_ll", self._ll_batch_sharded,
                                  batches[0], masks[0], rows[0], graph,
@@ -798,7 +815,8 @@ class Trainer:
         total = torch.stack([run(batches[i], masks[i], rows[i])
                              for i in range(nb)]).to(torch.float64).sum()
         all_reduce_sum_(mesh, [total], mesh.data_group)
-        return float(total.cpu()) / n
+        with profiling.host_sync("iwae.read"):
+            return float(total.cpu()) / n
 
 
 def _fmt(stats: dict) -> str:
