@@ -66,7 +66,8 @@ Phases:
  8. training end to end: ``Trainer.fit`` of the flagship for 2 epochs of
     468 steps at batch 128 (burn-in 1), B1, B3 and B6 every step (B6 is on
     by default for CUDA parameters), a test ELBO per epoch and IWAE-500 at
-    the end, launch counts read right after, and one backward of the
+    the end, launch counts read right after (the optimizer kernel once a
+    step), and one backward of the
     tail under autograd at the training batch: one B3 launch and no sum
     op (B3 folds the curvature gradient); then the step rate in turns
     with B6 off and on (off, on, on, off), each turn's steps/s and device
@@ -261,7 +262,22 @@ Phases:
     B6 launched once a step; and, where the bf16 row at h_dim 1024 routes
     its decode to B6, B6 at (Z, H, D) = (8, 1024, 784) against its plain
     version (phase 7's checks, batches 1 to 1024);
-30. one JSON line of kernel numbers, then the result line.
+30. the optimizer kernel (``csrc/adam.cu``) at the flagship's and
+    d2,p2,e2's leaves at full width, and at the flagship's in bfloat16:
+    three steps against its plain version on the card, the first in
+    burn-in (the learnable curvatures held), each from the kernel's state
+    (float32: the parameters' change within 1e-4, the moments within 1e-6;
+    bfloat16: within one ulp of the update's largest magnitude), Adam's
+    count, the global step and the ticket read after each, one launch a
+    step; its time by CUDA-graph replay back to back and after an
+    L2 flush, beside its bytes bound (28 bytes a parameter at 3.35 TB/s), in
+    turns (kernel, replaced layer, replaced layer, kernel) with the layer it
+    replaced (the curvature mask's launches, ``torch.optim.Adam`` foreach
+    and capturable, the step counter) and beside the library yardstick (the
+    same with ``fused=True``), and the plain version's time; then the
+    kernels of one eager step of the replaced layer, named by the
+    operators that launched them;
+31. one JSON line of kernel numbers, then the result line.
 
 Every ``Trainer.train_one_epoch``, ``evaluate_elbo`` and
 ``evaluate_log_likelihood`` on the card replays graphs (phase 26 holds
@@ -320,13 +336,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from mvae_torch import TrainConfig, Trainer, VAEConfig, parse_components
 from mvae_torch.data import load_cifar, load_mnist
 from mvae_torch.kernels import (_build, decoder_kernels, manifold_kernels,
-                                roofline, tail_kernels)
+                                optim_kernels, roofline, tail_kernels)
 from mvae_torch.models import vae
 from mvae_torch.parallel import make_mesh, shard_batch, shard_params
 from mvae_torch.parallel.collectives import gather_model
 from mvae_torch.parallel.launch import World
 from mvae_torch.train import NonFiniteError, graphs
-from mvae_torch.train.trainer import _leaves
+from mvae_torch.train.trainer import _leaves, make_optimizer
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM rate, FP32 FMA and TF32
 # tensor-core peaks
@@ -401,7 +417,7 @@ _LAYERS = (("B1 tail_fwd", ("tail_fwd_kernel",)),
            ("B3 tail_bwd", ("tail_bwd_kernel",)),
            ("B6 train_decode", ("train_decode_kernel",)),
            ("GEMMs (cuBLAS, fwd + bwd)", ("gemm", "gemv", "xmma", "cutlass")),
-           ("Adam (foreach)", ("multi_tensor_apply",)),
+           ("Adam (csrc/adam.cu)", ("adam_kernel",)),
            ("random draws (binarize, noise, perm)", ("distribution", "philox",
                                                      "randperm", "random")),
            ("reductions (BCE sums, means, bias grads)", ("reduce_kernel",)))
@@ -1196,12 +1212,13 @@ def phase_train(ds, tmp) -> tuple[dict, Trainer]:
           f"training routed through B1/B3 and B6 (on by default on the "
           f"card): {trainer.fused_paths}")
     for fn in (tail_kernels.tail_forward, tail_kernels.tail_backward,
-               decoder_kernels.train_decode_bce):
+               decoder_kernels.train_decode_bce, optim_kernels.adam):
         fn.launches = 0
     result = trainer.fit(verbose=True, ll_max_examples=2048)
     launches = {"tail_fwd": tail_kernels.tail_forward.launches,
                 "tail_bwd": tail_kernels.tail_backward.launches,
-                "train_decode": decoder_kernels.train_decode_bce.launches}
+                "train_decode": decoder_kernels.train_decode_bce.launches,
+                "adam": optim_kernels.adam.launches}
     steps = trainer.step
     print(f"[train] {SPEC} h_dim 400, batch 128, {steps} steps "
           f"({'synthetic' if ds.synthetic else 'real'} MNIST): "
@@ -1230,6 +1247,8 @@ def phase_train(ds, tmp) -> tuple[dict, Trainer]:
     check(launches["tail_fwd"] >= steps, "B1 launched at least once a step")
     check(launches["train_decode"] >= steps,
           "B6 on by default on the card: launched every step")
+    check(launches["adam"] == steps, f"adam.cu launched once per step: "
+          f"{launches['adam']} launches, {steps} steps")
     _tail_fn_backward_ops(trainer.model_cfg.components)
 
     other = _flagship(ds, f"{tmp}/rate", seed=0, burnin_epochs=0)
@@ -1324,7 +1343,7 @@ def phase_train_plain_decoder(ds, tmp) -> None:
 
 
 def _grads(trainer, x, noise):
-    trainer.opt.zero_grad(set_to_none=True)
+    trainer.opt.zero_grad()
     loss, _ = vae.loss_fn(trainer.model_cfg, trainer.params, x, 1.0, noise)
     loss.backward()
     return [t.grad.detach().clone() for t in _leaves(trainer.params)]
@@ -3839,6 +3858,267 @@ def phase_bench(gen) -> None:
               f"version: max |dll| {worst:.3g} nats a row")
 
 
+def _parent_optimizer_layer(params, components, step_t, burnin, opt):
+    """The optimizer layer as the trainer ran it before ``csrc/adam.cu``:
+    the curvature mask's launches, ``torch.optim.Adam``'s step, the step
+    counter advanced. Phase 30's yardstick; the port calls none of it."""
+    unfrozen = None
+    for comp, cp in zip(components, params["components"]):
+        if "c_param" not in cp:
+            continue
+        c = cp["c_param"]
+        if c.grad is None:
+            c.grad = torch.zeros_like(c)
+        elif comp.fixed_curvature:
+            c.grad.zero_()
+        else:
+            if unfrozen is None:
+                unfrozen = step_t >= burnin
+            c.grad.mul_(unfrozen.to(c.grad.dtype))
+    opt.step()
+    step_t += 1
+
+
+def _adam_leaves(spec: str, seed: int = 21, dtype=torch.float32):
+    """``spec``'s parameters at full width on the card in ``dtype``, each
+    with a gradient, and its config."""
+    cfg = VAEConfig(parse_components(spec, fixed_curvature=False), (784,),
+                    h_dim=400)
+    params = vae.init_params(cfg, 1.0, dtype,
+                             torch.Generator().manual_seed(seed),
+                             torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for t in _leaves(params):
+        t.requires_grad_(True)
+        t.grad = (1e-2 * torch.randn(t.shape, generator=gen,
+                                     device="cuda")).to(dtype)
+    return cfg, params
+
+
+def _bf16_ulps(a, b, *before) -> float:
+    """|a - b| in bfloat16 ulps of the largest magnitude in their update:
+    of a, b and the values ``before`` the step (where the update nearly
+    cancels, the result is exact and the rounding is the operands')."""
+    a, b = a.detach().float(), b.detach().float()
+    scale = torch.maximum(a.abs(), b.abs())
+    for t in before:
+        scale = torch.maximum(scale, t.detach().float().abs())
+    ulp = 2.0 ** (torch.floor(torch.log2(scale.clamp(min=1e-30))) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def _adam_against_plain(cfg, params, steps: int = 3):
+    """``steps`` steps of the optimizer kernel over ``params`` at burn-in 1
+    (the first step holds the learnable curvatures) against its plain
+    version on the card, each step from the kernel's parameters and
+    moments; one launch, Adam's count, the global step and the ticket
+    checked after each. Returns the optimizer, the plain version's
+    arguments and the worst gaps of the parameters and of the moments:
+    float32 relative to the largest change or moment, bfloat16 in ulps of
+    the update's largest magnitude."""
+    leaves = _leaves(params)
+    ours = make_optimizer(params, TrainConfig(), cfg.components,
+                          torch.zeros((), dtype=torch.int64, device="cuda"),
+                          1)
+    kind_of = dict(zip((id(p) for g in ours.param_groups
+                        for p in g["params"]), ours.kinds))
+    kinds = [kind_of[id(t)] for t in leaves]
+    lrs = [1e-4 if k else 1e-3 for k in kinds]
+    ref = [t.detach().clone() for t in leaves]
+    rm = [torch.zeros_like(t) for t in ref]
+    rv = [torch.zeros_like(t) for t in ref]
+    rc = torch.zeros((), device="cuda")
+    rs = torch.zeros((), dtype=torch.int64, device="cuda")
+    bf16 = ref[0].dtype == torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    worst = worst_m = 0.0
+    for step in range(steps):
+        grads = [(1e-2 * torch.randn(t.shape, generator=gen,
+                                     device="cuda")).to(t.dtype)
+                 for t in ref]
+        with torch.no_grad():
+            for i, t in enumerate(leaves):
+                t.grad = grads[i]
+                ref[i].copy_(t)
+                if step:
+                    rm[i].copy_(ours.state[t]["exp_avg"])
+                    rv[i].copy_(ours.state[t]["exp_avg_sq"])
+        p0, m0, v0 = ([t.clone() for t in ts] for ts in (ref, rm, rv))
+        launches = optim_kernels.adam.launches
+        ours.step()
+        optim_kernels.adam_ref(ref, grads, rm, rv, kinds, lrs, rc, rs, 1,
+                               (0.9, 0.999), 1e-8)
+        torch.cuda.synchronize()
+        check(optim_kernels.adam.launches == launches + 1,
+              "one adam launch a step")
+        count = float(ours.state[leaves[0]]["step"])
+        check(count == float(rc) == step + 1
+              and int(ours.step_t) == int(rs) == step + 1
+              and int(ours._ticket) == 0,
+              f"adam.cu's counters after step {step + 1}: count {count}, "
+              f"step_t {int(ours.step_t)}, ticket {int(ours._ticket)}")
+        for i, t in enumerate(leaves):
+            a, m, v = t.detach(), ours.state[t]["exp_avg"], \
+                ours.state[t]["exp_avg_sq"]
+            if kinds[i] == optim_kernels.CURVATURE and (step == 0
+                                                        or not bf16):
+                check(torch.equal(a, p0[i]) == (step == 0),
+                      f"curvature leaf {i} held in burn-in only (step "
+                      f"{step + 1})")
+            if bf16:
+                worst = max(worst, _bf16_ulps(a, ref[i], p0[i]))
+                worst_m = max(worst_m,
+                              _bf16_ulps(m, rm[i], m0[i], 0.1 * grads[i]),
+                              _bf16_ulps(v, rv[i], v0[i]))
+                continue
+            worst = max(worst, float((a - ref[i]).abs().max()
+                                     / (ref[i] - p0[i]).abs().max()
+                                     .clamp(min=1e-30)))
+            for mine, theirs in ((m, rm[i]), (v, rv[i])):
+                worst_m = max(worst_m, float((mine - theirs).abs().max()
+                                             / theirs.abs().max()
+                                             .clamp(min=1e-30)))
+    return ours, (ref, grads, rm, rv, kinds, lrs, rc, rs), worst, worst_m
+
+
+def _torch_adam(cfg, params, **kw):
+    """``torch.optim.Adam`` over the trainer's two groups (a yardstick)."""
+    groups = make_optimizer(params, TrainConfig(), cfg.components, None,
+                            0).param_groups
+    return torch.optim.Adam([{"params": g["params"], "lr": g["lr"]}
+                             for g in groups], betas=(0.9, 0.999), eps=1e-8,
+                            capturable=True, **kw)
+
+
+def _cold_us(step, flush, iters: int = 50) -> float:
+    """Device time of ``step`` after a write of more than the L2 cache,
+    as a real step finds the optimizer's bytes: a graph of (flush, step)
+    pairs less a graph of the flushes alone."""
+    both = roofline.measure(lambda: (flush.zero_(), step()), iters=iters,
+                            graph=True).us
+    alone = roofline.measure(flush.zero_, iters=iters, graph=True).us
+    return both - alone
+
+
+def _name_layer_kernels(cfg, params) -> None:
+    """The device kernels of one eager step of the replaced layer, by the
+    operator that launched each (the source of the step's
+    ``elementwise_kernel<128,2>`` rows among them)."""
+    opt = _torch_adam(cfg, params, foreach=True)
+    step_t = torch.zeros((), dtype=torch.int64, device="cuda")
+    _parent_optimizer_layer(params, cfg.components, step_t, 0, opt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _parent_optimizer_layer(params, cfg.components, step_t, 0, opt)
+        torch.cuda.synchronize()
+    rows: dict = {}
+    total = 0
+    for ev in prof.events():
+        for k in getattr(ev, "kernels", []):
+            total += 1
+            kname = re.sub(r"\(.*", "", k.name)
+            short = ("elementwise_kernel<128,2>" if re.search(
+                r"elementwise_kernel<128, ?2,", k.name) else kname[:60])
+            parent = ev.cpu_parent.name if ev.cpu_parent else "-"
+            key = (short, ev.name, parent)
+            n, us = rows.get(key, (0, 0.0))
+            rows[key] = (n + 1, us + k.duration)
+    print(f"[adam] the replaced layer (mask, torch.optim.Adam foreach "
+          f"capturable, counter): {total} kernels, by the operator that "
+          f"launched them:")
+    for (short, op, parent), (n, us) in sorted(rows.items(),
+                                               key=lambda kv: -kv[1][1]):
+        print(f"[adam]   {n:3d}x {us:8.2f} us  {short}  <- {op} <- {parent}")
+
+
+def phase_adam(card: str) -> dict:
+    """The optimizer kernel (phase 30): at the flagship's and d2,p2,e2's
+    leaves, and the flagship's in bfloat16, against its plain version over
+    three steps; its time by CUDA events around a
+    graph replay, back to back (the leaves in L2) and after an L2 flush,
+    beside its bytes bound; in turns with the layer it replaced (mask,
+    torch.optim.Adam foreach capturable, counter); the library yardstick
+    (the same with fused=True); the plain version's time; and the kernels
+    of the replaced layer named by the operators that launched them."""
+    flush = torch.empty(24 * 2 ** 20, device="cuda")     # 96 MB > the L2
+    row = None
+    for spec in (SPEC, STEREO_SPEC):
+        cfg, params = _adam_leaves(spec)
+        n = sum(t.numel() for t in _leaves(params))
+        ours, plain_args, worst, worst_m = _adam_against_plain(cfg, params)
+        check(worst < 1e-4 and worst_m < 1e-6,
+              f"adam.cu within 1e-4 of its plain version over three steps "
+              f"({spec}): change {worst:.3g}, moments {worst_m:.3g}")
+        if spec == SPEC:
+            _, _, ulps, ulps_m = _adam_against_plain(
+                *_adam_leaves(spec, dtype=torch.bfloat16))
+            check(ulps <= 1 and ulps_m <= 1,
+                  f"adam.cu in bfloat16 within an ulp of its plain version "
+                  f"over three steps ({spec}): parameters {ulps:.3g}, "
+                  f"moments {ulps_m:.3g} ulps")
+        # the replaced layer and the library yardstick on their own copies
+        cfg_f, par_f = _adam_leaves(spec)
+        cfg_l, par_l = _adam_leaves(spec)
+        foreach = _torch_adam(cfg_f, par_f, foreach=True)
+        fused = _torch_adam(cfg_l, par_l, fused=True)
+        st_f = torch.zeros((), dtype=torch.int64, device="cuda")
+        st_l = torch.zeros((), dtype=torch.int64, device="cuda")
+
+        def previous():
+            _parent_optimizer_layer(par_f, cfg_f.components, st_f, 0,
+                                    foreach)
+
+        def library():
+            _parent_optimizer_layer(par_l, cfg_l.components, st_l, 0, fused)
+
+        turns = [roofline.measure(ours.step, "adam_kernel", iters=100),
+                 roofline.measure(previous, iters=100, graph=True),
+                 roofline.measure(previous, iters=100, graph=True),
+                 roofline.measure(ours.step, "adam_kernel", iters=100)]
+        lib = [roofline.measure(library, iters=100, graph=True)
+               for _ in range(2)]
+        kern_us = (turns[0].us + turns[3].us) / 2
+        prev_us = (turns[1].us + turns[2].us) / 2
+        lib_us = (lib[0].us + lib[1].us) / 2
+        cold = [_cold_us(ours.step, flush), _cold_us(previous, flush),
+                _cold_us(previous, flush), _cold_us(ours.step, flush)]
+        cold_lib = _cold_us(library, flush)
+        plain_ms = time_ms(lambda: optim_kernels.adam_ref(
+            *plain_args, 0, (0.9, 0.999), 1e-8), 20)
+        nbytes = 28 * n
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        print(f"[adam] {spec}: {len(_leaves(params))} leaves, {n} "
+              f"parameters, {nbytes} B: bound {bound_us:.2f} us at 3.35 TB/s "
+              f"({card})")
+        print(f"[adam] {spec}: in turns kernel / replaced layer / replaced "
+              f"layer / kernel, back to back: "
+              f"{', '.join(f'{t.us:.2f}' for t in turns)} us (graph events; "
+              f"kernel CUPTI median {turns[0].trace_us}, "
+              f"{turns[3].trace_us} us); the kernel {prev_us / kern_us:.1f}x "
+              f"faster, {100.0 * bound_us / kern_us:.1f}% of its bound")
+        print(f"[adam] {spec}: after an L2 flush, in turns: "
+              f"{', '.join(f'{u:.2f}' for u in cold)} us; the kernel "
+              f"{100.0 * bound_us / ((cold[0] + cold[3]) / 2):.1f}% of its "
+              f"bound")
+        print(f"[adam] {spec}: library yardstick (mask, torch.optim.Adam "
+              f"fused capturable, counter) {lib[0].us:.2f}, {lib[1].us:.2f} "
+              f"us back to back, {cold_lib:.2f} us after a flush: the kernel "
+              f"{lib_us / kern_us:.2f}x faster; plain version "
+              f"{plain_ms * 1e3:.1f} us")
+        if spec == SPEC:
+            _name_layer_kernels(*_adam_leaves(spec))
+            row = {"name": "adam", "route": "cuda",
+                   "source": "mvae_torch/kernels/csrc/adam.cu",
+                   "replaces": "none (optax's Adam, fused by XLA)",
+                   "max_rel_err": worst, "ms": kern_us / 1e3,
+                   "cold_ms": (cold[0] + cold[3]) / 2e3,
+                   "previous_ms": prev_us / 1e3, "plain_ms": plain_ms,
+                   "bound_ms": bound_us / 1e3, "bound_by": "bytes",
+                   "library_ms": lib_us / 1e3}
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3888,6 +4168,7 @@ def main() -> int:
         phase_matrix(ds, tmp)
         phase_mesh_nccl(ds, card)
         phase_bench(gen)
+        kernels.append(phase_adam(card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["tail_bwd"] = train_launches["tail_bwd"]
@@ -3902,6 +4183,7 @@ def main() -> int:
     launches["sphere_tile_bwd"] = sphere_train["tail_bwd"]
     launches.update(dist_launches)
     launches.update(roofline_launches)
+    launches["adam"] = train_launches["adam"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(card)

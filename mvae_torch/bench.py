@@ -21,7 +21,8 @@ own training step and kernels:
    h_dim 400 on D = 784, batch ``BATCH`` (1024), no burn-in, fixed uniform intensities
    from a seed, a fresh binarization and fresh noise each step. The step is
    the trainer's own (``Trainer._step_body``: binarize, loss, backward,
-   curvature mask, capturable Adam) captured once as a CUDA graph
+   the optimizer's one launch of ``csrc/adam.cu`` with the curvature mask
+   inside) captured once as a CUDA graph
    (``graphs.Graphed``, the trainer's generator registered). ``--repeats``
    chunks of ``--steps`` replays, each between two device syncs, the best
    chunk kept; B1, B3 and B6's launches a step from the wrappers' counts;
@@ -219,7 +220,7 @@ def step_model(cfg, n_params: int, batch: int) -> dict:
 
     Bytes, float32 words times 4:
 
-    * 8P for the parameters: ``torch.optim.Adam`` (foreach, capturable)
+    * 8P for the parameters: the optimizer's kernel (``csrc/adam.cu``)
       reads p, g, m, v and writes p, m, v (7P), and the gradient is a
       tensor of its own that autograd writes first (P). The reference's 7P
       counts XLA fusing the weight gradient into the Adam update, which

@@ -56,7 +56,10 @@ def span_layers_flag() -> str:
 # written: a contracted tail leaves a residue of ~sqrt(eps) |x| there. The
 # roofline probes keep contraction on: the FMA probe has to time FFMA, not
 # FMUL + FADD, and the twins price their op volume in fused multiply-adds.
-# The span markers take their names from the profiler's layer list.
+# The span markers take their names from the profiler's layer list. Adam
+# is compiled with --fmad=false so that its update rounds as its plain
+# version's one op at a time does (its lerp is an explicit fma, as
+# PyTorch's).
 EXTRA_FLAGS = {
     "tail_fwd": ["--fmad=false"],
     "tail_bwd": ["--fmad=false"],
@@ -66,6 +69,7 @@ EXTRA_FLAGS = {
     "manifold_dist": ["--fmad=false"],
     "roofline_probes": [],
     "spans": [span_layers_flag()],
+    "adam": ["--fmad=false"],
 }
 
 # native/Makefile's CXXFLAGS and LDFLAGS

@@ -82,7 +82,8 @@ from torch.profiler import ProfilerActivity, profile
 from ..ops import lorentz, stable, stereographic
 from ..utils.profiling import check_outputs
 from ..components import parse_components
-from . import _build, decoder_kernels, manifold_kernels, tail_kernels
+from . import (_build, decoder_kernels, manifold_kernels, optim_kernels,
+               tail_kernels)
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
 PEAK = {"hbm_gbps": 3350.0, "fp32_tflops": 67.0, "bf16_tflops": 989.0,
@@ -709,7 +710,7 @@ COUNTED = PROBES + (tail_kernels.tail_forward, tail_kernels.tail_backward,
                     manifold_kernels.lorentz_distance,
                     manifold_kernels.wrapped_reparam_stereo_t,
                     decoder_kernels.fused_decode_bce_t,
-                    decoder_kernels.train_decode_bce)
+                    decoder_kernels.train_decode_bce, optim_kernels.adam)
 
 
 # ---------------------------------------------------------------- arithmetic

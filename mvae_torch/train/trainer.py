@@ -26,12 +26,15 @@ Differences from the reference:
   ``train_rng`` ("rbg"/"threefry") and ``TrainConfig`` has no field for
   it. The pinned binarization mode (``eval_binarize="fixed"``) is a
   counter hash of (seed, example index);
-* the optimizer is ``torch.optim.Adam`` with optax's defaults (betas
-  (0.9, 0.999), eps 1e-8), ``capturable`` for CUDA parameters (its step
-  counters on the card, so the graphed and the eager step do the same
-  arithmetic). Masked curvature gradients are multiplied by zero, never
-  dropped, so Adam counts every step as optax does and the bias
-  correction after burn-in uses the global step.
+* the optimizer is the port's own ``optim.Adam`` with optax's defaults
+  (betas (0.9, 0.999), eps 1e-8): on CUDA parameters one launch of
+  ``kernels/optim_kernels.adam`` a step over every leaf, the curvature mask,
+  both learning rates and the step counters inside (its count on the card,
+  so the graphed and the eager step do the same arithmetic); on CPU ones the
+  kernel's plain version. Masked curvature gradients are multiplied by zero,
+  never dropped, so Adam counts every step as optax does and the bias
+  correction after burn-in uses the global step. Its state dicts are
+  ``torch.optim.Adam``'s.
 
 With ``mesh_shape`` (D, M) the trainer is one rank of a ("data", "model")
 mesh (``parallel``; the ranks are started by ``parallel.launch``): it holds
@@ -71,6 +74,7 @@ from ..utils import profiling
 from ..utils.device import resolve_device
 from . import graphs
 from .metrics import MetricsLogger
+from .optim import Adam
 from .stats import EpochStats
 
 # seed offset of the pinned eval binarization (the reference's 0xB1A)
@@ -134,73 +138,23 @@ def _curvature_leaves(params):
     return [cp["c_param"] for cp in params["components"] if "c_param" in cp]
 
 
-def make_optimizer(params, tc: TrainConfig) -> torch.optim.Adam:
+def make_optimizer(params, tc: TrainConfig, components, step_t,
+                   burnin_steps: int) -> Adam:
     """One Adam over two parameter groups: the ``c_param`` leaves at
-    ``curvature_lr``, everything else at ``lr`` (optax's defaults);
-    ``capturable`` (step counters on the card, as a CUDA graph needs) for
-    CUDA parameters, the plain one elsewhere."""
+    ``curvature_lr``, everything else at ``lr`` (optax's defaults); the
+    curvature mask of ``components`` at the device step ``step_t``
+    (``optim.Adam``)."""
     curv = _curvature_leaves(params)
     ids = {id(t) for t in curv}
     groups = [{"params": [t for t in _leaves(params) if id(t) not in ids],
                "lr": tc.lr}]
     if curv:
         groups.append({"params": curv, "lr": tc.curvature_lr})
-    cuda = _leaves(params)[0].device.type == "cuda"
-    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8,
-                            capturable=cuda)
-
-
-def load_optimizer_state(opt: torch.optim.Adam, sd: dict) -> bool:
-    """Adam's state ``sd`` (a ``state_dict``) into ``opt``: copied into its
-    state tensors in place when ``opt`` holds state for every parameter (a
-    captured graph goes on updating them), else through
-    ``load_state_dict`` with ``capturable`` and the step counters' device
-    kept as ``opt`` has them. The learning rates stay ``opt``'s, as the
-    reference's optimizer state holds none. Returns whether the state
-    tensors were replaced (graphs that hold the old ones are stale)."""
-    order = [p for g in opt.param_groups for p in g["params"]]
-    state = sd["state"]
-    if (len(state) == len(order) and all(p in opt.state for p in order)
-            and all(set(opt.state[p]) == set(state[i])
-                    for i, p in enumerate(order))):
-        with torch.no_grad():
-            for i, p in enumerate(order):
-                for name, v in state[i].items():
-                    opt.state[p][name].copy_(v)
-        return False
-    kept = [(g["lr"], g["capturable"]) for g in opt.param_groups]
-    opt.load_state_dict(sd)
-    for g, (lr, capturable) in zip(opt.param_groups, kept):
-        g["lr"], g["capturable"] = lr, capturable
-        if not capturable:
-            continue
-        for p in g["params"]:
-            st = opt.state.get(p)
-            if st and "step" in st:
-                st["step"] = st["step"].to(device=p.device,
-                                           dtype=torch.float32)
-    return True
-
-
-def _mask_curvature_grads(params, components, step, burnin_steps: int):
-    """The reference's traced mask, in place: a fixed curvature's gradient
-    zeroed, a learnable one's multiplied by ``step >= burnin_steps`` (``step``
-    a 0-d tensor on the gradients' device, so a captured step serves
-    burn-in and after). Masked, not dropped: Adam then advances its step as
-    optax does."""
-    unfrozen = None
-    for comp, cp in zip(components, params["components"]):
-        if "c_param" not in cp:
-            continue
-        c = cp["c_param"]
-        if c.grad is None:
-            c.grad = torch.zeros_like(c)
-        elif comp.fixed_curvature:
-            c.grad.zero_()
-        else:
-            if unfrozen is None:
-                unfrozen = step >= burnin_steps
-            c.grad.mul_(unfrozen.to(c.grad.dtype))
+    fixed = [cp["c_param"] for comp, cp in zip(components,
+                                               params["components"])
+             if "c_param" in cp and comp.fixed_curvature]
+    return Adam(groups, betas=(0.9, 0.999), eps=1e-8, learnable=curv,
+                fixed=fixed, step_t=step_t, burnin_steps=burnin_steps)
 
 
 class Trainer:
@@ -248,15 +202,17 @@ class Trainer:
             self._sample_generator = torch.Generator(device=self.device)
         for t in _leaves(self.params):
             t.requires_grad_(True)
-        self.opt = make_optimizer(self.params, tc)
         self.step = 0
-        # the global step on the device: the curvature mask reads it
+        # the global step on the device: the curvature mask reads it, and
+        # each optimizer step advances it
         self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
         # captured programs by key (graphs.Graphed) and the epoch's buffers
         self._programs: dict = {}
         self._epoch = None
         self.steps_per_epoch = len(dataset.train) // tc.batch_size
         self.burnin_steps = tc.burnin_epochs * self.steps_per_epoch
+        self.opt = make_optimizer(self.params, tc, model_cfg.components,
+                                  self._step_t, self.burnin_steps)
 
         self._train_data, self._test_data = to_device_dataset(
             dataset, self.device, self.dtype)
@@ -266,6 +222,13 @@ class Trainer:
         self._logger = None
         self.fused_paths = vae.fused_path_report(model_cfg, self.params,
                                                  self.mesh)
+        self.fused_paths["optimizer"] = (
+            {"active": True, "why": "kernel csrc/adam.cu: one launch a step "
+             "over every leaf, the curvature mask and both learning rates "
+             "inside"} if self.device.type == "cuda" else
+            {"active": False, "why": f"{self.device.type} parameters: the "
+             "kernel's plain version adam_ref (the kernel runs on CUDA "
+             "tensors only)"})
 
     @property
     def chief(self) -> bool:
@@ -329,15 +292,15 @@ class Trainer:
 
     def _step_body(self, x, u_bin, noise) -> dict:
         """The step on this rank's rows, the body a CUDA graph captures:
-        binarize, the loss and its backward, the mesh average, the
-        curvature mask at the device step counter, Adam, the counter
-        advanced. Issues no host read and no host-to-device copy. Its
-        callers mark where a step starts and ends (``profiling.mark``); the
+        binarize, the loss and its backward, the mesh average, then one
+        optimizer step: the curvature mask at the device step counter,
+        Adam, the counters advanced. Issues no host read and no
+        host-to-device copy. Its callers mark where a step starts and ends (``profiling.mark``); the
         forward marks its layers (``vae``), the backward's start here, its
         boundaries at z's and the encoder features' gradients, and the
         optimizer's."""
         x = binarize_batch(x, self.dataset.binarize, self.generator, u_bin)
-        self.opt.zero_grad(set_to_none=True)
+        self.opt.zero_grad()
         loss, stats = vae.loss_fn(self.model_cfg, self.params, x,
                                   self.tc.beta, noise, self.generator,
                                   self.mesh)
@@ -347,10 +310,7 @@ class Trainer:
         if self.mesh is not None:
             self._average_over_mesh(stats)
         profiling.mark("optimizer", loss)
-        _mask_curvature_grads(self.params, self.model_cfg.components,
-                              self._step_t, self.burnin_steps)
         self.opt.step()
-        self._step_t += 1
         return stats
 
     def _average_over_mesh(self, stats: dict) -> None:
@@ -425,8 +385,7 @@ class Trainer:
         with torch.no_grad():
             for t, v in zip(_leaves(self.params), params_leaves):
                 t.copy_(v)
-        if load_optimizer_state(self.opt, opt_state):
-            self._programs.clear()
+        self.opt.load_state_dict(opt_state)
         self.step = int(step)
         self._step_t.fill_(self.step)
         self.generator.set_state(rng)
@@ -572,8 +531,8 @@ class Trainer:
     def restore_checkpoint(self, step: int | None = None) -> None:
         """Load a checkpoint of ``run_dir`` (the latest by default). It is
         read onto the CPU: the parameters and Adam's state are copied into
-        the trainer's tensors (``load_optimizer_state``), and the generator
-        takes a CPU state.
+        the trainer's tensors (``optim.Adam.load_state_dict``), and the
+        generator takes a CPU state.
         On a mesh each rank keeps its slice; a checkpoint of the same mesh
         shape restores each generator, any other re-seeds them from (seed,
         step, data index)."""

@@ -1,9 +1,11 @@
 """The trainer's compiled programs (``mvae_torch/train/graphs.py``) on the
 CPU, where they run as the eager loop of the same bodies.
 
-* The curvature mask on a device step counter equals the JAX package's
-  traced ``_mask_curvature_grads`` on the same gradients, bit for bit
-  (fixed, burn-in, after; an infinite gradient included: both multiply).
+* The curvature mask the optimizer applies (``optim_kernels.masked_grad``
+  at the kinds ``make_optimizer`` gives each leaf) on a device step counter
+  equals the JAX package's traced ``_mask_curvature_grads`` on the same
+  gradients, bit for bit (fixed, burn-in, after; an infinite gradient
+  included: both multiply).
 * Two epochs with ``burnin_epochs=1`` through ``graphs.TrainEpoch.step``,
   the body a CUDA graph captures (here run eagerly), land on the JAX
   ``Trainer``'s weights within 5e-4 (the budget of
@@ -19,13 +21,13 @@ CPU, where they run as the eager loop of the same bodies.
 * A ``TorchFunctionMode`` finds no host read (``item``, ``tolist``,
   ``__bool__``, ...) and no host-to-device copy (``torch.tensor`` /
   ``torch.as_tensor`` of host data) in a training step or an eval batch of
-  the flagship, ``s6``, ``d6:riemannian`` and a conv ``u6``, after one
-  warm-up call as the graphs take: any would break a capture on the card.
+  the flagship, ``s6``, ``d6:riemannian`` and a conv ``u6``, the
+  optimizer's step included, after one warm-up call as the graphs take:
+  any would break a capture on the card.
 * On a card (``cuda`` marker; skipped here): N graphed steps equal N eager
   steps bit for bit.
 """
 import dataclasses
-import os
 import traceback
 
 import numpy as np
@@ -36,10 +38,10 @@ from torch.overrides import TorchFunctionMode
 from mvae_torch.components import parse_components
 from mvae_torch.convert import params_from_jax
 from mvae_torch.data import ArrayDataset
-from mvae_torch.kernels import tail_kernels
+from mvae_torch.kernels import optim_kernels, tail_kernels
 from mvae_torch.models import vae as tvae
 from mvae_torch.train import TrainConfig, Trainer, graphs
-from mvae_torch.train.trainer import _leaves, _mask_curvature_grads
+from mvae_torch.train.trainer import _leaves
 from mvae_torch.utils import profiling
 
 D, N_TRAIN, BS = 24, 32, 8
@@ -79,11 +81,13 @@ def test_curvature_mask_matches_reference(tmp_path, fixed, step, burnin):
             g["c_param"] = np.float32(np.inf if len(grads) == 1 else
                                       rng.normal())
         grads.append(g)
+    kinds = dict(zip((id(p) for g in tr.opt.param_groups
+                      for p in g["params"]), tr.opt.kinds))
+    unfrozen = torch.tensor(step) >= burnin
     for cp, g in zip(tr.params["components"], grads):
         for k, v in cp.items():
-            v.grad = torch.from_numpy(np.array(g[k]))
-    _mask_curvature_grads(tr.params, tr.model_cfg.components,
-                          torch.tensor(step), burnin)
+            v.grad = optim_kernels.masked_grad(
+                v, torch.from_numpy(np.array(g[k])), kinds[id(v)], unfrozen)
     want = j_mask({"components": tuple({k: jnp.asarray(v) for k, v in
                                         g.items()} for g in grads)},
                   j_parse(spec, fixed_curvature=fixed), jnp.asarray(step),
@@ -206,8 +210,7 @@ def test_state_load_keeps_optimizer_tensors(tmp_path):
 
 class HostReads(TorchFunctionMode):
     """Records every host read of a tensor and every tensor made from host
-    data, except the reads of ``torch.optim``'s own CPU step counters: Adam
-    is capturable (its counters on the card) for CUDA parameters only."""
+    data."""
 
     READS = {torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.__bool__,
              torch.Tensor.__float__, torch.Tensor.__int__,
@@ -222,10 +225,8 @@ class HostReads(TorchFunctionMode):
         if func in self.READS or (func in self.MAKES and args
                                   and not torch.is_tensor(args[0])):
             frames = traceback.extract_stack()
-            if not any(f"torch{os.sep}optim{os.sep}" in f.filename
-                       for f in frames):
-                self.seen.append(f"{getattr(func, '__name__', func)} at "
-                                 f"{frames[-2].filename}:{frames[-2].lineno}")
+            self.seen.append(f"{getattr(func, '__name__', func)} at "
+                             f"{frames[-2].filename}:{frames[-2].lineno}")
         return func(*args, **(kwargs or {}))
 
 
