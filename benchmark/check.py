@@ -1,6 +1,8 @@
 """The comparison that decides ``correct``: what the timed path produced
-against the plain reference (``reference/vae.py``, float64, TF32 off) on the
-same inputs, which the reference binarizes and draws through again itself.
+against the plain reference (the configuration's reference module,
+``reference/__init__.py``, passed in as ``ref``; float64, TF32 off) on the
+same inputs, which the reference binarizes (where the configuration does)
+and draws through again itself.
 
 Training: the first three steps of the checked epoch. Set-up runs epoch 0
 once to warm up and capture the step's graph (its first steps eager), puts
@@ -38,7 +40,7 @@ import statistics
 import torch
 
 import generate
-from reference import binarize, vae as ref
+from reference import binarize
 
 NEGLIGIBLE = 1e-3
 # the reference decodes this many importance samples at a time (memory only)
@@ -66,15 +68,17 @@ def worst(gaps: dict, top: int = 3) -> list:
         :top]
 
 
-def train_batches(cfg: dict, traffic: dict, seed: int, train, steps: int,
-                  dtype, half: bool = False):
+def train_batches(ref, cfg: dict, traffic: dict, seed: int, train,
+                  steps: int, dtype, half: bool = False):
     """The first ``steps`` batches of epoch 0 as the reference sees them:
-    (binary x, noise) in ``dtype``; ``half`` keeps the first half of each
-    (a fault)."""
-    perm, u, nz = generate.train_draws(cfg, traffic, seed, 0, train.device)
+    (x, binary where the configuration binarizes, noise) in ``dtype``;
+    ``half`` keeps the first half of each (a fault)."""
+    perm, u, nz = generate.train_draws(ref, cfg, traffic, seed, 0,
+                                       train.device)
     out = []
     for k in range(steps):
-        x = (u[k] < train[perm[k]]).to(dtype)
+        x = train[perm[k]]
+        x = (x if u is None else u[k] < x).to(dtype)
         e = nz[k].to(dtype)
         if half:
             x, e = x[:len(x) // 2], e[:len(e) // 2]
@@ -82,13 +86,14 @@ def train_batches(cfg: dict, traffic: dict, seed: int, train, steps: int,
     return out
 
 
-def reference_train(cfg: dict, traffic: dict, seed: int, train, w0: dict,
-                    dtype=torch.float64, tf32: bool = False,
+def reference_train(ref, cfg: dict, traffic: dict, seed: int, train,
+                    w0: dict, dtype=torch.float64, tf32: bool = False,
                     half: bool = False, steps: int = 3):
     """The reference's first ``steps`` Adam steps from ``w0``: (losses, the
     first gradients, the parameters after)."""
     lats = ref.parse_spec(cfg["spec"])
-    batches = train_batches(cfg, traffic, seed, train, steps, dtype, half)
+    batches = train_batches(ref, cfg, traffic, seed, train, steps, dtype,
+                            half)
     p = {k: v.to(dtype) for k, v in w0.items()}
     S = cfg["train_examples"] // traffic["batch_size"]
     run = ref.tf32_matmuls() if tf32 else contextlib.nullcontext()
@@ -130,26 +135,37 @@ def train_numbers(losses, grad, after, w0: dict, reference,
 
 
 def eval_rows(cfg: dict, test):
-    """The test split as the pass batches it: (batches (nb, bs, D), row ids
-    (nb, bs)), the last batch padded with the first example."""
+    """The test split as the pass batches it: (batches (nb, bs,
+    *data_shape), row ids (nb, bs)), the last batch padded with the first
+    example."""
     nb, bs = generate.eval_batches(cfg)
     pad = nb * bs - len(test)
-    x = torch.cat([test, test[:1].expand(pad, test.shape[1])]) if pad else test
+    x = (torch.cat([test, test[:1].expand((pad,) + test.shape[1:])]) if pad
+         else test)
     rows = torch.arange(nb * bs, device=test.device).reshape(nb, bs)
-    return x.reshape(nb, bs, -1), rows
+    return x.reshape((nb, bs) + test.shape[1:]), rows
 
 
-def reference_iwae(cfg: dict, traffic: dict, seed: int, test, w0: dict,
-                   index: int, dtype=torch.float64, tf32: bool = False):
+def eval_batch(cfg: dict, seed: int, rows, x):
+    """An eval batch as the pass sees it: pinned binarization of the rows
+    ``rows`` where the configuration binarizes."""
+    if not cfg["binarize"]:
+        return x
+    return binarize.fixed(seed, rows, x.reshape(len(x), -1)).reshape(x.shape)
+
+
+def reference_iwae(ref, cfg: dict, traffic: dict, seed: int, test,
+                   w0: dict, index: int, dtype=torch.float64,
+                   tf32: bool = False):
     """The reference's IWAE estimates of pass ``index`` (n_test,)."""
     lats = ref.parse_spec(cfg["spec"])
     p = {k: v.to(dtype) for k, v in w0.items()}
     batches, rows = eval_rows(cfg, test)
-    noise = generate.iwae_noise(cfg, traffic, seed, index, test.device)
+    noise = generate.iwae_noise(ref, cfg, traffic, seed, index, test.device)
     out = []
     with (ref.tf32_matmuls() if tf32 else contextlib.nullcontext()):
         for i in range(len(batches)):
-            x = binarize.fixed(seed, rows[i], batches[i]).to(dtype)
+            x = eval_batch(cfg, seed, rows[i], batches[i]).to(dtype)
             out.append(ref.iwae(lats, p, x, noise[i].to(dtype),
                                 REF_CHUNK))
     return torch.cat(out)[:len(test)]

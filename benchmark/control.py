@@ -36,17 +36,18 @@ import run  # noqa: E402
 
 
 def train_readings(cell, seed, device, what) -> dict:
-    cfg, traffic = cell["config"], cell["traffic"]
+    cfg, traffic, ref = cell["config"], cell["traffic"], cell["ref"]
     train, _ = generate.dataset(cfg, seed, device)
-    w0 = generate.weights(cfg, seed, device)
-    reference = check.reference_train(cfg, traffic, seed, train, w0)
+    w0 = generate.weights(ref, cfg, seed, device)
+    reference = check.reference_train(ref, cfg, traffic, seed, train, w0)
     out = {}
     if "control" in what:
-        c = check.reference_train(cfg, traffic, seed, train, w0,
+        c = check.reference_train(ref, cfg, traffic, seed, train, w0,
                                   dtype=torch.float32, tf32=True)
         out["control"] = check.train_numbers(*c, w0, reference)
     if "faults" in what:
-        h = check.reference_train(cfg, traffic, seed, train, w0, half=True)
+        h = check.reference_train(ref, cfg, traffic, seed, train, w0,
+                                  half=True)
         out["half_batch"] = check.train_numbers(*h, w0, reference)
         out["state_unchanged"] = check.train_numbers(
             reference[0], reference[1], w0, w0, reference)
@@ -54,13 +55,13 @@ def train_readings(cell, seed, device, what) -> dict:
 
 
 def iwae_readings(cell, seed, device, what) -> dict:
-    cfg, traffic = cell["config"], cell["traffic"]
+    cfg, traffic, ref = cell["config"], cell["traffic"], cell["ref"]
     _, test = generate.dataset(cfg, seed, device)
-    w0 = generate.weights(cfg, seed, device)
-    reference = check.reference_iwae(cfg, traffic, seed, test, w0, 1)
+    w0 = generate.weights(ref, cfg, seed, device)
+    reference = check.reference_iwae(ref, cfg, traffic, seed, test, w0, 1)
     out = {}
     if "control" in what:
-        c = check.reference_iwae(cfg, traffic, seed, test, w0, 1,
+        c = check.reference_iwae(ref, cfg, traffic, seed, test, w0, 1,
                                  dtype=torch.float32, tf32=True)
         out["control"] = check.iwae_numbers(c, reference)
     if "faults" in what:

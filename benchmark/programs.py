@@ -89,11 +89,12 @@ def build(cfg: dict, traffic: dict, seed: int, train, test, device,
     tensors)."""
     comps = parse_components(cfg["spec"],
                              fixed_curvature=cfg["fixed_curvature"])
-    mcfg = vae.VAEConfig(comps, (cfg["data_dim"],), cfg["arch"],
+    data_shape = tuple(cfg["data_shape"])
+    mcfg = vae.VAEConfig(comps, data_shape, cfg["arch"],
                          h_dim=cfg["h_dim"],
                          encoder_depth=cfg["encoder_depth"],
                          decoder_depth=cfg["decoder_depth"])
-    ds = ArrayDataset(cfg["name"], train, test, (cfg["data_dim"],), True,
+    ds = ArrayDataset(cfg["name"], train, test, data_shape, cfg["binarize"],
                       synthetic=True)
     tc = TrainConfig(epochs=1, batch_size=traffic.get("batch_size", 128),
                      lr=cfg["lr"], curvature_lr=cfg["curvature_lr"],
@@ -127,7 +128,13 @@ class Train:
         self.steps = trainer.steps_per_epoch
 
     def run(self, perm, u_bin, noise) -> dict:
-        """One epoch; returns the (steps, ...) statistics buffers."""
+        """One epoch; returns the (steps, ...) statistics buffers. Without
+        binarization uniforms (a configuration that does not binarize) the
+        epoch gets an (S, B) placeholder: ``TrainEpoch`` takes given noise
+        only beside them, and a step that does not binarize never reads
+        them."""
+        if u_bin is None:
+            u_bin = torch.zeros(perm.shape, device=perm.device)
         stats = self.epoch.run(perm, u_bin, noise, graph=self.graph)
         self.trainer.step += self.steps
         return stats

@@ -1,10 +1,10 @@
 """Plain PyTorch reference of the mixed-curvature VAE (Skopek et al.,
 "Mixed-curvature Variational Autoencoders", arXiv:1911.08411).
 
-The MLP VAE on 784-pixel Bernoulli data: encoder ``relu(x W + b)``, one
-linear head per latent factor (tangent mean and softplus scale), the
-reparameterized draw of each factor with its log q, its prior's log p and
-its KL term, decoder ``relu(z W1 + b1) W2 + b2`` and the Bernoulli
+The MLP VAE on flat binarized data (``data_shape`` ``[D]``): encoder
+``relu(x W + b)``, one linear head per latent factor (tangent mean and
+softplus scale), the reparameterized draw of each factor with its log q,
+its prior's log p and its KL term, decoder ``relu(z W1 + b1) W2 + b2`` and the Bernoulli
 log-likelihood. The ELBO's KL is analytic for the Euclidean normal and the
 von Mises-Fisher, ``log q - log p`` of the draw for the wrapped normals;
 the IWAE-n estimate is ``logsumexp_i(log p(x|z_i) + log p(z_i) -
@@ -29,7 +29,9 @@ posterior, as the program cuts it.
 
 ``tf32_matmuls()`` computes the block's matrix products in TF32 (the
 card's flag; on the CPU, operands rounded to TF32's 10-bit mantissa): the
-control of the benchmark's comparison.
+control of the benchmark's comparison. ``init`` and ``work`` give the
+weights' scales and the work counted from shapes (``reference``'s
+contract).
 """
 from __future__ import annotations
 
@@ -403,8 +405,9 @@ def draw(lat: Latent, raw, eps, c_param=None):
 # --- the model ----------------------------------------------------------------
 
 
-def param_shapes(lats, D: int, H: int) -> dict:
+def param_shapes(lats, cfg: dict) -> dict:
     """Name -> shape of every parameter, in the program's tree order."""
+    D, H = math.prod(cfg["data_shape"]), cfg["h_dim"]
     Z = sum(l.ambient for l in lats)
     shapes = {"encoder.layers.0.w": (D, H), "encoder.layers.0.b": (H,),
               "decoder.layers.0.w": (Z, H), "decoder.layers.0.b": (H,),
@@ -417,6 +420,26 @@ def param_shapes(lats, D: int, H: int) -> dict:
         if l.kind != "e":
             shapes[f"components.{i}.c_param"] = ()
     return shapes
+
+
+def init(lats, cfg: dict) -> dict:
+    """Name -> ("normal", std) or ("fill", value) of every parameter:
+    He-normal layers, N(0, 1/H) heads, zero biases, log|K| = log init_k."""
+    fan_in = {"encoder.layers.0.w": math.prod(cfg["data_shape"]),
+              "decoder.layers.0.w": sum(l.ambient for l in lats),
+              "decoder.out.w": cfg["h_dim"]}
+    out = {}
+    for k in param_shapes(lats, cfg):
+        leaf = k.split(".")[-1]
+        if leaf == "w":
+            out[k] = ("normal", math.sqrt(2.0 / fan_in[k]))
+        elif leaf in ("w_mu", "w_sig"):
+            out[k] = ("normal", 1.0 / math.sqrt(cfg["h_dim"]))
+        elif leaf == "c_param":
+            out[k] = ("fill", math.log(cfg["init_k"]))
+        else:
+            out[k] = ("fill", 0.0)
+    return out
 
 
 def encode(p, x):
@@ -510,3 +533,40 @@ def iwae(lats, p, x, eps, chunk: int = 125):
         z, lq, lp, _ = latent(lats, p, raw, eps[c0:c0 + chunk])
         out.append(log_px(p, z, x) + lp - lq)
     return torch.logsumexp(torch.cat(out), dim=0) - math.log(n)
+
+
+# --- the work counted from shapes --------------------------------------------
+
+
+def train_step(D: int, H: int, W: int, Z: int, B: int, n_params: int) -> dict:
+    """The MLP VAE's matrix products a training step executes, in
+    multiply-adds: the forward products (encoder D x H, heads H x W, decoder
+    Z x H and H x D) three times a row (forward, input gradient, weight
+    gradient) less the encoder's input gradient, which nothing needs.
+    Bytes, float32 words: 8 a parameter for Adam (p, g, m, v read; p, m, v
+    written; g written by autograd first) and 2 B (2 D + H) for the
+    activations each written once and read once."""
+    macs = 3 * B * (D * H + H * W + Z * H + H * D)
+    return {"gemm_macs": macs, "executed_macs": macs - B * D * H,
+            "bytes": 4 * (8 * n_params + 2 * B * (2 * D + H))}
+
+
+def iwae_example_flops(D: int, H: int, W: int, Z: int, n: int) -> int:
+    """An example's IWAE-n forward products: encoder and heads once, the
+    decoder's two products n times."""
+    return 2 * (D * H + H * W + n * (Z * H + H * D))
+
+
+def work(cfg: dict, lats, traffic: dict) -> dict:
+    """A training step's work at the traffic's batch (None without one) and
+    an IWAE example's FLOPs at its samples (the configuration's
+    ``likelihood_n`` without them)."""
+    D, H = math.prod(cfg["data_shape"]), cfg["h_dim"]
+    W = sum(l.head_width for l in lats)
+    Z = sum(l.ambient for l in lats)
+    n_params = sum(math.prod(s) for s in param_shapes(lats, cfg).values())
+    B = traffic.get("batch_size")
+    return {"train_step": None if B is None else train_step(
+                D, H, W, Z, B, n_params),
+            "iwae_example_flops": iwae_example_flops(
+                D, H, W, Z, traffic.get("samples", cfg["likelihood_n"]))}

@@ -4,10 +4,13 @@
         --seconds 10 --trace 0
 
 A cell is ``workloads/<name>.json`` (its configuration and traffic mix),
-``configs/<config>.json`` (the model and its data set) and
-``traffic/<traffic>.json`` (the program it drives and how); the metrics it
-reports are ``BENCHMARK.json``'s entries that name it, each per-layer
-metric read by ``metrics/<metric>.py``. Nothing here names a cell.
+``configs/<config>.json`` (the model and its data set: the model family's
+plain reference ``reference/<reference>.py``, the ``data_shape`` and
+whether it is ``binarize``d) and ``traffic/<traffic>.json`` (the program
+it drives and how); the metrics it reports are ``BENCHMARK.json``'s
+entries that name it, each per-layer metric read by
+``metrics/<metric>.py``. Nothing here names a cell, a configuration or a
+model family.
 
 A run makes the data, the weights and every draw on the card from
 ``--seed``, builds the program (``programs.py``) and warms it up (set-up:
@@ -53,8 +56,8 @@ import torch  # noqa: E402
 import check  # noqa: E402
 import devtrace  # noqa: E402
 import generate  # noqa: E402
+import reference  # noqa: E402
 import work  # noqa: E402
-from reference import vae as ref  # noqa: E402
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "mvae_tpu"}
 # seconds from the process's start at each step of the set-up
@@ -95,12 +98,16 @@ def find_cell(root: Path, name: str) -> dict:
     cfg_entry = next(c for c in bench["configs"] if c["name"] == wl["config"])
     cfg = load_json(root / cfg_entry["file"])
     traffic = load_json(here / "traffic" / f"{wl['traffic']}.json")
+    try:
+        ref = reference.load(here / "reference", cfg["reference"])
+    except FileNotFoundError as e:
+        raise Refused(3, str(e)) from None
 
     def applies(m):
         return "workloads" not in m or name in m["workloads"]
 
     return {"name": name, "chips": entry["chips"], "workload": wl,
-            "config": cfg, "traffic": traffic,
+            "config": cfg, "traffic": traffic, "ref": ref,
             "end_to_end": [m for m in bench["end_to_end"] if applies(m)],
             "per_layer": [m for m in bench["per_layer"] if applies(m)],
             "metrics_dir": here / "metrics"}
@@ -116,14 +123,16 @@ def read_metric(directory: Path, name: str, ctx: dict):
     return mod.read(ctx)
 
 
-def shapes(cfg: dict, traffic: dict) -> dict:
+def shapes(cfg: dict, traffic: dict, ref) -> dict:
+    """The cell's widths, from its configuration, traffic and reference
+    module (``ref``)."""
     lats = ref.parse_spec(cfg["spec"])
     n = traffic.get("samples", cfg["likelihood_n"])
-    sh = {"D": cfg["data_dim"], "H": cfg["h_dim"],
+    sh = {"D": math.prod(cfg["data_shape"]), "H": cfg["h_dim"],
           "W": sum(l.head_width for l in lats),
           "Z": sum(l.ambient for l in lats),
           "n_params": sum(math.prod(s) for s in ref.param_shapes(
-              lats, cfg["data_dim"], cfg["h_dim"]).values()),
+              lats, cfg).values()),
           "batch": traffic.get("batch_size"), "samples": n,
           "eval_batch": generate.eval_batches(cfg)[1],
           # the IWAE decode kernel's samples a launch: n's largest divisor
@@ -214,9 +223,9 @@ def peak_bytes(device):
 
 
 def train_cell(cell, seed, seconds, trace, device, programs, run_dir):
-    cfg, traffic = cell["config"], cell["traffic"]
+    cfg, traffic, ref = cell["config"], cell["traffic"], cell["ref"]
     train, test = generate.dataset(cfg, seed, device)
-    w0 = generate.weights(cfg, seed, device)
+    w0 = generate.weights(ref, cfg, seed, device)
     sync(device)
     mark("data_and_weights")
     trainer = programs.build(cfg, traffic, seed, train, test, device, run_dir)
@@ -224,7 +233,7 @@ def train_cell(cell, seed, seconds, trace, device, programs, run_dir):
     sync(device)
     mark("trainer")
     prog = programs.Train(trainer)
-    draws = generate.train_draws(cfg, traffic, seed, 0, device)
+    draws = generate.train_draws(ref, cfg, traffic, seed, 0, device)
     # the warm epoch: its first steps run eagerly, then the step's graph is
     # captured and replayed
     prog.means(prog.run(*draws))
@@ -245,7 +254,7 @@ def train_cell(cell, seed, seconds, trace, device, programs, run_dir):
 
     def issue(label, i):
         with label("benchmark.epoch_draws"):
-            draws = generate.train_draws(cfg, traffic, seed, i, device)
+            draws = generate.train_draws(ref, cfg, traffic, seed, i, device)
         with label("benchmark.epoch_replays"):
             stats = prog.run(*draws)
 
@@ -266,18 +275,18 @@ def train_cell(cell, seed, seconds, trace, device, programs, run_dir):
     program_out = (losses, first.grad, first.after)
     del prog, trainer, stats, first
     free(device)
-    reference = check.reference_train(cfg, traffic, seed, train, w0)
+    expected = check.reference_train(ref, cfg, traffic, seed, train, w0)
     out["look"] = {}
-    out["numbers"] = check.train_numbers(*program_out, w0, reference,
+    out["numbers"] = check.train_numbers(*program_out, w0, expected,
                                          out["look"])
     return out
 
 
 def iwae_cell(cell, seed, seconds, trace, device, programs, run_dir):
-    cfg, traffic = cell["config"], cell["traffic"]
+    cfg, traffic, ref = cell["config"], cell["traffic"], cell["ref"]
     train, test = generate.dataset(cfg, seed, device)
     del train
-    w0 = generate.weights(cfg, seed, device)
+    w0 = generate.weights(ref, cfg, seed, device)
     sync(device)
     mark("data_and_weights")
     trainer = programs.build(cfg, traffic, seed, test, test, device, run_dir)
@@ -285,7 +294,8 @@ def iwae_cell(cell, seed, seconds, trace, device, programs, run_dir):
     sync(device)
     mark("trainer")
     prog = programs.Iwae(trainer)
-    float(prog.run(generate.iwae_noise(cfg, traffic, seed, 0, device)).mean())
+    float(prog.run(generate.iwae_noise(ref, cfg, traffic, seed, 0,
+                                       device)).mean())
     sync(device)
     mark("warm_pass")
     setup_s = time.perf_counter() - T0
@@ -293,7 +303,7 @@ def iwae_cell(cell, seed, seconds, trace, device, programs, run_dir):
 
     def issue(label, i):
         with label("benchmark.pass_draws"):
-            noise = generate.iwae_noise(cfg, traffic, seed, i, device)
+            noise = generate.iwae_noise(ref, cfg, traffic, seed, i, device)
         with label("benchmark.pass_replays"):
             est = prog.run(noise)
 
@@ -324,7 +334,7 @@ def iwae_cell(cell, seed, seconds, trace, device, programs, run_dir):
         0, passes, (1,), generator=gen))})
     gaps = []
     for p in picks:
-        r = check.reference_iwae(cfg, traffic, seed, test, w0, p)
+        r = check.reference_iwae(ref, cfg, traffic, seed, test, w0, p)
         gaps.append(check.iwae_numbers(allv[p - 1], r)["ll_gap_nats"])
     out["numbers"] = {"ll_gap_nats": max(gaps)}
     out["checked_passes"] = picks
@@ -355,9 +365,13 @@ def metric_context(cell, run, summary) -> dict:
     """What a per-layer metric's reader reads: the traced window's device
     trace summary (``devtrace.summarize``) and its units, the wall a unit
     of the untraced stretch before it (``unit_s``), a unit's steps and
-    examples, the shapes, ``work.py`` and the peaks."""
-    return {"cell": cell["name"], "program": cell["traffic"]["program"],
-            "shapes": shapes(cell["config"], cell["traffic"]),
+    examples, the shapes, the model family's work (its reference module's
+    ``work``), ``work.py``'s kernel counts and the peaks."""
+    cfg, traffic, ref = cell["config"], cell["traffic"], cell["ref"]
+    return {"cell": cell["name"], "program": traffic["program"],
+            "shapes": shapes(cfg, traffic, ref),
+            "model_work": ref.work(cfg, ref.parse_spec(cfg["spec"]),
+                                   traffic),
             "trace": summary, "units": run["units"],
             "unit_s": run["unit_s"],
             "steps_per_unit": run["steps_per_unit"],

@@ -2,6 +2,7 @@
 import path, and the tiny CPU copy of the benchmark that the tests run."""
 from __future__ import annotations
 
+import hashlib
 import json
 import shutil
 import sys
@@ -60,6 +61,13 @@ def tiny_copy(dst: Path) -> dict:
         names[w["name"]] = name
     (dst / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
     return names
+
+
+def digests(root: Path) -> dict:
+    """Each file under ``root`` (bytecode caches left out) -> its SHA-256."""
+    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()
+            and "__pycache__" not in p.parts}
 
 
 @pytest.fixture(scope="module")

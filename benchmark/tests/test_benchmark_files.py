@@ -2,12 +2,11 @@
 contract's limits, and extended by new files alone."""
 from __future__ import annotations
 
-import hashlib
 import json
 import re
 
 import run
-from conftest import BENCH, ROOT, tiny_copy
+from conftest import BENCH, ROOT, digests, tiny_copy
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -81,12 +80,6 @@ def test_every_metric_reader_is_found_by_name():
             assert m["source"] == "device_trace"
 
 
-def _digests(root):
-    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
-            for p in sorted(root.rglob("*")) if p.is_file()
-            and "__pycache__" not in p.parts}
-
-
 def test_new_cell_config_and_metric_need_new_files_only(tmp_path):
     """A copy of the benchmark gains a configuration, a traffic mix, a cell
     and a per-layer metric as new files and new BENCHMARK.json entries; a
@@ -94,7 +87,7 @@ def test_new_cell_config_and_metric_need_new_files_only(tmp_path):
     changed but BENCHMARK.json."""
     import programs
     names = tiny_copy(tmp_path)
-    before = _digests(tmp_path)
+    before = digests(tmp_path)
     (tmp_path / "benchmark/metrics/steps_seen.train.py").write_text(
         "def read(ctx):\n    return float(ctx['units'] * ctx['steps_per_unit'])\n")
     b = json.loads((tmp_path / "BENCHMARK.json").read_text())
@@ -109,6 +102,6 @@ def test_new_cell_config_and_metric_need_new_files_only(tmp_path):
                      programs=programs)
     assert r["correct"]
     assert r["metrics"]["steps_seen.train"]["value"] > 0
-    after = _digests(tmp_path)
+    after = digests(tmp_path)
     changed = {p for p in before if before[p] != after[p]}
     assert changed == {p for p in before if p.name == "BENCHMARK.json"}

@@ -59,45 +59,66 @@ def test_a_checkout_without_the_program_is_refused(tmp_path):
     assert e.value.code == 3
 
 
+# Each planting returns its count of calls (a one-item list), which the
+# test holds above 0: a planting whose target the program no longer calls
+# fails the test instead of planting nothing.
+
+
 def _adam_does_nothing(monkeypatch):
-    monkeypatch.setattr(torch.optim.Adam, "step", lambda self, closure=None:
-                        None)
+    """The trainer's optimizer (``optim.Adam``) steps without updating
+    anything: no state, no moments, no hooks."""
+    from mvae_torch.train import optim
+    calls = [0]
+
+    def step(self):
+        calls[0] += 1
+    monkeypatch.setattr(optim.Adam, "step", step)
+    return calls
 
 
 def _half_batch_loss(monkeypatch):
     from mvae_torch.models import vae
     loss_fn = vae.loss_fn
+    calls = [0]
 
     def half(cfg, params, x, beta=1.0, noise=None, generator=None,
              mesh=None):
+        calls[0] += 1
         k = x.shape[0] // 2
         return loss_fn(cfg, params, x[:k], beta,
                        None if noise is None else noise[:k], generator, mesh)
     monkeypatch.setattr(vae, "loss_fn", half)
+    return calls
 
 
 def _answer_altered(monkeypatch):
     from mvae_torch.models import vae
     ll = vae.log_likelihood
+    calls = [0]
 
     def altered(*args, **kwargs):
+        calls[0] += 1
         out = ll(*args, **kwargs).clone()
         out[0] += 1.0
         return out
     monkeypatch.setattr(vae, "log_likelihood", altered)
+    return calls
 
 
 def _half_batch_answers(monkeypatch):
     from mvae_torch.models import vae
     ll = vae.log_likelihood
+    calls = [0]
 
     def half(cfg, params, x, n_samples=500, chunk_size=20, noise=None,
              generator=None):
+        calls[0] += 1
         k = x.shape[0] // 2
         out = ll(cfg, params, x[:k], n_samples, chunk_size,
                  None if noise is None else noise[:, :k], generator)
         return torch.cat([out, out[:x.shape[0] - k]])
     monkeypatch.setattr(vae, "log_likelihood", half)
+    return calls
 
 
 FAULTS = {"train": [_adam_does_nothing, _half_batch_loss],
@@ -109,27 +130,33 @@ FAULTS = {"train": [_adam_does_nothing, _half_batch_loss],
 def test_a_broken_timed_path_is_not_correct(tiny, programs, monkeypatch,
                                             cell, fault):
     kind = "train" if ".train" in cell else "iwae"
-    FAULTS[kind][fault](monkeypatch)
+    calls = FAULTS[kind][fault](monkeypatch)
     r = one_run(tiny, programs, cell)
+    assert calls[0] > 0, "the planted fault never ran"
     assert not r["correct"], r["checks"]
 
 
 def _replays_leave_the_state_unchanged(monkeypatch):
-    """The step's graph captured without Adam's update: the eager steps
-    before the capture update, every replay leaves the parameters and
-    Adam's state as they were."""
-    from mvae_torch.train import graphs
+    """The step's graph captured without Adam's update (``optim.Adam``, the
+    trainer's optimizer): the eager steps before the capture update, every
+    replay leaves the parameters and Adam's state as they were. Returns the
+    count of steps left out while capturing."""
+    from mvae_torch.train import graphs, optim
     capture = graphs.Graphed._capture
+    calls = [0]
+
+    def no_step(self):
+        calls[0] += 1
 
     def without_update(self):
-        step = torch.optim.Adam.step
-        monkeypatch.setattr(torch.optim.Adam, "step",
-                            lambda self, closure=None: None)
+        step = optim.Adam.step
+        monkeypatch.setattr(optim.Adam, "step", no_step)
         try:
             capture(self)
         finally:
-            monkeypatch.setattr(torch.optim.Adam, "step", step)
+            monkeypatch.setattr(optim.Adam, "step", step)
     monkeypatch.setattr(graphs.Graphed, "_capture", without_update)
+    return calls
 
 
 @pytest.mark.cuda
@@ -142,8 +169,9 @@ def test_a_fault_in_the_replays_alone_is_not_correct(tiny, programs, card,
     r = run.run_cell(names[cell], SEED, 0.1, False, card, root=root,
                      programs=programs)
     assert r["correct"], r["checks"]
-    _replays_leave_the_state_unchanged(monkeypatch)
+    calls = _replays_leave_the_state_unchanged(monkeypatch)
     r = run.run_cell(names[cell], SEED, 0.1, False, card, root=root,
                      programs=programs)
+    assert calls[0] > 0, "no step was captured without its update"
     assert not r["correct"], r["checks"]
     assert r["checks"]["change_median_gap"]["value"] > 0.5, r["checks"]

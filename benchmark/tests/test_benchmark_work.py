@@ -1,5 +1,6 @@
-"""The work counts of ``work.py`` against hand counts and against
-PyTorch's own count of the program's plain step."""
+"""The work counts of ``work.py`` and of the MLP family's reference
+module against hand counts and against PyTorch's own count of the
+program's plain step."""
 from __future__ import annotations
 
 import json
@@ -9,15 +10,16 @@ from torch.utils.flop_counter import FlopCounterMode
 import generate
 import work
 from conftest import BENCH
+from reference import vae
 
 
 def test_counts_equal_hand_counts():
     # D, H, W, Z, B = 4, 3, 5, 2, 2 and 10 parameters
-    step = work.train_step(4, 3, 5, 2, 2, 10)
+    step = vae.train_step(4, 3, 5, 2, 2, 10)
     assert step["gemm_macs"] == 3 * 2 * (12 + 15 + 6 + 12) == 270
     assert step["executed_macs"] == 270 - 2 * 12 == 246
     assert step["bytes"] == 4 * (8 * 10 + 2 * 2 * (2 * 4 + 3)) == 496
-    assert work.iwae_example_flops(4, 3, 5, 2, 3) == 2 * (12 + 15 + 3 * 18)
+    assert vae.iwae_example_flops(4, 3, 5, 2, 3) == 2 * (12 + 15 + 3 * 18)
     td = work.train_decode(2, 2, 3, 4)
     assert td == {"flops": 2 * 2 * 18,
                   "bytes": 4 * (4 + 8 + 6 + 3 + 12 + 4 + 2 + 6 + 8)}
@@ -30,8 +32,8 @@ def test_counts_equal_hand_counts():
 
 def test_flagship_counts():
     # the flagship at batch 1024: 1,628.98 M multiply-adds a step
-    assert work.train_step(784, 400, 11, 8, 1024,
-                           636397)["executed_macs"] == 1628979200
+    assert vae.train_step(784, 400, 11, 8, 1024,
+                          636397)["executed_macs"] == 1628979200
     assert work.decode_bce(125, 512, 8, 400, 784)["flops"] == 40550400000
 
 
@@ -44,9 +46,9 @@ def test_train_step_count_equals_the_flop_counter():
     traffic = {"batch_size": 8}
     train, test = generate.dataset(cfg, 5, "cpu")
     tr = programs.build(cfg, traffic, 5, train, test, "cpu", "unused")
-    perm, u, nz = generate.train_draws(cfg, traffic, 5, 0, "cpu")
+    perm, u, nz = generate.train_draws(vae, cfg, traffic, 5, 0, "cpu")
     with FlopCounterMode(display=False) as counter:
         tr._step_body(train[perm[0]], u[0], nz[0])
     n_params = sum(t.numel() for t in programs.flatten(tr.params).values())
-    expect = work.train_step(784, 24, 11, 8, 8, n_params)["executed_macs"]
+    expect = vae.train_step(784, 24, 11, 8, 8, n_params)["executed_macs"]
     assert counter.get_total_flops() == 2 * expect
