@@ -22,7 +22,8 @@ run; ``--profile_epochs N`` traces the training of the first N epochs into
 (``utils.profiling``): the host ranges of the epoch's copies, graph replays
 and statistics read, and on a card a marker kernel ``mvae_span_<layer>``
 where each layer of a replayed step starts (encode, tail, decode, loss,
-bwd_decode, bwd_tail, bwd_encode, optimizer, end). Runs on CUDA unless
+bwd_decode, bwd_tail, bwd_encode, optimizer, end; the conv nets add
+encode_fc, decode_conv, bwd_decode_fc and bwd_encode_conv). Runs on CUDA unless
 ``--device cpu`` is given. The reference's ``--train_rng`` has no
 counterpart: the port's training randomness is one torch generator.
 

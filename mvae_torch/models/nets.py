@@ -13,6 +13,13 @@ switched off around each call (``_ConvF32``), whatever
 ``torch.backends.cudnn.allow_tf32`` says, because the IWAE estimate is held
 to float32 grade.
 
+While a torch profiler records, the conv nets mark the layer boundaries
+inside the encoder and the decoder (``utils.profiling``): ``encode_fc``
+before the encoder's fc, ``decode_conv`` before the first transposed conv,
+and, under autograd, ``bwd_decode_fc`` and ``bwd_encode_conv`` where the
+backward reaches the gradients of the tensors entering the first
+transposed conv and the encoder's fc; the MLP nets mark nothing.
+
 Two opt-in switches, as in the reference: ``set_bf16_matmul``
 (``MVAE_BF16_MATMUL=1``) rounds the linear layers' operands to bfloat16
 with float32 accumulation and output; ``set_bf16_conv_activations``
@@ -28,6 +35,8 @@ import os
 
 import torch
 import torch.nn.functional as F
+
+from ..utils import profiling
 
 _BF16_MATMUL = os.environ.get("MVAE_BF16_MATMUL", "0") == "1"
 _BF16_CONV_ACT = os.environ.get("MVAE_BF16_CONV_ACT", "0") == "1"
@@ -198,6 +207,8 @@ def conv_encoder_apply(params, x):
     h = torch.relu(_conv(params["conv2"], h))
     # flattened in (H, W, C) order, the fc weights' row order
     h = h.reshape(h.shape[0], -1).to(params["fc"]["w"].dtype)
+    profiling.mark_grad(h, "bwd_encode_conv")
+    profiling.mark("encode_fc", h)
     h = torch.relu(_linear(params["fc"], h))
     return h.reshape(batch + (h.shape[-1],))
 
@@ -224,6 +235,8 @@ def conv_decoder_apply(params, z):
     h = h.reshape(-1, s, s, c)
     if _BF16_CONV_ACT and h.dtype == torch.float32:
         h = h.to(torch.bfloat16)
+    profiling.mark_grad(h, "bwd_decode_fc")
+    profiling.mark("decode_conv", h)
     h = torch.relu(_conv_transpose(params["deconv1"], h))
     logits = _conv_transpose(params["deconv2"], h)
     # logits back at the master dtype for the Bernoulli log-likelihood

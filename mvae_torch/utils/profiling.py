@@ -56,9 +56,11 @@ _UNINITIALIZED = {_aten.empty, _aten.empty_like, _aten.empty_strided,
 
 
 # the layers of a unit, in the order a training step and an IWAE batch
-# mark them; ``kernels/csrc/spans.cu`` defines one marker kernel a name
-LAYERS = ("encode", "tail", "decode", "loss", "bwd_decode", "bwd_tail",
-          "bwd_encode", "optimizer", "reparam", "logsumexp", "end")
+# mark them (the ``_fc`` and ``_conv`` layers: the conv nets' only);
+# ``kernels/csrc/spans.cu`` defines one marker kernel a name
+LAYERS = ("encode", "encode_fc", "tail", "decode", "decode_conv", "loss",
+          "bwd_decode", "bwd_decode_fc", "bwd_tail", "bwd_encode",
+          "bwd_encode_conv", "optimizer", "reparam", "logsumexp", "end")
 _INDEX = {layer: i for i, layer in enumerate(LAYERS)}
 
 counters = {"host_syncs": 0}

@@ -6,7 +6,8 @@ On the CPU:
 
 * while a ``torch.profiler`` records, the eager training step, the ELBO
   batch and the IWAE batch mark their layers in the program's order (an
-  instant host span a marker), and the epoch's and the pass's host spans
+  instant host span a marker; the conv nets' four layers beside the MLP's,
+  which keep theirs), and the epoch's and the pass's host spans
   nest as the code nests them; with no profiler nothing is recorded and
   ``span`` hands back the shared no-op;
 * ``host_syncs`` counts one device-to-host read an epoch and one a pass;
@@ -19,10 +20,11 @@ On the CPU:
 
 On a card (``cuda`` marker; skipped here): the marked and the plain graph
 give bit-equal parameters, Adam state, statistics and IWAE estimates; each
-traced replay shows its markers in order (9 a step, 11 an IWAE-500 batch)
-and the plain graph none; every Adam launch (``csrc/adam.cu``) lies in its
-step's optimizer layer; every ``cudaGraphLaunch`` of a traced window lies inside a
-``graph.replay`` span, so the host spans share the profiler's clock.
+traced replay shows its markers in order (9 a step, 11 an IWAE-500 batch;
+13 a conv step) and the plain graph none; every Adam launch
+(``csrc/adam.cu``) lies in its step's optimizer layer; every
+``cudaGraphLaunch`` of a traced window lies inside a ``graph.replay`` span,
+so the host spans share the profiler's clock.
 """
 import ctypes
 import re
@@ -46,6 +48,12 @@ D = 24
 STEP = ["encode", "tail", "decode", "loss", "bwd_decode", "bwd_tail",
         "bwd_encode", "optimizer", "end"]
 ELBO = ["encode", "tail", "decode", "loss", "end"]
+# the conv nets add a boundary inside the encoder and the decoder, forward
+# and backward
+CONV_STEP = ["encode", "encode_fc", "tail", "decode", "decode_conv", "loss",
+             "bwd_decode", "bwd_decode_fc", "bwd_tail", "bwd_encode",
+             "bwd_encode_conv", "optimizer", "end"]
+IMAGE = (8, 8, 3)
 
 
 def iwae(chunks):
@@ -68,6 +76,17 @@ def _trainer(tmp_path, spec="h2,s2,e2", **tc):
           "burnin_epochs": 0, "seed": 1, "epochs": 1, **tc}
     return Trainer(cfg, ArrayDataset("toy", x, x[:16].copy(), (D,), True),
                    TrainConfig(**tc), run_dir=str(tmp_path), device="cpu")
+
+
+def _conv_trainer(tmp_path, spec="u2", device="cpu", **tc):
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(32,) + IMAGE).astype(np.float32)
+    cfg = tvae.VAEConfig(parse_components(spec, fixed_curvature=False),
+                         IMAGE, "conv", h_dim=16)
+    tc = {"batch_size": 8, "eval_batch_size": 16, "likelihood_n": 20,
+          "burnin_epochs": 0, "seed": 1, "epochs": 1, **tc}
+    return Trainer(cfg, ArrayDataset("toy", x, x[:16].copy(), IMAGE, False),
+                   TrainConfig(**tc), run_dir=str(tmp_path), device=device)
 
 
 def _cpu_profile():
@@ -125,6 +144,34 @@ def test_step_body_of_the_graph_marks_its_layers_in_order(tmp_path):
                     ("epoch.stats_read", None)]
     inside = {p for n, _, _, p in spans if n.startswith("mvae_span_")}
     assert inside == {"epoch.replays"}
+
+
+@pytest.mark.parametrize("spec", ["u2", "h2,s2,e2"])
+def test_conv_eager_step_marks_its_conv_layers_in_order(tmp_path, spec):
+    tr = _conv_trainer(tmp_path, spec)
+    with _cpu_profile():
+        tr.train_one_epoch(0)
+    assert _markers(profiling.host_spans()) == CONV_STEP * tr.steps_per_epoch
+
+
+def test_conv_step_body_of_the_graph_marks_its_conv_layers(tmp_path):
+    tr = _conv_trainer(tmp_path)
+    epoch = graphs.TrainEpoch(tr)
+    with _cpu_profile():
+        epoch.run(tr._epoch_perm(), graph=False)
+        tr._epoch_means(epoch.stats)
+    assert _markers(profiling.host_spans()) == CONV_STEP * tr.steps_per_epoch
+
+
+def test_conv_iwae_and_elbo_batches_mark_the_conv_layers(tmp_path):
+    tr = _conv_trainer(tmp_path)
+    with _cpu_profile():
+        tr.evaluate_log_likelihood()
+        tr.evaluate_elbo()
+    assert _markers(profiling.host_spans()) == [
+        "encode", "encode_fc", "reparam", "decode", "decode_conv",
+        "logsumexp", "end", "encode", "encode_fc", "tail", "decode",
+        "decode_conv", "loss", "end"]
 
 
 @pytest.mark.parametrize("n,chunks", [(500, 4), (256, 2), (10, 1)])
@@ -420,6 +467,21 @@ def test_plain_graph_launches_no_marker_on_card(tmp_path):
             assert layer == "optimizer", e.name()
             adam += 1
     assert adam == 3
+
+
+@pytest.mark.cuda
+def test_conv_step_marks_its_conv_layers_on_card(tmp_path):
+    """The conv VAE's traced replays show the conv layers' markers in order,
+    the backward's two from their gradient hooks inside the graph."""
+    _card()
+    tr = _conv_trainer(tmp_path, device="cuda")
+    assert tr.graph_path["path"] == "graph"
+    tr.train_one_epoch(0)
+    tr.train_one_epoch(1)
+    with _cuda_profile() as prof:
+        tr.train_one_epoch(2)
+    torch.cuda.synchronize()
+    assert _device_markers(prof) == CONV_STEP * tr.steps_per_epoch
 
 
 @pytest.mark.cuda
