@@ -8,7 +8,8 @@ Phases:
     full-f32 matmuls (TF32 off);
  2. build every kernel of ``mvae_torch/kernels/csrc`` with nvcc (parallel:
     B1 tail_fwd, B2 decode_bce, B3 tail_bwd, B6 train_decode,
-    B5 reparam_stereo, B7 manifold_dist, B8 roofline_probes; B4a and B4b
+    B5 reparam_stereo, P2 reparam_chunk, B7 manifold_dist, B8
+    roofline_probes; B4a and B4b
     live in the header B1 and B3 share) and, beside them, B5's previous
     design (``scripts/reparam_stereo_previous.cu``, ``PREVIOUS_REPARAM``),
     the compute twins' previous design (``scripts/twin_probes_previous.cu``,
@@ -18,7 +19,9 @@ Phases:
     on its tiles, printing ptxas's registers, stack frame
     and spills of each kernel instantiation (B5's 24 one by one: n = 2, 3,
     6 and generic, one or two samples a thread, each curvature sign; those
-    for n = 2, 3, 6 must spill nothing; B8f's 8, n = 2, 3, 6 and generic at
+    for n = 2, 3, 6 must spill nothing; P2's 8, its dimension classes 2, 3,
+    6 and generic at one or two samples a thread, those for 2, 3, 6 with no
+    spill; B8f's 8, n = 2, 3, 6 and generic at
     one or two samples a thread, those for n = 2, 3, 6 with no spill and
     no stack frame), the instructions of one accurate tanhf in the tanh
     probe's SASS loop (``roofline.tanh_instructions``, cuobjdump), which
@@ -101,6 +104,16 @@ Phases:
     branches' sine once (``roofline.reparam_ops``), each arithmetic op one
     FMA issue slot at 67 TFLOP/s and each transcendental phase 2's tanhf
     instruction count of them;
+13b. the IWAE chunk reparam of the flagship's kinds (reparam_chunk.cu,
+    P2) against ``reparam_chunk_ref`` with float64 beside it at the
+    production chunk (S, B) = (125, 512) for the tables of h2,s2,e2 (scalar
+    and diagonal scales), d2,p2,e2 (its e2), h3,e3 and h2,e3,s2 (the
+    generic instantiation), and at ragged (7, 33); on each, bit for bit
+    against B1 (``tail_forward``) on the same rows with each example's heads
+    repeated over its samples; then at the flagship's chunk its time by
+    ``roofline.measure`` in turns with the per-component path it replaces
+    (kernel, previous, previous, kernel), its plain version's time and
+    its bytes bound;
 14. the stereographic family end to end, d2,p2,e2 at h_dim 400 with
     learnable curvature: test ELBO and IWAE-500 over the 10,000-example
     test split through B1 (+B4a), B5 and B2 with launch counts (20, 160,
@@ -471,6 +484,8 @@ def _plain_reparam(eps, mu, sigma, k, wraps=1, sign=0, out=None, z_off=0):
 
 _PLAIN = ((tail_kernels, "tail_forward", tail_kernels.tail_forward_ref),
           (manifold_kernels, "wrapped_reparam_stereo_t", _plain_reparam),
+          (tail_kernels, "reparam_chunk_t",
+           tail_kernels.reparam_chunk_plain),
           (tail_kernels, "tail_backward", tail_kernels.tail_backward_ref),
           (decoder_kernels, "fused_decode_bce_t",
            decoder_kernels.decode_bce_ref),
@@ -601,9 +616,9 @@ def twin_reparam_instantiations(report: str) -> dict:
 
 def phase_build() -> dict:
     """Every kernel source built (one nvcc each, together with B5's and the
-    compute twins' previous designs); ptxas's report printed; B5's and
-    B8f's register-resident instantiations (n = 2, 3, 6) checked to spill
-    nothing (B8f's to use no stack frame either); the instructions of one
+    compute twins' previous designs); ptxas's report printed; B5's, P2's
+    and B8f's register-resident instantiations (n = 2, 3, 6) checked to
+    spill nothing (B8f's to use no stack frame either); the instructions of one
     accurate tanhf in the tanh probe and of each transcendental step of
     B8e's tail (on its common path) counted from their SASS; B8e's
     resident per-row loop counted from its SASS and checked to hold at
@@ -645,6 +660,21 @@ def phase_build() -> dict:
     check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
               for (n, _, _), v in inst.items() if n),
           "B5's instantiations for n = 2, 3, 6 spill nothing")
+    chunk = {}
+    for name, v in ptxas_entries(reports["reparam_chunk"]).items():
+        m = re.search(r"reparam_chunk_kernelILi(\d+)EEv", name)
+        if m:
+            chunk[int(m[1])] = v
+    for d, v in sorted(chunk.items()):
+        print(f"[build] reparam_chunk <class {d or 'generic'}>: "
+              f"{v['registers']} registers, {v['stack']} bytes stack frame, "
+              f"{v['spill_stores']} / {v['spill_loads']} bytes spilled "
+              f"(stores / loads)")
+    check(sorted(chunk) == [0, 2],
+          f"P2 built in 2 instantiations: {sorted(chunk)}")
+    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
+              for d, v in chunk.items() if d),
+          "P2's instantiation for the class 2 spills nothing")
     for v in ptxas_entries(prev_report).values():
         print(f"[build] reparam_stereo, previous design (generic, a sample "
               f"a thread, sign at run time): {v['registers']} registers, "
@@ -917,16 +947,20 @@ def phase_end_to_end(spec: str = SPEC) -> dict:
     trainer = Trainer(cfg, ds, tc)
     n_reparam = sum(c.posterior == "wrapped" and c.manifold.kind in "dpu"
                     for c in cfg.components)
+    n_tiles = sum(tail_kernels.chunk_supported(c) for c in cfg.components)
     check(trainer.fused_paths["train_tail"]["active"]
           and trainer.fused_paths["iwae_decoder"]["active"]
           and sum(r["active"] for r in trainer.fused_paths["iwae_reparam"])
-          == n_reparam, f"the kernels are routed: {trainer.fused_paths}")
+          == n_reparam + n_tiles, f"the kernels are routed: "
+          f"{trainer.fused_paths}")
     n = len(ds.test)
     _evaluate(trainer, 1)  # warm-up pass (cuBLAS handles, allocator)
 
+    n_chunk = int(n_tiles > 0)
     counted = {"tail_fwd": tail_kernels.tail_forward,
                "decode_bce": decoder_kernels.fused_decode_bce_t,
                "reparam_stereo": manifold_kernels.wrapped_reparam_stereo_t,
+               "reparam_chunk": tail_kernels.reparam_chunk_t,
                "train_decode": decoder_kernels.train_decode_bce}
     for fn in counted.values():
         fn.launches = 0
@@ -945,6 +979,9 @@ def phase_end_to_end(spec: str = SPEC) -> dict:
     check(launches["reparam_stereo"] == 80 * n_reparam,
           f"chunk reparam kernel launched {80 * n_reparam} times "
           "(20 batches x 4 chunks x its components)")
+    check(launches["reparam_chunk"] == 80 * n_chunk,
+          f"P2 launched {80 * n_chunk} times (20 batches x 4 chunks, once "
+          "a chunk for its components)")
 
     with plain_kernels():
         elbo_p, ll_p, t_elbo_p, t_ll_p = _evaluate(trainer, tc.seed)
@@ -1762,6 +1799,139 @@ def phase_reparam(gen, built) -> dict:
             "bound_ms": max(bytes_ms, o_ms),
             "bound_by": "bytes" if bytes_ms >= o_ms else "operations",
             "library_ms": None}
+
+
+def _chunk_case(spec, S, B, gen, **opts):
+    """A chunk of ``spec``'s P2 components on the card: means ~0.5, 4x
+    that on every 7th example from example 3, scales softplus(N(-1, 0.7)),
+    curvatures -0.7 on h and 1.3 on s."""
+    comps = tuple(parse_components(spec, fixed_curvature=False, **opts))
+    picked = tuple(i for i, c in enumerate(comps)
+                   if tail_kernels.chunk_supported(c))
+    W = sum(c.head_width for c in comps)
+    raw = torch.randn(B, W, generator=gen, device="cuda")
+    off = 0
+    for c in comps:
+        raw[:, off:off + c.dim] *= 0.5
+        raw[3::7, off:off + c.dim] *= 4.0
+        raw[:, off + c.dim:off + c.head_width] = (
+            0.7 * raw[:, off + c.dim:off + c.head_width] - 1.0)
+        off += c.head_width
+    noise = tail_kernels.draw_noise(comps, (S, B), raw, gen)
+    k = torch.tensor([{"h": -0.7, "s": 1.3}.get(comps[i].manifold.kind, 0.0)
+                      for i in picked], device="cuda")
+    return comps, picked, raw, noise, k
+
+
+def _previous_chunk(comps, cps, raw, noise, zt):
+    """The per-component path P2 replaces, on one chunk: each component's
+    ``components.reparametrize`` on its head slice and noise columns, its z
+    copied transposed into its rows of zt, log q and log p summed."""
+    from mvae_torch.components import reparametrize
+    lq = lp = 0.0
+    ro = eo = zo = 0
+    for c, cp in zip(comps, cps):
+        rep = reparametrize(c, cp, raw, raw=raw[:, ro:ro + c.head_width],
+                            noise=noise[..., eo:eo + c.noise_width])
+        zt[:, zo:zo + c.ambient_dim] = rep.z.transpose(1, 2)
+        lq = lq + rep.log_q
+        lp = lp + rep.log_p
+        ro += c.head_width
+        eo += c.noise_width
+        zo += c.ambient_dim
+    return lq, lp
+
+
+def phase_reparam_chunk(gen) -> dict:
+    """P2 against its plain version (float64 beside it) and, bit for bit,
+    against B1 on the same rows; then its time at the flagship's chunk in
+    turns with the per-component path it replaces."""
+    worst = err = 0.0
+    cases = [("h2,s2,e2", {}), ("h2,s2,e2", {"scalar_sigma": True}),
+             ("d2,p2,e2", {}), ("h3,e3", {}), ("h2,e3,s2", {})]
+    for (spec, opts), (S, B) in [(c, sb) for c in cases
+                                 for sb in ((125, 512), (7, 33))]:
+        comps, picked, raw, noise, k = _chunk_case(spec, S, B, gen, **opts)
+        Z = sum(c.ambient_dim for c in comps)
+        out = torch.full((S, Z, B), 7.0, device="cuda")
+        lq, lp = tail_kernels.reparam_chunk_t(comps, picked, raw, noise, k,
+                                              out)
+        z_r, lq_r, lp_r = tail_kernels.reparam_chunk_ref(comps, picked, raw,
+                                                         noise, k)
+        z64, lq64, lp64 = tail_kernels.reparam_chunk_ref(
+            comps, picked, raw.double(), noise.double(), k.double())
+        parts = tail_kernels._picked(comps, picked)
+        z = torch.cat([out[:, zo:zo + c.ambient_dim]
+                       for c, _, _, zo in parts], dim=1).transpose(1, 2)
+        what = f"P2 {spec} {opts or ''} at (S, B) = ({S}, {B})"
+        for ours, ref, ref64, tol, name in (
+                (z, z_r, z64, 1e-5 * (1 + z_r.abs()), "z"),
+                (lq, lq_r, lq64, 1e-4 * (1 + 1e-2 * lq_r.abs()), "log q"),
+                (lp, lp_r, lp64, 1e-4 * (1 + 1e-2 * lp_r.abs()), "log p")):
+            r, e = held(ours, ref, ref64, tol, f"{what} {name}")
+            worst, err = max(worst, r), max(err, e)
+        others = [i for i in range(len(comps)) if i not in picked]
+        check(all(bool((out[:, zo:zo + c.ambient_dim] == 7.0).all())
+                  for c, _, _, zo in (tail_kernels._picked(comps,
+                                                           tuple(others))
+                                      if others else ())),
+              f"{what}: writes only its components' rows")
+        if len(picked) == len(comps):
+            W, E, _ = tail_kernels._dims(comps)
+            rows = raw.unsqueeze(0).expand(S, B, W).reshape(S * B, W)
+            z1, aux = tail_kernels.tail_forward(comps, rows,
+                                                noise.reshape(S * B, E), k)
+            nc = len(comps)
+            check(torch.equal(out.transpose(1, 2), z1.reshape(S, B, Z))
+                  and torch.equal(lq, aux[:, nc].reshape(S, B))
+                  and torch.equal(lp, aux[:, nc + 1].reshape(S, B)),
+                  f"{what}: bit-equal to B1 on the repeated rows")
+    print(f"[reparam_chunk] 10 cases: worst share of the tolerance "
+          f"{worst:.3g}, largest error on resolved entries {err:.3g}; the "
+          f"whole-product tables bit-equal to B1")
+
+    S, B = 125, 512
+    rl = roofline
+    comps, picked, raw, noise, k = _chunk_case(SPEC, S, B, gen)
+    cps = [c.init_params(4, 1.0, torch.float32, None, "cuda") for c in comps]
+    W, E, Z = tail_kernels._dims(comps)
+    out = torch.empty((S, Z, B), device="cuda")
+    out_p = torch.empty((S, Z, B), device="cuda")
+    kc = torch.stack([c.curvature(cp) for c, cp in zip(comps, cps)])
+
+    def kernel():
+        return rl.measure(lambda: tail_kernels.reparam_chunk_t(
+            comps, picked, raw, noise, kc, out), "reparam_chunk_kernel", 100)
+
+    def previous():
+        return rl.measure(lambda: _previous_chunk(comps, cps, raw, noise,
+                                                  out_p), graph=True,
+                          iters=20)
+
+    turns = [kernel(), previous(), previous(), kernel()]
+    t = rl.mean_timing(turns[0], turns[3])
+    p = rl.mean_timing(turns[1], turns[2])
+    lq, lp = tail_kernels.reparam_chunk_t(comps, picked, raw, noise, kc, out)
+    lq_p, lp_p = _previous_chunk(comps, cps, raw, noise, out_p)
+    torch.cuda.synchronize()
+    gap = max((lq - lq_p).abs().max().item(), (lp - lp_p).abs().max().item())
+    plain_ms = time_ms(lambda: tail_kernels.reparam_chunk_ref(
+        comps, picked, raw, noise, kc), 5)
+    nbytes = rl.reparam_chunk_bytes(S, B, E, Z, W, len(picked))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[reparam_chunk] {SPEC} chunk (S, B) = ({S}, {B}): kernel "
+          f"{t.us:.2f} us (CUPTI trace median {t.trace_us}), the per-component path it replaces {p.us:.2f} us "
+          f"a chunk in turns (kernel, previous, previous, kernel: "
+          f"{', '.join(f'{x.us:.2f}' for x in turns)} us): {p.us / t.us:.1f}x;"
+          f" largest |d log q|, |d log p| against it {gap:.3g}; plain "
+          f"{plain_ms * 1e3:.1f} us; bytes bound {bytes_ms * 1e3:.3f} us "
+          f"({nbytes} B)")
+    check(t.us < p.us, "P2 faster than the per-component path")
+    return {"name": "reparam_chunk", "route": "cuda",
+            "source": "mvae_torch/kernels/csrc/reparam_chunk.cu",
+            "replaces": None, "max_abs_err": err, "ms": t.us / 1e3,
+            "plain_ms": plain_ms, "previous_ms": p.us / 1e3,
+            "bound_ms": bytes_ms, "bound_by": "bytes", "library_ms": None}
 
 
 def _stereo_mu(B, n, k, kval, gen):
@@ -2881,7 +3051,8 @@ def _counted():
             "tail_bwd": tail_kernels.tail_backward,
             "train_decode": decoder_kernels.train_decode_bce,
             "decode_bce": decoder_kernels.fused_decode_bce_t,
-            "reparam_stereo": manifold_kernels.wrapped_reparam_stereo_t}
+            "reparam_stereo": manifold_kernels.wrapped_reparam_stereo_t,
+            "reparam_chunk": tail_kernels.reparam_chunk_t}
 
 
 def _zero_counts() -> None:
@@ -3581,7 +3752,11 @@ def _graphs_config(name, trainer, card) -> dict:
               "train_decode": paths["train_decoder"]["active"],
               "decode_bce": paths["iwae_decoder"]["active"],
               "reparam_stereo": any(r["active"]
-                                    for r in paths["iwae_reparam"])}
+                                    and "reparam_stereo.cu" in r["why"]
+                                    for r in paths["iwae_reparam"]),
+              "reparam_chunk": any(r["active"]
+                                   and "reparam_chunk.cu" in r["why"]
+                                   for r in paths["iwae_reparam"])}
     print(f"[graphs] {name} through graphs on {card}: train ELBO "
           f"{stats[0]['elbo']:.3f} -> {stats[1]['elbo']:.3f}, test ELBO "
           f"{elbo:.3f}, IWAE-500 {ll:.3f}; (captures, replays) {caps}; "
@@ -4139,6 +4314,7 @@ def main() -> int:
         phase_checkpoint(trainer, ds, tmp)
         kernels += phase_stereo_tail(gen)
         kernels.append(phase_reparam(gen, built))
+        kernels.append(phase_reparam_chunk(gen))
         stereo_eval = phase_end_to_end(STEREO_SPEC)
         stereo_train = phase_stereo_train(ds, tmp)
         phase_replay(ds, tmp, STEREO_SPEC, b6=False, free_run=False)

@@ -49,7 +49,8 @@ def span_layers_flag() -> str:
 # Lorentz difference forms by more than the comparison tolerance at large
 # hyperbolic radius. The backward recomputes the forward's intermediates,
 # so it takes the same flag to recompute them bit for bit. The IWAE chunk
-# reparam runs the stereographic tile's draw and is built like it. The
+# reparams run the tiles' draws and are built like them (B5 the
+# stereographic tile's, P2 the normal, hyperboloid and vMF tiles'). The
 # distance kernels sum a row across a warp, in another order than any plain
 # version, but their Gram form cancels to zero at x = y only while the three
 # sums of a row are rounded alike and the scalar tail is evaluated as
@@ -64,6 +65,7 @@ EXTRA_FLAGS = {
     "tail_fwd": ["--fmad=false"],
     "tail_bwd": ["--fmad=false"],
     "reparam_stereo": ["--fmad=false"],
+    "reparam_chunk": ["--fmad=false"],
     "decode_bce": [],
     "train_decode": [],
     "manifold_dist": ["--fmad=false"],

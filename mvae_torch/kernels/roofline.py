@@ -709,6 +709,7 @@ COUNTED = PROBES + (tail_kernels.tail_forward, tail_kernels.tail_backward,
                     manifold_kernels.stereo_distance,
                     manifold_kernels.lorentz_distance,
                     manifold_kernels.wrapped_reparam_stereo_t,
+                    tail_kernels.reparam_chunk_t,
                     decoder_kernels.fused_decode_bce_t,
                     decoder_kernels.train_decode_bce, optim_kernels.adam)
 
@@ -725,6 +726,14 @@ def reparam_bytes(S: int, Bb: int, n: int) -> int:
     """Bytes of the chunk reparam: eps in, z out, log q and log p out, mu
     and sigma once, k."""
     return 4 * (2 * S * Bb * n + 2 * S * Bb + 2 * Bb * n + 1)
+
+
+def reparam_chunk_bytes(S: int, Bb: int, E: int, Z: int, W: int,
+                        P: int) -> int:
+    """Bytes of the flagship kinds' chunk reparam (P2) over P components: E
+    noise floats a point in, Z coordinates and two log-densities a point
+    out, the W head pre-activations once an example, P curvatures."""
+    return 4 * (S * Bb * (E + Z + 2) + Bb * W + P)
 
 
 def decode_bytes(S: int, Bb: int, Z: int, H: int, D: int) -> int:

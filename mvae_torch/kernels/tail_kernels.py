@@ -19,6 +19,14 @@ m = 3. The vMF with m != 3 draws its cosine by rejection and takes the
 plain per-component tail, as does an uncapped positive-curvature wrapped
 component.
 
+``reparam_chunk_t`` draws an IWAE chunk of importance samples for the
+components of those kinds the one-row tiles cover (normal on e, wrapped
+on h, vMF on s2) in one launch of ``csrc/reparam_chunk.cu``: the tiles
+on a thread a (sample, example) point, z written into the (S, Z, B)
+buffer the IWAE decode kernel reads. Its plain version
+``reparam_chunk_ref`` is ``tail_forward_ref`` on the rows with the heads
+repeated over the samples.
+
 ``tail_forward_ref`` is the plain PyTorch forward: the CPU path, the
 tests' subject against the JAX tile, and the card check's reference.
 Both evaluate the tile's own expressions in the natural (B, .) layout.
@@ -64,6 +72,14 @@ def component_supported(comp) -> bool:
     if comp.posterior == "vmf":
         return comp.manifold.kind == "s" and comp.dim == 2
     return False
+
+
+def chunk_supported(comp) -> bool:
+    """Whether the IWAE chunk reparam kernel (``reparam_chunk_t``) draws
+    this component: the tail's kinds whose tile runs a row on one thread
+    (normal on e, wrapped on h, vMF on s with m = 3)."""
+    return (component_supported(comp)
+            and _kind(comp) in (KIND_NORMAL, KIND_WRAPPED_H, KIND_VMF_S2))
 
 
 def component_split(comp) -> bool:
@@ -602,6 +618,158 @@ def tail_forward(comps, raw, eps, k):
 
 
 tail_forward.launches = 0
+
+
+# --- the IWAE chunk reparameterization ---------------------------------------
+
+
+def _picked(comps, picked):
+    """(component, raw offset, eps offset, z offset) of each picked
+    component, offsets into the whole product's head, noise and z."""
+    out, ro, eo, zo = [], 0, 0, 0
+    for i, c in enumerate(comps):
+        if i in picked:
+            out.append((c, ro, eo, zo))
+        ro += c.head_width
+        eo += c.noise_width
+        zo += c.ambient_dim
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_table(comps, picked):
+    """The chunk kernel's table: (kind, dim, n_scale, raw offset, eps
+    offset, z offset) per picked component, in product order."""
+    rows = []
+    for c, ro, eo, zo in _picked(comps, picked):
+        rows += [_kind(c), c.dim, c.n_scale, ro, eo, zo]
+    return (ctypes.c_int * len(rows))(*rows)
+
+
+def reparam_chunk_ref(comps, picked, raw, noise, k):
+    """Plain PyTorch chunk reparam: ``tail_forward_ref``'s tiles on the S B
+    rows of the picked components (indices into the product ``comps``),
+    each example's heads repeated over the S samples. raw (B, W) the whole
+    product's head pre-activations, noise (S, B, E) its noise, k (P,) the
+    picked components' curvatures -> (z (S, B, Zp) the picked components'
+    coordinates in order, sum log q (S, B), sum log p (S, B))."""
+    S, B = noise.shape[:2]
+    parts = _picked(comps, picked)
+    sub = tuple(c for c, _, _, _ in parts)
+    raw_p = torch.cat([raw[:, ro:ro + c.head_width]
+                       for c, ro, _, _ in parts], dim=1)
+    eps_p = torch.cat([noise[..., eo:eo + c.noise_width]
+                       for c, _, eo, _ in parts], dim=2)
+    rows = raw_p.unsqueeze(0).expand(S, B, raw_p.shape[1])
+    z, aux = tail_forward_ref(sub, rows.reshape(S * B, -1),
+                              eps_p.reshape(S * B, -1), k)
+    nc = len(sub)
+    return (z.reshape(S, B, -1), aux[:, nc].reshape(S, B),
+            aux[:, nc + 1].reshape(S, B))
+
+
+def reparam_chunk_plain(comps, picked, raw, noise, k, out):
+    """``reparam_chunk_ref`` behind ``reparam_chunk_t``'s interface, on any
+    device: z written into the picked components' rows of ``out``; returns
+    (sum log q, sum log p)."""
+    z, lq, lp = reparam_chunk_ref(comps, picked, raw, noise, k)
+    zp = 0
+    for c, _, _, zo in _picked(comps, picked):
+        out[:, zo:zo + c.ambient_dim] = z[..., zp:zp + c.ambient_dim] \
+            .transpose(1, 2)
+        zp += c.ambient_dim
+    return lq, lp
+
+
+def bind_chunk(lib):
+    """The launch entry of a built ``reparam_chunk.cu``, typed for
+    ctypes."""
+    fn = lib.reparam_chunk_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                    ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_chunk():
+    return bind_chunk(_build.load("reparam_chunk"))
+
+
+def _check_chunk(comps, picked, raw, noise, k, out):
+    """Shapes, family and device of a chunk call; True for a CPU one."""
+    W, E, Z = _dims(comps)
+    if noise.dim() != 3 or noise.shape[2] != E:
+        raise ValueError(f"noise must be (S, B, {E}), got "
+                         f"{tuple(noise.shape)}")
+    S, B = noise.shape[:2]
+    if tuple(raw.shape) != (B, W) or tuple(k.shape) != (len(picked),):
+        raise ValueError(f"raw must be ({B}, {W}) and k ({len(picked)},), "
+                         f"got {tuple(raw.shape)} and {tuple(k.shape)}")
+    if (tuple(out.shape) != (S, Z, B) or not out.is_contiguous()
+            or out.dtype != raw.dtype or out.device != raw.device):
+        raise ValueError(f"out must be a contiguous ({S}, {Z}, {B}) buffer "
+                         f"of raw's type and device")
+    if (not picked or list(picked) != sorted(set(picked))
+            or not 0 <= picked[0] <= picked[-1] < len(comps)
+            or not all(chunk_supported(comps[i]) for i in picked)):
+        raise ValueError(f"picked {picked} must be ascending indices of "
+                         "components the chunk kernel draws")
+    if raw.device.type == "cpu":
+        return True
+    if raw.device.type != "cuda":
+        raise ValueError(f"unsupported device {raw.device}")
+    for name, t in (("raw", raw), ("noise", noise), ("k", k)):
+        if t.dtype != torch.float32 or t.device != raw.device:
+            raise ValueError(f"{name} must be float32 on {raw.device}")
+    if len(picked) > MAX_COMPS:
+        raise ValueError(f"at most {MAX_COMPS} components")
+    return False
+
+
+def reparam_chunk_launch(fn, comps, picked, raw, noise, k, out):
+    """One launch of a ``bind_chunk`` entry on CUDA tensors checked by the
+    caller: z into ``out``'s rows of the picked components; returns
+    (log q, log p), each (S, B). Counts nothing."""
+    S, B, _ = noise.shape
+    if noise.stride(2) != 1 or noise.stride(0) != B * noise.stride(1):
+        noise = noise.contiguous()
+    raw, k = raw.detach().contiguous(), k.detach().contiguous()
+    lq = torch.empty((S, B), dtype=torch.float32, device=raw.device)
+    lp = torch.empty((S, B), dtype=torch.float32, device=raw.device)
+    stream = torch.cuda.current_stream(raw.device).cuda_stream
+    _build.check(fn(noise.data_ptr(), noise.stride(1), raw.data_ptr(),
+                    raw.shape[1], k.data_ptr(), out.data_ptr(),
+                    lq.data_ptr(), lp.data_ptr(), S, B, out.shape[1],
+                    len(picked), _chunk_table(comps, picked), stream),
+                 "reparam_chunk_launch")
+    return lq, lp
+
+
+def reparam_chunk_t(comps, picked, raw, noise, k, out):
+    """The IWAE chunk reparam of the components ``picked`` (ascending
+    indices into the product ``comps``, each ``chunk_supported``): on CUDA
+    tensors one launch of ``csrc/reparam_chunk.cu``; on CPU tensors its
+    plain version ``reparam_chunk_ref``. raw (B, W) the fused head's
+    pre-activations, noise (S, B, E) the product's noise block (read where
+    it lies), k (P,) the picked components' curvatures, out (S, Z, B) the
+    decode kernel's buffer: each picked component's z is written into its
+    rows. Returns (sum log q, sum log p) over the picked components, each
+    (S, B). On CPU tensors it is ``reparam_chunk_plain``."""
+    comps, picked = tuple(comps), tuple(picked)
+    if _check_chunk(comps, picked, raw, noise, k, out):
+        return reparam_chunk_plain(comps, picked, raw, noise, k, out)
+    lq, lp = reparam_chunk_launch(_lib_chunk(), comps, picked, raw, noise, k,
+                                  out)
+    reparam_chunk_t.launches += 1
+    check_outputs("reparam_chunk", lq, lp,
+                  *[out[:, zo:zo + c.ambient_dim]
+                    for c, _, _, zo in _picked(comps, picked)])
+    return lq, lp
+
+
+reparam_chunk_t.launches = 0
 
 
 # --- the backward ---------------------------------------------------------------

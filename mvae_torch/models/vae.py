@@ -14,9 +14,12 @@ of CIFAR):
             - log q(z_i|x)] - log n, encoding once and drawing the
             importance samples in chunks: wrapped components on the
             stereographic kinds d/p/u through the CUDA chunk reparam
-            kernel, the others in plain PyTorch, decoded by the CUDA
-            decode+BCE kernel where the decoder is a depth-1 f32 MLP and
-            in plain PyTorch (the conv decoder at full float32) otherwise.
+            kernel B5, a launch each, the normal, hyperboloid and vMF-s2
+            components together through one launch of the CUDA chunk
+            reparam kernel P2, the others in plain PyTorch; decoded by
+            the CUDA decode+BCE kernel where the decoder is a depth-1 f32
+            MLP and in plain PyTorch (the conv decoder at full float32)
+            otherwise.
 
 Every draw takes its standard noise as an optional tensor (the layout of
 ``kernels.tail_kernels.draw_noise``); without it, the noise comes from the
@@ -328,36 +331,67 @@ def _fused_reparam_eligible(comp, comp_params) -> bool:
             and comp_params["w_mu"].dtype == torch.float32)
 
 
+def _chunk_tile_eligible(comp, comp_params) -> bool:
+    """The flagship kinds' chunk reparam kernel (tail_kernels.
+    reparam_chunk_t) covers the components whose tail tile runs a row on
+    one thread -- normal on e, wrapped on h, vMF on s with m = 3 -- in f32;
+    one launch a chunk draws all of them."""
+    return (tail_kernels.chunk_supported(comp)
+            and comp_params["w_mu"].dtype == torch.float32)
+
+
+def _chunk_route(comp, comp_params) -> str:
+    """Which draw an IWAE chunk takes for a component: "stereo" (B5, a
+    launch for it), "tiles" (P2, one launch for all such components) or
+    "plain" (``components.reparametrize``)."""
+    if _fused_reparam_eligible(comp, comp_params):
+        return "stereo"
+    if _chunk_tile_eligible(comp, comp_params):
+        return "tiles"
+    return "plain"
+
+
 def _reparam_chunk_t(cfg: VAEConfig, params, feats, chunk_size: int,
                      noise=None, generator=None):
     """IWAE chunk reparam: zt (chunk, Z, B) in the decoder kernel's layout
     plus summed log q / log p (chunk, B). ``noise`` is (chunk, B, E).
     Wrapped d/p/u components run as one launch of the chunk reparam kernel
-    each, writing their rows of zt; the others draw per sample in plain
-    PyTorch. Both read the same columns of ``noise``."""
-    comps = cfg.components
+    B5 each; the normal, hyperboloid and vMF-s2 components as one launch of
+    P2 for all of them, whose sums the others' then join; each writes its
+    rows of zt. The others draw per sample in plain PyTorch. All read
+    the same columns of ``noise``."""
+    comps, cps = cfg.components, params["components"]
     B = feats.shape[0]
     if noise is None:
         noise = tail_kernels.draw_noise(comps, (chunk_size, B), feats,
                                         generator)
     zt = torch.empty((chunk_size, cfg.z_dim, B), dtype=feats.dtype,
                      device=feats.device)
-    log_q, log_p, zo = 0.0, 0.0, 0
-    for comp, cp, raw, nz in zip(comps, params["components"],
-                                 _fused_head_raw(cfg, params, feats),
-                                 _split_noise(comps, noise)):
-        if _fused_reparam_eligible(comp, cp):
+    raw_all = _fused_head_raw_cat(cfg, params, feats)
+    raws = torch.split(raw_all, [c.head_width for c in comps], dim=-1)
+    route = [_chunk_route(c, cp) for c, cp in zip(comps, cps)]
+    tiles = tuple(i for i, r in enumerate(route) if r == "tiles")
+    log_q = log_p = 0.0
+    if tiles:
+        k = torch.stack([comps[i].curvature(cps[i]) for i in tiles])
+        log_q, log_p = tail_kernels.reparam_chunk_t(comps, tiles, raw_all,
+                                                    noise, k, zt)
+    zo = 0
+    for comp, cp, raw, nz, r in zip(comps, cps, raws,
+                                    _split_noise(comps, noise), route):
+        if r == "stereo":
             mu, scale, k = comp.posterior_params_from_raw(cp, raw)
             _, lq, lp = manifold_kernels.wrapped_reparam_stereo_t(
                 nz, mu, scale.expand(mu.shape), k, wraps=comp.wraps,
                 sign=comp.manifold.curvature_sign, out=zt, z_off=zo)
-        else:
+            log_q = log_q + lq
+            log_p = log_p + lp
+        elif r == "plain":
             rep = reparametrize(comp, cp, feats, raw=raw, noise=nz)
             # (chunk, B, n) -> (chunk, n, B): batch contiguous for the kernel
             zt[:, zo:zo + comp.ambient_dim] = rep.z.transpose(1, 2)
-            lq, lp = rep.log_q, rep.log_p
-        log_q = log_q + lq
-        log_p = log_p + lp
+            log_q = log_q + rep.log_q
+            log_p = log_p + rep.log_p
         zo += comp.ambient_dim
     return zt, log_q, log_p
 
@@ -437,9 +471,10 @@ def log_likelihood_sharded(cfg: VAEConfig, params, x, mesh,
     shards (the whole weights are gathered once a call) and ``x`` its rows
     of the batch (``parallel.shard_batch``); model rank m draws the
     importance samples [m n / M, (m + 1) n / M) of those rows through the
-    same kernels as one device (B5 for wrapped d/p/u components, B2 for
-    the decode), reduces them to a partial logsumexp, and an all-gather over
-    "model" finishes the n-sample logsumexp. Returns (rows,) log p(x).
+    same kernels as one device (B5 for wrapped d/p/u components, P2 for
+    the normal, hyperboloid and vMF-s2 ones, B2 for the decode), reduces
+    them to a partial logsumexp, and an all-gather over "model" finishes
+    the n-sample logsumexp. Returns (rows,) log p(x).
 
     ``noise`` (n_samples, rows, E) is the rows' whole block, indexed by
     global sample as in ``log_likelihood``: the rank reads its samples of
@@ -502,14 +537,18 @@ def fused_path_report(cfg: VAEConfig, params, mesh=None) -> dict:
     else:
         idec = entry(False, "decoder not depth-1 f32 MLP within the "
                      "kernel's shared memory -> plain PyTorch decode")
-    reparam = [
-        entry(True, f"{c.name}#{i}: kernel csrc/reparam_stereo.cu (plain "
-              "wrapped_reparam_stereo_ref on CPU tensors)")
-        if _fused_reparam_eligible(c, cp) else
-        entry(False, f"{c.name}#{i}: {c.posterior} on '{c.manifold.kind}' "
-              "draws in plain PyTorch")
-        for i, (c, cp) in enumerate(zip(cfg.components,
-                                        params["components"]))]
+    why = {"stereo": "kernel csrc/reparam_stereo.cu (plain "
+                     "wrapped_reparam_stereo_ref on CPU tensors)",
+           "tiles": "kernel csrc/reparam_chunk.cu, one launch for the "
+                    "chunk's normal, hyperboloid and vMF-s2 components "
+                    "(plain reparam_chunk_ref on CPU tensors)"}
+    reparam = []
+    for i, (c, cp) in enumerate(zip(cfg.components, params["components"])):
+        route = _chunk_route(c, cp)
+        reparam.append(entry(True, f"{c.name}#{i}: {why[route]}")
+                       if route in why else
+                       entry(False, f"{c.name}#{i}: {c.posterior} on "
+                             f"'{c.manifold.kind}' draws in plain PyTorch"))
     report = {"train_tail": entry(*_fused_tail_gate(cfg, params)),
               "train_decoder": entry(*_fused_train_decoder_gate(cfg, params)),
               "iwae_decoder": idec, "iwae_reparam": reparam}

@@ -418,7 +418,8 @@ def _chunk_noise(ck, jcfg, jparams, chunk, dtype, fused):
 @pytest.mark.parametrize("spec,c_params", STEREO)
 def test_reparam_chunk_matches_jax(monkeypatch, spec, c_params):
     """One IWAE chunk through the JAX package's fused reparam (Pallas,
-    interpret mode) and through the port's route, on the fold_in noise."""
+    interpret mode) and through the port's route (B5 for d / p / u, P2 for
+    e), on the fold_in noise."""
     monkeypatch.setenv("MVAE_FUSED_REPARAM", "1")
     jcfg, tcfg, jparams, tparams, x = _models(np.float32, 2, spec, c_params)
     ck, chunk = jax.random.key(5), 4
@@ -427,7 +428,8 @@ def test_reparam_chunk_matches_jax(monkeypatch, spec, c_params):
     noise = _chunk_noise(ck, jcfg, jparams, chunk, np.float32, True)
     rep = tvae.fused_path_report(tcfg, tparams)["iwae_reparam"]
     assert [r["active"] for r in rep] == [
-        c.manifold.kind in "dpu" for c in tcfg.components]
+        c.manifold.kind in "dpu" or tvae.tail_kernels.chunk_supported(c)
+        for c in tcfg.components]
     zt, lq, lp = tvae._reparam_chunk_t(
         tcfg, tparams, torch.from_numpy(np.asarray(feats)), chunk,
         torch.from_numpy(noise))
@@ -574,13 +576,17 @@ def test_elbo_matches_jax_sphere(monkeypatch, spec, c_params, opts, dtype,
 @pytest.mark.parametrize("spec,c_params,opts", SPHERE[:1] + SPHERE[3:6])
 def test_log_likelihood_matches_jax_sphere(spec, c_params, opts, dtype, tol,
                                            atol):
-    """IWAE on the spherical family: every component draws per sample in
-    plain PyTorch (no chunk reparam kernel covers them), library path
-    against library path."""
+    """IWAE on the spherical family: the wrapped sphere and the vMF beyond
+    s2 or on p draw per sample in plain PyTorch (no chunk reparam kernel
+    covers them); in float32 the h and e components take P2 (its plain
+    version on CPU tensors), against the JAX package's library path."""
     jcfg, tcfg, jparams, tparams, x = _models(dtype, 6, spec, c_params,
                                               **opts)
-    assert not any(r["active"] for r in
-                   tvae.fused_path_report(tcfg, tparams)["iwae_reparam"])
+    rep = tvae.fused_path_report(tcfg, tparams)["iwae_reparam"]
+    assert [r["active"] for r in rep] == [
+        dtype == np.float32 and tvae.tail_kernels.chunk_supported(c)
+        for c in tcfg.components]
+    assert not any("reparam_stereo" in r["why"] for r in rep)
     key = jax.random.key(42)
     n, chunk = 6, 3
     ll_j = jvae.log_likelihood(key, jcfg, jparams, jnp.asarray(x), n, chunk)
