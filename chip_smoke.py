@@ -348,9 +348,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from mvae_torch import TrainConfig, Trainer, VAEConfig, parse_components
 from mvae_torch.data import load_cifar, load_mnist
-from mvae_torch.kernels import (_build, decoder_kernels, manifold_kernels,
-                                optim_kernels, roofline, tail_kernels)
-from mvae_torch.models import vae
+from mvae_torch.kernels import (_build, decoder_kernels, launches,
+                                manifold_kernels, optim_kernels, roofline,
+                                tail_kernels)
+from mvae_torch.models import route, vae
 from mvae_torch.parallel import make_mesh, shard_batch, shard_params
 from mvae_torch.parallel.collectives import gather_model
 from mvae_torch.parallel.launch import World
@@ -482,15 +483,14 @@ def _plain_reparam(eps, mu, sigma, k, wraps=1, sign=0, out=None, z_off=0):
     return zt, lq, lp
 
 
-_PLAIN = ((tail_kernels, "tail_forward", tail_kernels.tail_forward_ref),
-          (manifold_kernels, "wrapped_reparam_stereo_t", _plain_reparam),
-          (tail_kernels, "reparam_chunk_t",
-           tail_kernels.reparam_chunk_plain),
-          (tail_kernels, "tail_backward", tail_kernels.tail_backward_ref),
-          (decoder_kernels, "fused_decode_bce_t",
-           decoder_kernels.decode_bce_ref),
-          (decoder_kernels, "train_decode_fwd",
-           decoder_kernels.train_decode_ref))
+# the plain version of each kernel wrapper of ``launches.WRAPPERS`` but
+# Adam's (the optimizer's step on the card is the same in every pass)
+_PLAIN = {"tail_forward": tail_kernels.tail_forward_ref,
+          "tail_backward": tail_kernels.tail_backward_ref,
+          "reparam_chunk_t": tail_kernels.reparam_chunk_plain,
+          "wrapped_reparam_stereo_t": _plain_reparam,
+          "fused_decode_bce_t": decoder_kernels.decode_bce_ref,
+          "train_decode_fwd": decoder_kernels.train_decode_ref}
 
 
 @contextlib.contextmanager
@@ -499,14 +499,15 @@ def plain_kernels():
     recomputations of phases 5 and 10), and check that the block launched
     no kernel: a trainer that replayed a graph captured through the
     kernels would (its replays add to the counts)."""
-    saved = [getattr(mod, name) for mod, name, _ in _PLAIN]
+    swapped = [(mod, name, getattr(mod, name))
+               for mod, name in launches.WRAPPERS if name in _PLAIN]
     before = _read_counts()
-    for mod, name, plain in _PLAIN:
-        setattr(mod, name, plain)
+    for mod, name, _ in swapped:
+        setattr(mod, name, _PLAIN[name])
     try:
         yield
     finally:
-        for (mod, name, _), fn in zip(_PLAIN, saved):
+        for mod, name, fn in swapped:
             setattr(mod, name, fn)
     after = _read_counts()
     check(after == before, f"a plain recomputation launched no kernel: "
@@ -1307,7 +1308,7 @@ def phase_train(ds, tmp) -> tuple[dict, Trainer]:
     on_rates = [r for (_, on), r in zip(order, rates) if on]
     off_rates = [r for (_, on), r in zip(order, rates) if not on]
     faster = min(on_rates) > max(off_rates)
-    default = decoder_kernels.use_fused_train_decoder("cuda")
+    default = route.route(trainer.model_cfg, trainer.params).train_decoder
     print("[train] B6 off/on in turns, steps/s (two unprofiled epochs a "
           "turn, back to back) and device busy share (an epoch a turn, "
           "profiled): "
@@ -3044,15 +3045,20 @@ def phase_trace(ds, tmp) -> None:
 # --- the Riemannian normal and the conv VAE ---------------------------------------
 
 
+# the name each launch counter of ``launches.COUNTED`` but Adam's goes by in
+# the checks and the printed counts
+_SHORT = {"tail_forward": "tail_fwd", "tail_backward": "tail_bwd",
+          "train_decode_bce": "train_decode",
+          "fused_decode_bce_t": "decode_bce",
+          "wrapped_reparam_stereo_t": "reparam_stereo",
+          "reparam_chunk_t": "reparam_chunk"}
+
+
 def _counted():
     """The launch counters of the kernels on the training and IWAE paths,
     by name."""
-    return {"tail_fwd": tail_kernels.tail_forward,
-            "tail_bwd": tail_kernels.tail_backward,
-            "train_decode": decoder_kernels.train_decode_bce,
-            "decode_bce": decoder_kernels.fused_decode_bce_t,
-            "reparam_stereo": manifold_kernels.wrapped_reparam_stereo_t,
-            "reparam_chunk": tail_kernels.reparam_chunk_t}
+    return {_SHORT[f.__name__]: f for f in launches.COUNTED
+            if f.__name__ in _SHORT}
 
 
 def _zero_counts() -> None:
@@ -3363,7 +3369,7 @@ def phase_c4(ds, tmp, card: str) -> dict:
         verdict = ("on faster in both turns" if min(on_r) > max(off_r) else
                    "off faster in both turns" if min(off_r) > max(on_r) else
                    "within the turns' spread")
-        auto = decoder_kernels.use_fused_train_decoder("cuda")
+        auto = route.route(on_tr.model_cfg, on_tr.params).train_decoder
         print(f"[c4] {card}: batch {bs}, {C4_STEPS} steps a turn: "
               + "; ".join(f"turn {i + 1} B6 {'on' if on else 'off'} "
                           f"{r:.2f} steps/s, busy {100.0 * b:.1f}%"

@@ -92,7 +92,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from .components import parse_components
 from .data import ArrayDataset
 from .kernels import _build, decoder_kernels, roofline, tail_kernels
-from .models import VAEConfig, nets, vae
+from .models import VAEConfig, nets, route
 from .ops.stable import softplus
 from .train import TrainConfig, Trainer, graphs
 from .train.trainer import _leaves
@@ -407,11 +407,11 @@ def _loss(stats) -> float:
     return -float(stats["elbo"])
 
 
-def decode_route(cfg, params) -> str:
+def decode_route(cfg, params, device) -> str:
     """Which decode the training step of ``cfg`` takes, in words: B6 (whose
     3xTF32 products do not read the bf16 switch, so under it only the
     encoder's operands are rounded) or the plain decode."""
-    gate = vae.fused_path_report(cfg, params)["train_decoder"]
+    gate = route.report(cfg, params, device)["train_decoder"]
     if gate["active"]:
         return (f"B6 csrc/train_decode.cu at (Z, H) = ({cfg.z_dim}, "
                 f"{cfg.h_dim}): 3xTF32 products, the bf16 switch reaches "
@@ -589,7 +589,7 @@ def bf16_row(h_dim: int, batch: int, steps: int, device, rate) -> dict:
     B6's launches a step."""
     cfg = flagship_config(h_dim)
     trainer = bench_trainer(cfg, batch, device)
-    route = decode_route(cfg, trainer.params)
+    decode = decode_route(cfg, trainer.params, device)
     with bf16_switch(nets.set_bf16_matmul, "_BF16_MATMUL"):
         step = step_program(trainer)
         warm(step, device)
@@ -601,7 +601,7 @@ def bf16_row(h_dim: int, batch: int, steps: int, device, rate) -> dict:
     finite = math.isfinite(loss)
     return {"steps_per_sec": None if sps is None else round(sps, 1),
             "loss": round(loss, 4) if finite else None, "finite": finite,
-            "decode_route": route,
+            "decode_route": decode,
             "rounded_gemms": (["encoder"] if launches["train_decode"]
                               else ["encoder", "decoder"]),
             "train_decode_launches_per_step": launches["train_decode"]}

@@ -8,9 +8,10 @@
 
 Trains (``Trainer.fit``: a test ELBO per epoch, the IWAE-n estimate at
 the end), writes ``<run_dir>/result.json`` and prints it as one JSON line,
-with the kernels the run was routed through (``fused_paths``) and whether
-it replayed CUDA graphs or ran the eager loop, and why (``graph_path``),
-with the graphs it captured of each program (``graph_captures``).
+with the kernels the run was routed through (``fused_paths``:
+``models.route.report``) and whether it replayed CUDA graphs or ran the
+eager loop, and why (``graph_path``), with the graphs it captured of each
+program (``graph_captures``).
 ``--resume`` continues from the latest checkpoint of ``run_dir``;
 ``--eval_only`` restores it and evaluates the test ELBO and IWAE-n LL.
 ``--generate N`` then writes N prior samples and N test-set reconstructions

@@ -28,18 +28,13 @@ tiles, W2 fetched by the Tensor Memory Accelerator while h is computed,
 h W2 as 3xTF32 on the tensor cores, the row sums folded by the last block
 of a row tile: ``train_tile_plan``), so its backward is
 four FP32 matrix products and two bias sums (``torch.matmul``, as the
-reference leaves them to XLA). The reference's switch
-``MVAE_FUSED_TRAIN_DECODER`` routes it (``use_fused_train_decoder``):
-"auto", its default, turns it on for CUDA parameters, as the H100's
-in-turns epoch rates decided (PERF.md section 6), and leaves CPU
-parameters on the plain decode. ``train_decode_ref`` is its plain
-version, in full FP32.
+reference leaves them to XLA). ``train_decode_ref`` is its plain version,
+in full FP32.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
 
 import torch
 
@@ -208,22 +203,6 @@ fused_decode_bce_t.launches = 0
 
 
 # --- the training path ----------------------------------------------------------
-
-
-def use_fused_train_decoder(device=None) -> bool:
-    """The reference's switch ``MVAE_FUSED_TRAIN_DECODER`` for parameters
-    on ``device``: "1" on, "0" off; "auto" (the default) on for CUDA and
-    off otherwise. The reference's "auto" is off by a TPU v5e measurement;
-    the port's is the H100's (NVIDIA H100 80GB HBM3, 700 W; PERF.md section
-    6): B6 on trained faster than off in both in-turns epochs at batch 128,
-    and in both turns at 64, 256 and 512 and within the turns' spread at
-    1024 (chip_smoke.py phase 24), though alone it is 1.71x and 2.24x
-    slower than its two SGEMMs at 512 and 1024: the step is host-bound, and
-    B6 saves ~27 host ops a step. So "auto" does not look at the batch."""
-    v = os.environ.get("MVAE_FUSED_TRAIN_DECODER", "auto")
-    if v in ("0", "1"):
-        return v == "1"
-    return device is not None and torch.device(device).type == "cuda"
 
 
 def train_decode_ref(z, x, w1, b1, w2, b2):

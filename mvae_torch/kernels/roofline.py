@@ -82,8 +82,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..ops import lorentz, stable, stereographic
 from ..utils.profiling import check_outputs
 from ..components import parse_components
-from . import (_build, decoder_kernels, manifold_kernels, optim_kernels,
-               tail_kernels)
+from . import _build, decoder_kernels, launches, manifold_kernels, tail_kernels
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
 PEAK = {"hbm_gbps": 3350.0, "fp32_tflops": 67.0, "bf16_tflops": 989.0,
@@ -705,13 +704,8 @@ PROBES = (probe_triad, probe_fma, probe_tanh, probe_reduce, probe_transpose,
 for _p in PROBES:
     _p.launches = 0
 # every counted wrapper ``measure`` may capture into a CUDA graph
-COUNTED = PROBES + (tail_kernels.tail_forward, tail_kernels.tail_backward,
-                    manifold_kernels.stereo_distance,
-                    manifold_kernels.lorentz_distance,
-                    manifold_kernels.wrapped_reparam_stereo_t,
-                    tail_kernels.reparam_chunk_t,
-                    decoder_kernels.fused_decode_bce_t,
-                    decoder_kernels.train_decode_bce, optim_kernels.adam)
+COUNTED = PROBES + launches.COUNTED + (manifold_kernels.stereo_distance,
+                                       manifold_kernels.lorentz_distance)
 
 
 # ---------------------------------------------------------------- arithmetic
@@ -1389,25 +1383,6 @@ def _events_us(run, calls: int) -> float:
     return start.elapsed_time(end) * 1e3 / calls
 
 
-def captured_launches(record) -> dict:
-    """Run ``record``, which captures wrapper calls into a CUDA graph, and
-    return each ``COUNTED`` wrapper's calls in it. Nothing runs on the card
-    during a capture, so those calls are taken back off the counts; each
-    replay of the graph adds them (``count_replays``)."""
-    before = {f: f.launches for f in COUNTED}
-    record()
-    per_replay = {f: f.launches - n for f, n in before.items()
-                  if f.launches != n}
-    for f in per_replay:
-        f.launches = before[f]
-    return per_replay
-
-
-def count_replays(per_replay: dict, replays: int) -> None:
-    for f, n in per_replay.items():
-        f.launches += n * replays
-
-
 def measure(calls, kernel: str | None = None, iters: int = ITERS,
             graph: bool = False) -> Timing:
     """Time ``calls`` (a zero-argument callable, or a list of them cycled
@@ -1444,7 +1419,7 @@ def measure(calls, kernel: str | None = None, iters: int = ITERS,
         with torch.cuda.graph(g):
             loop()
 
-    per_replay = captured_launches(record)
+    per_replay = launches.captured_launches(record, COUNTED)
     g.replay()
     us = _events_us(g.replay, iters)
     durations = []
@@ -1458,7 +1433,7 @@ def measure(calls, kernel: str | None = None, iters: int = ITERS,
         g.replay()
         torch.cuda.synchronize()
     trace_us = durations[len(durations) // 2] if durations else None
-    count_replays(per_replay, 3)
+    launches.count_replays(per_replay, 3)
     return Timing(us, trace_us, len(durations), iters, "graph")
 
 

@@ -4,24 +4,18 @@ Counterpart of ``mvae_tpu/models/vae.py`` (the MLP VAE and the conv VAE
 of CIFAR):
 
   forward:  encoder(x) -> features; one fused head GEMM for every
-            component -> the product-latent tail (the CUDA tail kernels,
-            forward and backward, when the product is in their family) ->
-            z; decoder(z) -> Bernoulli log-likelihood (the CUDA training
-            decode kernel for CUDA parameters: ``MVAE_FUSED_TRAIN_DECODER``
-            "auto", as the H100 measured it, or "1");
-            ELBO = log p(x|z) - sum_c KL_c; ``loss_fn`` = -mean ELBO.
+            component -> the product-latent tail -> z; decoder(z) ->
+            Bernoulli log-likelihood; ELBO = log p(x|z) - sum_c KL_c;
+            ``loss_fn`` = -mean ELBO.
   log_likelihood: IWAE-n estimate logsumexp_n[log p(x|z_i) + log p(z_i)
-            - log q(z_i|x)] - log n, encoding once and drawing the
-            importance samples in chunks: wrapped components on the
-            stereographic kinds d/p/u through the CUDA chunk reparam
-            kernel B5, a launch each, the normal, hyperboloid and vMF-s2
-            components together through one launch of the CUDA chunk
-            reparam kernel P2, the others in plain PyTorch; decoded by
-            the CUDA decode+BCE kernel where the decoder is a depth-1 f32
-            MLP and in plain PyTorch (the conv decoder at full float32)
-            otherwise.
+            - log q(z_i|x)] - log n, encoding once and drawing and
+            decoding the importance samples in chunks.
 
-Every draw takes its standard noise as an optional tensor (the layout of
+Which CUDA kernel each pass runs, where one covers it, is
+``route.route(cfg, params)``, computed once a call and passed down: the
+tail kernels B1 / B3 and the training decode B6 in the forward, the chunk
+reparam kernels B5 / P2 and the decode B2 in an IWAE chunk. Every draw
+takes its standard noise as an optional tensor (the layout of
 ``kernels.tail_kernels.draw_noise``); without it, the noise comes from the
 ``torch.Generator`` passed in. While a torch profiler records, the passes
 mark their layers (``utils.profiling.mark``): the forward ``tail`` and
@@ -46,6 +40,7 @@ from ..kernels import decoder_kernels, manifold_kernels, tail_kernels
 from ..ops.stable import acc_dtype, softplus
 from ..utils import profiling
 from . import nets
+from .route import route
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,37 +161,21 @@ def _fused_head_raw(cfg: VAEConfig, params, feats):
                             dim=-1))
 
 
-def _fused_tail_gate(cfg: VAEConfig, params) -> tuple[bool, str]:
-    """The gate for the fused tail kernel: the whole product latent in f32
-    with every component in the kernel family. Returns (eligible, reason);
-    the router and ``fused_path_report`` both call it. No routing table is
-    taken from the TPU: every capable product takes the kernel."""
-    if any(cp["w_mu"].dtype != torch.float32 for cp in params["components"]):
-        return False, "non-f32 head params -> plain per-component tail"
-    unsup = [f"{c.name}:{c.posterior}" for c in cfg.components
-             if not tail_kernels.component_supported(c)]
-    if unsup:
-        return False, ("unsupported component(s): " + ",".join(unsup)
-                       + " -> plain per-component tail")
-    return True, ("kernels csrc/tail_fwd.cu + csrc/tail_bwd.cu (plain "
-                  "tail_forward_ref / tail_backward_ref on CPU tensors)")
-
-
 def _split_noise(comps, noise):
     """Per-component slices of (..., E) product noise."""
     return torch.split(noise, [c.noise_width for c in comps], dim=-1)
 
 
-def _reparam_components(cfg: VAEConfig, params, feats, noise=None,
+def _reparam_components(cfg: VAEConfig, params, r, feats, noise=None,
                         generator=None):
     """Per-component reparameterization from encoder features: the
     concatenated latent, summed log q / log p, per-component KL and the
-    curvatures. Routed through the fused tail when the gate allows."""
+    curvatures. Through the fused tail where the route ``r`` takes it."""
     comps = cfg.components
     if noise is None:
         noise = tail_kernels.draw_noise(comps, feats.shape[:-1], feats,
                                         generator)
-    if _fused_tail_gate(cfg, params)[0]:
+    if r.train_tail:
         raw_all = _fused_head_raw_cat(cfg, params, feats)
         return tail_kernels.reparam_all(comps, params["components"], raw_all,
                                         noise)
@@ -214,47 +193,20 @@ def _reparam_components(cfg: VAEConfig, params, feats, noise=None,
             torch.stack(curvs))
 
 
-def _fused_train_decoder_gate(cfg: VAEConfig, params) -> tuple[bool, str]:
-    """The gate for the training decode kernel (decoder_kernels.
-    train_decode_bce): the reference's env switch for the decoder weights'
-    device (``use_fused_train_decoder``: "auto" is on for CUDA weights, the
-    H100's own in-turns measurement, PERF.md section 6, and off for
-    CPU weights), a depth-1 f32 MLP decoder, and a plan within the kernel's
-    shared memory. Returns (eligible, reason); the router and
-    ``fused_path_report`` both call it."""
-    if not (cfg.arch == "mlp" and cfg.decoder_depth == 1):
-        return False, "decoder not a depth-1 MLP -> plain PyTorch decode"
-    w = params["decoder"]["out"]["w"]
-    if not decoder_kernels.use_fused_train_decoder(w.device):
-        return False, ("MVAE_FUSED_TRAIN_DECODER off, or 'auto' on CPU "
-                       "parameters -> plain PyTorch decode")
-    if w.dtype != torch.float32:
-        return False, "non-f32 decoder -> plain PyTorch decode"
-    if not decoder_kernels.shape_supported(cfg.z_dim, cfg.h_dim):
-        return False, ("hidden tile beyond the kernel's shared memory -> "
-                       "plain PyTorch decode")
-    return True, ("kernel csrc/train_decode.cu (plain train_decode_ref on "
-                  "CPU tensors; 'auto' is on for CUDA parameters by the "
-                  "H100 measurement of PERF.md section 6)")
-
-
-def _fused_train_decoder_eligible(cfg: VAEConfig, params) -> bool:
-    return _fused_train_decoder_gate(cfg, params)[0]
-
-
-def forward_from_features(cfg: VAEConfig, params, x, feats, noise=None,
-                          generator=None) -> Forward:
-    """Reparameterize + decode from precomputed encoder features. The
+def forward(cfg: VAEConfig, params, x, noise=None, generator=None) -> Forward:
+    """One reparameterized forward pass: everything ELBO/IWAE need. The
     training/eval-ELBO decode and its Bernoulli log-likelihood run in one
-    kernel when ``_fused_train_decoder_eligible`` (logits never stored,
-    backward = the four weight/input products)."""
+    kernel where the route takes B6 (logits never stored, backward = the
+    four weight/input products)."""
+    feats = encode(cfg, params, x)
+    r = route(cfg, params)
     profiling.mark("tail", feats)
     profiling.mark_grad(feats, "bwd_encode")
-    z, log_q, log_p, kls, curvs = _reparam_components(cfg, params, feats,
+    z, log_q, log_p, kls, curvs = _reparam_components(cfg, params, r, feats,
                                                       noise, generator)
     profiling.mark_grad(z, "bwd_tail")
     profiling.mark("decode", z)
-    if _fused_train_decoder_eligible(cfg, params):
+    if r.train_decoder:
         dec = params["decoder"]
         xf = x.reshape(x.shape[:x.dim() - len(cfg.data_shape)]
                        + (cfg.flat_dim,))
@@ -266,12 +218,6 @@ def forward_from_features(cfg: VAEConfig, params, x, feats, noise=None,
     log_px_z = _sum_data_axes(bernoulli_log_prob(logits, x),
                               len(cfg.data_shape))
     return Forward(z, log_px_z, log_q, log_p, kls, curvs)
-
-
-def forward(cfg: VAEConfig, params, x, noise=None, generator=None) -> Forward:
-    """One reparameterized forward pass: everything ELBO/IWAE need."""
-    feats = encode(cfg, params, x)
-    return forward_from_features(cfg, params, x, feats, noise, generator)
 
 
 def elbo(cfg: VAEConfig, params, x, beta: float = 1.0, noise=None,
@@ -310,56 +256,14 @@ def loss_fn(cfg: VAEConfig, params, x, beta: float = 1.0, noise=None,
     return -torch.mean(value), stats
 
 
-def _fused_decoder_eligible(cfg: VAEConfig, params) -> bool:
-    """The decode+BCE kernel covers depth-1 f32 MLP decoders whose hidden
-    tile fits one block's shared memory."""
-    if not (cfg.arch == "mlp" and cfg.decoder_depth == 1):
-        return False
-    if params["decoder"]["out"]["w"].dtype != torch.float32:
-        return False
-    return decoder_kernels.decode_shape_supported(cfg.z_dim, cfg.h_dim)
-
-
-def _fused_reparam_eligible(comp, comp_params) -> bool:
-    """The chunk reparam kernel (manifold_kernels.wrapped_reparam_stereo_t)
-    covers wrapped posteriors on the kappa-stereographic family (Poincare
-    ball / projected sphere / universal) in f32; other components draw in
-    plain PyTorch, and the two mix freely inside one product latent."""
-    return (comp.posterior == "wrapped"
-            and comp.manifold.kind in ("d", "p", "u")
-            and comp.dim <= manifold_kernels.MAX_DIM
-            and comp_params["w_mu"].dtype == torch.float32)
-
-
-def _chunk_tile_eligible(comp, comp_params) -> bool:
-    """The flagship kinds' chunk reparam kernel (tail_kernels.
-    reparam_chunk_t) covers the components whose tail tile runs a row on
-    one thread -- normal on e, wrapped on h, vMF on s with m = 3 -- in f32;
-    one launch a chunk draws all of them."""
-    return (tail_kernels.chunk_supported(comp)
-            and comp_params["w_mu"].dtype == torch.float32)
-
-
-def _chunk_route(comp, comp_params) -> str:
-    """Which draw an IWAE chunk takes for a component: "stereo" (B5, a
-    launch for it), "tiles" (P2, one launch for all such components) or
-    "plain" (``components.reparametrize``)."""
-    if _fused_reparam_eligible(comp, comp_params):
-        return "stereo"
-    if _chunk_tile_eligible(comp, comp_params):
-        return "tiles"
-    return "plain"
-
-
-def _reparam_chunk_t(cfg: VAEConfig, params, feats, chunk_size: int,
+def _reparam_chunk_t(cfg: VAEConfig, params, r, feats, chunk_size: int,
                      noise=None, generator=None):
     """IWAE chunk reparam: zt (chunk, Z, B) in the decoder kernel's layout
     plus summed log q / log p (chunk, B). ``noise`` is (chunk, B, E).
-    Wrapped d/p/u components run as one launch of the chunk reparam kernel
-    B5 each; the normal, hyperboloid and vMF-s2 components as one launch of
-    P2 for all of them, whose sums the others' then join; each writes its
-    rows of zt. The others draw per sample in plain PyTorch. All read
-    the same columns of ``noise``."""
+    The components ``r.chunk`` sends to B5 run as one launch of it each;
+    those it sends to P2 as one launch for all of them, whose sums the
+    others' then join; each writes its rows of zt. The others draw per
+    sample in plain PyTorch. All read the same columns of ``noise``."""
     comps, cps = cfg.components, params["components"]
     B = feats.shape[0]
     if noise is None:
@@ -369,24 +273,23 @@ def _reparam_chunk_t(cfg: VAEConfig, params, feats, chunk_size: int,
                      device=feats.device)
     raw_all = _fused_head_raw_cat(cfg, params, feats)
     raws = torch.split(raw_all, [c.head_width for c in comps], dim=-1)
-    route = [_chunk_route(c, cp) for c, cp in zip(comps, cps)]
-    tiles = tuple(i for i, r in enumerate(route) if r == "tiles")
+    tiles = tuple(i for i, kind in enumerate(r.chunk) if kind == "tiles")
     log_q = log_p = 0.0
     if tiles:
         k = torch.stack([comps[i].curvature(cps[i]) for i in tiles])
         log_q, log_p = tail_kernels.reparam_chunk_t(comps, tiles, raw_all,
                                                     noise, k, zt)
     zo = 0
-    for comp, cp, raw, nz, r in zip(comps, cps, raws,
-                                    _split_noise(comps, noise), route):
-        if r == "stereo":
+    for comp, cp, raw, nz, kind in zip(comps, cps, raws,
+                                       _split_noise(comps, noise), r.chunk):
+        if kind == "stereo":
             mu, scale, k = comp.posterior_params_from_raw(cp, raw)
             _, lq, lp = manifold_kernels.wrapped_reparam_stereo_t(
                 nz, mu, scale.expand(mu.shape), k, wraps=comp.wraps,
                 sign=comp.manifold.curvature_sign, out=zt, z_off=zo)
             log_q = log_q + lq
             log_p = log_p + lp
-        elif r == "plain":
+        elif kind == "plain":
             rep = reparametrize(comp, cp, feats, raw=raw, noise=nz)
             # (chunk, B, n) -> (chunk, n, B): batch contiguous for the kernel
             zt[:, zo:zo + comp.ambient_dim] = rep.z.transpose(1, 2)
@@ -396,14 +299,14 @@ def _reparam_chunk_t(cfg: VAEConfig, params, feats, chunk_size: int,
     return zt, log_q, log_p
 
 
-def _log_weights(cfg: VAEConfig, params, x, n_samples: int,
+def _log_weights(cfg: VAEConfig, params, r, x, n_samples: int,
                  chunk_size: int, noise=None, generator=None):
     """(n_samples, B) IWAE log-weights log p(x|z_i) + log p(z_i)
     - log q(z_i|x). ``noise`` (n_samples, B, E) indexes samples globally,
     so the result does not depend on the chunking. Without the decode
     kernel, each chunk of ``chunk_size`` samples is decoded in plain
     PyTorch (the conv decoder too) against the image-shaped x."""
-    fused = _fused_decoder_eligible(cfg, params)
+    fused = r.iwae_decoder
     if fused:
         # the kernel never materializes logits: the largest divisor <= 128
         # is the per-launch sample group (n = 500 -> 125 per launch)
@@ -420,8 +323,8 @@ def _log_weights(cfg: VAEConfig, params, x, n_samples: int,
     for c0 in range(0, n_samples, chunk_size):
         nz = None if noise is None else noise[c0:c0 + chunk_size]
         profiling.mark("reparam", feats)
-        zt, log_q, log_p = _reparam_chunk_t(cfg, params, feats, chunk_size,
-                                            nz, generator)
+        zt, log_q, log_p = _reparam_chunk_t(cfg, params, r, feats,
+                                            chunk_size, nz, generator)
         profiling.mark("decode", feats)
         if fused:
             ll = decoder_kernels.fused_decode_bce_t(
@@ -443,8 +346,8 @@ def log_likelihood(cfg: VAEConfig, params, x, n_samples: int = 500,
     """IWAE marginal log-likelihood estimate per example:
     log p(x) ~= logsumexp_i [log p(x|z_i) + log p(z_i) - log q(z_i|x)]
     - log n."""
-    log_w = _log_weights(cfg, params, x, n_samples, chunk_size, noise,
-                         generator)
+    log_w = _log_weights(cfg, params, route(cfg, params), x, n_samples,
+                         chunk_size, noise, generator)
     out = torch.logsumexp(log_w, dim=0) - math.log(n_samples)
     profiling.mark("end", out)
     return out
@@ -497,8 +400,8 @@ def log_likelihood_sharded(cfg: VAEConfig, params, x, mesh,
     if noise is not None:
         m = mesh.model_index
         noise = noise[m * per_rank:(m + 1) * per_rank]
-    log_w = _log_weights(cfg, params, x, per_rank, chunk_size, noise,
-                         generator)
+    log_w = _log_weights(cfg, params, route(cfg, params), x, per_rank,
+                         chunk_size, noise, generator)
     parts = all_gather_model(mesh, torch.logsumexp(log_w, dim=0))
     out = torch.logsumexp(parts, dim=0) - math.log(n_samples)
     profiling.mark("end", out)
@@ -518,48 +421,6 @@ def reconstruct(cfg: VAEConfig, params, x, noise=None, generator=None):
     """encode -> one posterior draw -> one decode: the Bernoulli means of
     x's reconstruction (no log-likelihood work)."""
     feats = encode(cfg, params, x)
-    z = _reparam_components(cfg, params, feats, noise, generator)[0]
+    z = _reparam_components(cfg, params, route(cfg, params), feats, noise,
+                            generator)[0]
     return torch.sigmoid(decode(cfg, params, z))
-
-
-def fused_path_report(cfg: VAEConfig, params, mesh=None) -> dict:
-    """Which of the port's kernels this (config, params, mesh) routes to,
-    and why not when not -- from the same gate predicates the code paths
-    call. Every entry is {'active': bool, 'why': str}. On a mesh every
-    kernel runs on each rank's own rows."""
-
-    def entry(active: bool, why: str) -> dict:
-        return {"active": bool(active), "why": why}
-
-    if _fused_decoder_eligible(cfg, params):
-        idec = entry(True, "kernel csrc/decode_bce.cu (plain decode_bce_ref "
-                     "on CPU tensors)")
-    else:
-        idec = entry(False, "decoder not depth-1 f32 MLP within the "
-                     "kernel's shared memory -> plain PyTorch decode")
-    why = {"stereo": "kernel csrc/reparam_stereo.cu (plain "
-                     "wrapped_reparam_stereo_ref on CPU tensors)",
-           "tiles": "kernel csrc/reparam_chunk.cu, one launch for the "
-                    "chunk's normal, hyperboloid and vMF-s2 components "
-                    "(plain reparam_chunk_ref on CPU tensors)"}
-    reparam = []
-    for i, (c, cp) in enumerate(zip(cfg.components, params["components"])):
-        route = _chunk_route(c, cp)
-        reparam.append(entry(True, f"{c.name}#{i}: {why[route]}")
-                       if route in why else
-                       entry(False, f"{c.name}#{i}: {c.posterior} on "
-                             f"'{c.manifold.kind}' draws in plain PyTorch"))
-    report = {"train_tail": entry(*_fused_tail_gate(cfg, params)),
-              "train_decoder": entry(*_fused_train_decoder_gate(cfg, params)),
-              "iwae_decoder": idec, "iwae_reparam": reparam}
-    if mesh is not None:
-        where = (f" (on each rank of the {mesh.n_data}x{mesh.n_model} mesh, "
-                 f"over its rows)")
-        for e in (report["train_tail"], report["train_decoder"],
-                  report["iwae_decoder"], *report["iwae_reparam"]):
-            if e["active"]:
-                e["why"] += where
-    return {**report,
-            "routing_policy": ("capability, and the H100's own measurement "
-                               "for the training decoder's 'auto' (no "
-                               "TPU-measured routing)")}

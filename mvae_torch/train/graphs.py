@@ -22,9 +22,10 @@ of ~90 host-issued ops:
   trainer's generator, registered with each graph, so each replay draws
   the next Philox numbers exactly as an eager call would.
 * ``routing_key`` is the cache key's part that the reference takes from
-  its routing switches: every decision a capture froze, and the kernel
-  entry points it called (a swapped entry point, as ``chip_smoke.py``'s
-  plain recomputations swap them, gets its own capture).
+  its routing switches: the route a capture froze (``models.route``), and
+  the kernel wrappers it called (``kernels.launches.WRAPPERS``: a swapped
+  wrapper, as ``chip_smoke.py``'s plain recomputations swap them, gets its
+  own capture).
 
 A rank of an NCCL mesh (a card a rank, ``parallel``) captures the same
 programs with its collectives inside: the weight gathers and gradient
@@ -37,7 +38,7 @@ events meanwhile. ``TrainEpoch`` keeps only the rank's columns of the
 batch order, so a step gathers its rows on the card.
 
 Each replay adds to the kernel wrappers' ``launches`` what its capture
-recorded (``roofline.captured_launches`` / ``count_replays``), so the counts
+recorded (``launches.captured_launches`` / ``count_replays``), so the counts
 are what ran on the card. ``Graphed`` captures each body twice: the plain
 graph, and beside it a graph of the same body with the layer markers of
 ``utils.profiling`` (a graph keeps no host range, so its layers show in a
@@ -51,23 +52,15 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import (decoder_kernels, manifold_kernels, roofline,
-                       tail_kernels)
-from ..models import nets, vae
+from ..kernels import launches
+from ..models import nets
+from ..models.route import route
 from ..utils import profiling
 
 # real steps (batches) run on a side stream before a capture: PyTorch's
 # recipe for capturing a training step (optimizer state, cuBLAS workspaces)
 WARMUP_STEPS = 3
 WARMUP_BATCHES = 1
-
-# the kernel entry points the model calls through their modules (the names
-# chip_smoke.py's plain_kernels swaps)
-ENTRY_POINTS = ((tail_kernels, "tail_forward"),
-                (tail_kernels, "tail_backward"),
-                (decoder_kernels, "fused_decode_bce_t"),
-                (decoder_kernels, "train_decode_fwd"),
-                (manifold_kernels, "wrapped_reparam_stereo_t"))
 
 
 def path(trainer) -> dict:
@@ -105,15 +98,11 @@ def captures(trainer) -> dict:
 
 def routing_key(cfg, params) -> tuple:
     """Every routing decision a capture of ``cfg``'s step or eval batch
-    freezes: the kernel gates (``MVAE_FUSED_TRAIN_DECODER`` is read at every
-    forward), the kernel entry points themselves, and the TF32 switches of
+    freezes: the route (``MVAE_FUSED_TRAIN_DECODER`` is read at every
+    forward), the kernel wrappers themselves, and the TF32 switches of
     cuBLAS and of the conv nets."""
-    return (vae._fused_tail_gate(cfg, params)[0],
-            vae._fused_train_decoder_gate(cfg, params)[0],
-            vae._fused_decoder_eligible(cfg, params),
-            tuple(vae._fused_reparam_eligible(c, cp)
-                  for c, cp in zip(cfg.components, params["components"])),
-            tuple(getattr(mod, name) for mod, name in ENTRY_POINTS),
+    return (route(cfg, params),
+            tuple(getattr(mod, name) for mod, name in launches.WRAPPERS),
             torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32, nets._cudnn_f32)
 
@@ -168,7 +157,7 @@ class Graphed:
         with span("graph.replay"):
             (self.marked if marked else self.graph).replay()
         self.replays += 1
-        roofline.count_replays(self.per_replay, 1)
+        launches.count_replays(self.per_replay, 1)
         out = self.marked_out if marked else self.out
         if not self.copy_out:
             return out
@@ -204,11 +193,11 @@ class Graphed:
 
     def _capture(self):
         with profiling.span("graph.capture"):
-            self.per_replay = roofline.captured_launches(
+            self.per_replay = launches.captured_launches(
                 lambda: self._record(False))
             # the marked graph's wrapper calls are the plain one's: its
             # capture leaves the launch counts as they were
-            roofline.captured_launches(lambda: self._record(True))
+            launches.captured_launches(lambda: self._record(True))
         self.captures += 1
 
 

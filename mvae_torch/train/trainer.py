@@ -65,7 +65,7 @@ import torch.distributed as dist
 
 from ..data.base import (ArrayDataset, binarize_batch, binarize_rows,
                          to_device_dataset)
-from ..models import vae
+from ..models import route, vae
 from ..parallel import param_shardings, shard_batch, shard_params
 from ..parallel.collectives import (all_reduce_mean_, all_reduce_sum_,
                                     gather_model, gather_params)
@@ -220,15 +220,8 @@ class Trainer:
             f"{c.name}#{i}" for i, c in enumerate(model_cfg.components)]
         self.history: list[dict] = []
         self._logger = None
-        self.fused_paths = vae.fused_path_report(model_cfg, self.params,
-                                                 self.mesh)
-        self.fused_paths["optimizer"] = (
-            {"active": True, "why": "kernel csrc/adam.cu: one launch a step "
-             "over every leaf, the curvature mask and both learning rates "
-             "inside"} if self.device.type == "cuda" else
-            {"active": False, "why": f"{self.device.type} parameters: the "
-             "kernel's plain version adam_ref (the kernel runs on CUDA "
-             "tensors only)"})
+        self.fused_paths = route.report(model_cfg, self.params, self.device,
+                                        self.mesh)
 
     @property
     def chief(self) -> bool:

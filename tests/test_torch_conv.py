@@ -26,6 +26,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from mvae_torch.components import parse_components
 from mvae_torch.convert import params_from_jax
 from mvae_torch.models import nets as tn
+from mvae_torch.models import route as troute
 from mvae_torch.models import vae as tvae
 
 B = 6
@@ -189,9 +190,9 @@ def test_conv_never_reaches_the_decode_kernels(monkeypatch):
     tcfg = tvae.VAEConfig(parse_components("u4", fixed_curvature=False),
                           (8, 8, 3), arch="conv", h_dim=16)
     params = tvae.init_params(tcfg, generator=torch.Generator().manual_seed(0))
-    assert not tvae._fused_decoder_eligible(tcfg, params)
-    assert not tvae._fused_train_decoder_eligible(tcfg, params)
-    rep = tvae.fused_path_report(tcfg, params)
+    r = troute.route(tcfg, params)
+    assert not r.iwae_decoder and not r.train_decoder
+    rep = troute.report(tcfg, params, "cpu")
     assert not rep["iwae_decoder"]["active"]
     assert not rep["train_decoder"]["active"]
 

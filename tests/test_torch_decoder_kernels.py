@@ -187,22 +187,18 @@ def test_train_tile_plan_refuses_what_it_cannot_hold():
     assert tdk.train_tile_plan(0, 8, 400, 784)["row_tiles"] == 0
 
 
-@pytest.mark.parametrize("value,cpu,cuda", [("auto", False, True),
-                                            ("1", True, True),
-                                            ("0", False, False)])
-def test_train_decoder_switch_follows_the_device(monkeypatch, value, cpu,
-                                                 cuda):
+@pytest.mark.parametrize("value,device,on", [
+    ("auto", "cpu", False), ("auto", "cuda", True), ("1", "cpu", True),
+    ("1", "cuda", True), ("0", "cpu", False), ("0", "cuda", False)])
+def test_train_decoder_switch_follows_the_device(monkeypatch, value, device,
+                                                 on):
     """The switch's device rule, without a card: "auto" turns the training
     decode kernel on for CUDA parameters (the H100's measurement) and
     leaves CPU ones on the plain decode; "1" and "0" hold on both. The
-    router's gate reads the decoder weights' device."""
+    route reads the decoder weights' device, its report says the same, and
+    the training tail does not follow the switch."""
     from mvae_torch.components import parse_components
-    from mvae_torch.models import vae as tvae
-    monkeypatch.setenv("MVAE_FUSED_TRAIN_DECODER", value)
-    assert tdk.use_fused_train_decoder(torch.device("cpu")) is cpu
-    assert tdk.use_fused_train_decoder(torch.device("cuda")) is cuda
-    assert tdk.use_fused_train_decoder("cuda:0") is cuda
-    assert tdk.use_fused_train_decoder() is (value == "1")
+    from mvae_torch.models import route, vae
 
     class Weight:
         dtype = torch.float32
@@ -210,24 +206,33 @@ def test_train_decoder_switch_follows_the_device(monkeypatch, value, cpu,
         def __init__(self, device):
             self.device = torch.device(device)
 
-    cfg = tvae.VAEConfig(parse_components("h2,s2,e2"), (784,), h_dim=400)
-    for device, on in (("cpu", cpu), ("cuda", cuda)):
-        params = {"decoder": {"out": {"w": Weight(device)}}}
-        active, why = tvae._fused_train_decoder_gate(cfg, params)
-        assert active is on
-        assert ("train_decode.cu" in why) is on
+    monkeypatch.setenv("MVAE_FUSED_TRAIN_DECODER", value)
+    cfg = vae.VAEConfig(parse_components("h2,s2,e2"), (784,), h_dim=400)
+    params = vae.init_params(cfg, device="meta")
+    params["decoder"]["out"]["w"] = Weight(device)
+    assert route.route(cfg, params).train_decoder is on
+    rep = route.report(cfg, params, device)
+    assert rep["train_decoder"]["active"] is on
+    assert ("train_decode.cu" in rep["train_decoder"]["why"]) is on
+    assert rep["train_tail"]["active"] and \
+        "tail_bwd.cu" in rep["train_tail"]["why"]
+    assert rep["optimizer"]["active"] is (device == "cuda")
 
 
 def test_decode_gate_refuses_what_the_kernel_cannot_hold(monkeypatch):
     """The wrapper raises on a CUDA-typed call whose h does not fit (the
-    check runs before any launch), and the IWAE router takes B2's gate."""
+    check runs before any launch), and the IWAE route takes B2's gate."""
     from mvae_torch.components import parse_components
-    from mvae_torch.models import vae as tvae
-    cfg = tvae.VAEConfig(parse_components("h2,s2,e2"), (784,), h_dim=700)
-    params = {"decoder": {"out": {"w": torch.zeros(1)}}}
-    assert not tvae._fused_decoder_eligible(cfg, params)
-    cfg = tvae.VAEConfig(parse_components("h2,s2,e2"), (784,), h_dim=400)
-    assert tvae._fused_decoder_eligible(cfg, params)
+    from mvae_torch.models import route, vae
+
+    def iwae_decoder(h_dim):
+        cfg = vae.VAEConfig(parse_components("h2,s2,e2"), (784,),
+                            h_dim=h_dim)
+        return route.route(cfg, vae.init_params(cfg, device="meta")
+                           ).iwae_decoder
+
+    assert not iwae_decoder(700)
+    assert iwae_decoder(400)
 
 
 # --- the kernel's numerics, emulated ---------------------------------------------
@@ -446,9 +451,13 @@ def test_train_decode_wrapper_on_cpu_is_the_plain_version(monkeypatch):
         tdk.train_decode_fwd(z, x[:, :-1], w1, b1, w2, b2)
     with pytest.raises(ValueError):
         tdk.train_decode_fwd(z, x, w1, b1, w2[:-1], b2)
+    from mvae_torch.components import parse_components
+    from mvae_torch.models import route, vae
+    cfg = vae.VAEConfig(parse_components("h2,s2,e2"), (20,), h_dim=16)
+    params = vae.init_params(cfg)
     for value, on in (("1", True), ("0", False), ("auto", False)):
         monkeypatch.setenv("MVAE_FUSED_TRAIN_DECODER", value)
-        assert tdk.use_fused_train_decoder() is on
+        assert route.route(cfg, params).train_decoder is on
 
 
 # the flagship's widths; a narrow ragged D (4-byte copies, scalar h and gl

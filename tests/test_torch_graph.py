@@ -16,8 +16,8 @@ CPU, where they run as the eager loop of the same bodies.
   (``Trainer._train_one_epoch_eager``) bit for bit: the static-buffer
   gather, the device step counter and the statistics buffers change no
   arithmetic.
-* The graph cache key follows ``MVAE_FUSED_TRAIN_DECODER`` and the kernel
-  entry points.
+* The graph cache key follows ``MVAE_FUSED_TRAIN_DECODER`` and each kernel
+  wrapper of ``kernels.launches.WRAPPERS``.
 * A ``TorchFunctionMode`` finds no host read (``item``, ``tolist``,
   ``__bool__``, ...) and no host-to-device copy (``torch.tensor`` /
   ``torch.as_tensor`` of host data) in a training step or an eval batch of
@@ -38,7 +38,8 @@ from torch.overrides import TorchFunctionMode
 from mvae_torch.components import parse_components
 from mvae_torch.convert import params_from_jax
 from mvae_torch.data import ArrayDataset
-from mvae_torch.kernels import optim_kernels, tail_kernels
+from mvae_torch.kernels import (decoder_kernels, launches, optim_kernels,
+                                tail_kernels)
 from mvae_torch.models import vae as tvae
 from mvae_torch.train import TrainConfig, Trainer, graphs
 from mvae_torch.train.trainer import _leaves
@@ -181,6 +182,27 @@ def test_graph_key_follows_routing(tmp_path, monkeypatch):
     monkeypatch.setattr(tail_kernels, "tail_forward",
                         tail_kernels.tail_forward_ref)
     assert graphs.routing_key(cfg, params) != off
+
+
+# the plain version of each wrapper whose signature it shares
+PLAIN = {"tail_forward": tail_kernels.tail_forward_ref,
+         "tail_backward": tail_kernels.tail_backward_ref,
+         "reparam_chunk_t": tail_kernels.reparam_chunk_plain,
+         "fused_decode_bce_t": decoder_kernels.decode_bce_ref,
+         "train_decode_fwd": decoder_kernels.train_decode_ref}
+
+
+@pytest.mark.parametrize("mod,name", launches.WRAPPERS,
+                         ids=[name for _, name in launches.WRAPPERS])
+def test_graph_key_follows_each_wrapper(monkeypatch, mod, name):
+    """Swapping any one kernel wrapper (for its plain version, or for
+    another function where the signatures differ) changes the graph cache
+    key, so a graph captured through the kernel is not replayed for it."""
+    cfg = tvae.VAEConfig(parse_components("d2,p2,e2"), (D,), h_dim=16)
+    params = tvae.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    before = graphs.routing_key(cfg, params)
+    monkeypatch.setattr(mod, name, PLAIN.get(name, lambda *a, **kw: None))
+    assert graphs.routing_key(cfg, params) != before
 
 
 def test_path_reports_eager_with_reason(tmp_path):

@@ -18,24 +18,24 @@ rows, to B1's source bit for bit: P2 evaluates the tiles' expressions, an
 example part once an example and a draw part once a sample, in the same
 order. On a card (``-m cuda``) the kernel is held to the plain version, to
 B1 bit for bit, counted through CUDA-graph replays, and a flagship IWAE
-batch launches P2 four times and neither B1 nor B5.
+batch launches P2 four times and neither B1 nor B5; the tests that hold
+the port to the JAX package import it inside, as the card machine has no
+JAX.
 """
 import ctypes
 import math
 import shutil
 import subprocess
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from mvae_tpu.models import vae as jvae
 from mvae_torch.components import parse_components, reparametrize
 from mvae_torch.kernels import manifold_kernels as tmk
 from mvae_torch.kernels import tail_kernels as ttk
+from mvae_torch.models import route as troute
 from mvae_torch.models import vae as tvae
-from tests import test_torch_vae as tv
 from tests.test_torch_csrc_host import _HARNESS, _STUB, CSRC, _held, _ptr
 
 # (spec, options): the kinds P2 draws at the dimensions the kernel
@@ -137,6 +137,10 @@ def test_route_matches_jax(monkeypatch, spec, c_params):
     """One IWAE chunk through the port's route (P2's plain version for the
     flagship's kinds, B5's for d / p) against the JAX package's chunk on
     its rebuilt keys, at ``test_reparam_chunk_matches_jax``'s tolerances."""
+    import jax
+
+    from mvae_tpu.models import vae as jvae
+    from tests import test_torch_vae as tv
     monkeypatch.setenv("MVAE_FUSED_REPARAM", "1")
     jcfg, tcfg, jparams, tparams, x = tv._models(np.float32, 2, spec,
                                                  c_params)
@@ -145,7 +149,7 @@ def test_route_matches_jax(monkeypatch, spec, c_params):
     zt_j, lq_j, lp_j = jvae._reparam_chunk_t(ck, jcfg, jparams, feats, chunk)
     noise = tv._chunk_noise(ck, jcfg, jparams, chunk, np.float32, True)
     zt, lq, lp = tvae._reparam_chunk_t(
-        tcfg, tparams, torch.from_numpy(np.asarray(feats)), chunk,
+        tcfg, tparams, troute.route(tcfg, tparams), torch.from_numpy(np.asarray(feats)), chunk,
         torch.from_numpy(noise))
     np.testing.assert_allclose(zt.numpy(), np.asarray(zt_j), rtol=3e-5,
                                atol=1e-6)
@@ -185,7 +189,7 @@ def test_route_reads_the_component(monkeypatch, spec, opts, dtype, tiles,
     """Normal on e, wrapped on h and vMF on s2 in float32 go together to one
     P2 call a chunk, wrapped d / p / u to B5 a component, every other
     component (wrapped s, the rejection vMF, vMF on p, float64) to the
-    plain per-component draw; ``fused_path_report`` names the same."""
+    plain per-component draw; ``route.report`` names the same."""
     comps = _comps(spec, opts)
     cfg = tvae.VAEConfig(comps, (20,), h_dim=12)
     params = tvae.init_params(cfg, dtype=dtype,
@@ -197,7 +201,7 @@ def test_route_reads_the_component(monkeypatch, spec, opts, dtype, tiles,
     assert bool(torch.isfinite(ll).all())
     assert calls["tiles"] == ([tiles] if tiles else [])
     assert calls["stereo"] == stereo
-    rep = tvae.fused_path_report(cfg, params)["iwae_reparam"]
+    rep = troute.report(cfg, params, "cpu")["iwae_reparam"]
     for i, r in enumerate(rep):
         assert r["active"] == (i in tiles or ("reparam_stereo" in r["why"]))
         assert ("reparam_chunk.cu" in r["why"]) == (i in tiles)
@@ -210,12 +214,14 @@ def test_log_likelihood_matches_previous_path(monkeypatch, spec):
     per-component path it replaces (``components.reparametrize``), float32,
     the same noise: 1e-5 relative with a 1e-4 floor, the float32 tolerance
     of ``test_log_likelihood_matches_jax``."""
+    from tests import test_torch_vae as tv
     _, tcfg, _, tparams, x = tv._models(np.float32, 4, spec)
     g = torch.Generator().manual_seed(6)
     xt = torch.from_numpy(x)
     noise = ttk.draw_noise(tcfg.components, (8, xt.shape[0]), xt, g)
     new = tvae.log_likelihood(tcfg, tparams, xt, 8, 4, noise=noise)
-    monkeypatch.setattr(tvae, "_chunk_tile_eligible", lambda c, cp: False)
+    monkeypatch.setattr(ttk, "chunk_supported", lambda c: False)
+    assert "tiles" not in troute.route(tcfg, tparams).chunk
     old = tvae.log_likelihood(tcfg, tparams, xt, 8, 4, noise=noise)
     np.testing.assert_allclose(new.numpy(), old.numpy(), rtol=1e-5,
                                atol=1e-4)

@@ -25,6 +25,7 @@ from mvae_torch import cli
 from mvae_torch.components import parse_components
 from mvae_torch.convert import params_from_jax
 from mvae_torch.data import ArrayDataset
+from mvae_torch.models import route as troute
 from mvae_torch.models import vae as tvae
 from mvae_torch.train import NonFiniteError, TrainConfig, Trainer
 from mvae_torch.train.trainer import _leaves
@@ -393,18 +394,6 @@ def test_cli_trains_resumes_and_evaluates(tmp_path, capsys):
     assert np.isfinite(line["test/log_likelihood_iwae"])
 
 
-@pytest.mark.parametrize("value,active", [("1", True), ("0", False),
-                                          ("auto", False)])
-def test_fused_path_report_follows_the_switch(monkeypatch, value, active):
-    monkeypatch.setenv("MVAE_FUSED_TRAIN_DECODER", value)
-    cfg = tvae.VAEConfig(parse_components("h2,s2,e2"), (D,), h_dim=16)
-    params = tvae.init_params(cfg, generator=torch.Generator().manual_seed(0))
-    rep = tvae.fused_path_report(cfg, params)
-    assert rep["train_decoder"]["active"] is active
-    assert ("train_decode.cu" in rep["train_decoder"]["why"]) is active
-    assert "tail_bwd.cu" in rep["train_tail"]["why"]
-
-
 def test_fused_train_decoder_path_matches_plain(monkeypatch):
     """With the switch on, the training forward takes train_decode_bce (on
     the CPU its plain version through the Function): the same loss and
@@ -426,7 +415,7 @@ def test_fused_train_decoder_path_matches_plain(monkeypatch):
     monkeypatch.setenv("MVAE_FUSED_TRAIN_DECODER", "0")
     loss0, g0 = run()
     monkeypatch.setenv("MVAE_FUSED_TRAIN_DECODER", "1")
-    assert tvae._fused_train_decoder_eligible(cfg, params)
+    assert troute.route(cfg, params).train_decoder
     loss1, g1 = run()
     torch.testing.assert_close(loss1, loss0, rtol=1e-6, atol=1e-5)
     for a, b in zip(g1, g0):

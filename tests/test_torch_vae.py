@@ -43,6 +43,7 @@ from mvae_torch.components import total_ambient_dim, total_true_dim
 from mvae_torch.convert import params_from_jax
 from mvae_torch.data import ArrayDataset
 from mvae_torch.data.base import binarize_rows
+from mvae_torch.models import route as troute
 from mvae_torch.models import vae as tvae
 from mvae_torch.train import TrainConfig, Trainer
 from tests.test_torch_distributions import jax_noise
@@ -129,21 +130,22 @@ def test_log_weights_do_not_depend_on_chunking():
                                          torch.zeros((), dtype=torch.float64),
                                          g)
     xt = torch.from_numpy(x)
-    a = tvae._log_weights(tcfg, tparams, xt, 6, 2, noise=noise)
-    b = tvae._log_weights(tcfg, tparams, xt, 6, 6, noise=noise)
+    r = troute.route(tcfg, tparams)
+    a = tvae._log_weights(tcfg, tparams, r, xt, 6, 2, noise=noise)
+    b = tvae._log_weights(tcfg, tparams, r, xt, 6, 6, noise=noise)
     assert a.shape == (6, B)
     torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
 
 def test_fused_path_report_names_the_port_kernels():
     _, tcfg, _, tparams, _ = _models(np.float32)
-    rep = tvae.fused_path_report(tcfg, tparams)
+    rep = troute.report(tcfg, tparams, "cpu")
     assert rep["train_tail"]["active"] and "tail_fwd.cu" in \
         rep["train_tail"]["why"]
     assert rep["iwae_decoder"]["active"] and "decode_bce.cu" in \
         rep["iwae_decoder"]["why"]
     _, tcfg, _, tparams64, _ = _models(np.float64)
-    rep = tvae.fused_path_report(tcfg, tparams64)
+    rep = troute.report(tcfg, tparams64, "cpu")
     assert not rep["train_tail"]["active"]
     assert not rep["iwae_decoder"]["active"]
 
@@ -222,7 +224,8 @@ def test_bf16_iwae_accumulates_in_float32():
             lw_j.append(np.asarray(f.log_px_z + f.log_p - f.log_q))
     noise = torch.stack(noise)
     xt = torch.from_numpy(x).to(torch.bfloat16)
-    lw_t = tvae._log_weights(tcfg, tparams, xt, n, chunk, noise=noise)
+    lw_t = tvae._log_weights(tcfg, tparams, troute.route(tcfg, tparams), xt,
+                             n, chunk, noise=noise)
     assert lw_t.dtype == torch.float32
     np.testing.assert_allclose(lw_t.numpy(), np.stack(lw_j), rtol=0,
                                atol=1e-3)
@@ -383,7 +386,7 @@ def test_elbo_matches_jax_stereo(monkeypatch, spec, c_params, dtype, tol,
     noise = np.asarray(draw_noise_t(key, jcfg.components, B, dtype)).T
     val_t, stats_t = tvae.elbo(tcfg, tparams, torch.from_numpy(x),
                                noise=torch.from_numpy(noise.copy()))
-    assert tvae.fused_path_report(tcfg, tparams)["train_tail"]["active"] == (
+    assert troute.report(tcfg, tparams, "cpu")["train_tail"]["active"] == (
         dtype == np.float32)
     np.testing.assert_allclose(val_t.numpy(), np.asarray(val_j), rtol=tol,
                                atol=atol)
@@ -426,12 +429,12 @@ def test_reparam_chunk_matches_jax(monkeypatch, spec, c_params):
     feats = jvae.encode(jcfg, jparams, jnp.asarray(x))
     zt_j, lq_j, lp_j = jvae._reparam_chunk_t(ck, jcfg, jparams, feats, chunk)
     noise = _chunk_noise(ck, jcfg, jparams, chunk, np.float32, True)
-    rep = tvae.fused_path_report(tcfg, tparams)["iwae_reparam"]
+    rep = troute.report(tcfg, tparams, "cpu")["iwae_reparam"]
     assert [r["active"] for r in rep] == [
         c.manifold.kind in "dpu" or tvae.tail_kernels.chunk_supported(c)
         for c in tcfg.components]
     zt, lq, lp = tvae._reparam_chunk_t(
-        tcfg, tparams, torch.from_numpy(np.asarray(feats)), chunk,
+        tcfg, tparams, troute.route(tcfg, tparams), torch.from_numpy(np.asarray(feats)), chunk,
         torch.from_numpy(noise))
     np.testing.assert_allclose(zt.numpy(), np.asarray(zt_j), rtol=3e-5,
                                atol=1e-6)
@@ -471,7 +474,7 @@ PREDICATE_SPECS = ["e2", "h2", "d2", "p2", "u2", "s2", "s3", "s2:wrapped",
 
 @pytest.mark.parametrize("sigma_cap", [True, False])
 def test_kernel_predicates_agree_with_jax(monkeypatch, sigma_cap):
-    """``component_supported`` and ``_fused_reparam_eligible`` agree with
+    """``component_supported`` and the route's B5 components agree with
     the JAX predicates on every spec."""
     from mvae_tpu.kernels import tail_kernels as jtk
     monkeypatch.setenv("MVAE_FUSED_REPARAM", "1")
@@ -483,12 +486,14 @@ def test_kernel_predicates_agree_with_jax(monkeypatch, sigma_cap):
             if tc.posterior == "wrapped" and tc.manifold.kind == "s":
                 assert want == (sigma_cap and tc.dim <= 32)
             assert tvae.tail_kernels.component_supported(tc) == want, spec
-            for dt_j, dt_t in ((jnp.float32, torch.float32),
-                               (jnp.float64, torch.float64)):
-                assert tvae._fused_reparam_eligible(
-                    tc, {"w_mu": torch.zeros(1, dtype=dt_t)}
-                ) == jvae._fused_reparam_eligible(
-                    jc, {"w_mu": jnp.zeros(1, dt_j)}), spec
+        for dt_j, dt_t in ((jnp.float32, torch.float32),
+                           (jnp.float64, torch.float64)):
+            cfg = tvae.VAEConfig(tcs, (D,), h_dim=H)
+            r = troute.route(cfg, tvae.init_params(cfg, dtype=dt_t,
+                                                   device="meta"))
+            assert [k == "stereo" for k in r.chunk] == [
+                jvae._fused_reparam_eligible(jc, {"w_mu": jnp.zeros(1, dt_j)})
+                for jc in jcs], spec
 
 
 @pytest.mark.parametrize("spec,opts", [("s6:wrapped", {"sigma_cap": False}),
@@ -504,7 +509,7 @@ def test_plain_tail_products_match_jax(spec, opts):
     float32, 1e-5 relative with a 2e-4 floor (library path against library
     path); the capped wraps = 0 product stays on the kernel route."""
     jcfg, tcfg, jparams, tparams, x = _models(np.float32, 4, spec, **opts)
-    rep = tvae.fused_path_report(tcfg, tparams)
+    rep = troute.report(tcfg, tparams, "cpu")
     assert rep["train_tail"]["active"] == ("wraps" in opts)
     assert rep["iwae_reparam"][0]["active"] == spec.startswith(("p6", "u6"))
     key = jax.random.key(31)
@@ -554,7 +559,7 @@ def test_elbo_matches_jax_sphere(monkeypatch, spec, c_params, opts, dtype,
     val_t, stats_t = tvae.elbo(tcfg, tparams, torch.from_numpy(x),
                                noise=noise)
     on_tail = dtype == np.float32 and "vmf" not in spec and spec != "s6"
-    assert tvae.fused_path_report(tcfg, tparams)["train_tail"]["active"] == \
+    assert troute.report(tcfg, tparams, "cpu")["train_tail"]["active"] == \
         on_tail
     np.testing.assert_allclose(val_t.numpy(), np.asarray(val_j), rtol=tol,
                                atol=atol)
@@ -582,7 +587,7 @@ def test_log_likelihood_matches_jax_sphere(spec, c_params, opts, dtype, tol,
     version on CPU tensors), against the JAX package's library path."""
     jcfg, tcfg, jparams, tparams, x = _models(dtype, 6, spec, c_params,
                                               **opts)
-    rep = tvae.fused_path_report(tcfg, tparams)["iwae_reparam"]
+    rep = troute.report(tcfg, tparams, "cpu")["iwae_reparam"]
     assert [r["active"] for r in rep] == [
         dtype == np.float32 and tvae.tail_kernels.chunk_supported(c)
         for c in tcfg.components]
@@ -606,7 +611,7 @@ def test_fused_path_report_of_the_spherical_family():
         cfg = tvae.VAEConfig(parse_components(spec, **opts), (D,), h_dim=H)
         params = tvae.init_params(cfg,
                                   generator=torch.Generator().manual_seed(0))
-        return tvae.fused_path_report(cfg, params)["train_tail"]
+        return troute.report(cfg, params, "cpu")["train_tail"]
 
     for spec in ("s6:wrapped", "s3:wrapped,h2,e2", "3s2"):
         assert tail(spec)["active"] and "tail_bwd.cu" in tail(spec)["why"]
