@@ -42,10 +42,14 @@ Phases:
     series window; then its time at B = 128 (the training call) and 512
     beside the row-per-thread kernels' (``_ROWWISE_US``);
  4. the IWAE decode kernel (decode_bce.cu: 3xTF32 on the tensor cores)
-    against ``decode_bce_ref`` and float64 at (S=125, Z=8, B=512, H=400,
-    D=784) and at B = 272 (the test split's last batch), then its time and
-    the two cuBLAS FP32 SGEMMs' by graph replay in turns (kernel, library,
-    library, kernel), and their factor;
+    and its previous design (``scripts/decode_bce_previous.cu``,
+    ``PREVIOUS_DECODE``) against ``decode_bce_ref`` and float64 at (S=125,
+    Z=8, B=512, H=400, D=784) and at B = 272 (the test split's last batch),
+    ptxas's registers and spills of both, then at both IWAE cells' chunks
+    and the roofline shape (``DECODE_TURNS``) its time, its previous
+    design's and the two cuBLAS FP32 SGEMMs' by graph replay in turns
+    (kernel, previous, library, library, previous, kernel), and its image
+    launch's own time;
  5. the slice end to end: ``Trainer.evaluate_elbo`` (its decode through
     B6, on by default on the card) and
     ``Trainer.evaluate_log_likelihood`` (IWAE-500) of the h2,s2,e2 MLP VAE
@@ -329,6 +333,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import ctypes
 import functools
 import json
 import math
@@ -553,6 +558,10 @@ PREVIOUS_REPARAM = (Path(__file__).resolve().parent / "scripts"
 # coordinates in per-thread arrays)
 PREVIOUS_TWINS = (Path(__file__).resolve().parent / "scripts"
                   / "twin_probes_previous.cu")
+# B2's previous design (64 examples a block; W2 loaded, split and stored by
+# the threads that multiply; h resident in shared memory)
+PREVIOUS_DECODE = (Path(__file__).resolve().parent / "scripts"
+                   / "decode_bce_previous.cu")
 # The tail kernels' previous design (B1, B3 with the B4a / B4b tiles as they
 # stood at commit b875f52: every product on the warp-a-component geometry,
 # each tile serial on one thread), and B5 built on its tiles
@@ -636,17 +645,26 @@ def phase_build() -> dict:
             "tail_bwd_previous": (PREVIOUS_TAIL / "tail_bwd.cu",
                                   _build.EXTRA_FLAGS["tail_bwd"]),
             "reparam_previous_tiles": (_reparam_on_previous_tiles(),
-                                       _build.EXTRA_FLAGS["reparam_stereo"])},
+                                       _build.EXTRA_FLAGS["reparam_stereo"]),
+            "decode_previous": (PREVIOUS_DECODE,
+                                _build.EXTRA_FLAGS["decode_bce"])},
             _build.BUILD_DIR / "previous")
         reports = _build.build_all()
         variants = prev.result()
     prev_lib, prev_report = variants["reparam_previous"]
     twins_lib, twins_report = variants["twins_previous"]
+    decode_prev = variants["decode_previous"][0].decode_bce_launch
+    decode_prev.restype = ctypes.c_int
+    decode_prev.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     _PREVIOUS.update(
         fwd=tail_kernels.bind_tail(variants["tail_fwd_previous"][0])["fwd"],
-        bwd=tail_kernels.bind_tail(variants["tail_bwd_previous"][0])["bwd"])
-    print(f"[build] {len(reports)} kernels and the previous designs of B5, "
-          f"the twins and the tail kernels (and B5 on the previous tail "
+        bwd=tail_kernels.bind_tail(variants["tail_bwd_previous"][0])["bwd"],
+        decode=decode_prev,
+        decode_reports={"B2": reports["decode_bce"],
+                        "B2, previous design": variants["decode_previous"][1]})
+    print(f"[build] {len(reports)} kernels and the previous designs of B2, "
+          f"B5, the twins and the tail kernels (and B5 on the previous tail "
           f"tiles) in {time.time() - t0:.1f} s")
     for name, text in reports.items():
         for line in _build.ptxas_lines(text):
@@ -828,12 +846,44 @@ def _decode_inputs(S, Z, B, H, D, gen):
     return zt, xt, w1, b1, w2, b2
 
 
+def _previous_decode(args):
+    """B2's previous design (``PREVIOUS_DECODE``) on ``args``: a call that
+    launches it once into its own output."""
+    zt, xt, w1 = args[:3]
+    S, Z, B = zt.shape
+    D, H = xt.shape[0], w1.shape[1]
+    out = torch.empty((S, B), dtype=torch.float32, device="cuda")
+    ptrs = [t.data_ptr() for t in args] + [out.data_ptr()]
+
+    def call():
+        _build.check(_PREVIOUS["decode"](
+            *ptrs, S, Z, B, H, D, torch.cuda.current_stream().cuda_stream),
+            "previous decode_bce_launch")
+        return out
+    return call
+
+
+# B2's shapes timed in turns with its previous design: both IWAE cells'
+# chunks and the roofline row's shape
+DECODE_TURNS = ((125, 8, 512, 400, 784), (125, 6, 512, 400, 784),
+                (16, 8, 2048, 400, 784))
+
+
 def phase_decode(gen) -> dict:
-    """B2 against its plain version (1e-3 nats per row) and float64 at the
-    production IWAE chunk and at the test split's last batch, then its time
-    and the two cuBLAS FP32 SGEMMs' in turns, by graph replay."""
+    """B2 and its previous design against the plain version (1e-3 nats per
+    row) and float64 at the production IWAE chunk and at the test split's
+    last batch; ptxas's registers and spills of both; then, at each of
+    ``DECODE_TURNS``, B2 / previous / previous / B2 in turns by graph
+    replay beside the two cuBLAS FP32 SGEMMs (SGEMMs / SGEMMs between the
+    turns), and the image launch's own time."""
     S, Z, B, H, D = 125, 8, 512, 400, 784
     err = 0.0
+    for name, report in _PREVIOUS["decode_reports"].items():
+        for kern, v in ptxas_entries(report).items():
+            print(f"[decode_bce] {name}: {kern}: {v.get('registers')} "
+                  f"registers, {v.get('stack')} bytes stack frame, "
+                  f"{v.get('spill_stores')} / {v.get('spill_loads')} bytes "
+                  f"spilled (stores / loads)")
     # the production chunk draws from ``gen`` alone, so that the phases
     # after this one see the same inputs whatever else this phase checks
     ragged = _decode_inputs(S, Z, 272, H, D,
@@ -841,52 +891,75 @@ def phase_decode(gen) -> dict:
     full = _decode_inputs(S, Z, B, H, D, gen)
     for b, args in ((272, ragged), (B, full)):
         out = decoder_kernels.fused_decode_bce_t(*args)
+        prev = _previous_decode(args)()
         ref = decoder_kernels.decode_bce_ref(*args)
         ref64 = decoder_kernels.decode_bce_ref(*[a.double() for a in args])
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"decode kernel finite, B={b}")
         e = (out - ref).abs().max().item()
+        ep = (prev - ref).abs().max().item()
         check(e <= 1e-3, f"decode within 1e-3 nats per row at B={b}: {e:.3g}")
+        check(ep <= 1e-3, f"decode's previous design within 1e-3 nats per "
+                          f"row at B={b}: {ep:.3g}")
         err = max(err, e)
         print(f"[decode_bce] B={b}: max |err| {e:.3g} nats per row against "
-              f"the FP32 plain version; kernel vs f64 "
-              f"{(out - ref64).abs().max().item():.3g}, FP32 plain vs f64 "
-              f"{(ref - ref64).abs().max().item():.3g}")
+              f"the FP32 plain version (previous design {ep:.3g}); kernel vs "
+              f"f64 {(out - ref64).abs().max().item():.3g}, FP32 plain vs "
+              f"f64 {(ref - ref64).abs().max().item():.3g}")
+    row = None
+    for shape in DECODE_TURNS:
+        args = (full if shape == (S, Z, B, H, D) else _decode_inputs(
+            *shape, torch.Generator(device="cuda").manual_seed(sum(shape))))
+        zt, xt, w1, b1, w2, b2 = args
+        lib_args = roofline.two_sgemm_operands(zt, w1, b1, w2)
+        prev = _previous_decode(args)
+
+        def kern(fn):
+            return roofline.measure(fn, "decode_bce_kernel", 20)
+
+        def lib():
+            return roofline.measure(lambda: roofline.two_sgemms(*lib_args),
+                                    iters=20, graph=True)
+
+        new = functools.partial(decoder_kernels.fused_decode_bce_t, *args)
+        turns = [kern(new), kern(prev), lib(), lib(), kern(prev), kern(new)]
+        t = roofline.mean_timing(turns[0], turns[5])
+        tp = roofline.mean_timing(turns[1], turns[4])
+        ms, prev_ms = t.us / 1e3, tp.us / 1e3
+        lib_ms = roofline.mean_timing(turns[2], turns[3]).us / 1e3
+        image_us = roofline.measure(
+            lambda: decoder_kernels.decode_w_image(w1, b1, w2), iters=20,
+            graph=True).us
+        s_, z_, b_, h_, d_ = shape
+        fl = roofline.decode_flops(s_, b_, z_, h_, d_)
+        ops_ms = fl["tensor_3xtf32"] / TF32_FLOPS_PER_S * 1e3
+        trace = None if t.trace_us is None else round(t.trace_us, 1)
+        print(f"[decode_bce] (S, Z, B, H, D) = {shape}, in turns B2 / "
+              f"previous / SGEMMs / SGEMMs / previous / B2: "
+              f"{', '.join(f'{x.us:.1f}' for x in turns)} us (graph "
+              f"events); B2 {ms:.4f} ms (CUPTI trace median of the main "
+              f"launch {trace} us; its image launch alone {image_us:.2f} "
+              f"us), previous "
+              f"design {prev_ms:.4f} ms: B2 {prev_ms / ms:.2f}x faster; two "
+              f"cuBLAS FP32 SGEMMs {lib_ms:.4f} ms: B2 {lib_ms / ms:.2f}x "
+              f"faster; {fl['tensor_3xtf32'] / ms / 1e9:.1f} TFLOP/s of "
+              f"3xTF32 products, {100 * ops_ms / ms:.1f}% of 495 TFLOP/s")
+        if shape == (S, Z, B, H, D):
+            row = (ms, lib_ms, fl, args)
+    ms, lib_ms, fl, args = row
     zt, xt, w1, b1, w2, b2 = args
-    lib_args = roofline.two_sgemm_operands(zt, w1, b1, w2)
-
-    def kern():
-        return roofline.measure(
-            lambda: decoder_kernels.fused_decode_bce_t(zt, xt, w1, b1, w2, b2),
-            "decode_bce_kernel", 20)
-
-    def lib():
-        return roofline.measure(lambda: roofline.two_sgemms(*lib_args),
-                                iters=20, graph=True)
-
-    turns = [kern(), lib(), lib(), kern()]
-    t = roofline.mean_timing(turns[0], turns[3])
-    ms, lib_ms = t.us / 1e3, roofline.mean_timing(turns[1], turns[2]).us / 1e3
     plain_ms = time_ms(
         lambda: decoder_kernels.decode_bce_ref(zt, xt, w1, b1, w2, b2), 10)
-    fl = roofline.decode_flops(S, B, Z, H, D)
     nbytes = roofline.decode_bytes(S, B, Z, H, D)
     ops_ms = fl["tensor_3xtf32"] / TF32_FLOPS_PER_S * 1e3
     fp32_ms = (fl["fp32_part"] + fl["transcendentals"]) / FP32_FLOPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, fp32_ms, bytes_ms)
-    print(f"[decode_bce] (S, Z, B, H, D) = {(S, Z, B, H, D)}, in turns "
-          f"kernel / SGEMMs / SGEMMs / kernel: "
-          f"{', '.join(f'{x.us:.1f}' for x in turns)} us (graph events); "
-          f"kernel {ms:.4f} ms (CUPTI trace median "
-          f"{t.trace_us if t.trace_us is None else round(t.trace_us, 1)} "
-          f"us), two cuBLAS FP32 SGEMMs {lib_ms:.4f} ms: the kernel "
-          f"{lib_ms / ms:.2f}x faster; {fl['tensor_3xtf32'] / ms / 1e9:.1f} "
-          f"TFLOP/s of 3xTF32 products ({fl['gemm'] / ms / 1e9:.1f} TFLOP/s "
-          f"of the FP32 work); plain {plain_ms:.3f} ms; bounds: 3xTF32 "
-          f"{ops_ms:.4f} ms ({fl['tensor_3xtf32'] / 1e9:.1f} GFLOP at 495 "
-          f"TFLOP/s), FP32 part {fp32_ms * 1e3:.1f} us, bytes "
-          f"{bytes_ms * 1e3:.2f} us; the FP32 SIMT floor it replaces "
+    print(f"[decode_bce] (S, Z, B, H, D) = {(S, Z, B, H, D)}: plain "
+          f"{plain_ms:.3f} ms; bounds: 3xTF32 {ops_ms:.4f} ms "
+          f"({fl['tensor_3xtf32'] / 1e9:.1f} GFLOP at 495 TFLOP/s), FP32 "
+          f"part {fp32_ms * 1e3:.1f} us, bytes {bytes_ms * 1e3:.2f} us; the "
+          f"FP32 SIMT floor it replaces "
           f"{fl['total'] / FP32_FLOPS_PER_S * 1e3:.4f} ms")
     return {"name": "decode_bce", "route": "cuda",
             "source": "mvae_torch/kernels/csrc/decode_bce.cu",

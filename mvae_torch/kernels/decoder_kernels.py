@@ -7,10 +7,14 @@ Counterpart of ``mvae_tpu/kernels/decoder_kernels.py``. The IWAE half:
 
 for importance samples zt (S, Z, B) against targets xt (D, B), batch
 contiguous -- the reference entry's public layout. ``fused_decode_bce_t``
-runs it in one launch of the CUDA kernel ``csrc/decode_bce.cu`` (replaces
-the TPU kernel ``decoder_kernels.fused_decode_bce_t``): the hidden layer
-stays in shared memory and the logits in registers, and the product with
-W2 runs on Hopper's tensor cores (warpgroup ``wgmma``) as three TF32
+runs it with the CUDA kernel ``csrc/decode_bce.cu`` (replaces the TPU
+kernel ``decoder_kernels.fused_decode_bce_t``), counted as one launch: a
+first small launch writes W2 (with b1 and W1) split into TF32 pairs as the
+shared-memory image of each (D tile, hidden stage) into a scratch tensor
+(``decode_w_image``; its plain version ``decode_image_ref``), and the main
+launch streams those stages to 128 examples a block by the copy engine,
+makes h on the tensor cores and keeps the logits in registers. Both
+products run on Hopper's tensor cores (warpgroup ``wgmma``) as three TF32
 products (3xTF32: each float32 operand split into a TF32 pair,
 ``tf32_split_ref``), which keeps FP32-grade products (<= 1e-3 nats per
 784-pixel row against the full-f32 plain version) where one TF32 pass
@@ -50,9 +54,11 @@ from . import _build
 _TD_BM, _TD_BN, _TD_WS, _TD_KC, _TD_WARPS, _TD_RING = 16, 32, 40, 16, 4, 4
 _TD_SMEM_LIMIT = 232320
 _SMEM_LIMIT = 232448
-# The tiling of csrc/decode_bce.cu: examples per block, W2 column tile,
-# hidden stage, warpgroups per block, W2 stages in shared memory.
-_DEC_BM, _DEC_BN, _DEC_BK, _DEC_WG, _DEC_NBUF = 64, 112, 32, 2, 2
+# The tiling of csrc/decode_bce.cu: W2 column tile, hidden units per stage,
+# latent dimensions per k-step of h, the ring's most slots, and the bytes of
+# its barriers and counters.
+_DEC_BN, _DEC_BK, _DEC_ZK, _DEC_SLOTS = 112, 32, 8, 4
+_DEC_BAR_BYTES = 2 * _DEC_SLOTS * 8
 
 
 def _td_hp(H: int) -> int:
@@ -106,21 +112,100 @@ def train_tile_plan(B: int, Z: int, H: int, D: int) -> dict | None:
             "smem": _td_smem(Z, H, slots), "part": rows * cols * _TD_BM}
 
 
+def _dec_stage_words(Z: int) -> int:
+    """32-bit words of one stage image of decode_bce.cu (``stage_words``):
+    W2's hi and lo tiles (112 columns x 32 hidden units each), the stage's
+    32 b1 words, and a hi and a lo W1 tile (32 units x 8 latent
+    dimensions) for every 8 latent dimensions."""
+    return 2 * _DEC_BN * _DEC_BK + _DEC_BK + 2 * _DEC_BK * _DEC_ZK * (
+        -(-Z // _DEC_ZK))
+
+
+def _dec_slots(Z: int) -> int:
+    """The IWAE decode's ring slots (``ring_slots``): as many stage images
+    as fit beside the mbarriers, at most 4 (0: not one)."""
+    return min(_DEC_SLOTS, (_SMEM_LIMIT - _DEC_BAR_BYTES)
+               // (4 * _dec_stage_words(Z)))
+
+
 def decode_smem_bytes(Z: int, H: int) -> int:
-    """Dynamic shared memory the IWAE decode kernel needs (``smem_bytes``
-    of decode_bce.cu): two W2 stages, each split into a hi and a lo
-    tile (14 groups of 8 columns, 4 words of padding a group), h for
-    64 examples (H rounded up to the stage depth, plus 4 words a row), the
-    z tile and the row partials of the two warpgroups."""
-    hp = -(-H // _DEC_BK) * _DEC_BK
-    split = _DEC_BN // 8 * (8 * _DEC_BK + 4)
-    return 4 * (_DEC_NBUF * 2 * split + _DEC_BM * (hp + 4) + Z * _DEC_BM
-                + _DEC_WG * _DEC_BM)
+    """Dynamic shared memory the IWAE decode kernel needs: its ring of
+    stage images, their full mbarriers and done counts. H only sets how
+    many stages stream through the ring: 123,456 bytes at Z <= 8 for any
+    H."""
+    return 4 * _dec_stage_words(Z) * max(_dec_slots(Z), 1) + _DEC_BAR_BYTES
 
 
 def decode_shape_supported(Z: int, H: int) -> bool:
-    """Whether the IWAE decode kernel's resident h fits one block."""
-    return decode_smem_bytes(Z, H) <= _SMEM_LIMIT
+    """Whether one stage image of the IWAE decode kernel fits a block
+    (any H; Z up to 792)."""
+    return Z >= 1 and H >= 1 and _dec_slots(Z) >= 1
+
+
+def decode_image_bytes(Z: int, H: int, D: int) -> int:
+    """Bytes of the scratch the IWAE decode writes W2's split stages into:
+    a stage image for every (D tile of 112, hidden stage of 32)."""
+    return 4 * _dec_stage_words(Z) * -(-H // _DEC_BK) * -(-D // _DEC_BN)
+
+
+def _stage_unit() -> torch.Tensor:
+    """The hidden unit at each position of a stage (``stage_unit``): each
+    k-step's 8 positions hold its units 0, 2, 4, 6, 1, 3, 5, 7, so that
+    the h product's accumulator is the second product's A fragment."""
+    v = torch.arange(_DEC_BK) % 8
+    return torch.arange(_DEC_BK) - v + torch.where(v < 4, 2 * v, 2 * v - 7)
+
+
+def _core_word(n, k, k_depth: int):
+    """Word of (column n, depth k) in a K-major tile of 8 x 4 core matrices
+    without swizzle (``W2_AT``, ``W1_AT``): 32 words apart along k, 8
+    k_depth words along n."""
+    return (n // 8) * 8 * k_depth + (k // 4) * 32 + (n % 8) * 4 + k % 4
+
+
+def decode_image_ref(w1, b1, w2):
+    """Plain version of the IWAE decode's image launch: (stages, words)
+    int32, stage dt nK + kt the bits of W2's hi and lo tiles
+    (``tf32_split_ref``) at D tile dt and hidden stage kt, its hidden units
+    in ``_stage_unit`` order, b1's 32 words, then each 8-wide chunk of z's
+    W1 slice (hi, lo); zeros past Z, H and D."""
+    Z, H = w1.shape
+    D = w2.shape[1]
+    nK, nD, zc = -(-H // _DEC_BK), -(-D // _DEC_BN), -(-Z // _DEC_ZK)
+    f32 = dict(dtype=torch.float32, device=w2.device)
+    w2p = torch.zeros(nK * _DEC_BK, nD * _DEC_BN, **f32)
+    w2p[:H, :D] = w2
+    w1p = torch.zeros(zc * _DEC_ZK, nK * _DEC_BK, **f32)
+    w1p[:Z, :H] = w1
+    b1p = torch.zeros(nK * _DEC_BK, **f32)
+    b1p[:H] = b1
+    img = torch.zeros(nD, nK, _dec_stage_words(Z), dtype=torch.int32,
+                      device=w2.device)
+    # W2: stage (dt, kt) position u, column n <- w2p[kt 32 + unit(u), dt
+    # 112 + n]
+    u, n = torch.meshgrid(torch.arange(_DEC_BK), torch.arange(_DEC_BN),
+                          indexing="ij")
+    at = _core_word(n, u, _DEC_BK).reshape(-1)
+    tiles = w2p.reshape(nK, _DEC_BK, nD, _DEC_BN)[:, _stage_unit()]
+    tiles = tiles.permute(2, 0, 1, 3).reshape(nD, nK, -1)
+    w2w = _DEC_BN * _DEC_BK
+    for off, part in zip((0, w2w), tf32_split_ref(tiles)):
+        img[:, :, off + at] = part.contiguous().view(torch.int32)
+    img[:, :, 2 * w2w:2 * w2w + _DEC_BK] = b1p.reshape(
+        1, nK, _DEC_BK).view(torch.int32)
+    # W1: chunk c, column n (unit kt 32 + n), depth q (z = c 8 + q)
+    q, n = torch.meshgrid(torch.arange(_DEC_ZK), torch.arange(_DEC_BK),
+                          indexing="ij")
+    at = _core_word(n, q, _DEC_ZK).reshape(-1)
+    w1t = w1p.reshape(zc, _DEC_ZK, nK, _DEC_BK).permute(2, 0, 1, 3)
+    w1t = w1t.reshape(1, nK, zc, -1).expand(nD, nK, zc, -1)
+    w1w = _DEC_BK * _DEC_ZK
+    base = 2 * w2w + _DEC_BK
+    for c in range(zc):
+        for off, part in zip((0, w1w), tf32_split_ref(w1t[:, :, c])):
+            img[:, :, base + 2 * w1w * c + off + at] = \
+                part.contiguous().view(torch.int32)
+    return img.reshape(nD * nK, -1)
 
 
 def tf32_trunc_ref(a):
@@ -157,11 +242,47 @@ def decode_bce_ref(zt, xt, w1, b1, w2, b2):
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    fn = _build.load("decode_bce").decode_bce_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    return fn
+    lib = _build.load("decode_bce")
+    lib.decode_bce_launch.restype = ctypes.c_int
+    lib.decode_bce_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.decode_image_launch.restype = ctypes.c_int
+    lib.decode_image_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return lib
+
+
+def _image_scratch(Z, H, D, device):
+    return torch.empty(decode_image_bytes(Z, H, D) // 4, dtype=torch.int32,
+                       device=device)
+
+
+def decode_w_image(w1, b1, w2):
+    """The IWAE decode's image of W2, b1 and W1 (``decode_image_ref``'s
+    (stages, words) int32): on CUDA tensors the image launch of
+    ``csrc/decode_bce.cu`` alone, as ``fused_decode_bce_t`` runs it before
+    its main launch; on CPU tensors ``decode_image_ref``."""
+    Z, H = w1.shape
+    D = w2.shape[1]
+    if tuple(b1.shape) != (H,) or w2.shape[0] != H:
+        raise ValueError(f"for w1 {(Z, H)}: b1 must be {(H,)} and w2 "
+                         f"{(H, D)}, got {tuple(b1.shape)}, "
+                         f"{tuple(w2.shape)}")
+    if w2.device.type == "cpu":
+        return decode_image_ref(w1, b1, w2)
+    if w2.device.type != "cuda":
+        raise ValueError(f"unsupported device {w2.device}")
+    args = [t.contiguous() for t in (w1, b1, w2)]
+    if any(t.dtype != torch.float32 or t.device != w2.device for t in args):
+        raise ValueError(f"all operands must be float32 on {w2.device}")
+    if not decode_shape_supported(Z, H):
+        raise ValueError(f"(Z={Z}, H={H}) exceeds the kernel's shared memory")
+    img = _image_scratch(Z, H, D, w2.device)
+    stream = torch.cuda.current_stream(w2.device).cuda_stream
+    _build.check(_lib().decode_image_launch(
+        *[t.data_ptr() for t in args], img.data_ptr(), Z, H, D, stream),
+        "decode_image_launch")
+    return img.reshape(-(-H // _DEC_BK) * -(-D // _DEC_BN), -1)
 
 
 def fused_decode_bce_t(zt, xt, w1, b1, w2, b2):
@@ -169,7 +290,8 @@ def fused_decode_bce_t(zt, xt, w1, b1, w2, b2):
 
     zt: (S, Z, B) latent draws; xt: (D, B) targets in [0, 1]; w1 (Z, H),
     b1 (H,), w2 (H, D), b2 (D,). Returns (S, B) float32. On CUDA tensors
-    one launch of ``csrc/decode_bce.cu``; on CPU tensors
+    ``csrc/decode_bce.cu`` (its image launch into a scratch tensor, then
+    the main launch: one launch on the count); on CPU tensors
     ``decode_bce_ref``."""
     S, Z, B = zt.shape
     D = xt.shape[0]
@@ -191,9 +313,11 @@ def fused_decode_bce_t(zt, xt, w1, b1, w2, b2):
         raise ValueError(f"(Z={Z}, H={H}) exceeds the kernel's shared memory")
     args = [t.contiguous() for t in args]
     out = torch.empty((S, B), dtype=torch.float32, device=zt.device)
+    img = _image_scratch(Z, H, D, zt.device)
     stream = torch.cuda.current_stream(zt.device).cuda_stream
-    _build.check(_lib()(*[t.data_ptr() for t in args], out.data_ptr(),
-                        S, Z, B, H, D, stream), "decode_bce_launch")
+    _build.check(_lib().decode_bce_launch(
+        *[t.data_ptr() for t in args], out.data_ptr(), img.data_ptr(),
+        S, Z, B, H, D, stream), "decode_bce_launch")
     fused_decode_bce_t.launches += 1
     check_outputs("decode_bce", out)
     return out

@@ -14,8 +14,10 @@ stand in for, so of them the scalar tails (from a row's Gram values to the
 distance) are compiled and held here, and the reductions on the card. Of
 the IWAE decode, which runs on the tensor cores, the TF32 split of its
 operands (``csrc/tf32.cuh``) is compiled and held to ``tf32_split_ref``
-bit for bit; of the training decode, its tile plan and h shares
-(``csrc/train_decode_plan.cuh``), against ``train_tile_plan``.
+bit for bit, and its image launch (``w_image_kernel``: W2, b1 and W1 split
+into the stage images the main launch streams, cut before the main launch)
+against ``decode_image_ref``; of the training decode, its tile plan and h
+shares (``csrc/train_decode_plan.cuh``), against ``train_tile_plan``.
 
 This checks the expressions and the reverse sweep, not the build for the
 card or the launch: those are ``chip_smoke.py``'s and the ``-m cuda`` tests'.
@@ -71,6 +73,17 @@ static inline unsigned atomicAdd(unsigned* p, unsigned v) {
 static inline float __ldcg(const float* p) { return *p; }
 static inline int min(int a, int b) { return a < b ? a : b; }
 static HostIdx gridDim;
+struct uint4 { unsigned x, y, z, w; };
+static inline uint4 make_uint4(unsigned x, unsigned y, unsigned z,
+                               unsigned w) {
+  return {x, y, z, w};
+}
+template <class T> static inline T __ldg(const T* p) { return *p; }
+static inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  __builtin_memcpy(&u, &f, sizeof u);
+  return u;
+}
 """
 
 _HARNESS = {
@@ -422,6 +435,16 @@ extern "C" void host_run(const float* a, unsigned* hi, unsigned* lo, int n) {
   for (int i = 0; i < n; ++i) tf32_split(a[i], hi[i], lo[i]);
 }
 """,
+    "decode_bce": r"""
+extern "C" void host_run(const float* w1, const float* b1, const float* w2,
+                         unsigned* img, int Z, int H, int D) {
+  const int nK = (H + BK - 1) / BK, nD = (D + BN - 1) / BN;
+  for (blockIdx.x = 0; blockIdx.x < nK * nD; ++blockIdx.x)
+    for (blockIdx.y = 0; blockIdx.y < IMAGE_PARTS; ++blockIdx.y)
+      for (threadIdx.x = 0; threadIdx.x < IMAGE_NT; ++threadIdx.x)
+        w_image_kernel(w1, b1, w2, img, Z, H, D, nK, (Z + ZK - 1) / ZK);
+}
+""",
     "train_decode_plan": r"""
 extern "C" void host_run(const int* shape, long long* plan, int* share) {
   TdPlan p;
@@ -469,9 +492,9 @@ def host_libs(tmp_path_factory):
         d = work / "previous" if base != name else work
         source = (PREVIOUS if base != name else CSRC) / f"{base}.cu"
         text = source.read_text() if source.exists() else ""
-        body = (text.split("// --- launchers")[0] if "// --- launchers" in text
-                else text.split('extern "C"')[0] if text
-                else f'#include "{name}.cuh"\n')
+        cut = next((m for m in ("// --- launchers", "// --- the main launch")
+                    if m in text), 'extern "C"')
+        body = text.split(cut)[0] if text else f'#include "{name}.cuh"\n'
         src = d / f"{base}.cpp"
         src.write_text(body + harness)
         out = d / f"{base}.so"
@@ -984,6 +1007,25 @@ def test_tf32_split_source_matches_emulation(host_libs):
     hi_ref, lo_ref = tdk.tf32_split_ref(a)
     assert torch.equal(hi, hi_ref.view(torch.int32))
     assert torch.equal(lo, lo_ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("Z,H,D", [(8, 400, 784), (6, 40, 100),
+                                   (12, 33, 98), (3, 1, 1)])
+def test_decode_image_source_matches_python(host_libs, Z, H, D):
+    """The IWAE decode's image launch (``w_image_kernel`` of
+    ``csrc/decode_bce.cu``, the code the card runs), compiled for the host
+    and run block after block, thread after thread, against
+    ``decode_image_ref`` bit for bit: W2's split words at their permuted
+    core-matrix places, b1, W1's split chunks, zeros past Z, H and D."""
+    g = torch.Generator().manual_seed(Z * H + D)
+    w1 = torch.randn((Z, H), generator=g)
+    b1 = torch.randn((H,), generator=g)
+    w2 = 0.1 * torch.randn((H, D), generator=g)
+    want = tdk.decode_image_ref(w1, b1, w2)
+    img = torch.full((tdk.decode_image_bytes(Z, H, D) // 4,), -1,
+                     dtype=torch.int32)
+    host_libs["decode_bce"](_ptr(w1), _ptr(b1), _ptr(w2), _ptr(img), Z, H, D)
+    assert torch.equal(img.reshape(want.shape), want)
 
 
 @pytest.mark.parametrize("B,Z,H,D", [

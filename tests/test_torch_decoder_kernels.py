@@ -8,10 +8,17 @@ nats per row against the JAX kernel (its contract: the bf16 x 3 split
 drops the lo*lo term, ~1e-3 nats on a few-hundred-nat row); 1e-9 against
 the float64 oracle (the same float64 arithmetic, summed in another order);
 1e-3 nats per row between the CUDA kernel (3xTF32 on the tensor cores)
-and the full-f32 matmuls of its plain version, at the production chunk, at
-ragged batches (77; 272, the 10,000-example test split's last batch at
-512), at a D that takes the kernel's 4-byte copies, and with logits past
-|30| in every row, where softplus must stay stable.
+and the full-f32 matmuls of its plain version, at both IWAE cells'
+chunks (Z = 8 and 6), at ragged batches (77; 272, the 10,000-example test
+split's last batch at 512; 1), at one sample, at H = 640, at Z = 12 (two
+8-wide chunks of z) and 400 (a ring of one slot), at ragged H and D, and
+with logits past |30| in every
+row, where softplus must stay stable; two calls and ten CUDA-graph
+replays bit for bit; its image launch bit for bit against
+``decode_image_ref``. On the CPU, the image (W2, b1 and W1 split into the
+stage tiles the main launch streams, their hidden units permuted so that
+the h product's accumulator is the second product's A fragment), read
+through the kernel's descriptors and fragment layouts, gives h W2.
 
 The kernel's numerics, emulated in torch on the CPU at full width (Z = 8,
 H = 400, D = 784; S = 2, B = 64): each float32 operand of h W2 is split into
@@ -24,7 +31,8 @@ within 1e-3 nats per row of the float64 oracle, where one TF32 pass
 truncates; modelled as one round-toward-zero of each k-step's exact sum
 into the accumulator, a single accumulator misses the gate and the
 kernel's scheme (small products apart, the large one in a partial per
-32-deep stage added with a rounded add) holds it.
+32-deep stage added with a rounded add) holds it, with h from FP32 FMAs
+and with h made as the kernel makes it (3xTF32 into one accumulator).
 
 Training path: ``train_decode_ref`` against the JAX float32 decode and
 Bernoulli log-likelihood (``vae.decode`` + ``bernoulli_log_prob``), 1e-5
@@ -120,19 +128,36 @@ def test_wrapper_on_cpu_is_the_plain_version():
 @pytest.mark.parametrize("kernel", ["decode", "train"])
 def test_shared_memory_gate(kernel):
     """The flagship (Z=8, H=400) fits one block; a hidden layer whose tile
-    exceeds the 227 KB per block does not. The IWAE decode (B2) keeps h for
-    64 examples at H rounded up to its 32-deep stage plus 4 words a row,
-    beside two W2 stages split into hi and lo tiles (14 groups of 8 x 32
-    words, each padded by 4), the z tile and the 2 warpgroups' row
-    partials; the training decode (B6) its own tile."""
+    exceeds the 227 KB per block does not. The IWAE decode (B2) keeps a
+    ring of 4 stage images (W2's hi and lo tiles of 112 columns x 32
+    hidden units, the stage's 32 b1 words, and a hi and a lo W1 tile of
+    32 units x 8 latent dimensions for every 8 of Z) and its 8 mbarriers:
+    H only sets how many stages stream through, and Z how large a stage
+    is; the training decode (B6) its own tile."""
     if kernel == "decode":
         assert tdk.decode_shape_supported(8, 400)
-        assert tdk.decode_smem_bytes(8, 400) == 4 * (
-            2 * 2 * 14 * 260 + 64 * (416 + 4) + 8 * 64 + 2 * 64) == 168_320
+        assert tdk.decode_smem_bytes(8, 400) == 4 * 4 * (
+            2 * 112 * 32 + 32 + 2 * 32 * 8) + 8 * 8 == 123_456
         assert tdk.decode_smem_bytes(8, 384) == tdk.decode_smem_bytes(8, 361)
+        assert tdk.decode_smem_bytes(8, 640) == tdk.decode_smem_bytes(8, 1)
+        assert tdk.decode_smem_bytes(6, 400) == tdk.decode_smem_bytes(8, 400)
         assert tdk.decode_shape_supported(8, 640)
-        assert not tdk.decode_shape_supported(8, 641)
-        assert not tdk.decode_shape_supported(8, 1024)
+        # what the previous design took (H rounded to 32, + Z, <= 674) it
+        # still takes, and H no longer bounds it
+        assert all(tdk.decode_shape_supported(z, h) for z in (1, 8, 9, 12,
+                   64, 258, 642) for h in (1, 33, 400, 640 - z + 1)
+                   if h >= 1 and -(-h // 32) * 32 + z <= 674)
+        assert tdk.decode_shape_supported(8, 641)
+        assert tdk.decode_shape_supported(8, 4096)
+        # past 14 chunks of z (Z = 112) 4 slots no longer fit: 3; past 99
+        # chunks not one
+        assert tdk.decode_smem_bytes(112, 400) == 4 * 4 * (
+            2 * 112 * 32 + 32 + 2 * 32 * 8 * 14) + 64
+        assert tdk.decode_smem_bytes(113, 400) == 4 * 3 * (
+            2 * 112 * 32 + 32 + 2 * 32 * 8 * 15) + 64
+        assert tdk.decode_shape_supported(792, 400)
+        assert not tdk.decode_shape_supported(793, 400)
+        assert tdk.decode_image_bytes(8, 400, 784) == 7 * 13 * 30_848
     else:
         # B6: h for 16 rows at a stride of 101 float4 words (400 units in
         # 25 stages of 16, made odd), the z tile, all 25 W2 stages of 16
@@ -220,19 +245,21 @@ def test_train_decoder_switch_follows_the_device(monkeypatch, value, device,
 
 
 def test_decode_gate_refuses_what_the_kernel_cannot_hold(monkeypatch):
-    """The wrapper raises on a CUDA-typed call whose h does not fit (the
-    check runs before any launch), and the IWAE route takes B2's gate."""
+    """The IWAE route takes B2's gate: a latent of 800 dimensions, whose
+    stage image does not fit a block, goes to the plain decode; the
+    flagship at any hidden width, and 792 dimensions, go to B2."""
     from mvae_torch.components import parse_components
     from mvae_torch.models import route, vae
 
-    def iwae_decoder(h_dim):
-        cfg = vae.VAEConfig(parse_components("h2,s2,e2"), (784,),
-                            h_dim=h_dim)
+    def iwae_decoder(spec, h_dim):
+        cfg = vae.VAEConfig(parse_components(spec), (784,), h_dim=h_dim)
         return route.route(cfg, vae.init_params(cfg, device="meta")
                            ).iwae_decoder
 
-    assert not iwae_decoder(700)
-    assert iwae_decoder(400)
+    assert not iwae_decoder("e800", 400)
+    assert iwae_decoder("e792", 400)
+    assert iwae_decoder("h2,s2,e2", 400)
+    assert iwae_decoder("h2,s2,e2", 700)
 
 
 # --- the kernel's numerics, emulated ---------------------------------------------
@@ -339,20 +366,52 @@ def _rz(x64):
     return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
 
 
+def _h_rows_tensor(zt, w1, b1):
+    """h as B2 makes it on the tensor cores: z's and W1's TF32 pairs; at Z
+    <= 8 the three products added into one accumulator from zero with
+    truncation; past that, each 8-wide k-step's large product from zero
+    added into a float32 sum, rounded, and the small ones in an
+    accumulator of their own; then + b1 and ReLU in float32."""
+    Z = w1.shape[0]
+    z = zt.transpose(1, 2).reshape(-1, Z)
+    (zh, zl), (wh, wl) = tdk.tf32_split_ref(z), tdk.tf32_split_ref(w1)
+    zl, wl = tdk.tf32_trunc_ref(zl), tdk.tf32_trunc_ref(wl)
+    zeros = torch.zeros(z.shape[0], w1.shape[1])
+
+    def mma(c, a, b, k0):
+        return _rz(c.double() + a[:, k0:k0 + 8].double()
+                   @ b[k0:k0 + 8].double())
+
+    if Z <= 8:
+        acc = zeros
+        for a, b in ((zh, wh), (zl, wh), (zh, wl)):
+            acc = mma(acc, a, b, 0)
+        return torch.relu(acc + b1)
+    acc, small = zeros, zeros
+    for k0 in range(0, Z, 8):
+        acc = acc + mma(zeros, zh, wh, k0)
+        small = mma(mma(small, zl, wh, k0), zh, wl, k0)
+    return torch.relu((acc + small) + b1)
+
+
 @pytest.mark.parametrize("scheme,holds", [("single", False),
-                                          ("kernel", True)])
+                                          ("kernel", True),
+                                          ("kernel, h on the tensor cores",
+                                           True)])
 def test_accumulation_scheme_under_truncating_adds(scheme, holds):
     """Each wgmma adds its k-step's products into the float32
     accumulator with truncation (modelled: the exact sum, rounded toward
     zero). Over the 150 mma of a logit that bias misses the 1e-3-nat gate
-    in one accumulator; the kernel's scheme holds it."""
+    in one accumulator; the kernel's scheme holds it, with h made by FP32
+    FMAs and as B2 makes it (``_h_rows_tensor``)."""
     zt, xt, w1, b1, w2, b2 = _full_inputs()
     S, H = zt.shape[0], w1.shape[1]
     oracle = tdk.decode_bce_ref(*[a.double() for a in (zt, xt, w1, b1, w2,
                                                        b2)]).reshape(-1)
     hp = -(-H // 32) * 32
     pad = hp - H
-    h = torch.nn.functional.pad(_h_rows(zt, w1, b1), (0, pad))
+    rows = _h_rows_tensor if "tensor" in scheme else _h_rows
+    h = torch.nn.functional.pad(rows(zt, w1, b1), (0, pad))
     (hh, hl), (wh, wl) = tdk.tf32_split_ref(h), tdk.tf32_split_ref(
         torch.nn.functional.pad(w2, (0, 0, 0, pad)))
     hl, wl = tdk.tf32_trunc_ref(hl), tdk.tf32_trunc_ref(wl)
@@ -374,6 +433,136 @@ def test_accumulation_scheme_under_truncating_adds(scheme, holds):
                 acc, part = acc + part, torch.zeros(shape)
     err = (_bce_rows((acc + small) + b2, xt, S) - oracle).abs().max().item()
     assert (err <= 1e-3) == holds, err
+
+
+def _descriptor_tile(img, start, sbo_bytes, rows, depth):
+    """What wgmma reads as a K-major B operand through the kernel's
+    descriptor (no swizzle, 128 bytes between core matrices along k,
+    ``sbo_bytes`` along n) at word ``start`` of a stage image: (n, k) ->
+    the word's float."""
+    n = np.arange(rows)[:, None]
+    k = np.arange(depth)[None, :]
+    at = (start + (n // 8) * (sbo_bytes // 4) + (k // 4) * 32 + (n % 8) * 4
+          + k % 4)
+    return img.view(np.float32)[at].astype(np.float64)
+
+
+def _emulate_from_image(zt, w1, b1, w2, img):
+    """The IWAE decode's logits as the kernel forms them from its image,
+    in exact float64 products: each stage's h block from z's TF32 pair and
+    the W1 tiles (m64n32k8, descriptors at the kernel's offsets), + b1,
+    ReLU; each thread's accumulator registers 4j + e (row g + 8 (e >> 1),
+    column 8j + 2t + (e & 1)) taken as the A fragment (a0..a3 = registers
+    e = 0, 2, 1, 3 at rows g, g + 8, g, g + 8 and k positions t, t, t + 4,
+    t + 4); then the split products with the W2 tiles. Rows (S B,
+    flattened), D tiles of 112 and 32-unit stages as the kernel walks
+    them."""
+    S, Z, B = zt.shape
+    H, D = w2.shape
+    nK, nD, zc = -(-H // 32), -(-D // 112), -(-Z // 8)
+    R = S * B
+    zr = zt.transpose(0, 2, 1).reshape(R, Z).astype(np.float32)
+    zp = np.zeros((R, 8 * zc), np.float32)
+    zp[:, :Z] = zr
+    zh, zl = (t.numpy().astype(np.float64) for t in tdk.tf32_split_ref(
+        torch.from_numpy(zp)))
+    # thread (warp w, g, t)'s registers -> (row, k position) of A
+    w_, g_, t_ = np.meshgrid(np.arange(4), np.arange(8), np.arange(4),
+                             indexing="ij")
+    logits = np.zeros((R, nD * 112))
+    for dt in range(nD):
+        for kt in range(nK):
+            st = img[dt * nK + kt]
+            hblk = np.zeros((R, 32))
+            for c in range(zc):
+                base = 2 * 112 * 32 + 32 + 2 * 256 * c
+                wh = _descriptor_tile(st, base, 256, 32, 8)
+                wl = _descriptor_tile(st, base + 256, 256, 32, 8)
+                zc_h, zc_l = zh[:, 8 * c:8 * c + 8], zl[:, 8 * c:8 * c + 8]
+                hblk += zc_h @ wh.T + zc_l @ wh.T + zc_h @ wl.T
+            bias = st[2 * 112 * 32:2 * 112 * 32 + 32].view(np.float32)
+            hblk = np.maximum(hblk + bias, 0.0)
+            a = np.zeros((R, 32))
+            for j in range(4):
+                for e in range(4):
+                    f = (e >> 1) | ((e & 1) << 1)
+                    # register 4j + e: h at this row and column
+                    row = 16 * w_ + g_ + 8 * (e >> 1)
+                    col = 8 * j + 2 * t_ + (e & 1)
+                    # fragment register f: A's row and k position
+                    arow = 16 * w_ + g_ + 8 * (f & 1)
+                    apos = 8 * j + t_ + 4 * (f >> 1)
+                    assert np.array_equal(row, arow)
+                    for r0 in range(0, R, 64):
+                        a[r0 + arow, apos] = hblk[r0 + row, col]
+            ah, al = (t.numpy().astype(np.float64) for t in tdk.tf32_split_ref(
+                torch.from_numpy(a.astype(np.float32))))
+            for j in range(4):
+                bh = _descriptor_tile(st, 64 * j, 1024, 112, 8)
+                bl = _descriptor_tile(st, 112 * 32 + 64 * j, 1024, 112, 8)
+                sl = slice(8 * j, 8 * j + 8)
+                logits[:, 112 * dt:112 * dt + 112] += (
+                    al[:, sl] @ bh.T + ah[:, sl] @ bl.T + ah[:, sl] @ bh.T)
+    return logits[:, :D]
+
+
+@pytest.mark.parametrize("Z,H,D", [(6, 40, 130), (12, 33, 98), (8, 64, 112)])
+def test_decode_image_feeds_the_kernels_fragments(Z, H, D):
+    """The image's permuted hidden units, its tiles read through the
+    kernel's descriptors and the h accumulator taken as the A fragment
+    give h W2: the emulated logits (exact float64 products of the TF32
+    pairs) within 2e-5 of the float64 ones (the pairs keep ~22 bits)."""
+    zt, _, w1, b1, w2, _ = _inputs(S=2, Z=Z, B=64, H=H, D=D, seed=Z)
+    img = tdk.decode_image_ref(*_torch([w1, b1, w2])).numpy()
+    assert img.shape == (-(-H // 32) * -(-D // 112),
+                         tdk.decode_image_bytes(Z, H, D) // 4
+                         // (-(-H // 32) * -(-D // 112)))
+    got = _emulate_from_image(zt, w1, b1, w2, img)
+    h = np.maximum(zt.transpose(0, 2, 1).reshape(-1, Z).astype(np.float64)
+                   @ w1 + b1, 0.0)
+    want = h @ w2.astype(np.float64)
+    assert np.abs(got - want).max() <= 2e-5 * (1 + np.abs(want).max())
+
+
+def test_decode_image_ref_places_the_split_words():
+    """The image's words, one at a time: W2's hi and lo bits of hidden unit
+    kt 32 + unit(u), column dt 112 + n at core word (n // 8) 256 + (u //
+    4) 32 + (n % 8) 4 + u % 4; b1; W1's bits at (n // 8) 64 + (q // 4) 32
+    + (n % 8) 4 + q % 4 of each chunk; zeros past Z, H and D. The wrapper
+    on CPU tensors is this plain version, and checks the shapes."""
+    Z, H, D = 10, 40, 120
+    _, _, w1, b1, w2, _ = _inputs(S=1, Z=Z, B=8, H=H, D=D, seed=5)
+    w1, b1, w2 = _torch([w1, b1, w2])
+    img = tdk.decode_image_ref(w1, b1, w2)
+    assert torch.equal(tdk.decode_w_image(w1, b1, w2), img)
+    with pytest.raises(ValueError):
+        tdk.decode_w_image(w1, b1[:-1], w2)
+    nK = 2
+    bits = lambda x: int(np.float32(x).view(np.int32))  # noqa: E731
+    hi, lo = tdk.tf32_split_ref(w2)
+    unit = [0, 2, 4, 6, 1, 3, 5, 7]
+    for dt, kt, u, n in [(0, 0, 0, 0), (0, 0, 5, 9), (1, 1, 31, 111),
+                         (1, 0, 13, 7), (0, 1, 7, 100)]:
+        k = 32 * kt + 8 * (u // 8) + unit[u % 8]
+        d = 112 * dt + n
+        word = (n // 8) * 256 + (u // 4) * 32 + (n % 8) * 4 + u % 4
+        st = img[dt * nK + kt]
+        want = (bits(hi[k, d]), bits(lo[k, d])) if k < H and d < D else (0, 0)
+        assert (int(st[word]), int(st[112 * 32 + word])) == want
+    st = img[1 * nK + 1]
+    assert [int(v) for v in st[2 * 112 * 32:2 * 112 * 32 + 8]] == [
+        bits(b1[32 + i]) for i in range(8)]
+    assert not st[2 * 112 * 32 + 8:2 * 112 * 32 + 32].any()
+    w1h, w1l = tdk.tf32_split_ref(w1)
+    for kt, c, q, n in [(0, 0, 0, 0), (0, 1, 1, 31), (1, 0, 7, 3),
+                        (1, 1, 6, 5)]:
+        z, k = 8 * c + q, 32 * kt + n
+        word = 2 * 112 * 32 + 32 + 512 * c + (n // 8) * 64 + (q // 4) * 32 \
+            + (n % 8) * 4 + q % 4
+        st = img[kt]
+        want = ((bits(w1h[z, k]), bits(w1l[z, k])) if z < Z and k < H
+                else (0, 0))
+        assert (int(st[word]), int(st[word + 256])) == want
 
 
 def _train_inputs(B=16, Z=6, H=32, D=64, dtype=np.float32, seed=0):
@@ -556,27 +745,77 @@ def test_train_kernel_graph_replays_match_a_direct_call(cuda_device, shape):
     assert torch.equal(tdk.train_decode_fwd(*args)[0], want[0])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [
+_DECODE_SHAPES = [
     dict(S=125, Z=8, B=512, H=400, D=784),
+    dict(S=125, Z=6, B=512, H=400, D=784),
     dict(S=125, Z=8, B=272, H=400, D=784),
     dict(S=16, Z=8, B=77, H=400, D=784),
+    dict(S=125, Z=8, B=1, H=400, D=784),
+    dict(S=1, Z=8, B=512, H=400, D=784),
+    dict(S=16, Z=8, B=512, H=640, D=784),
+    dict(S=16, Z=12, B=512, H=400, D=784),
     dict(S=16, Z=8, B=512, H=400, D=784, big_logits=True),
     dict(S=7, Z=6, B=77, H=40, D=100),
-    dict(S=5, Z=3, B=70, H=33, D=98)])
+    dict(S=5, Z=3, B=70, H=33, D=98),
+    dict(S=3, Z=12, B=77, H=33, D=98),
+    dict(S=2, Z=400, B=70, H=40, D=100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _DECODE_SHAPES)
 def test_kernel_matches_plain_version_on_card(cuda_device, shape):
+    """B2 against its plain version within 1e-3 nats a row: both IWAE
+    cells' chunks, ragged batches (272, the test split's last at 512; 77;
+    1), one sample, the widest H of the previous design, two z chunks,
+    ragged H and D (D % 4 != 0), logits past |30|, a z of 400 dimensions
+    (a stage of 131 KB: a ring of one slot); a second call gives the same
+    bits, and the wrapper counts one launch a call."""
     args = [t.to(cuda_device) for t in _torch(_inputs(**shape))]
     before = tdk.fused_decode_bce_t.launches
     out = tdk.fused_decode_bce_t(*args)
     ref = tdk.decode_bce_ref(*args)
+    again = tdk.fused_decode_bce_t(*args)
     torch.cuda.synchronize()
-    assert tdk.fused_decode_bce_t.launches == before + 1
+    assert tdk.fused_decode_bce_t.launches == before + 2
     assert bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= 1e-3
+    assert torch.equal(out, again)
     if shape.get("big_logits"):
         zt, _, w1, b1, w2, b2 = args
         h = torch.relu(torch.matmul(zt.transpose(1, 2), w1) + b1)
         assert float((h @ w2 + b2).abs().max()) > 30.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [dict(S=125, Z=8, B=512, H=400, D=784),
+                                   dict(S=5, Z=12, B=77, H=33, D=98)])
+def test_kernel_graph_replays_match_a_direct_call(cuda_device, shape):
+    """Ten replays of a CUDA graph of B2 (its image launch into a scratch
+    of the graph's pool, then the main launch) give a direct call's
+    bits."""
+    args = [t.to(cuda_device) for t in _torch(_inputs(**shape))]
+    want = tdk.fused_decode_bce_t(*args)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = tdk.fused_decode_bce_t(*args)
+    for _ in range(10):
+        out.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Z,H,D", [(8, 400, 784), (12, 33, 98), (6, 40, 100)])
+def test_image_launch_matches_its_plain_version_on_card(cuda_device, Z, H,
+                                                        D):
+    """B2's image launch writes ``decode_image_ref``'s words bit for bit:
+    ``tf32_split_ref`` of W2 and W1 at the image places, b1, zeros."""
+    _, _, w1, b1, w2, _ = _inputs(S=1, Z=Z, B=8, H=H, D=D, seed=H)
+    args = _torch([w1, b1, w2])
+    got = tdk.decode_w_image(*[t.to(cuda_device) for t in args])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tdk.decode_image_ref(*args))
 
 
 @pytest.fixture
